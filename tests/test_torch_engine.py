@@ -1,0 +1,189 @@
+"""The port's whole slice against the JAX package: engine, evaluation, CLI.
+
+Both Engines train the same small planted-cluster dataset in file order
+(``shuffle_mode: none``) from one initial state with pinned negatives;
+then both evaluate one set of tables. Also: the copied framework-free
+modules agree with their originals, configurations off the slice are
+refused, and the package imports no JAX.
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from heat_tpu.config import CFConfig as JCFConfig
+from heat_tpu.config import load_config as jload_config
+from heat_tpu.data.synthetic import synthetic_click_dataset as jsynthetic
+from heat_tpu.evaluation import metrics as jmetrics
+from heat_tpu.evaluation.evaluator import TiledEvaluator as JTiledEvaluator
+from heat_tpu.train import optimizer as joptimizer
+from heat_tpu.train.engine import Engine as JEngine
+from heat_tpu_torch import main as tmain
+from heat_tpu_torch.config import CFConfig
+from heat_tpu_torch.config import load_config as tload_config
+from heat_tpu_torch.data.synthetic import synthetic_click_dataset as tsynthetic
+from heat_tpu_torch.evaluation import metrics as tmetrics
+from heat_tpu_torch.models.state import state_from_numpy
+from heat_tpu_torch.train import optimizer as toptimizer
+from heat_tpu_torch.train.engine import Engine as TEngine
+
+from test_torch_step import pinned_negatives
+
+CONFIG0 = "benchmarks/AmazonBooks/config0.yaml"
+METRICS = ["Recall(k=20)", "Recall(k=50)", "NDCG(k=20)", "NDCG(k=50)",
+           "HitRate(k=20)", "Precision(k=20)", "MAP(k=20)", "MRR(k=20)"]
+LR, CLIP = 0.05, 0.1
+
+
+def _engines():
+    kw = dict(emb_dim=16, max_his=6, num_negs=4, batch_size=256,
+              l_r=LR, clip_val=CLIP, shuffle_mode="none", seed=21,
+              metrics=METRICS)
+    jtrain, jtest = jsynthetic(80, 300, clicks_per_user=12, max_his=6, seed=9)
+    ttrain, ttest = tsynthetic(80, 300, clicks_per_user=12, max_his=6, seed=9)
+    je = JEngine(JCFConfig(**kw), jtrain, jtest, seed=21)
+    te = TEngine(CFConfig(**kw), ttrain, ttest, device="cpu")
+    te.state = state_from_numpy(
+        je.state.user_emb, je.state.item_emb, je.state.w0,
+        lr=kw["l_r"], step=0, device="cpu",
+    )
+    return je, te
+
+
+def test_two_epochs_and_evaluation_match_jax():
+    je, te = _engines()
+    n = je.cfg.train_size
+    assert n % je.cfg.batch_size  # the last batch carries weight-0 padding
+    draws = np.random.default_rng(3).integers(
+        0, je.cfg.num_items, (2 * n + je.cfg.batch_size, je.cfg.num_negs)
+    ).astype(np.int32)
+    with pinned_negatives(draws):
+        jl = [je.train_one_epoch() for _ in range(2)]
+        tl = [te.train_one_epoch() for _ in range(2)]
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    assert tl[1] < tl[0]
+    # Tables: rtol 1e-4 (atol 1e-6 for elements near zero) on at least
+    # 99.5% of the elements, and nowhere off by more than 1% of one step's
+    # largest move (lr * clip_val). Per-occurrence gradients here reach
+    # ~1e2 and cancel in the per-row sums, so the two packages' summation
+    # orders leave a few elements apart by more than rtol 1e-4 (measured:
+    # 0.17% of item elements, at most 5.5e-6); a wrong step moves whole
+    # rows by ~lr * clip_val.
+    for name in ("user_emb", "item_emb", "w0"):
+        got = getattr(te.state, name).numpy()
+        want = np.asarray(getattr(je.state, name))
+        diff = np.abs(got - want)
+        assert (diff <= 1e-6 + 1e-4 * np.abs(want)).mean() >= 0.995, name
+        assert diff.max() <= 1e-2 * LR * CLIP, (name, diff.max())
+    assert int(te.state.step) == int(je.state.step)
+
+    # Evaluate one set of tables on both sides.
+    te.state = state_from_numpy(
+        je.state.user_emb, je.state.item_emb, je.state.w0,
+        lr=LR, step=int(je.state.step), device="cpu",
+    )
+    want, got = je.evaluate(), te.evaluate()
+    assert list(got) == METRICS
+    for m in METRICS:
+        assert abs(got[m] - want[m]) <= 1e-6, (m, got[m], want[m])
+
+    # Tie-aware top-k: equal score lists, and equal id sets wherever the
+    # k-th score is strictly above the (k+1)-th.
+    k = 20
+    jev = JTiledEvaluator(je.train_data.pairs, je.cfg.num_users,
+                          num_items=je.cfg.num_items)
+    js, jids = jev.topk(je.state.user_emb, je.state.item_emb, k + 1,
+                        return_scores=True)
+    te._ensure_evaluator(512)
+    ts, tids = te._evaluator.topk(te.state.user_emb, te.state.item_emb, k + 1)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=1e-7)
+    strict = ts[:, k - 1] > ts[:, k]
+    assert strict.float().mean() > 0.9
+    for row in np.flatnonzero(strict.numpy()):
+        assert set(tids[row, :k].tolist()) == set(jids[row, :k].tolist())
+
+
+def test_evaluate0_matches_jax():
+    je, te = _engines()
+    np.testing.assert_allclose(te.evaluate0(), je.evaluate0(), rtol=1e-6, atol=1e-8)
+
+
+def test_cli_prints_final_metrics(capsys):
+    record = tmain.main([
+        "--config", CONFIG0, "--synthetic", "200,400", "--epochs", "2",
+        "--device", "cpu",
+    ])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("epoch: 0; loss: ")
+    final = json.loads(lines[-1])["final_metrics"]
+    assert set(final) == set(record["final_metrics"])
+    assert final["Recall(k=20)"] > 3 * 20 / 400  # well above random ranking
+    assert np.isfinite(record["losses"]).all()
+    assert record["losses"][1] < record["losses"][0]
+
+
+def test_copied_config_and_data_match_the_originals():
+    jcfg, jds = jload_config(CONFIG0)
+    tcfg, tds = tload_config(CONFIG0)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(tds) == dataclasses.asdict(jds)
+    for split_j, split_t in zip(jsynthetic(70, 150, max_his=9, seed=4),
+                                tsynthetic(70, 150, max_his=9, seed=4)):
+        for f in ("pairs", "his_items", "masks"):
+            np.testing.assert_array_equal(getattr(split_t, f), getattr(split_j, f))
+        assert (split_t.num_users, split_t.num_items) == (
+            split_j.num_users, split_j.num_items)
+        for a, b in zip(split_t.user_items, split_j.user_items):
+            np.testing.assert_array_equal(a, b)
+    for epoch in range(12):
+        for ms in ([], [10], [3, 7]):
+            assert toptimizer.scheduled_lr(0.01, epoch, ms, 0.1) == (
+                joptimizer.scheduled_lr(0.01, epoch, ms, 0.1))
+    rng = np.random.default_rng(0)
+    top = rng.integers(0, 60, (25, 50))
+    truth = [rng.choice(60, size=int(s), replace=False)
+             for s in rng.integers(0, 6, 25)]
+    assert tmetrics.evaluate_metrics(METRICS, top, truth) == (
+        jmetrics.evaluate_metrics(METRICS, top, truth))
+
+
+@pytest.mark.parametrize("override", [
+    {"neg_sampler": 1}, {"his_refresh": "subepoch"},
+    {"aggregator": "self_attention"}, {"optimizer": "adam"},
+    {"sgd_mode": "accum"}, {"update_mode": "direct"}, {"num_subepochs": 2},
+    {"param_dtype": "bfloat16"}, {"emb_pad": 128}, {"visit_order": "item"},
+])
+def test_off_slice_settings_are_refused(override):
+    train, test = tsynthetic(20, 40, max_his=4, seed=1)
+    cfg = CFConfig(max_his=4, **override)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TEngine(cfg, train, test, device="cpu")
+
+
+def test_mesh_is_refused():
+    train, test = tsynthetic(20, 40, max_his=4, seed=1)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        TEngine(CFConfig(max_his=4), train, test, device="cpu", mesh=object())
+
+
+def test_cuda_device_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    train, test = tsynthetic(20, 40, max_his=4, seed=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TEngine(CFConfig(max_his=4), train, test, device="cuda")
+
+
+def test_package_imports_no_jax():
+    code = (
+        "import sys, heat_tpu_torch, heat_tpu_torch.main; "
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'flax', 'heat_tpu.')) or m == 'heat_tpu']; "
+        "assert not bad, bad"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
