@@ -4,13 +4,15 @@ A second package beside the JAX one (``heat_tpu``), which stays the
 reference every part of the port is checked against. The port trains the
 same SimpleX-style model — matrix factorization with a behaviour
 aggregator, cosine scores and the pairwise logistic loss, SGD with a
-clipped duplicate-safe row update — and evaluates it with a tiled exact
-top-k, on one CUDA device (or the CPU, for tests).
+clipped duplicate-safe row update — evaluates it with a tiled exact
+top-k, exports it (``export``) and serves top-k recommendations from it
+(``serving.Recommender``), on one CUDA device (or the CPU, for tests).
 
 The step's three row-irregular phases (row reads, history mean, row
-scatter-add) are hand-written CUDA kernels for sm_90a
-(``heat_tpu_torch/csrc``, bound in ``heat_tpu_torch.ops.cuda``); the rest
-is plain PyTorch. The package imports torch and never jax.
+scatter-add) and the window extraction of the two-phase exact top-k are
+hand-written CUDA kernels for sm_90a (``heat_tpu_torch/csrc``, bound in
+``heat_tpu_torch.ops.cuda``); the rest is plain PyTorch. The package
+imports torch and never jax.
 """
 
 from heat_tpu_torch.config import CFConfig, load_config

@@ -9,7 +9,9 @@ The PyTorch counterpart of ``heat_tpu/main.py``:
 It trains for the configured epochs, evaluates after every epoch e > 0
 with e % eval_interval == 0, then runs a final exact ranking evaluation,
 printing the same lines as the JAX CLI and ending with one
-``{"final_metrics": ...}`` JSON line. ``--synthetic U,I`` trains on a
+``{"final_metrics": ...}`` JSON line; ``--export-embeddings PATH`` then
+writes the trained model to a portable ``.npz`` (``heat_tpu_torch.export``,
+served by ``heat_tpu_torch.serving.Recommender``). ``--synthetic U,I`` trains on a
 generated planted-cluster dataset when the benchmark text files are not
 available. The device is ``cuda`` unless ``--device`` says otherwise, and
 the run fails when CUDA is missing.
@@ -28,6 +30,7 @@ import yaml
 from heat_tpu_torch.config import load_config
 from heat_tpu_torch.data.datasets import load_with_cache
 from heat_tpu_torch.data.synthetic import synthetic_click_dataset
+from heat_tpu_torch.export import export_embeddings
 from heat_tpu_torch.train.engine import Engine
 
 
@@ -60,6 +63,14 @@ def main(argv=None) -> dict:
         type=str,
         default="cuda",
         help="torch device to train and evaluate on (default: cuda)",
+    )
+    parser.add_argument(
+        "--export-embeddings",
+        type=str,
+        default=None,
+        metavar="PATH",
+        help="after the run, write the trained tables and w0 to PATH as a "
+        "portable f32 .npz (heat_tpu_torch.export)",
     )
     parser.add_argument(
         "--set",
@@ -143,6 +154,11 @@ def main(argv=None) -> dict:
     record["final_eval_s"] = time.perf_counter() - t0
     record["final_metrics"] = metrics
     record["steps"] = int(engine.state.step)
+    if args.export_embeddings:
+        export_embeddings(
+            engine.unpadded_state(), args.export_embeddings, cfg=cfg
+        )
+        print(f"exported embeddings to {args.export_embeddings}")
     print(json.dumps({"final_metrics": metrics}))
     return record
 

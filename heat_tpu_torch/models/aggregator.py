@@ -58,6 +58,62 @@ def history_mean_fused(
     return history_mean_gather(item_emb, his_ids, mask)
 
 
+def require_mean_aggregator(kind: str) -> None:
+    """Raise for an aggregator other than the mean: the attention kinds
+    are not ported yet, any other name is unknown."""
+    if kind in ("self_attention", "user_attention"):
+        raise NotImplementedError(
+            f"aggregator {kind!r} is not ported to heat_tpu_torch "
+            "(ROADMAP.md, modules still to port, item 12)"
+        )
+    if kind != "mean":
+        raise ValueError(f"unknown aggregator {kind!r}")
+
+
+def pool_history(
+    his_embs: torch.Tensor, mask: torch.Tensor, kind: str = "mean"
+) -> torch.Tensor:
+    """History pooling over gathered (B, H, d) rows: ``kind="mean"`` is the
+    masked mean. The attention kinds raise ``NotImplementedError``."""
+    require_mean_aggregator(kind)
+    return history_mean(his_embs, mask)
+
+
+def user_pools_impl(
+    item_emb: torch.Tensor,
+    his_items: torch.Tensor,
+    his_masks: torch.Tensor,
+    aggregator: str = "mean",
+    chunk: int = 4096,
+) -> torch.Tensor:
+    """(U, d) pooled history of every user, ``chunk`` users at a time; the
+    mean runs each chunk through kernel K1, so no (chunk, H, d) gather is
+    ever materialized.
+
+    Args:
+      item_emb: (I, d) f32 table.
+      his_items: (U, H) int32 history ids (the JAX package's flat (U*H,)
+        layout is TPU lane machinery and is not taken).
+      his_masks: (U,) int32 valid history lengths.
+      aggregator: "mean" (the attention aggregators raise
+        ``NotImplementedError``).
+      chunk: users per K1 launch.
+    """
+    require_mean_aggregator(aggregator)
+    if his_items.dim() != 2:
+        raise ValueError(
+            f"his_items must be (U, H), got shape {tuple(his_items.shape)}"
+        )
+    u = his_items.shape[0]
+    out = torch.empty((u, item_emb.shape[1]), dtype=torch.float32,
+                      device=item_emb.device)
+    for lo in range(0, u, chunk):
+        out[lo : lo + chunk] = history_mean_fused(
+            item_emb, his_items[lo : lo + chunk], his_masks[lo : lo + chunk]
+        )
+    return out
+
+
 def aggregate_history(
     u: torch.Tensor, means: torch.Tensor, w0: torch.Tensor, gamma: float
 ) -> torch.Tensor:

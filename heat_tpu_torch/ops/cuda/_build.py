@@ -38,6 +38,8 @@ SIGNATURES = {
     "heat_history_mean_f32": (_P, _I64, _I32, _P, _P, _I64, _I32, _P, _P),
     # table, n_rows, d, ids, deltas, m, stream
     "heat_scatter_add_rows_f32": (_P, _I64, _I32, _P, _P, _I64, _P),
+    # sim, rows, n_cols, widx, kw, w, out, stream
+    "heat_window_extract_f32": (_P, _I64, _I64, _P, _I32, _I32, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

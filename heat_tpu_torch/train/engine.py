@@ -34,11 +34,17 @@ from heat_tpu_torch.evaluation.metrics import (
     pad_truth,
     parse_metric,
 )
+from heat_tpu_torch.models.aggregator import user_pools_impl
 from heat_tpu_torch.models.state import TrainState, init_train_state
 from heat_tpu_torch.train.optimizer import scheduled_lr
 from heat_tpu_torch.train.samplers import init_sampler_state
 from heat_tpu_torch.train.scatter import DENSE_ROWS_THRESHOLD
 from heat_tpu_torch.train.train_step import Batch, train_step
+
+
+# Chunked whole-table pooling; the implementation lives next to the pooling
+# math in models/aggregator.py (the JAX package jits it here).
+compute_user_pools = user_pools_impl
 
 
 def check_slice(cfg: CFConfig) -> None:
@@ -151,6 +157,14 @@ class Engine:
         )
         self._evaluator = None  # lazy TiledEvaluator (mask tensors cached)
         self._batch_cache = None  # shuffle_mode == "once" packed stream
+
+    # ------------------------------------------------------------------
+    def unpadded_state(self) -> TrainState:
+        """The train state for serving and export. The JAX engine slices
+        mesh-divisibility padding rows off here; this engine pads nothing
+        and holds no optimizer state, so its state is already the tables
+        and ``w0``."""
+        return self.state
 
     # ------------------------------------------------------------------
     def _shuffle_or_pack(self, pairs, num_batches: int, batch: int):

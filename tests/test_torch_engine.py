@@ -100,12 +100,44 @@ def test_two_epochs_and_evaluation_match_jax():
     js, jids = jev.topk(je.state.user_emb, je.state.item_emb, k + 1,
                         return_scores=True)
     te._ensure_evaluator(512)
-    ts, tids = te._evaluator.topk(te.state.user_emb, te.state.item_emb, k + 1)
+    ts, tids = te._evaluator.topk(te.state.user_emb, te.state.item_emb, k + 1,
+                                  return_scores=True)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=1e-7)
     strict = ts[:, k - 1] > ts[:, k]
     assert strict.float().mean() > 0.9
     for row in np.flatnonzero(strict.numpy()):
         assert set(tids[row, :k].tolist()) == set(jids[row, :k].tolist())
+
+
+def test_evaluate_through_two_phase_topk_matches_jax(monkeypatch):
+    """At 4500 items (padded to 4608) every eval tile goes through
+    masked_topk -> exact_topk_2phase -> K4 (its plain version here); the
+    metrics equal the JAX package's on the same tables."""
+    import heat_tpu_torch.evaluation.evaluator as tev
+    from heat_tpu_torch.ops.cuda.topk import window_extract
+
+    kw = dict(emb_dim=16, max_his=6, metrics=METRICS, seed=5)
+    jtrain, jtest = jsynthetic(150, 4500, clicks_per_user=20, max_his=6, seed=2)
+    ttrain, ttest = tsynthetic(150, 4500, clicks_per_user=20, max_his=6, seed=2)
+    je = JEngine(JCFConfig(**kw), jtrain, jtest, seed=5)
+    te = TEngine(CFConfig(**kw), ttrain, ttest, device="cpu")
+    rng = np.random.default_rng(8)
+    user = rng.normal(size=(150, 16)).astype(np.float32)
+    item = rng.normal(size=(4500, 16)).astype(np.float32)
+    je.state = je.state.replace(user_emb=user, item_emb=item)
+    te.state = state_from_numpy(user, item, je.state.w0, lr=LR, step=0,
+                                device="cpu")
+    calls = []
+
+    def counted(sim, widx, w):
+        calls.append(tuple(sim.shape))
+        return window_extract(sim, widx, w)
+
+    monkeypatch.setattr(tev, "window_extract", counted)
+    got, want = te.evaluate(user_tile=64), je.evaluate()
+    assert calls == [(64, 4608), (64, 4608), (22, 4608)]
+    for m in METRICS:
+        assert abs(got[m] - want[m]) <= 1e-6, (m, got[m], want[m])
 
 
 def test_evaluate0_matches_jax():
@@ -181,7 +213,9 @@ def test_cuda_device_fails_without_cuda():
 
 def test_package_imports_no_jax():
     code = (
-        "import sys, heat_tpu_torch, heat_tpu_torch.main; "
+        "import sys, heat_tpu_torch, heat_tpu_torch.main, "
+        "heat_tpu_torch.serving, heat_tpu_torch.export, "
+        "heat_tpu_torch.ops.cuda.topk; "
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'flax', 'heat_tpu.')) or m == 'heat_tpu']; "
         "assert not bad, bad"

@@ -1,9 +1,11 @@
-"""The port's kernels K1-K3 against the JAX package's Pallas kernels.
+"""The port's kernels K1-K4 against the JAX package's Pallas kernels.
 
 On the CPU each wrapper of ``heat_tpu_torch.ops.cuda`` runs its plain
 PyTorch version; those are held here against the Pallas kernels in
 interpret mode (as tests/test_pallas.py runs them) and against JAX's
-``.at[].add(mode="drop")``. The ``cuda``-marked tests hold each CUDA
+``.at[].add(mode="drop")``; K4's plain version against a numpy oracle and
+the one-hot einsum of ``heat_tpu/evaluation/evaluator.py`` (its Pallas
+sources are closures inside ``scripts/profile_eval.py``). The ``cuda``-marked tests hold each CUDA
 kernel against its plain version on the card and skip without one.
 
 JAX is imported inside the tests that use it, so that the card's
@@ -15,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from heat_tpu_torch.ops.cuda import gather, scatter
+from heat_tpu_torch.ops.cuda import gather, scatter, topk
 
 
 @pytest.fixture
@@ -122,6 +124,40 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
     assert {**gather.LAUNCHES, **scatter.LAUNCHES} == before
 
 
+def _window_inputs(rng, rows, nw, w, kw):
+    sim = rng.normal(size=(rows, nw * w)).astype(np.float32)
+    widx = rng.integers(0, nw, (rows, kw)).astype(np.int32)
+    widx[0, :3] = [-1, nw, nw + 7]  # out of range: finfo.min rows
+    widx[1, :2] = [nw - 1, 0]
+    return sim, widx
+
+
+def test_window_extract_ref_matches_numpy_and_one_hot_einsum():
+    """The copy is exact: equal to a numpy loop, and to the JAX package's
+    one-hot HIGHEST einsum for in-range ids."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(6)
+    nw, w = 9, 128
+    sim, widx = _window_inputs(rng, 7, nw, w, 5)
+    want = np.full((7, 5, w), np.finfo(np.float32).min, np.float32)
+    for r in range(7):
+        for j in range(5):
+            if 0 <= widx[r, j] < nw:
+                want[r, j] = sim[r, widx[r, j] * w : (widx[r, j] + 1) * w]
+    got = topk.window_extract_ref(torch.from_numpy(sim), torch.from_numpy(widx), w)
+    np.testing.assert_array_equal(got.numpy(), want)
+    onehot = (widx[:, :, None] == np.arange(nw)[None, None, :]).astype(np.float32)
+    einsum = jnp.einsum("bkn,bnw->bkw", onehot, sim.reshape(7, nw, w),
+                        precision=jax.lax.Precision.HIGHEST)
+    inside = (widx >= 0) & (widx < nw)
+    np.testing.assert_array_equal(got.numpy()[inside], np.asarray(einsum)[inside])
+    assert torch.equal(
+        topk.window_extract(torch.from_numpy(sim), torch.from_numpy(widx), w), got
+    )
+
+
 # --- on the card --------------------------------------------------------
 
 
@@ -171,6 +207,21 @@ def test_scatter_add_kernel_matches_plain(cuda, d):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [128, 30])  # float4 path and scalar path
+def test_window_extract_kernel_matches_plain(cuda, w):
+    """An exact copy: bit-equal to the plain version, out-of-range window
+    ids included."""
+    rng = np.random.default_rng(13)
+    sim, widx = _window_inputs(rng, 300, 40, w, 20)
+    s, i = torch.from_numpy(sim).to(cuda), torch.from_numpy(widx).to(cuda)
+    before = topk.LAUNCHES["window_extract"]
+    got = topk.window_extract(s, i, w)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES["window_extract"] == before + 1
+    assert torch.equal(got, topk.window_extract_ref(s, i, w))
+
+
 @pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
 def device(request):
     if request.param == "cuda" and not torch.cuda.is_available():
@@ -198,3 +249,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
     if device.type == "cuda":
         with pytest.raises(ValueError, match="must be on cuda"):
             gather.gather_rows(table, ids.cpu())
+
+
+def test_window_extract_rejects_what_the_kernel_does_not_take(device):
+    sim = torch.zeros(4, 256, device=device)
+    widx = torch.zeros(4, 3, dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="multiple"):
+        topk.window_extract(sim[:, :200].contiguous(), widx, 128)
+    with pytest.raises(ValueError, match="int32"):
+        topk.window_extract(sim, widx.long(), 128)
+    with pytest.raises(ValueError, match="f32"):
+        topk.window_extract(sim.double(), widx, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk.window_extract(sim, torch.zeros(4, 6, dtype=torch.int32, device=device)[:, ::2], 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk.window_extract(torch.zeros(512, 4, device=device).T, widx, 128)
+    with pytest.raises(ValueError, match="widx"):
+        topk.window_extract(sim, widx[:2], 128)
+    if device.type == "cuda":
+        with pytest.raises(ValueError, match="must be on cuda"):
+            topk.window_extract(sim, widx.cpu(), 128)
