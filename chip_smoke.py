@@ -8,10 +8,21 @@ Phases, each of which raises (exit code 1) on failure:
    TF32 off for f32 matmuls;
 2. build: the CUDA kernels of heat_tpu_torch/csrc with nvcc;
 3. kernels: K1 (history mean), K2 (row gather) and K3 (row scatter-add)
-   against their plain PyTorch versions at the config0 step's shapes, and
-   K4 (top-k window extraction) at the eval tile and at a B = 8192
-   request, with median times over 30 runs; then one training step on the
-   card against the same step on the CPU at a small size;
+   against their plain PyTorch versions at the config0 step's shapes, K4
+   (top-k window extraction) at the eval tile and at a B = 8192 request,
+   and S1 (row scatter-set) at the huge-table path's user shape (32,768
+   sorted ids, 1/8 sentinels, into 16,000,000 x 64) and item shape
+   (557,056 ids into 6,000,000 x 64), with median times over 30 runs;
+   the kernels again at the other shapes their paths give them: K2 at the
+   huge path's 32,768 user rows of the 16M table (``_big_users``) and
+   524,288 negative rows of the 6M table (``_big_negs``), K1 at its
+   (32,768, 10) histories over the 6M table (``_big``), K3 at direct
+   mode's 557,056 adds into the 6M table (``_big_items``), S1 at the
+   config0 step's user write-back (``_config0``: 8,192 unsorted ids with
+   repeats and sentinels into 52,643 x 64, bit-equal on the whole table);
+   then two training steps on the card against the same steps on the CPU
+   at a small size, for each branch of the update menu (dense, sorted,
+   direct, l2, Adagrad, Adam, accum);
 4. main path: the CLI (heat_tpu_torch.main) on AmazonBooks config0 at full
    width on a synthetic 52,643 x 91,599 planted-cluster dataset: first
    with 0 epochs (the untrained model's metrics), then the whole 5-epoch
@@ -26,7 +37,15 @@ Phases, each of which raises (exit code 1) on failure:
    chunked route (4,096 users) and the retrieve-and-filter route (9,216
    users, the seen bitmap above its budget), each held against a plain
    on-card oracle;
-7. the kernels' JSON line, the card's line, and last
+7. huge-table training: ``heat_tpu_torch.bench_large`` at its default
+   geometry (16,000,000 users x 6,000,000 items, d = 64, 40M clicks,
+   batch 32,768), a warm-up and a timed epoch in ``dedup`` mode (both
+   tables on the sort-dedup path) and then in ``direct`` mode, with the
+   launch counts read around each run and peak device memory against the
+   bytes held; then one full-size sort-dedup update of both tables on the
+   card against the same update on the CPU (plain versions), untouched
+   rows bit-equal to before;
+8. the kernels' JSON line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Fails without a CUDA device, and outside a checkout of the repository.
@@ -53,6 +72,13 @@ REQUEST_B, REQUEST_K = 8192, 20  # the largest timed serving request
 HUGE_ITEMS, HUGE_SEEN = 1_048_576, 36
 HUGE_USERS = (4096, 9216)  # chunked route; retrieve-and-filter route
 HUGE_B = 256
+BIG_USERS, BIG_ITEMS = 16_000_000, 6_000_000  # bench_large's default tables
+BIG_BATCH, BIG_NEGS, BIG_HIS = 32_768, 16, 10
+S1_SHAPES = (  # (table rows, ids, key suffix): user and item sides
+    (BIG_USERS, BIG_BATCH, ""),
+    (BIG_ITEMS, BIG_BATCH * (1 + BIG_NEGS), "_items"),
+)
+MEM_RATIO = 1.25  # peak device memory / bytes held, at most
 EXPORT = Path(__file__).resolve().parent / "build" / "chip_smoke" / "config0.npz"
 
 
@@ -203,6 +229,142 @@ def check_window_extract(dev) -> dict:
     entry["shape"] = (f"({EVAL_TILE}, {I_PAD}) f32, kw {EVAL_K}; "
                       f"b{REQUEST_B}: ({REQUEST_B}, {I_PAD}), kw {REQUEST_K}")
     return entry
+
+
+def check_scatter_set(dev) -> dict:
+    """S1 against its plain version at the huge-table path's shapes:
+    sorted unique ids with the last 1/8 set to the sentinel (the layout of
+    the sort-dedup path's rep_ids), bit-equal on the whole table."""
+    import torch
+
+    from heat_tpu_torch.ops.cuda import scatter
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    entry = {
+        "name": "scatter_set_rows", "route": "cuda",
+        "source": "heat_tpu_torch/csrc/scatter.cu",
+        "replaces": "scripts/profile_scatter_pallas.py:65 (pallas_scatter_set)",
+        "max_abs_err": 0.0,
+    }
+    for n, m, key in S1_SHAPES:
+        table = torch.randn(n, DIM, generator=g, device=dev)
+        ids = torch.randperm(n, generator=g, device=dev)[:m].sort().values
+        ids = ids.to(torch.int32)
+        ids[-(m // 8):] = n
+        rows = torch.randn(m, DIM, generator=g, device=dev)
+        got = scatter.scatter_set_rows(table.clone(), ids, rows)
+        want = scatter.scatter_set_rows_ref(table.clone(), ids, rows)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"S1 scatter_set_rows disagrees with its plain version at "
+                f"({n}, {DIM}), {m} ids"
+            )
+        entry["max_abs_err"] = max(
+            entry["max_abs_err"], float((got - want).abs().max())
+        )
+        del got, want
+        entry["ms" + key] = median_ms(
+            lambda: scatter.scatter_set_rows(table, ids, rows)
+        )
+        entry["plain_ms" + key] = median_ms(
+            lambda: scatter.scatter_set_rows_ref(table, ids, rows)
+        )
+        del table
+    entry["shape"] = (f"({BIG_USERS}, {DIM}) f32, {BIG_BATCH} sorted ids, "
+                      f"1/8 sentinels; _items: ({BIG_ITEMS}, {DIM}), "
+                      f"{BIG_BATCH * (1 + BIG_NEGS)} ids")
+    return entry
+
+
+def check_path_shapes(dev, entries: dict) -> None:
+    """K2, K1 and K3 at the huge-table path's shapes and S1 at the config0
+    step's write-back, each against its plain version; each shape's times
+    go into the kernel's entry under a key suffix."""
+    import torch
+
+    from heat_tpu_torch.ops.cuda import gather, scatter
+
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def ids(m, hi):
+        return torch.randint(0, hi, (m,), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def record(name, key, got, want, fn, ref):
+        entry = entries[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   float((got - want).abs().max()))
+        entry["ms" + key] = median_ms(fn)
+        entry["plain_ms" + key] = median_ms(ref)
+
+    users = torch.randn(BIG_USERS, DIM, generator=g, device=dev)
+    items = torch.randn(BIG_ITEMS, DIM, generator=g, device=dev)
+
+    # K2: a step's 32,768 user rows of the 16M table and its 524,288
+    # negative rows of the 6M table; a copy, so bit-equal.
+    for table, m, key in ((users, BIG_BATCH, "_big_users"),
+                          (items, BIG_BATCH * BIG_NEGS, "_big_negs")):
+        i = ids(m, table.shape[0])
+        got, want = gather.gather_rows(table, i), gather.gather_rows_ref(table, i)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"K2 gather_rows disagrees with its plain version at "
+                f"({table.shape[0]}, {DIM}), {m} ids"
+            )
+        record("gather_rows", key, got, want,
+               lambda: gather.gather_rows(table, i),
+               lambda: gather.gather_rows_ref(table, i))
+
+    # K1: (32,768, 10) histories over the 6M item table, lengths uniform
+    # in [0, 10]; rtol 1e-5, atol 1e-6 as at config0.
+    his = ids(BIG_BATCH * BIG_HIS, BIG_ITEMS).reshape(BIG_BATCH, BIG_HIS)
+    lens = ids(BIG_BATCH, BIG_HIS + 1)
+    got = gather.history_mean_gather(items, his, lens)
+    want = gather.history_mean_gather_ref(items, his, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    record("history_mean_gather", "_big", got, want,
+           lambda: gather.history_mean_gather(items, his, lens),
+           lambda: gather.history_mean_gather_ref(items, his, lens))
+
+    # K3: direct mode's 557,056 per-occurrence adds into the 6M item
+    # table, repeats and about 1% sentinels; rtol 1e-5, atol 1e-6.
+    m = BIG_BATCH * (1 + BIG_NEGS)
+    sc_ids = ids(m, BIG_ITEMS)
+    sentinel = torch.rand(m, generator=g, device=dev) < 0.01
+    sc_ids = torch.where(sentinel, BIG_ITEMS, sc_ids).to(torch.int32)
+    deltas = torch.randn(m, DIM, generator=g, device=dev)
+    got = scatter.scatter_add_rows(items.clone(), sc_ids, deltas)
+    want = scatter.scatter_add_rows_ref(items.clone(), sc_ids, deltas)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    record("scatter_add_rows", "_big_items", got, want,
+           lambda: scatter.scatter_add_rows(items, sc_ids, deltas),
+           lambda: scatter.scatter_add_rows_ref(items, sc_ids, deltas))
+    del users, items, got, want
+
+    # S1: the config0 step's user write-back, 8,192 unsorted ids into
+    # 52,643 x 64 with repeats carrying identical rows (each user's row)
+    # and a weight-0 tail of sentinels; bit-equal on the whole table.
+    table = torch.randn(NUM_USERS, DIM, generator=g, device=dev)
+    uid = ids(BATCH, NUM_USERS)
+    uid[:64] = uid[0]
+    rows = torch.randn(NUM_USERS, DIM, generator=g, device=dev)[uid.long()]
+    uid[-(BATCH // 64):] = NUM_USERS
+    got = scatter.scatter_set_rows(table.clone(), uid, rows)
+    want = scatter.scatter_set_rows_ref(table.clone(), uid, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            "S1 scatter_set_rows disagrees with its plain version at the "
+            "config0 write-back"
+        )
+    record("scatter_set_rows", "_config0", got, want,
+           lambda: scatter.scatter_set_rows(table, uid, rows),
+           lambda: scatter.scatter_set_rows_ref(table, uid, rows))
+    torch.cuda.empty_cache()
 
 
 def _score_rows(user, item, rows, ids):
@@ -397,16 +559,38 @@ def check_huge_table(dev) -> dict:
     return out
 
 
-def check_step_against_cpu(dev) -> float:
-    """One train_step on the card (kernels) against the same step on the
-    CPU (plain versions): small shapes, repeated ids, a weight-0 tail and
-    the same negatives. Returns the largest table difference."""
+STEP_VARIANTS = {  # name: (sort-dedup forced, config overrides)
+    "dense": (False, {}),
+    "sorted": (True, {}),
+    "direct": (False, {"update_mode": "direct"}),
+    "l2": (False, {"l2_enabled": True, "l2": 0.01}),
+    "sorted_l2": (True, {"l2_enabled": True, "l2": 0.01}),
+    "adagrad": (False, {"optimizer": "adagrad"}),
+    "adam": (False, {"optimizer": "adam"}),
+    "sorted_adam": (True, {"optimizer": "adam"}),
+    "accum": (False, {"sgd_mode": "accum"}),
+    "sorted_accum": (True, {"sgd_mode": "accum"}),
+}
+
+
+def check_step_against_cpu(dev) -> dict:
+    """Two train_steps on the card (kernels) against the same steps on the
+    CPU (plain versions), for each branch of the update menu: small
+    shapes, repeated ids, a weight-0 tail and the same negatives; the
+    sorted variants lower the port's DENSE_ROWS_THRESHOLD below both
+    tables. Returns the largest state difference of each variant."""
     import numpy as np
     import torch
 
+    import heat_tpu_torch.train.scatter as tsc
     import heat_tpu_torch.train.train_step as ts
     from heat_tpu_torch.config import CFConfig
-    from heat_tpu_torch.models.state import state_from_numpy, state_to_numpy
+    from heat_tpu_torch.models.state import (
+        init_train_state,
+        state_from_numpy,
+        state_to_numpy,
+    )
+    from heat_tpu_torch.testing import assert_state_array_close
     from heat_tpu_torch.train.samplers import (
         NegSample,
         SamplerState,
@@ -415,8 +599,6 @@ def check_step_against_cpu(dev) -> float:
 
     rng = np.random.default_rng(1)
     u, i, h, b, k, d = 40, 90, 8, 48, 4, 64
-    cfg = CFConfig(emb_dim=d, num_users=u, num_items=i, max_his=h,
-                   num_negs=k, batch_size=b, l_r=0.05, clip_val=0.02)
     users = rng.integers(0, u, b).astype(np.int32)
     pos = rng.integers(0, i, b).astype(np.int32)
     users[:6], pos[6:12] = 3, 5
@@ -425,41 +607,178 @@ def check_step_against_cpu(dev) -> float:
     his = rng.integers(0, i, (u, h)).astype(np.int32)
     masks = rng.integers(0, h + 1, u).astype(np.int32)
     negs = rng.integers(0, i, (b, k)).astype(np.int32)
-    init = [(rng.normal(size=s) * 0.01).astype(np.float32)
-            for s in ((u, d), (i, d), (d, d))]
 
     def fixed(generator, sstate, pos_ids, _cfg, real=None):
         return (NegSample(torch.from_numpy(negs).to(pos_ids.device)),
                 SamplerState(sstate.iterations + pos_ids.shape[0]))
 
-    out = []  # (tables, loss) on the card, then on the CPU
-    orig = ts.sample_negatives
+    def flat(state):
+        arrays = state_to_numpy(state)
+        arrays.update(arrays.pop("opt_slots", {}))
+        return arrays
+
+    worst = {}
+    orig_sampler, orig_threshold = ts.sample_negatives, tsc.DENSE_ROWS_THRESHOLD
     ts.sample_negatives = fixed
     try:
-        for device in (dev, torch.device("cpu")):
-            def put(x):
-                return torch.from_numpy(x).to(device)
+        for name, (sort, extra) in STEP_VARIANTS.items():
+            cfg = CFConfig(emb_dim=d, num_users=u, num_items=i, max_his=h,
+                           num_negs=k, batch_size=b, l_r=0.05, clip_val=0.02,
+                           **extra)
+            tsc.DENSE_ROWS_THRESHOLD = 16 if sort else orig_threshold
+            init = state_to_numpy(init_train_state(
+                cfg, torch.Generator().manual_seed(3), "cpu"
+            ))
+            out = []  # (state arrays, losses) on the card, then on the CPU
+            for device in (dev, torch.device("cpu")):
+                def put(x):
+                    return torch.from_numpy(x).to(device)
 
-            state, _, loss = ts.train_step(
-                state_from_numpy(*init, lr=cfg.l_r, step=0, device=device),
-                init_sampler_state(cfg, device),
-                None,
-                ts.Batch(put(users), put(pos), put(weight)),
-                put(his), put(masks), cfg,
-            )
-            out.append((state_to_numpy(state), float(loss)))
+                state = state_from_numpy(**init, device=device)
+                sstate = init_sampler_state(cfg, device)
+                losses = []
+                for _ in range(2):
+                    state, sstate, loss = ts.train_step(
+                        state, sstate, None,
+                        ts.Batch(put(users), put(pos), put(weight)),
+                        put(his), put(masks), cfg,
+                    )
+                    losses.append(float(loss))
+                out.append((flat(state), losses))
+            (card, card_loss), (cpu, cpu_loss) = out
+            np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5,
+                                       err_msg=f"{name}: losses")
+            # The tests' rule (heat_tpu_torch.testing), with atol 1e-6: K3's
+            # atomics add in another order than index_add_.
+            worst[name] = 0.0
+            for key in card:
+                try:
+                    diff = assert_state_array_close(
+                        card[key], cpu[key], key, lr=cfg.l_r,
+                        clip_val=cfg.clip_val, rtol=1e-5, atol=1e-6,
+                    )
+                except AssertionError as err:
+                    raise AssertionError(
+                        f"step on the card vs the CPU, {name}: {err}"
+                    ) from None
+                worst[name] = max(worst[name], diff)
     finally:
-        ts.sample_negatives = orig
-    (card, card_loss), (cpu, cpu_loss) = out
-    worst = 0.0
-    for name in ("user_emb", "item_emb", "w0"):
-        np.testing.assert_allclose(
-            card[name], cpu[name], rtol=1e-5, atol=1e-6,
-            err_msg=f"step on the card vs the CPU: {name}",
-        )
-        worst = max(worst, float(np.abs(card[name] - cpu[name]).max()))
-    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
+        ts.sample_negatives = orig_sampler
+        tsc.DENSE_ROWS_THRESHOLD = orig_threshold
     return worst
+
+
+def check_huge_training(reset, read) -> dict:
+    """bench_large at its default geometry, dedup then direct mode (see
+    the docstring); returns each run's record with its launch counts."""
+    import torch
+
+    from heat_tpu_torch import bench_large
+
+    out = {}
+    for mode in ("dedup", "direct"):
+        torch.cuda.empty_cache()
+        reset()
+        t0 = time.perf_counter()
+        record = bench_large.run(["--update-mode", mode, "--reps", "1"])
+        wall = time.perf_counter() - t0
+        launches = read()
+        print(json.dumps(record))
+        losses = record["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"bench_large {mode}: losses {losses}")
+        if mode == "dedup" and not record["sorted_dedup_path"]:
+            raise AssertionError("bench_large dedup: not on the sort-dedup path")
+        steps = record["steps"]
+        need = ["gather_rows", "history_mean_gather", "scatter_add_rows",
+                "scatter_set_rows"]
+        for name in need:
+            if launches[name] < steps:
+                raise AssertionError(
+                    f"bench_large {mode}: {name} launched {launches[name]} "
+                    f"times in {steps} steps"
+                )
+        held = record["state_bytes"] + record["data_bytes"]
+        peak = record["peak_device_bytes"]
+        print(f"bench_large {mode}: {wall:.1f} s in all; launches {launches}; "
+              f"peak device memory {peak / 1e9:.3f} GB against "
+              f"{held / 1e9:.3f} GB of state and data held "
+              f"({peak / held:.3f}x; with the epoch's batch stream "
+              f"{record['epoch_stream_bytes'] / 1e9:.3f} GB: "
+              f"{peak / (held + record['epoch_stream_bytes']):.3f}x)")
+        if mode == "dedup" and peak > MEM_RATIO * held:
+            raise AssertionError(
+                f"bench_large dedup: peak device memory {peak} B above "
+                f"{MEM_RATIO} x {held} B held: a step-time table copy?"
+            )
+        record["launches"] = launches
+        record["wall_s"] = wall
+        out[mode] = record
+    return out
+
+
+def check_huge_step(dev, users=BIG_USERS, items=BIG_ITEMS, batch=BIG_BATCH,
+                    negs=BIG_NEGS) -> dict:
+    """One sort-dedup update of both tables at the bench_large geometry
+    (the user table with its fused write-back, the item table with the
+    step's 557,056 ids) on the card, against the same update of CPU
+    copies (plain versions: index_add_, index_copy_, the same torch
+    sort-dedup) on the same gradients. Touched rows agree to rtol 1e-5 /
+    atol 1e-7 (K3 sums repeats in another order); untouched rows are
+    bit-equal to before. Returns the largest difference and the
+    launches."""
+    import torch
+
+    import heat_tpu_torch.train.scatter as tsc
+    from heat_tpu_torch.ops.cuda import scatter
+
+    if max(users, items) <= tsc.DENSE_ROWS_THRESHOLD:
+        raise AssertionError("the tables must be on the sort-dedup path")
+    g = torch.Generator(device=dev).manual_seed(7)
+    lr = torch.tensor(0.01, device=dev)  # bench_large's lr and clip
+    d = DIM
+
+    def ids(n, m):
+        out = torch.randint(0, n, (m,), generator=g, device=dev,
+                            dtype=torch.int32)
+        out[:64] = out[0]  # a heavy repeat
+        out[-(m // 64):] = n  # a weight-0 tail
+        return out
+
+    uid, iid = ids(users, batch), ids(items, batch * (1 + negs))
+    per_id = torch.randn(batch, d, generator=g, device=dev)
+    per_id[:64] = per_id[0]  # the repeat writes identical rows
+    cases = (  # (table, ids, grads, writeback)
+        (torch.randn(users, d, generator=g, device=dev).mul_(0.01), uid,
+         torch.randn(batch, d, generator=g, device=dev), per_id),
+        (torch.randn(items, d, generator=g, device=dev).mul_(0.01), iid,
+         torch.randn(iid.shape[0], d, generator=g, device=dev), None),
+    )
+    for counter in scatter.LAUNCHES:
+        scatter.LAUNCHES[counter] = 0
+    worst = 0.0
+    for table, i, grads, wb in cases:
+        before = table.clone()
+        cpu = table.cpu()
+        tsc.apply_row_updates(table, i, grads, lr=lr, clip_val=1.0,
+                              writeback=wb)
+        tsc.apply_row_updates(
+            cpu, i.cpu(), grads.cpu(), lr=lr.cpu(), clip_val=1.0,
+            writeback=None if wb is None else wb.cpu(),
+        )
+        torch.cuda.synchronize()
+        touched = torch.unique(i[i < table.shape[0]]).long()
+        got, want = table[touched], cpu[touched.cpu()].to(dev)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+        worst = max(worst, float((got - want).abs().max()))
+        if torch.equal(got, before[touched]):
+            raise AssertionError("the update moved no touched row")
+        table.index_fill_(0, touched, 0.0)
+        before.index_fill_(0, touched, 0.0)
+        if not torch.equal(table, before):
+            raise AssertionError("an untouched row changed")
+        del before, cpu, got, want
+    return {"max_abs_diff": worst, "launches": dict(scatter.LAUNCHES)}
 
 
 def main() -> int:
@@ -486,14 +805,17 @@ def main() -> int:
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
 
     kernels = check_kernels(dev)
+    kernels.append(check_scatter_set(dev))
+    check_path_shapes(dev, {k["name"]: k for k in kernels})
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}"
               f" ms), max_abs_err {k['max_abs_err']:.3g}, {k['shape']}")
-        if "ms_b8192" in k:
-            print(f"kernel {k['name']} at B=8192: {k['ms_b8192']:.4f} ms "
-                  f"(plain {k['plain_ms_b8192']:.4f} ms)")
-    print(f"train_step card vs CPU: max table diff "
-          f"{check_step_against_cpu(dev):.3g}")
+        for key in k:
+            if key.startswith("ms_"):
+                print(f"kernel {k['name']} at {key[3:]}: {k[key]:.4f} ms "
+                      f"(plain {k['plain_' + key]:.4f} ms)")
+    print(f"train_step card vs CPU, max state diff per branch: "
+          f"{json.dumps(check_step_against_cpu(dev))}")
 
     args = ["--config", CONFIG0, "--synthetic", SYNTHETIC, "--device", "cuda"]
     untrained = cli.main(args + ["--epochs", "0"])["final_metrics"]
@@ -502,6 +824,7 @@ def main() -> int:
     counters = [(gather.LAUNCHES, "gather_rows"),
                 (gather.LAUNCHES, "history_mean_gather"),
                 (scatter.LAUNCHES, "scatter_add_rows"),
+                (scatter.LAUNCHES, "scatter_set_rows"),
                 (topk.LAUNCHES, "window_extract")]
 
     def reset():
@@ -561,9 +884,19 @@ def main() -> int:
     print(f"serving: {json.dumps(serving)}")
     print(f"serving launches: {serving_launches}")
 
+    huge = check_huge_training(reset, read)
+    step = check_huge_step(dev)
+    if step["launches"]["scatter_set_rows"] < 1:
+        raise AssertionError("the full-size dedup update did not launch S1")
+    print(f"full-size dedup update, card vs CPU: max touched-row diff "
+          f"{step['max_abs_diff']:.3g}; untouched rows bit-equal; "
+          f"launches {step['launches']}")
+
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_serving"] = serving_launches[k["name"]]
+        for mode, record in huge.items():
+            k[f"launches_huge_{mode}"] = record["launches"].get(k["name"], 0)
         del k["shape"]
     print(json.dumps({"kernels": kernels}))
     print(card)

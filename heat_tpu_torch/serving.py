@@ -216,16 +216,27 @@ class Recommender:
         his_masks=None,
         user_tile: int = 512,
     ) -> "Recommender":
-        """Serve from a live single-process engine: its unpadded state, and
-        by default its train pairs as the seen pairs and its histories.
-        (The JAX package also gathers multi-host table shards here; that
-        waits for the port's multi-device slice, ROADMAP item 15.)"""
+        """Serve from a live single-process engine: a snapshot of its
+        unpadded state, and by default its train pairs as the seen pairs
+        and its histories. The engine's steps update its tables in place,
+        so the tables and ``w0`` are copied here: further training does
+        not change what this Recommender serves. (The JAX package also
+        gathers multi-host table shards here; that waits for the port's
+        multi-device slice, ROADMAP item 15.)"""
         if seen_pairs is None:
             seen_pairs = np.asarray(engine.train_data.pairs)
         if his_items is None:
             his_items, his_masks = engine.his_items, engine.his_masks
+        live = engine.unpadded_state()
+        snapshot = TrainState(
+            user_emb=live.user_emb.clone(),
+            item_emb=live.item_emb.clone(),
+            w0=live.w0.clone(),
+            lr=live.lr.clone(),
+            step=live.step.clone(),
+        )
         return cls(
-            engine.unpadded_state(),
+            snapshot,
             engine.cfg,
             seen_pairs=seen_pairs,
             his_items=his_items,

@@ -8,11 +8,17 @@ Counterpart of ``heat_tpu/train/engine.py`` for the single-device slice:
 a Python loop over batches; the epoch's loss sum stays on the device and
 is read once per epoch.
 
-Configurations outside the slice raise ``NotImplementedError`` naming the
-ROADMAP item that will add them; nothing falls back silently. The JAX
-engine's history dedup (active under ``shuffle_mode: none``) is an exact
-rewrite of the per-sample means, so this engine computes the per-sample
-means and gets the same values.
+Configurations outside the ported slices raise ``NotImplementedError``
+naming the ROADMAP item that will add them; nothing falls back silently.
+The JAX engine's history dedup (active under ``shuffle_mode: none``) is an
+exact rewrite of the per-sample means, so this engine computes the
+per-sample means and gets the same values.
+
+Memory: the step updates the state in place (``train/scatter.py``), and
+the per-epoch visit order is built with int32 index tensors, so at a
+16M-user table the epoch holds no table-sized temporary beyond the dense
+path's accumulator (which only tables up to DENSE_ROWS_THRESHOLD rows
+take).
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 from heat_tpu_torch.config import (
     CFConfig,
     NEG_SAMPLER_UNIFORM,
-    SGD_MODE_BATCH,
+    SGD_MODE_ACCUM,
 )
 from heat_tpu_torch.data.datasets import ClickDataset
 from heat_tpu_torch.evaluation.evaluator import TiledEvaluator
@@ -35,10 +41,13 @@ from heat_tpu_torch.evaluation.metrics import (
     parse_metric,
 )
 from heat_tpu_torch.models.aggregator import user_pools_impl
-from heat_tpu_torch.models.state import TrainState, init_train_state
+from heat_tpu_torch.models.state import (
+    TrainState,
+    init_train_state,
+    zero_grad_accumulators,
+)
 from heat_tpu_torch.train.optimizer import scheduled_lr
 from heat_tpu_torch.train.samplers import init_sampler_state
-from heat_tpu_torch.train.scatter import DENSE_ROWS_THRESHOLD
 from heat_tpu_torch.train.train_step import Batch, train_step
 
 
@@ -54,10 +63,6 @@ def check_slice(cfg: CFConfig) -> None:
         (cfg.neg_sampler != NEG_SAMPLER_UNIFORM, "the tile sampler", "item 10"),
         (cfg.his_refresh != "step", "his_refresh: subepoch", "item 10"),
         (cfg.aggregator != "mean", f"aggregator: {cfg.aggregator}", "item 12"),
-        (cfg.optimizer != "sgd", f"optimizer: {cfg.optimizer}", "item 12"),
-        (cfg.sgd_mode != SGD_MODE_BATCH, f"sgd_mode: {cfg.sgd_mode}", "item 12"),
-        (cfg.update_mode != "dedup", f"update_mode: {cfg.update_mode}", "item 4"),
-        (cfg.l2_enabled, "l2_enabled", "item 4"),
         (cfg.num_subepochs > 1, "num_subepochs > 1", "item 11"),
         (cfg.param_dtype != "float32", f"param_dtype: {cfg.param_dtype}", "item 10"),
         (
@@ -67,11 +72,6 @@ def check_slice(cfg: CFConfig) -> None:
         ),
         (cfg.visit_order != "file", f"visit_order: {cfg.visit_order}", "item 10"),
         (bool(cfg.emb_pad), "emb_pad (TPU lane padding)", "the do-not-port list"),
-        (
-            max(cfg.num_users, cfg.num_items) > DENSE_ROWS_THRESHOLD,
-            "tables above DENSE_ROWS_THRESHOLD rows (sort-dedup update)",
-            "item 4",
-        ),
     ]
     for bad, what, where in off_slice:
         if bad:
@@ -161,9 +161,8 @@ class Engine:
     # ------------------------------------------------------------------
     def unpadded_state(self) -> TrainState:
         """The train state for serving and export. The JAX engine slices
-        mesh-divisibility padding rows off here; this engine pads nothing
-        and holds no optimizer state, so its state is already the tables
-        and ``w0``."""
+        mesh-divisibility padding rows off here; this engine pads nothing,
+        so its state is returned as it is."""
         return self.state
 
     # ------------------------------------------------------------------
@@ -171,22 +170,28 @@ class Engine:
         """(users, pos, weight), each (num_batches, batch): pairs in a
         shuffled ("epoch"; "once" shuffles once and reuses the stream) or
         file ("none") order, the tail padded by repeating the stream with
-        weight 0."""
+        weight 0. The order is an int32 index vector, and each column is
+        gathered once into its contiguous batch rows (the kernels take
+        contiguous ids)."""
         mode = self.cfg.shuffle_mode
         if mode == "once" and self._batch_cache is not None:
             return self._batch_cache
         n = pairs.shape[0]
         total = num_batches * batch
-        if mode != "none":
-            perm = torch.randperm(n, generator=self.generator, device=self.device)
-            pairs = pairs[perm]
-        if total > n:
-            pairs = pairs.repeat(-(-total // n), 1)[:total]
-        weight = (torch.arange(total, device=self.device) < n).to(torch.float32)
-        # Contiguous per-batch rows: the kernels take contiguous ids.
+        if mode == "none":
+            idx = torch.arange(n, dtype=torch.int32, device=self.device)
+        else:
+            idx = torch.randperm(
+                n, generator=self.generator, device=self.device,
+                dtype=torch.int32,
+            )
+        if total > n:  # total - n < batch <= n
+            idx = torch.cat([idx, idx[: total - n]])
+        weight = torch.ones(total, dtype=torch.float32, device=self.device)
+        weight[n:] = 0.0
         out = (
-            pairs[:, 0].contiguous().reshape(num_batches, batch),
-            pairs[:, 1].contiguous().reshape(num_batches, batch),
+            pairs[:, 0].index_select(0, idx).reshape(num_batches, batch),
+            pairs[:, 1].index_select(0, idx).reshape(num_batches, batch),
             weight.reshape(num_batches, batch),
         )
         if mode == "once":
@@ -220,6 +225,10 @@ class Engine:
                 cfg,
             )
             loss_sum += loss
+        if cfg.sgd_mode == SGD_MODE_ACCUM:
+            # The reference zeroes the grad rows at the end of every
+            # sub-epoch, the only one included (engine.cpp:345-347).
+            zero_grad_accumulators(self.state)
         self.epoch += 1
         return float(loss_sum) / max(1, cfg.train_size)
 

@@ -1,12 +1,14 @@
-"""The port's kernels K1-K4 against the JAX package's Pallas kernels.
+"""The port's kernels K1-K4 and S1 against the JAX package's Pallas kernels.
 
 On the CPU each wrapper of ``heat_tpu_torch.ops.cuda`` runs its plain
 PyTorch version; those are held here against the Pallas kernels in
 interpret mode (as tests/test_pallas.py runs them) and against JAX's
 ``.at[].add(mode="drop")``; K4's plain version against a numpy oracle and
 the one-hot einsum of ``heat_tpu/evaluation/evaluator.py`` (its Pallas
-sources are closures inside ``scripts/profile_eval.py``). The ``cuda``-marked tests hold each CUDA
-kernel against its plain version on the card and skip without one.
+sources are closures inside ``scripts/profile_eval.py``); S1's plain
+version against ``.at[].set(mode="drop")`` in tests/test_torch_updates.py.
+The ``cuda``-marked tests hold each CUDA kernel against its plain version
+on the card and skip without one.
 
 JAX is imported inside the tests that use it, so that the card's
 machine, which has no JAX, can collect this file and run its ``cuda``
@@ -193,7 +195,12 @@ def test_history_mean_kernel_matches_plain(cuda, d):
 @pytest.mark.parametrize("d", [64, 30])
 def test_scatter_add_kernel_matches_plain(cuda, d):
     """Atomics land in a different order on every run, so repeated ids sum
-    in another order than index_add_: rtol 1e-5 / atol 1e-6."""
+    in another order than index_add_. Any order of k f32 additions lies
+    within k * 2^-24 * sum|x| of the exact sum (k - 1 roundings of partial
+    sums and one of the result), so the kernel and the plain version are
+    each held to that bound against the f64 sum, element by element. (A
+    fixed atol 1e-6 failed on one card run in four: sums of ~12 unit
+    normals round at a few 1e-7 and cancel to near zero.)"""
     rng = np.random.default_rng(12)
     n, m = 400, 5000  # about 12 repeats per id
     ids = rng.integers(0, n + 1, m).astype(np.int32)  # ~0.25% sentinels
@@ -204,7 +211,63 @@ def test_scatter_add_kernel_matches_plain(cuda, d):
     torch.cuda.synchronize()
     assert scatter.LAUNCHES["scatter_add_rows"] == before + 1
     want = scatter.scatter_add_rows_ref(torch.zeros(n, d, device=cuda), i, dl)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    keep = i < n
+    rows, x = i[keep].long(), dl[keep].double()
+    exact = torch.zeros(n, d, dtype=torch.float64, device=cuda).index_add_(0, rows, x)
+    mag = torch.zeros(n, d, dtype=torch.float64, device=cuda).index_add_(0, rows, x.abs())
+    k = torch.bincount(rows, minlength=n).double()[:, None]
+    bound = k * 2.0**-24 * mag
+    for name, out in (("kernel", got), ("plain", want)):
+        err = (out.double() - exact).abs()
+        assert (err <= bound).all(), (name, float((err - bound).max()))
+
+
+def _set_inputs(rng, n, m, d):
+    """Ids with repeats carrying identical rows, sentinels (== n) and
+    out-of-range ids (negative, past n)."""
+    table = rng.normal(size=(n, d)).astype(np.float32)
+    ids = rng.integers(0, n, m).astype(np.int32)
+    ids[:40] = 17  # a heavy repeat
+    ids[-60:-20] = n
+    ids[-20:-10] = rng.integers(n + 1, 2 * n, 10)
+    ids[-10:] = -rng.integers(1, n, 10)
+    per_id = rng.normal(size=(n, d)).astype(np.float32)
+    rows = per_id[np.clip(ids, 0, n - 1)]
+    return table, ids, rows
+
+
+@pytest.mark.cuda
+# float4 path; scalar path; scalar path with rows off 16-byte alignment
+@pytest.mark.parametrize("d", [64, 30, 33])
+def test_scatter_set_kernel_matches_plain(cuda, d):
+    """S1 moves bits: bit-equal to the plain version on the whole table,
+    untouched rows included."""
+    rng = np.random.default_rng(14)
+    table, ids, rows = _set_inputs(rng, 700, 3000, d)
+    t = torch.from_numpy(table).to(cuda)
+    i, r = torch.from_numpy(ids).to(cuda), torch.from_numpy(rows).to(cuda)
+    before = scatter.LAUNCHES["scatter_set_rows"]
+    got = scatter.scatter_set_rows(t.clone(), i, r)
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES["scatter_set_rows"] == before + 1
+    assert torch.equal(got, scatter.scatter_set_rows_ref(t.clone(), i, r))
+    untouched = np.setdiff1d(np.arange(700), ids)
+    assert torch.equal(got[untouched], t[untouched])
+
+
+def test_scatter_set_wrapper_runs_plain_version_on_cpu():
+    rng = np.random.default_rng(15)
+    table, ids, rows = _set_inputs(rng, 90, 300, 12)
+    before = dict(scatter.LAUNCHES)
+    t, i, r = map(torch.from_numpy, (table, ids, rows))
+    want = scatter.scatter_set_rows_ref(t.clone(), i, r)
+    got = scatter.scatter_set_rows(t, i, r)
+    assert got is t and torch.equal(got, want)
+    assert scatter.LAUNCHES == before
+    keep = (ids >= 0) & (ids < 90)
+    expect = table.copy()
+    expect[ids[keep]] = rows[keep]
+    np.testing.assert_array_equal(got.numpy(), expect)
 
 
 @pytest.mark.cuda
@@ -249,6 +312,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
     if device.type == "cuda":
         with pytest.raises(ValueError, match="must be on cuda"):
             gather.gather_rows(table, ids.cpu())
+
+
+def test_scatter_set_rows_rejects_what_the_kernel_does_not_take(device):
+    table = torch.zeros(10, 8, device=device)
+    ids = torch.zeros(4, dtype=torch.int32, device=device)
+    rows = torch.zeros(4, 8, device=device)
+    with pytest.raises(ValueError, match="rows"):
+        scatter.scatter_set_rows(table, ids, rows[:3])
+    with pytest.raises(ValueError, match="contiguous f32"):
+        scatter.scatter_set_rows(table, ids, rows.double())
+    with pytest.raises(ValueError, match="int32"):
+        scatter.scatter_set_rows(table, ids.long(), rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        scatter.scatter_set_rows(torch.zeros(8, 10, device=device).T, ids, rows)
+    if device.type == "cuda":
+        with pytest.raises(ValueError, match="must be on cuda"):
+            scatter.scatter_set_rows(table, ids, rows.cpu())
 
 
 def test_window_extract_rejects_what_the_kernel_does_not_take(device):

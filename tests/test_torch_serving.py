@@ -466,6 +466,29 @@ def test_from_engine_on_a_cpu_engine():
                    for i in row)
 
 
+def test_from_engine_serves_a_snapshot():
+    """The engine updates its tables in place; a Recommender built from it
+    keeps serving the state it was built on while training goes on."""
+    train, test = tsynthetic(90, 300, clicks_per_user=12, max_his=6, seed=4)
+    cfg = CFConfig(emb_dim=16, num_negs=4, max_his=6, batch_size=64,
+                   l_r=0.05, clip_val=0.5, seed=9)
+    eng = TEngine(cfg, train, test, device="cpu")
+    eng.train_one_epoch()
+    rec = tserving.Recommender.from_engine(eng)
+    uids = np.arange(90)
+    before = rec.recommend(uids, 5)
+    before_agg = rec.recommend(uids, 5, aggregate_users=True)
+    user, item = eng.state.user_emb.clone(), eng.state.item_emb.clone()
+    eng.train_one_epoch()
+    assert not torch.equal(eng.state.user_emb, user)  # the epoch moved rows
+    assert not torch.equal(eng.state.item_emb, item)
+    np.testing.assert_array_equal(rec.recommend(uids, 5), before)
+    np.testing.assert_array_equal(
+        rec.recommend(uids, 5, aggregate_users=True), before_agg
+    )
+    torch.testing.assert_close(rec.state.user_emb, user, rtol=0, atol=0)
+
+
 # --- export ---------------------------------------------------------------
 
 
