@@ -6,28 +6,44 @@ Phases, each of which raises (exit code 1) on failure:
 
 1. environment: torch and CUDA versions, the card's name and power limit,
    TF32 off for f32 matmuls;
-2. build: the CUDA kernels of heat_tpu_torch/csrc with nvcc;
-3. kernels: K1 (history mean), K2 (row gather) and K3 (row scatter-add)
-   against their plain PyTorch versions at the config0 step's shapes, K4
-   (top-k window extraction) at the eval tile and at a B = 8192 request,
-   and S1 (row scatter-set) at the huge-table path's user shape (32,768
-   sorted ids, 1/8 sentinels, into 16,000,000 x 64) and item shape
-   (557,056 ids into 6,000,000 x 64), with median times over 30 runs;
-   the kernels again at the other shapes their paths give them: K2 at the
-   huge path's 32,768 user rows of the 16M table (``_big_users``) and
-   524,288 negative rows of the 6M table (``_big_negs``), K1 at its
-   (32,768, 10) histories over the 6M table (``_big``), K3 at direct
-   mode's 557,056 adds into the 6M table (``_big_items``), S1 at the
-   config0 step's user write-back (``_config0``: 8,192 unsorted ids with
-   repeats and sentinels into 52,643 x 64, bit-equal on the whole table);
-   then two training steps on the card against the same steps on the CPU
-   at a small size, for each branch of the update menu (dense, sorted,
-   direct, l2, Adagrad, Adam, accum);
-4. main path: the CLI (heat_tpu_torch.main) on AmazonBooks config0 at full
+2. build: the CUDA kernels of heat_tpu_torch/csrc with nvcc (one compile
+   per source, started together);
+3. kernels: every kernel instance against its plain PyTorch version at the
+   shapes its paths give it, with median times over 30 runs of the kernel,
+   the plain version and, where there is one, the single PyTorch call that
+   computes the same function (a yardstick the port never calls), beside
+   the bound: the bytes the function must move over the card's 3.35 TB/s
+   (ids, each distinct table row once, the output; or its operations over
+   the f32 rate, whichever is larger). f32: K1
+   (history mean), K2 (row gather) and K3 (row scatter-add) at the config0
+   step's shapes and at the f32 huge-table path's (``_big*``), K4 (top-k
+   window extraction) at the eval tile and a B = 8192 request, S1 (row
+   scatter-set) at the huge path's user and item shapes and at the config0
+   write-back. bf16, at the headline step's shapes: K2 at the 512 tile
+   rows and 8,192 pool rows (bit-equal), K1 at a (4,096, 100) chunk of the
+   pools (within one bf16 ulp of the f32-accumulated mean), K3 at the item
+   update's 8,192 + 512 ids with repeats (within occurrences x half a bf16
+   ulp of the largest partial sum per add), S1 at the user write-back
+   (bit-equal); and all four at the shapes ``bench_large`` gives them on
+   its 16,000,000 x 6,000,000 bf16 tables in both update modes
+   (``_big*``). S2 (block gather) at the measuring script's shapes, f32
+   and bf16 at r = 1, 4, 16 (bit-equal). Then train steps on the
+   card against the same steps on the CPU at a small size, for each
+   branch of the update menu (dense, sorted, direct, l2, Adagrad, Adam,
+   accum) and of the tile path (whole-tile scoring with pinned tile and
+   draws: dedup, sorted, direct, pools, accum's untiled fallback in f32;
+   dedup, sorted and pools + direct in bf16, with the tolerance stated at
+   ``check_step_against_cpu``);
+4. main paths: the CLI (heat_tpu_torch.main) on AmazonBooks config0 at full
    width on a synthetic 52,643 x 91,599 planted-cluster dataset: first
    with 0 epochs (the untrained model's metrics), then the whole 5-epoch
-   schedule with its evaluations and ``--export-embeddings``, with every
-   kernel's launch count read around that run;
+   schedule with its evaluations and ``--export-embeddings``; then the
+   same schedule in the headline configuration of the JAX package's bench
+   (tile sampler 512 / 8192 with whole-tile scoring, cached pools, bf16
+   tables and compute, ``update_mode: direct``), its Recall@20 held within
+   RECALL_BAND of the config0 run's; every kernel's launch count is read
+   around each run, and the headline run must go through the bf16
+   instances only;
 5. serving: the exported model in a ``Recommender`` on the card, requests
    of 1, 256 and 8192 users timed and held against ``recommend_all``, the
    Recall@20 of every user's requested top-20 against the run's final
@@ -37,16 +53,22 @@ Phases, each of which raises (exit code 1) on failure:
    chunked route (4,096 users) and the retrieve-and-filter route (9,216
    users, the seen bitmap above its budget), each held against a plain
    on-card oracle;
-7. huge-table training: ``heat_tpu_torch.bench_large`` at its default
-   geometry (16,000,000 users x 6,000,000 items, d = 64, 40M clicks,
-   batch 32,768), a warm-up and a timed epoch in ``dedup`` mode (both
-   tables on the sort-dedup path) and then in ``direct`` mode, with the
-   launch counts read around each run and peak device memory against the
-   bytes held; then one full-size sort-dedup update of both tables on the
-   card against the same update on the CPU (plain versions), untouched
-   rows bit-equal to before;
-8. the kernels' JSON line, the card's line, and last
-   ``{"ok": true, "device": {...}}``.
+7. huge-table training: the f32 path (uniform
+   sampler, per-step history mean, 16,000,000 x 6,000,000 f32 tables), a
+   warm-up and a timed ``Engine.train_one_epoch`` of BIG_F32_STEPS steps
+   per update mode; then ``heat_tpu_torch.bench_large``
+   at its default geometry and configuration (tile sampler, cached pools,
+   bf16; 40M clicks, batch 32,768), a warm-up and a timed epoch in
+   ``dedup`` mode (both tables on the sort-dedup path) and in ``direct``
+   mode, with the launch counts read around each run and peak device
+   memory against the bytes held; then one full-size sort-dedup update of
+   both tables on the card against the same update on the CPU (plain
+   versions), untouched rows bit-equal to before;
+8. ``heat_tpu_torch.profile_exact_ceiling`` at 10 timed calls per
+   measurement: the one path that runs S2;
+9. the kernels' JSON line (each instance with its launches on its own main
+   path: f32 on config0, bf16 on the headline run, S2 on its script), the
+   card's line, and last ``{"ok": true, "device": {...}}``.
 
 Fails without a CUDA device, and outside a checkout of the repository.
 """
@@ -65,6 +87,13 @@ CONFIG0 = "benchmarks/AmazonBooks/config0.yaml"
 SYNTHETIC = "52643,91599"  # AmazonBooks users x items
 NUM_USERS, NUM_ITEMS = 52643, 91599
 BATCH, MAX_HIS, NUM_NEGS, DIM = 8192, 100, 16, 64
+TILE, POOL_CHUNK = 512, 4096  # the headline's tile; users per K1 launch of the pools
+# The headline configuration of the JAX package's bench.py, on config0.
+HEADLINE = ["neg_sampler=1", "tile_size=512", "refresh_interval=8192",
+            "his_refresh=subepoch", "param_dtype=bfloat16",
+            "compute_dtype=bfloat16", "update_mode=direct"]
+RECALL_BAND = 0.0015  # headline Recall@20 against the f32 config0 run's
+S2_WIDTH, S2_ROWS = 128, 65_536  # the measuring script's block gather
 RUNS = 30
 I_PAD = 91_648  # NUM_ITEMS padded to the 128-wide top-k windows
 EVAL_TILE, EVAL_K = 512, 50  # one eval tile of the top-50 eval
@@ -74,6 +103,8 @@ HUGE_USERS = (4096, 9216)  # chunked route; retrieve-and-filter route
 HUGE_B = 256
 BIG_USERS, BIG_ITEMS = 16_000_000, 6_000_000  # bench_large's default tables
 BIG_BATCH, BIG_NEGS, BIG_HIS = 32_768, 16, 10
+BIG_TILE = 128  # bench_large's tile from "auto" at this geometry
+BIG_F32_STEPS = 150  # steps an epoch of the f32 huge-table phase
 S1_SHAPES = (  # (table rows, ids, key suffix): user and item sides
     (BIG_USERS, BIG_BATCH, ""),
     (BIG_ITEMS, BIG_BATCH * (1 + BIG_NEGS), "_items"),
@@ -108,102 +139,338 @@ def median_ms(fn) -> float:
     return statistics.median(times)
 
 
-def check_kernels(dev) -> list[dict]:
-    """Each kernel against its plain version at the config0 step's shapes."""
+H100_BYTES_PER_MS = 3.35e12 / 1e3  # NVIDIA H100 SXM data sheet: 3.35 TB/s
+H100_F32_OPS_PER_MS = 67e12 / 1e3  # f32 outside the tensor cores
+
+
+def timed(entry: dict, key: str, fn, ref, lib, nbytes: float, nops: float) -> None:
+    """Time the kernel ``fn``, its plain version ``ref`` and, where there is
+    one, the single PyTorch call ``lib`` that computes the same function
+    (a yardstick: the port never calls it); and write the bound beside
+    them: the least time the card could take, the larger of ``nbytes``
+    (each input read once, each output written once) over the memory rate
+    and ``nops`` over the f32 rate. Keys get the suffix ``key``."""
+    entry["ms" + key] = median_ms(fn)
+    entry["plain_ms" + key] = median_ms(ref)
+    entry["library_ms" + key] = None if lib is None else median_ms(lib)
+    by_bytes = nbytes / H100_BYTES_PER_MS
+    by_ops = nops / H100_F32_OPS_PER_MS
+    entry["bound_ms" + key] = max(by_bytes, by_ops)
+    entry["bound_by" + key] = "bytes" if by_bytes >= by_ops else "operations"
+
+
+def new_entry(name: str, source: str, replaces: str, shape: str) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"heat_tpu_torch/csrc/{source}", "replaces": replaces,
+            "max_abs_err": 0.0, "shape": shape}
+
+
+def worst(entry: dict, got, want) -> None:
+    entry["max_abs_err"] = max(
+        entry["max_abs_err"], float((got.float() - want.float()).abs().max())
+    )
+
+
+def check_gather_rows(entry, key, table, ids) -> None:
+    """K2 at one shape: a copy, so bit-equal to its plain version."""
     import torch
 
-    from heat_tpu_torch.ops.cuda import gather, scatter
+    from heat_tpu_torch.ops.cuda import gather
+
+    got, want = gather.gather_rows(table, ids), gather.gather_rows_ref(table, ids)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"K2 gather_rows disagrees with its plain version at "
+            f"{tuple(table.shape)} {table.dtype}, {ids.shape[0]} ids"
+        )
+    worst(entry, got, want)
+    long_ids = ids.long()
+    m, d = ids.shape[0], table.shape[1]
+    timed(entry, key,
+          lambda: gather.gather_rows(table, ids),
+          lambda: gather.gather_rows_ref(table, ids),
+          lambda: table.index_select(0, long_ids),
+          # The ids, each distinct row read once, every output row written.
+          nbytes=4 * m + (_distinct(ids) + m) * d * table.element_size(),
+          nops=0)
+
+
+def check_history_mean(entry, key, table, his, lens, out_dtype=None) -> None:
+    """K1 at one shape. f32: the kernel sums in history order, the plain
+    version blocked: rtol 1e-5, atol 1e-6. bf16: within one bf16 ulp
+    (2^-7 of its magnitude) of the f32-accumulated mean of the same rows.
+    The library call is ``embedding_bag(mode="mean")`` over the valid ids,
+    flattened beforehand."""
+    import torch
+
+    from heat_tpu_torch.ops.cuda import gather
+
+    got = gather.history_mean_gather(table, his, lens, out_dtype)
+    want = gather.history_mean_gather_ref(table, his, lens, out_dtype)
+    torch.cuda.synchronize()
+    if got.dtype == torch.bfloat16:
+        exact = gather.history_mean_gather_ref(table, his, lens, torch.float32)
+        err = (got.float() - exact).abs()
+        if not bool((err <= 2.0**-7 * exact.abs() + 1e-30).all()):
+            raise AssertionError(
+                f"K1 bf16 at {tuple(his.shape)}: further than one bf16 ulp "
+                f"from the f32-accumulated mean"
+            )
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    worst(entry, got, want)
+    b, h = his.shape
+    d = table.shape[1]
+    n = lens.clamp(0, h)
+    valid = torch.arange(h, device=his.device)[None, :] < n[:, None]
+    flat = his[valid].long()
+    offsets = torch.cumsum(n, 0) - n
+    rows_read = int(n.sum())
+    timed(entry, key,
+          lambda: gather.history_mean_gather(table, his, lens, out_dtype),
+          lambda: gather.history_mean_gather_ref(table, his, lens, out_dtype),
+          lambda: torch.nn.functional.embedding_bag(
+              flat, table, offsets, mode="mean"),
+          # This run's valid ids and the lengths, each distinct row they
+          # name read once (a row read again comes from cache, not from
+          # memory), the means written; one add per valid element.
+          nbytes=_distinct(flat) * d * table.element_size() + 4 * rows_read
+          + 4 * b + b * d * got.element_size(),
+          nops=rows_read * d)
+
+
+def _distinct(ids) -> int:
+    """How many distinct values ``ids`` holds: the rows a function must
+    move between memory and the chip, however often it names them."""
+    import torch
+
+    return int(torch.unique(ids).numel())
+
+
+def check_scatter_add(entry, key, table, ids, deltas) -> None:
+    """K3 at one shape. Atomics land in another order every run. f32: rtol
+    1e-5, atol 1e-6 against ``index_add_``. bf16: every add rounds, so each
+    element is held to (occurrences of its row) x 2^-8 x (the sum of the
+    magnitudes added, which bounds every partial sum) around the exact f64
+    sum: a half ulp of the largest partial sum per add."""
+    import torch
+
+    from heat_tpu_torch.ops.cuda import scatter
+
+    n, d = table.shape
+    got = scatter.scatter_add_rows(table.clone(), ids, deltas)
+    want = scatter.scatter_add_rows_ref(table.clone(), ids, deltas)
+    torch.cuda.synchronize()
+    keep = (ids >= 0) & (ids < n)
+    rows = ids[keep].long()
+    kept = deltas[keep]
+    if table.dtype == torch.bfloat16:
+        touched, inverse = torch.unique(rows, return_inverse=True)
+        base = table[touched].double()
+        exact = base.clone().index_add_(0, inverse, kept.double())
+        mag = base.abs().index_add_(0, inverse, kept.double().abs())
+        k = torch.bincount(inverse).double()[:, None]
+        for name, out in (("kernel", got), ("plain version", want)):
+            err = (out[touched].double() - exact).abs()
+            if not bool((err <= k * 2.0**-8 * mag).all()):
+                raise AssertionError(
+                    f"K3 bf16 {name} at {n} rows, {ids.shape[0]} ids: outside "
+                    f"occurrences x half a bf16 ulp of the largest partial sum"
+                )
+            changed = (out != table).any(1)
+            changed[touched] = False
+            if bool(changed.any()):
+                raise AssertionError(
+                    f"K3 bf16 {name} at {n} rows: an untouched row changed")
+        del base, exact, mag, err, changed
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    worst(entry, got, want)
+    del got, want
+    m = ids.shape[0]
+    timed(entry, key,
+          lambda: scatter.scatter_add_rows(table, ids, deltas),
+          lambda: scatter.scatter_add_rows_ref(table, ids, deltas),
+          lambda: table.index_add_(0, rows, kept),
+          # Deltas and ids in; each touched row read and written once.
+          nbytes=4 * m + m * d * table.element_size()
+          + 2 * _distinct(rows) * d * table.element_size(),
+          nops=int(keep.sum()) * d)
+
+
+def check_scatter_set_at(entry, key, table, ids, rows) -> None:
+    """S1 at one shape: it moves bits, so bit-equal to its plain version
+    on the whole table. The library call is ``index_copy_`` over the ids
+    in range, filtered beforehand."""
+    import torch
+
+    from heat_tpu_torch.ops.cuda import scatter
+
+    n, d = table.shape
+    got = scatter.scatter_set_rows(table.clone(), ids, rows)
+    want = scatter.scatter_set_rows_ref(table.clone(), ids, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"S1 scatter_set_rows disagrees with its plain version at "
+            f"{tuple(table.shape)} {table.dtype}, {ids.shape[0]} ids"
+        )
+    worst(entry, got, want)
+    del got, want
+    keep = (ids >= 0) & (ids < n)
+    long_ids, kept = ids[keep].long(), rows[keep]
+    m = ids.shape[0]
+    timed(entry, key,
+          lambda: scatter.scatter_set_rows(table, ids, rows),
+          lambda: scatter.scatter_set_rows_ref(table, ids, rows),
+          lambda: table.index_copy_(0, long_ids, kept),
+          nbytes=4 * m + m * d * table.element_size()
+          + int(keep.sum()) * d * table.element_size(),
+          nops=0)
+
+
+def check_gather_blocks_at(entry, key, table, ids, r) -> None:
+    """S2 at one shape: a copy, so bit-equal to its plain version, which
+    is the library call too (``index_select`` on the (N / r, r * d)
+    view)."""
+    import torch
+
+    from heat_tpu_torch.ops.cuda import gather
+
+    got = gather.gather_blocks(table, ids, r)
+    want = gather.gather_blocks_ref(table, ids, r)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"S2 gather_blocks disagrees with its plain version at "
+            f"{tuple(table.shape)} {table.dtype}, r = {r}"
+        )
+    worst(entry, got, want)
+    n, d = table.shape
+    view, long_ids = table.view(n // r, r * d), ids.long()
+    m = ids.shape[0]
+    timed(entry, key,
+          lambda: gather.gather_blocks(table, ids, r),
+          lambda: gather.gather_blocks_ref(table, ids, r),
+          lambda: view.index_select(0, long_ids),
+          # The ids, each distinct block read once, every block written.
+          nbytes=4 * m + (_distinct(ids) + m) * r * d * table.element_size(),
+          nops=0)
+
+
+def check_kernels(dev) -> list[dict]:
+    """Every kernel instance against its plain version, at the shapes its
+    paths give it: the config0 step's (f32), the headline step's (bf16: the
+    512 tile rows and 8,192 pool rows for K2, a (4,096, 100) chunk of the
+    pools for K1, the item update's 8,192 + 512 ids for K3, the user
+    write-back for S1) and the measuring script's for S2."""
+    import torch
 
     g = torch.Generator(device=dev).manual_seed(0)
-    table = torch.randn(NUM_ITEMS, DIM, generator=g, device=dev)
+    items = torch.randn(NUM_ITEMS, DIM, generator=g, device=dev)
+    items16 = items.bfloat16()
+    users16 = torch.randn(NUM_USERS, DIM, generator=g, device=dev).bfloat16()
 
     def ids(m, hi):
         return torch.randint(0, hi, (m,), generator=g, device=dev,
                              dtype=torch.int32)
 
-    results = []
+    def with_sentinels(i, n, share=0.01):
+        sentinel = torch.rand(i.shape[0], generator=g, device=dev) < share
+        return torch.where(sentinel, n, i).to(torch.int32)
 
-    # K2: the step's 8192 + 131,072 item-row reads; timed at the negatives.
-    neg_ids = ids(BATCH * NUM_NEGS, NUM_ITEMS)
-    got = gather.gather_rows(table, neg_ids)
-    want = gather.gather_rows_ref(table, neg_ids)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("K2 gather_rows disagrees with its plain version")
-    results.append({
-        "name": "gather_rows", "route": "cuda",
-        "source": "heat_tpu_torch/csrc/gather.cu",
-        "replaces": "heat_tpu/ops/pallas/gather.py:80",
-        "max_abs_err": float((got - want).abs().max()),
-        "ms": median_ms(lambda: gather.gather_rows(table, neg_ids)),
-        "plain_ms": median_ms(lambda: gather.gather_rows_ref(table, neg_ids)),
-        "shape": f"({NUM_ITEMS}, {DIM}) f32 table, {BATCH * NUM_NEGS} ids",
-    })
+    k2 = new_entry("gather_rows", "gather.cu", "heat_tpu/ops/pallas/gather.py:80",
+                   f"({NUM_ITEMS}, {DIM}) f32 table, {BATCH * NUM_NEGS} ids")
+    check_gather_rows(k2, "", items, ids(BATCH * NUM_NEGS, NUM_ITEMS))
+    k2b = new_entry("gather_rows_bf16", "gather.cu", k2["replaces"],
+                    f"({NUM_ITEMS}, {DIM}) bf16 table, {TILE} tile ids; _pool: "
+                    f"({NUM_USERS}, {DIM}) bf16 pools, {BATCH} ids")
+    check_gather_rows(k2b, "", items16, ids(TILE, NUM_ITEMS))
+    check_gather_rows(k2b, "_pool", users16, ids(BATCH, NUM_USERS))
 
-    # K1: B = 8192 histories of H = 100, lengths uniform in [0, 100].
-    his = ids(BATCH * MAX_HIS, NUM_ITEMS).reshape(BATCH, MAX_HIS)
-    lens = ids(BATCH, MAX_HIS + 1)
-    got = gather.history_mean_gather(table, his, lens)
-    want = gather.history_mean_gather_ref(table, his, lens)
-    torch.cuda.synchronize()
-    # Sequential vs blocked f32 sums: rtol 1e-5, atol 1e-6.
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    results.append({
-        "name": "history_mean_gather", "route": "cuda",
-        "source": "heat_tpu_torch/csrc/gather.cu",
-        "replaces": "heat_tpu/ops/pallas/gather.py:141",
-        "max_abs_err": float((got - want).abs().max()),
-        "ms": median_ms(lambda: gather.history_mean_gather(table, his, lens)),
-        "plain_ms": median_ms(
-            lambda: gather.history_mean_gather_ref(table, his, lens)
-        ),
-        "shape": f"({NUM_ITEMS}, {DIM}) f32 table, ({BATCH}, {MAX_HIS}) ids",
-    })
+    # K1: histories with lengths uniform in [0, 100].
+    k1 = new_entry("history_mean_gather", "gather.cu",
+                   "heat_tpu/ops/pallas/gather.py:141",
+                   f"({NUM_ITEMS}, {DIM}) f32 table, ({BATCH}, {MAX_HIS}) ids")
+    check_history_mean(k1, "", items, ids(BATCH * MAX_HIS, NUM_ITEMS).reshape(
+        BATCH, MAX_HIS), ids(BATCH, MAX_HIS + 1))
+    k1b = new_entry("history_mean_gather_bf16", "gather.cu", k1["replaces"],
+                    f"({NUM_ITEMS}, {DIM}) bf16 table, ({POOL_CHUNK}, {MAX_HIS}) "
+                    f"ids, bf16 means; _f32out: f32 means")
+    his = ids(POOL_CHUNK * MAX_HIS, NUM_ITEMS).reshape(POOL_CHUNK, MAX_HIS)
+    lens = ids(POOL_CHUNK, MAX_HIS + 1)
+    check_history_mean(k1b, "", items16, his, lens)
+    check_history_mean(k1b, "_f32out", items16, his, lens, torch.float32)
 
-    # K3: the item update's 8192 + 131,072 ids, with repeats and about 1%
-    # sentinels (id == N), into a zeroed accumulator.
+    # K3: the item update's ids, with repeats and about 1% sentinels
+    # (id == N): config0's 8192 + 131,072 into a zeroed f32 accumulator,
+    # the headline's 8192 + 512 into the bf16 item table.
     m = BATCH * (1 + NUM_NEGS)
+    k3 = new_entry("scatter_add_rows", "scatter.cu",
+                   "heat_tpu/ops/pallas/scatter.py:89",
+                   f"({NUM_ITEMS}, {DIM}) f32 accumulator, {m} ids")
+    check_scatter_add(k3, "", torch.zeros(NUM_ITEMS, DIM, device=dev),
+                      with_sentinels(ids(m, NUM_ITEMS), NUM_ITEMS),
+                      torch.randn(m, DIM, generator=g, device=dev))
+    m = BATCH + TILE
+    k3b = new_entry("scatter_add_rows_bf16", "scatter.cu", k3["replaces"],
+                    f"({NUM_ITEMS}, {DIM}) bf16 table, {m} ids with repeats")
     sc_ids = ids(m, NUM_ITEMS)
-    sentinel = torch.rand(m, generator=g, device=dev) < 0.01
-    sc_ids = torch.where(sentinel, NUM_ITEMS, sc_ids).to(torch.int32)
-    deltas = torch.randn(m, DIM, generator=g, device=dev)
-    acc = torch.zeros(NUM_ITEMS, DIM, device=dev)
-    got = scatter.scatter_add_rows(acc.clone(), sc_ids, deltas)
-    want = scatter.scatter_add_rows_ref(acc.clone(), sc_ids, deltas)
-    torch.cuda.synchronize()
-    # Atomics land in a different order every run: rtol 1e-5, atol 1e-6.
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    results.append({
-        "name": "scatter_add_rows", "route": "cuda",
-        "source": "heat_tpu_torch/csrc/scatter.cu",
-        "replaces": "heat_tpu/ops/pallas/scatter.py:89",
-        "max_abs_err": float((got - want).abs().max()),
-        "ms": median_ms(lambda: scatter.scatter_add_rows(acc, sc_ids, deltas)),
-        "plain_ms": median_ms(
-            lambda: scatter.scatter_add_rows_ref(acc, sc_ids, deltas)
-        ),
-        "shape": f"({NUM_ITEMS}, {DIM}) f32 accumulator, {m} ids",
-    })
-    results.append(check_window_extract(dev))
-    return results
+    sc_ids[:64] = sc_ids[0]  # a heavy repeat
+    check_scatter_add(k3b, "", items16.clone(),
+                      with_sentinels(sc_ids, NUM_ITEMS),
+                      (0.01 * torch.randn(m, DIM, generator=g, device=dev)).bfloat16())
+
+    k4 = check_window_extract(dev)
+    s1 = check_scatter_set(dev)
+    # S1 bf16: the headline's user write-back, 8,192 unsorted ids with
+    # repeats carrying identical rows and a weight-0 tail of sentinels.
+    s1b = new_entry("scatter_set_rows_bf16", "scatter.cu", s1["replaces"],
+                    f"({NUM_USERS}, {DIM}) bf16 table, {BATCH} ids, repeats, "
+                    f"sentinels")
+    uid = ids(BATCH, NUM_USERS)
+    uid[:64] = uid[0]
+    rows = torch.randn(NUM_USERS, DIM, generator=g, device=dev).bfloat16()[uid.long()]
+    uid[-(BATCH // 64):] = NUM_USERS
+    check_scatter_set_at(s1b, "", users16.clone(), uid, rows)
+
+    # S2 at the measuring script's shapes: 65,536 rows of width 128 from a
+    # 91,600-row table as blocks of r rows; f32 (the JAX script's type) and
+    # bf16, at r = 4 and, with key suffixes, r = 1 and 16.
+    n = NUM_ITEMS // 16 * 16 + 16
+    wide = torch.randn(n, S2_WIDTH, generator=g, device=dev)
+    s2 = new_entry("gather_blocks", "gather.cu",
+                   "scripts/profile_exact_ceiling.py:125 (gather_blocks, "
+                   "_multi_row_kernel)",
+                   f"({n}, {S2_WIDTH}) f32 table, {S2_ROWS} rows as blocks of "
+                   f"r = 4; _r1, _r16: r = 1, 16")
+    s2b = new_entry("gather_blocks_bf16", "gather.cu", s2["replaces"],
+                    f"({n}, {S2_WIDTH}) bf16 table, the same blocks")
+    for r, key in ((4, ""), (1, "_r1"), (16, "_r16")):
+        check_gather_blocks_at(s2, key, wide, ids(S2_ROWS // r, n // r), r)
+        check_gather_blocks_at(s2b, key, wide.bfloat16(),
+                               ids(S2_ROWS // r, n // r), r)
+    return [k2, k2b, k1, k1b, k3, k3b, k4, s1, s1b, s2, s2b]
 
 
 def check_window_extract(dev) -> dict:
     """K4 at the eval tile and at the B = 8192 request, against its plain
-    version: the copy is exact, so the two must be bit-equal."""
+    version: the copy is exact, so the two must be bit-equal. The library
+    call is ``torch.gather`` on the (R, nw, w) view over in-range window
+    ids."""
     import torch
 
     from heat_tpu_torch.ops.cuda import topk
 
     g = torch.Generator(device=dev).manual_seed(1)
     nw = I_PAD // 128
-    entry = {
-        "name": "window_extract", "route": "cuda",
-        "source": "heat_tpu_torch/csrc/topk.cu",
-        "replaces": "scripts/profile_eval.py:264 (pallas_extract), "
-                    "scripts/profile_eval.py:361 (pallas_extract_slices)",
-        "max_abs_err": 0.0,
-    }
+    entry = new_entry(
+        "window_extract", "topk.cu",
+        "scripts/profile_eval.py:264 (pallas_extract), "
+        "scripts/profile_eval.py:361 (pallas_extract_slices)",
+        f"({EVAL_TILE}, {I_PAD}) f32, kw {EVAL_K}; b{REQUEST_B}: "
+        f"({REQUEST_B}, {I_PAD}), kw {REQUEST_K}")
     for rows, kw, key in ((EVAL_TILE, EVAL_K, ""),
                           (REQUEST_B, REQUEST_K, f"_b{REQUEST_B}")):
         sim = torch.randn(rows, I_PAD, generator=g, device=dev)
@@ -218,16 +485,21 @@ def check_window_extract(dev) -> dict:
                 f"K4 window_extract disagrees with its plain version at "
                 f"({rows}, {I_PAD}), kw {kw}"
             )
-        entry["max_abs_err"] = max(
-            entry["max_abs_err"], float((got - want).abs().max())
-        )
-        entry["ms" + key] = median_ms(lambda: topk.window_extract(sim, widx, 128))
-        entry["plain_ms" + key] = median_ms(
-            lambda: topk.window_extract_ref(sim, widx, 128)
-        )
-        del sim, got, want
-    entry["shape"] = (f"({EVAL_TILE}, {I_PAD}) f32, kw {EVAL_K}; "
-                      f"b{REQUEST_B}: ({REQUEST_B}, {I_PAD}), kw {REQUEST_K}")
+        worst(entry, got, want)
+        view = sim.view(rows, nw, 128)
+        index = widx.clamp(0, nw - 1).long()[:, :, None].expand(-1, -1, 128)
+        in_range = (widx >= 0) & (widx < nw)
+        flat_windows = (torch.arange(rows, device=dev)[:, None] * nw
+                        + widx)[in_range]
+        timed(entry, key,
+              lambda: topk.window_extract(sim, widx, 128),
+              lambda: topk.window_extract_ref(sim, widx, 128),
+              lambda: torch.gather(view, 1, index),
+              # The ids, each distinct in-range (row, window) read once,
+              # every output window written.
+              nbytes=4 * rows * kw
+              + (_distinct(flat_windows) + rows * kw) * 128 * 4, nops=0)
+        del sim, got, want, view, index
     return entry
 
 
@@ -237,53 +509,30 @@ def check_scatter_set(dev) -> dict:
     the sort-dedup path's rep_ids), bit-equal on the whole table."""
     import torch
 
-    from heat_tpu_torch.ops.cuda import scatter
-
     g = torch.Generator(device=dev).manual_seed(2)
-    entry = {
-        "name": "scatter_set_rows", "route": "cuda",
-        "source": "heat_tpu_torch/csrc/scatter.cu",
-        "replaces": "scripts/profile_scatter_pallas.py:65 (pallas_scatter_set)",
-        "max_abs_err": 0.0,
-    }
+    entry = new_entry(
+        "scatter_set_rows", "scatter.cu",
+        "scripts/profile_scatter_pallas.py:65 (pallas_scatter_set)",
+        f"({BIG_USERS}, {DIM}) f32, {BIG_BATCH} sorted ids, 1/8 sentinels; "
+        f"_items: ({BIG_ITEMS}, {DIM}), {BIG_BATCH * (1 + BIG_NEGS)} ids")
     for n, m, key in S1_SHAPES:
         table = torch.randn(n, DIM, generator=g, device=dev)
         ids = torch.randperm(n, generator=g, device=dev)[:m].sort().values
         ids = ids.to(torch.int32)
         ids[-(m // 8):] = n
         rows = torch.randn(m, DIM, generator=g, device=dev)
-        got = scatter.scatter_set_rows(table.clone(), ids, rows)
-        want = scatter.scatter_set_rows_ref(table.clone(), ids, rows)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"S1 scatter_set_rows disagrees with its plain version at "
-                f"({n}, {DIM}), {m} ids"
-            )
-        entry["max_abs_err"] = max(
-            entry["max_abs_err"], float((got - want).abs().max())
-        )
-        del got, want
-        entry["ms" + key] = median_ms(
-            lambda: scatter.scatter_set_rows(table, ids, rows)
-        )
-        entry["plain_ms" + key] = median_ms(
-            lambda: scatter.scatter_set_rows_ref(table, ids, rows)
-        )
+        check_scatter_set_at(entry, key, table, ids, rows)
         del table
-    entry["shape"] = (f"({BIG_USERS}, {DIM}) f32, {BIG_BATCH} sorted ids, "
-                      f"1/8 sentinels; _items: ({BIG_ITEMS}, {DIM}), "
-                      f"{BIG_BATCH * (1 + BIG_NEGS)} ids")
     return entry
 
 
 def check_path_shapes(dev, entries: dict) -> None:
-    """K2, K1 and K3 at the huge-table path's shapes and S1 at the config0
-    step's write-back, each against its plain version; each shape's times
-    go into the kernel's entry under a key suffix."""
+    """K2, K1 and K3 at the f32 huge-table path's shapes, S1 at the
+    config0 step's write-back, and the bf16 instances of all four at the
+    shapes ``bench_large`` gives them on its 16M x 6M bf16 tables (where
+    64-bit offsets matter), each against its plain version; each shape's
+    numbers go into the kernel's entry under a key suffix."""
     import torch
-
-    from heat_tpu_torch.ops.cuda import gather, scatter
 
     g = torch.Generator(device=dev).manual_seed(4)
 
@@ -291,59 +540,30 @@ def check_path_shapes(dev, entries: dict) -> None:
         return torch.randint(0, hi, (m,), generator=g, device=dev,
                              dtype=torch.int32)
 
-    def record(name, key, got, want, fn, ref):
-        entry = entries[name]
-        entry["max_abs_err"] = max(entry["max_abs_err"],
-                                   float((got - want).abs().max()))
-        entry["ms" + key] = median_ms(fn)
-        entry["plain_ms" + key] = median_ms(ref)
-
     users = torch.randn(BIG_USERS, DIM, generator=g, device=dev)
     items = torch.randn(BIG_ITEMS, DIM, generator=g, device=dev)
 
     # K2: a step's 32,768 user rows of the 16M table and its 524,288
-    # negative rows of the 6M table; a copy, so bit-equal.
-    for table, m, key in ((users, BIG_BATCH, "_big_users"),
-                          (items, BIG_BATCH * BIG_NEGS, "_big_negs")):
-        i = ids(m, table.shape[0])
-        got, want = gather.gather_rows(table, i), gather.gather_rows_ref(table, i)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"K2 gather_rows disagrees with its plain version at "
-                f"({table.shape[0]}, {DIM}), {m} ids"
-            )
-        record("gather_rows", key, got, want,
-               lambda: gather.gather_rows(table, i),
-               lambda: gather.gather_rows_ref(table, i))
-
+    # negative rows of the 6M table.
+    check_gather_rows(entries["gather_rows"], "_big_users", users,
+                      ids(BIG_BATCH, BIG_USERS))
+    check_gather_rows(entries["gather_rows"], "_big_negs", items,
+                      ids(BIG_BATCH * BIG_NEGS, BIG_ITEMS))
     # K1: (32,768, 10) histories over the 6M item table, lengths uniform
-    # in [0, 10]; rtol 1e-5, atol 1e-6 as at config0.
-    his = ids(BIG_BATCH * BIG_HIS, BIG_ITEMS).reshape(BIG_BATCH, BIG_HIS)
-    lens = ids(BIG_BATCH, BIG_HIS + 1)
-    got = gather.history_mean_gather(items, his, lens)
-    want = gather.history_mean_gather_ref(items, his, lens)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    record("history_mean_gather", "_big", got, want,
-           lambda: gather.history_mean_gather(items, his, lens),
-           lambda: gather.history_mean_gather_ref(items, his, lens))
-
+    # in [0, 10].
+    check_history_mean(
+        entries["history_mean_gather"], "_big", items,
+        ids(BIG_BATCH * BIG_HIS, BIG_ITEMS).reshape(BIG_BATCH, BIG_HIS),
+        ids(BIG_BATCH, BIG_HIS + 1))
     # K3: direct mode's 557,056 per-occurrence adds into the 6M item
-    # table, repeats and about 1% sentinels; rtol 1e-5, atol 1e-6.
+    # table, repeats and about 1% sentinels.
     m = BIG_BATCH * (1 + BIG_NEGS)
     sc_ids = ids(m, BIG_ITEMS)
     sentinel = torch.rand(m, generator=g, device=dev) < 0.01
     sc_ids = torch.where(sentinel, BIG_ITEMS, sc_ids).to(torch.int32)
-    deltas = torch.randn(m, DIM, generator=g, device=dev)
-    got = scatter.scatter_add_rows(items.clone(), sc_ids, deltas)
-    want = scatter.scatter_add_rows_ref(items.clone(), sc_ids, deltas)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    record("scatter_add_rows", "_big_items", got, want,
-           lambda: scatter.scatter_add_rows(items, sc_ids, deltas),
-           lambda: scatter.scatter_add_rows_ref(items, sc_ids, deltas))
-    del users, items, got, want
+    check_scatter_add(entries["scatter_add_rows"], "_big_items", items, sc_ids,
+                      torch.randn(m, DIM, generator=g, device=dev))
+    del users, items
 
     # S1: the config0 step's user write-back, 8,192 unsorted ids into
     # 52,643 x 64 with repeats carrying identical rows (each user's row)
@@ -353,17 +573,55 @@ def check_path_shapes(dev, entries: dict) -> None:
     uid[:64] = uid[0]
     rows = torch.randn(NUM_USERS, DIM, generator=g, device=dev)[uid.long()]
     uid[-(BATCH // 64):] = NUM_USERS
-    got = scatter.scatter_set_rows(table.clone(), uid, rows)
-    want = scatter.scatter_set_rows_ref(table.clone(), uid, rows)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(
-            "S1 scatter_set_rows disagrees with its plain version at the "
-            "config0 write-back"
-        )
-    record("scatter_set_rows", "_config0", got, want,
-           lambda: scatter.scatter_set_rows(table, uid, rows),
-           lambda: scatter.scatter_set_rows_ref(table, uid, rows))
+    check_scatter_set_at(entries["scatter_set_rows"], "_config0", table, uid, rows)
+    del table, rows
+    torch.cuda.empty_cache()
+
+    # The bf16 instances at bench_large's shapes, both update modes.
+    users16 = torch.randn(BIG_USERS, DIM, generator=g, device=dev).bfloat16()
+    items16 = torch.randn(BIG_ITEMS, DIM, generator=g, device=dev).bfloat16()
+    torch.cuda.empty_cache()
+
+    def with_repeats_and_sentinels(i, n):
+        i[:64] = i[0]  # a heavy repeat
+        sentinel = torch.rand(i.shape[0], generator=g, device=dev) < 0.01
+        return torch.where(sentinel, n, i).to(torch.int32)
+
+    def small(m):  # gradient-sized rows
+        return (0.01 * torch.randn(m, DIM, generator=g, device=dev)).bfloat16()
+
+    # K2: a step's 32,768 user rows, as many rows of the (16M, 64) pools,
+    # and the 128 tile rows of the 6M table.
+    k2 = entries["gather_rows_bf16"]
+    check_gather_rows(k2, "_big_users", users16, ids(BIG_BATCH, BIG_USERS))
+    pools16 = users16.roll(1, 0)
+    check_gather_rows(k2, "_big_pool", pools16, ids(BIG_BATCH, BIG_USERS))
+    del pools16
+    check_gather_rows(k2, "_big_tile", items16, ids(BIG_TILE, BIG_ITEMS))
+    # K1: one (4,096, 10) chunk of the pools over the 6M table.
+    check_history_mean(
+        entries["history_mean_gather_bf16"], "_big", items16,
+        ids(POOL_CHUNK * BIG_HIS, BIG_ITEMS).reshape(POOL_CHUNK, BIG_HIS),
+        ids(POOL_CHUNK, BIG_HIS + 1))
+    # S1: the sort-dedup path's 32,768 sorted representative ids, 1/8
+    # sentinels, into the 16M table.
+    rep_ids = torch.randperm(BIG_USERS, generator=g, device=dev)[:BIG_BATCH]
+    rep_ids = rep_ids.sort().values.to(torch.int32)
+    rep_ids[-(BIG_BATCH // 8):] = BIG_USERS
+    check_scatter_set_at(entries["scatter_set_rows_bf16"], "_big", users16,
+                         rep_ids, small(BIG_BATCH))
+    # K3: direct mode's per-occurrence adds, 32,768 into the 16M table and
+    # 32,768 + 128 into the 6M table, repeats and about 1% sentinels.
+    k3 = entries["scatter_add_rows_bf16"]
+    check_scatter_add(
+        k3, "_big_users", users16,
+        with_repeats_and_sentinels(ids(BIG_BATCH, BIG_USERS), BIG_USERS),
+        small(BIG_BATCH))
+    m = BIG_BATCH + BIG_TILE
+    check_scatter_add(
+        k3, "_big_items", items16,
+        with_repeats_and_sentinels(ids(m, BIG_ITEMS), BIG_ITEMS), small(m))
+    del users16, items16
     torch.cuda.empty_cache()
 
 
@@ -559,6 +817,7 @@ def check_huge_table(dev) -> dict:
     return out
 
 
+BF16 = {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"}
 STEP_VARIANTS = {  # name: (sort-dedup forced, config overrides)
     "dense": (False, {}),
     "sorted": (True, {}),
@@ -570,21 +829,44 @@ STEP_VARIANTS = {  # name: (sort-dedup forced, config overrides)
     "sorted_adam": (True, {"optimizer": "adam"}),
     "accum": (False, {"sgd_mode": "accum"}),
     "sorted_accum": (True, {"sgd_mode": "accum"}),
+    # The tile path (whole-tile scoring over a pinned tile and draws).
+    "tile": (False, {"neg_sampler": 1}),
+    "tile_sorted": (True, {"neg_sampler": 1}),
+    "tile_direct": (False, {"neg_sampler": 1, "update_mode": "direct"}),
+    "tile_pools_direct_l2": (False, {
+        "neg_sampler": 1, "update_mode": "direct", "his_refresh": "subepoch",
+        "l2_enabled": True, "l2": 0.01}),
+    "tile_accum": (False, {"neg_sampler": 1, "sgd_mode": "accum"}),
+    "tile_bf16": (False, {"neg_sampler": 1, **BF16}),
+    "tile_bf16_sorted": (True, {"neg_sampler": 1, **BF16}),
+    "tile_bf16_pools_direct": (False, {
+        "neg_sampler": 1, "update_mode": "direct", "his_refresh": "subepoch",
+        **BF16}),
 }
 
 
 def check_step_against_cpu(dev) -> dict:
     """Two train_steps on the card (kernels) against the same steps on the
-    CPU (plain versions), for each branch of the update menu: small
-    shapes, repeated ids, a weight-0 tail and the same negatives; the
-    sorted variants lower the port's DENSE_ROWS_THRESHOLD below both
-    tables. Returns the largest state difference of each variant."""
+    CPU (plain versions), for each branch of the update menu and of the
+    tile path: small shapes, repeated ids, a weight-0 tail and the same
+    negatives (the tile variants pin a tile with repeated ids and the
+    draws into it; the pools variants take their pools from the state
+    before each step); the sorted variants lower the port's
+    DENSE_ROWS_THRESHOLD below both tables. f32 variants are held to the
+    tests' rule. The bf16 variants take ONE step (a second would amplify
+    a flipped rounding through the clip) and are held element by element
+    to k x 2^-7 x (|value| + k x lr x clip_val), k being the occurrences of
+    the element's row in the step (at least 1): one bf16 ulp where a row
+    is written once, and the order-dependence of k rounded adds under
+    ``direct``; ``w0`` (f32; its gradient is a bf16 product, 2^-8
+    relative a rounding) to 2% of its largest move. Returns the largest state difference of each variant."""
     import numpy as np
     import torch
 
     import heat_tpu_torch.train.scatter as tsc
     import heat_tpu_torch.train.train_step as ts
     from heat_tpu_torch.config import CFConfig
+    from heat_tpu_torch.models.aggregator import user_pools_impl
     from heat_tpu_torch.models.state import (
         init_train_state,
         state_from_numpy,
@@ -607,10 +889,19 @@ def check_step_against_cpu(dev) -> dict:
     his = rng.integers(0, i, (u, h)).astype(np.int32)
     masks = rng.integers(0, h + 1, u).astype(np.int32)
     negs = rng.integers(0, i, (b, k)).astype(np.int32)
+    t = 32
+    tile = rng.integers(0, i, t).astype(np.int32)
+    tile[4], tile[7] = tile[2], 5  # a repeated id; the repeated positive
+    tile_idx = rng.integers(0, t, (b, k)).astype(np.int32)
 
-    def fixed(generator, sstate, pos_ids, _cfg, real=None):
-        return (NegSample(torch.from_numpy(negs).to(pos_ids.device)),
-                SamplerState(sstate.iterations + pos_ids.shape[0]))
+    def fixed(generator, sstate, pos_ids, cfg, real=None):
+        where = pos_ids.device
+        state = SamplerState(sstate.iterations + pos_ids.shape[0], sstate.tile)
+        if cfg.neg_sampler == 1:
+            tl = torch.from_numpy(tile).to(where)
+            idx = torch.from_numpy(tile_idx).to(where)
+            return NegSample(tl[idx.long()], tl, idx), state
+        return NegSample(torch.from_numpy(negs).to(where)), state
 
     def flat(state):
         arrays = state_to_numpy(state)
@@ -624,7 +915,9 @@ def check_step_against_cpu(dev) -> dict:
         for name, (sort, extra) in STEP_VARIANTS.items():
             cfg = CFConfig(emb_dim=d, num_users=u, num_items=i, max_his=h,
                            num_negs=k, batch_size=b, l_r=0.05, clip_val=0.02,
-                           **extra)
+                           tile_size=t, refresh_interval=4 * b, **extra)
+            bf16 = cfg.param_dtype == "bfloat16"
+            dtype = torch.bfloat16 if bf16 else torch.float32
             tsc.DENSE_ROWS_THRESHOLD = 16 if sort else orig_threshold
             init = state_to_numpy(init_train_state(
                 cfg, torch.Generator().manual_seed(3), "cpu"
@@ -634,23 +927,54 @@ def check_step_against_cpu(dev) -> dict:
                 def put(x):
                     return torch.from_numpy(x).to(device)
 
-                state = state_from_numpy(**init, device=device)
-                sstate = init_sampler_state(cfg, device)
+                state = state_from_numpy(**init, device=device,
+                                         param_dtype=dtype)
+                sstate = init_sampler_state(
+                    cfg, device, torch.Generator(device=device).manual_seed(0))
                 losses = []
-                for _ in range(2):
+                for _ in range(1 if bf16 else 2):
+                    means = None
+                    if cfg.his_refresh == "subepoch":
+                        means = user_pools_impl(state.item_emb, put(his),
+                                                put(masks))
                     state, sstate, loss = ts.train_step(
                         state, sstate, None,
                         ts.Batch(put(users), put(pos), put(weight)),
-                        put(his), put(masks), cfg,
+                        put(his), put(masks), cfg, user_means=means,
                     )
                     losses.append(float(loss))
                 out.append((flat(state), losses))
             (card, card_loss), (cpu, cpu_loss) = out
             np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5,
                                        err_msg=f"{name}: losses")
+            worst[name] = 0.0
+            if bf16:
+                real = weight > 0
+                occurrences = {
+                    "user_emb": np.bincount(users[real], minlength=u),
+                    "item_emb": np.bincount(pos[real], minlength=i)
+                    + np.bincount(tile, minlength=i),
+                }
+                step = cfg.l_r * cfg.clip_val
+                for key, occ in occurrences.items():
+                    occ = np.maximum(occ, 1)[:, None].astype(np.float64)
+                    diff = np.abs(card[key] - cpu[key])
+                    bound = occ * 2.0**-7 * (np.abs(cpu[key]) + occ * step)
+                    if not (diff <= bound).all():
+                        raise AssertionError(
+                            f"step on the card vs the CPU, {name}: {key} off "
+                            f"by up to {diff.max():.3g}, outside its bound"
+                        )
+                    worst[name] = max(worst[name], float(diff.max()))
+                move = np.abs(cpu["w0"] - init["w0"]).max()
+                diff = float(np.abs(card["w0"] - cpu["w0"]).max())
+                if not diff <= 2e-2 * move:
+                    raise AssertionError(
+                        f"step on the card vs the CPU, {name}: w0 off by {diff}"
+                    )
+                continue
             # The tests' rule (heat_tpu_torch.testing), with atol 1e-6: K3's
             # atomics add in another order than index_add_.
-            worst[name] = 0.0
             for key in card:
                 try:
                     diff = assert_state_array_close(
@@ -668,9 +992,74 @@ def check_step_against_cpu(dev) -> dict:
     return worst
 
 
+def check_huge_f32(dev, reset, read) -> dict:
+    """The f32 huge-table path (uniform sampler, per-step history mean, f32
+    tables of 16,000,000 x 6,000,000 rows, both above the threshold) on a
+    dataset cut to BIG_F32_STEPS batches: per update mode a warm-up
+    ``Engine.train_one_epoch`` and a timed one (it ends by reading the
+    loss, a device sync). It keeps the f32 sort-dedup path, K1 at
+    (32,768, 10), K2 at 524,288 negatives and S1 / K3 at the 16M table on
+    a main path, with their launch counts over the timed epoch and the
+    peak memory of both against the bytes held."""
+    import torch
+
+    from heat_tpu_torch import bench_large
+    from heat_tpu_torch.config import CFConfig
+    from heat_tpu_torch.train.engine import Engine
+
+    steps = BIG_F32_STEPS
+    dataset = bench_large.make_dataset(
+        BIG_USERS, BIG_ITEMS, steps * BIG_BATCH, BIG_HIS)
+    out = {}
+    for mode in ("dedup", "direct"):
+        torch.cuda.empty_cache()
+        cfg = CFConfig(emb_dim=DIM, num_negs=BIG_NEGS, max_his=BIG_HIS,
+                       batch_size=BIG_BATCH, l_r=0.01, clip_val=1.0,
+                       milestones=[10], seed=2022, update_mode=mode)
+        engine = Engine(cfg, dataset, device=dev)
+        st = engine.state
+        held = sum(t.numel() * t.element_size() for t in (
+            st.user_emb, st.item_emb, st.w0, engine.pairs, engine.his_items,
+            engine.his_masks))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses = [engine.train_one_epoch()]  # warm-up
+        reset()
+        t0 = time.perf_counter()
+        losses.append(engine.train_one_epoch())
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        launches = read()
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"huge f32 {mode}: losses {losses}")
+        for name in ("gather_rows", "history_mean_gather", "scatter_add_rows",
+                     "scatter_set_rows"):
+            if launches[name] < steps or launches[name + "_bf16"]:
+                raise AssertionError(
+                    f"huge f32 {mode}: {name} launched {launches[name]} times "
+                    f"({launches[name + '_bf16']} bf16) in {steps} steps"
+                )
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"huge f32 {mode}: {steps} steps an epoch, {ms:.3f} ms a step "
+              f"({BIG_BATCH / ms * 1e3:.0f} interactions/s); epoch losses "
+              f"{losses}; launches {launches}; peak device memory "
+              f"{peak / 1e9:.3f} GB against {held / 1e9:.3f} GB held "
+              f"({peak / held:.3f}x)")
+        if mode == "dedup" and peak > MEM_RATIO * held:
+            raise AssertionError(
+                f"huge f32 dedup: peak device memory {peak} B above "
+                f"{MEM_RATIO} x {held} B held: a step-time table copy?"
+            )
+        out[mode] = {"ms_per_step": ms, "steps": steps, "launches": launches,
+                     "peak_device_bytes": peak, "held_bytes": held}
+        del engine, st
+    return out
+
+
 def check_huge_training(reset, read) -> dict:
-    """bench_large at its default geometry, dedup then direct mode (see
-    the docstring); returns each run's record with its launch counts."""
+    """bench_large at its default geometry and configuration (tile sampler
+    with the tile from "auto", cached pools, bf16), dedup then direct mode
+    (see the docstring); returns each run's record with its launch
+    counts."""
     import torch
 
     from heat_tpu_torch import bench_large
@@ -689,20 +1078,32 @@ def check_huge_training(reset, read) -> dict:
             raise AssertionError(f"bench_large {mode}: losses {losses}")
         if mode == "dedup" and not record["sorted_dedup_path"]:
             raise AssertionError("bench_large dedup: not on the sort-dedup path")
+        if record["reduced"] != bench_large.REDUCED or len(record["reduced"]) != 1:
+            raise AssertionError(f"bench_large: reduced {record['reduced']}")
+        if (record["param_dtype"], record["his_refresh"]) != ("bfloat16", "subepoch"):
+            raise AssertionError("bench_large: not bf16 with cached pools")
+        if record["tile_size"] != BIG_TILE:
+            raise AssertionError(
+                f"bench_large: tile {record['tile_size']}, but the kernels "
+                f"were checked at {BIG_TILE} tile rows")
         steps = record["steps"]
-        need = ["gather_rows", "history_mean_gather", "scatter_add_rows",
-                "scatter_set_rows"]
-        for name in need:
-            if launches[name] < steps:
+        # Per step: K2 for the user, pool, positive and tile rows; S1 and
+        # K3 in both modes; K1 only for the pools (3,907 chunks an epoch),
+        # all on bf16 tables (the segment sums' K3 adds into f32 buffers).
+        chunks = 2 * -(-record["users"] // POOL_CHUNK)
+        need = {"gather_rows_bf16": 4 * steps, "history_mean_gather_bf16": chunks,
+                "scatter_add_rows": steps, "scatter_set_rows_bf16": steps}
+        for name, least in need.items():
+            if launches[name] < least:
                 raise AssertionError(
                     f"bench_large {mode}: {name} launched {launches[name]} "
-                    f"times in {steps} steps"
+                    f"times in {steps} steps, expected >= {least}"
                 )
-        held = record["state_bytes"] + record["data_bytes"]
+        held = record["state_bytes"] + record["data_bytes"] + record["pools_bytes"]
         peak = record["peak_device_bytes"]
         print(f"bench_large {mode}: {wall:.1f} s in all; launches {launches}; "
               f"peak device memory {peak / 1e9:.3f} GB against "
-              f"{held / 1e9:.3f} GB of state and data held "
+              f"{held / 1e9:.3f} GB of state, data and pools held "
               f"({peak / held:.3f}x; with the epoch's batch stream "
               f"{record['epoch_stream_bytes'] / 1e9:.3f} GB: "
               f"{peak / (held + record['epoch_stream_bytes']):.3f}x)")
@@ -789,6 +1190,7 @@ def main() -> int:
         return 1
     # Outside a checkout this import fails, and the script with it.
     from heat_tpu_torch import main as cli
+    from heat_tpu_torch import profile_exact_ceiling
     from heat_tpu_torch.ops.cuda import _build, gather, scatter, topk
     from heat_tpu_torch.train.engine import set_f32_matmul_precision
 
@@ -805,15 +1207,18 @@ def main() -> int:
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
 
     kernels = check_kernels(dev)
-    kernels.append(check_scatter_set(dev))
     check_path_shapes(dev, {k["name"]: k for k in kernels})
     for k in kernels:
-        print(f"kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}"
-              f" ms), max_abs_err {k['max_abs_err']:.3g}, {k['shape']}")
-        for key in k:
-            if key.startswith("ms_"):
-                print(f"kernel {k['name']} at {key[3:]}: {k[key]:.4f} ms "
-                      f"(plain {k['plain_' + key]:.4f} ms)")
+        for key in [key for key in k if key == "ms" or key.startswith("ms_")]:
+            suffix = key[2:]
+            lib_ms = k["library_ms" + suffix]
+            print(f"kernel {k['name']}{' at ' + suffix[1:] if suffix else ''}: "
+                  f"{k[key]:.4f} ms (plain {k['plain_ms' + suffix]:.4f} ms, "
+                  f"PyTorch call "
+                  f"{'none' if lib_ms is None else format(lib_ms, '.4f') + ' ms'}, "
+                  f"bound {k['bound_ms' + suffix]:.4f} ms by "
+                  f"{k['bound_by' + suffix]})")
+        print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, {k['shape']}")
     print(f"train_step card vs CPU, max state diff per branch: "
           f"{json.dumps(check_step_against_cpu(dev))}")
 
@@ -821,58 +1226,100 @@ def main() -> int:
     untrained = cli.main(args + ["--epochs", "0"])["final_metrics"]
     print(f"untrained: {json.dumps(untrained)}")
 
-    counters = [(gather.LAUNCHES, "gather_rows"),
-                (gather.LAUNCHES, "history_mean_gather"),
-                (scatter.LAUNCHES, "scatter_add_rows"),
-                (scatter.LAUNCHES, "scatter_set_rows"),
-                (topk.LAUNCHES, "window_extract")]
+    counters = [gather.LAUNCHES, scatter.LAUNCHES, topk.LAUNCHES]
 
     def reset():
-        for d, name in counters:
-            d[name] = 0
+        for d in counters:
+            for name in d:
+                d[name] = 0
 
     def read():
-        return {name: d[name] for d, name in counters}
+        return {name: n for d in counters for name, n in d.items()}
 
+    def check_run(what, record, launches, least):
+        """The checks every full training run is held to: five finite
+        epoch losses that fall, metrics in range, every eval tile through
+        K4, and each kernel of ``least`` launched at least that often."""
+        losses = record["losses"]
+        if len(losses) != 5 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{what}: expected 5 finite epoch losses, got {losses}")
+        if not losses[4] < losses[0]:
+            raise AssertionError(f"{what}: loss did not fall: {losses}")
+        for name, n in least.items():
+            if launches[name] < n:
+                raise AssertionError(
+                    f"{what}: {name} launched {launches[name]} times on the "
+                    f"main path, expected >= {n}"
+                )
+        final = record["final_metrics"]
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in final.values()):
+            raise AssertionError(f"{what}: metrics out of range: {final}")
+        if not final["Recall(k=20)"] >= 10 * untrained["Recall(k=20)"]:
+            raise AssertionError(
+                f"{what}: Recall(k=20) {final['Recall(k=20)']} < 10 x untrained "
+                f"{untrained['Recall(k=20)']}"
+            )
+        print(f"{what}: epoch losses: {losses}")
+        print(f"{what}: epoch seconds: {record['epoch_times']}")
+        print(f"{what}: periodic evals: "
+              f"{[(e['epoch'], e['seconds']) for e in record['evals']]}")
+        print(f"{what}: final eval seconds: {record['final_eval_s']}")
+        print(f"{what}: steps: {record['steps']}; launches: {launches}")
+        print(f"{what}: final metrics: {json.dumps(final)}")
+
+    eval_tiles = 3 * -(-NUM_USERS // EVAL_TILE)  # two periodic evals + final
+
+    # config0 at full width (f32, uniform sampler, per-step history mean).
     EXPORT.parent.mkdir(parents=True, exist_ok=True)
     reset()
     torch.cuda.reset_peak_memory_stats(dev)
     record = cli.main(args + ["--export-embeddings", str(EXPORT)])
     launches = read()
-
-    losses = record["losses"]
-    if len(losses) != 5 or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"expected 5 finite epoch losses, got {losses}")
-    if not losses[4] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
     steps = record["steps"]
-    for name, n in launches.items():
-        if name != "window_extract" and n < steps:
-            raise AssertionError(
-                f"{name} launched {n} times in {steps} steps of the main path"
-            )
-    eval_tiles = 3 * -(-NUM_USERS // EVAL_TILE)  # two periodic evals + final
-    if launches["window_extract"] < eval_tiles:
-        raise AssertionError(
-            f"window_extract launched {launches['window_extract']} times in "
-            f"the run's evals, expected >= {eval_tiles} (every eval tile)"
-        )
-    final = record["final_metrics"]
-    if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in final.values()):
-        raise AssertionError(f"metrics out of range: {final}")
-    r_final, r_untrained = final["Recall(k=20)"], untrained["Recall(k=20)"]
-    if not r_final >= 10 * r_untrained:
-        raise AssertionError(
-            f"Recall(k=20) {r_final} < 10 x untrained {r_untrained}"
-        )
-    print(f"epoch losses: {losses}")
-    print(f"epoch seconds: {record['epoch_times']}")
-    print(f"periodic evals: {[(e['epoch'], e['seconds']) for e in record['evals']]}")
-    print(f"final eval seconds: {record['final_eval_s']}")
-    print(f"steps: {steps}; launches: {launches}")
+    check_run("config0", record, launches, {
+        "gather_rows": steps, "history_mean_gather": steps,
+        "scatter_add_rows": steps, "scatter_set_rows": steps,
+        "window_extract": eval_tiles})
+    if any(n for name, n in launches.items() if name.endswith("_bf16")):
+        raise AssertionError(f"config0 launched a bf16 kernel: {launches}")
     print(f"peak device memory (training run): "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    print(f"final metrics: {json.dumps(final)}")
+    final = record["final_metrics"]
+
+    # The headline configuration at full width: tile sampler with
+    # whole-tile scoring, cached pools, bf16 tables and compute, direct.
+    reset()
+    head = cli.main(args + [x for kv in HEADLINE for x in ("--set", kv)])
+    head_launches = read()
+    steps = head["steps"]
+    pool_chunks = 5 * -(-NUM_USERS // POOL_CHUNK)  # once an epoch
+    check_run("headline", head, head_launches, {
+        # user, positive, tile and pool rows; the pools; the user and the
+        # item update; the user write-back: all on bf16 tables.
+        "gather_rows_bf16": 4 * steps, "history_mean_gather_bf16": pool_chunks,
+        "scatter_add_rows_bf16": 2 * steps, "scatter_set_rows_bf16": steps,
+        "window_extract": eval_tiles})
+    for name in ("gather_rows", "history_mean_gather", "scatter_add_rows",
+                 "scatter_set_rows"):
+        if head_launches[name] != head_launches[name + "_bf16"]:
+            raise AssertionError(f"headline launched an f32 {name}: {head_launches}")
+    if head_launches["history_mean_gather"] != pool_chunks:
+        raise AssertionError(
+            f"headline: K1 launched {head_launches['history_mean_gather']} "
+            f"times, not once per pool chunk per epoch ({pool_chunks})"
+        )
+    head_final = head["final_metrics"]
+    gap = head_final["Recall(k=20)"] - final["Recall(k=20)"]
+    print(f"headline vs config0: Recall@20 {head_final['Recall(k=20)']:.6f} vs "
+          f"{final['Recall(k=20)']:.6f} (gap {gap:+.6f}, band {RECALL_BAND}); "
+          f"NDCG@50 {head_final['NDCG(k=50)']:.6f} vs {final['NDCG(k=50)']:.6f}; "
+          f"median epoch {statistics.median(head['epoch_times']):.4f} s vs "
+          f"{statistics.median(record['epoch_times']):.4f} s")
+    if not abs(gap) <= RECALL_BAND:
+        raise AssertionError(
+            f"headline Recall@20 {head_final['Recall(k=20)']} is not within "
+            f"{RECALL_BAND} of config0's {final['Recall(k=20)']}"
+        )
 
     reset()
     serving = check_serving(dev, final["Recall(k=20)"])
@@ -884,6 +1331,7 @@ def main() -> int:
     print(f"serving: {json.dumps(serving)}")
     print(f"serving launches: {serving_launches}")
 
+    huge_f32 = check_huge_f32(dev, reset, read)
     huge = check_huge_training(reset, read)
     step = check_huge_step(dev)
     if step["launches"]["scatter_set_rows"] < 1:
@@ -892,11 +1340,41 @@ def main() -> int:
           f"{step['max_abs_diff']:.3g}; untouched rows bit-equal; "
           f"launches {step['launches']}")
 
+    # S2's path: the measuring entry point, at a reduced iteration count.
+    reset()
+    ceiling = profile_exact_ceiling.run(["--iters", "10"])
+    ceiling_launches = read()
+    print(json.dumps(ceiling))
+    # Per r and type: the checked call, 3 warm-ups and 10 timed calls.
+    s2_calls = 14 * len(ceiling["blocks"])
+    if (ceiling_launches["gather_blocks_bf16"] < s2_calls
+            or ceiling_launches["gather_blocks"] < 2 * s2_calls):
+        raise AssertionError(
+            f"profile_exact_ceiling launched S2 "
+            f"{ceiling_launches['gather_blocks']} times, "
+            f"{ceiling_launches['gather_blocks_bf16']} of them in bf16"
+        )
+
+    # Each instance's launches on its own main path: the f32 instances on
+    # config0 (K4 too), the bf16 instances on the headline run, S2 on its
+    # measuring entry point.
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_serving"] = serving_launches[k["name"]]
-        for mode, record in huge.items():
-            k[f"launches_huge_{mode}"] = record["launches"].get(k["name"], 0)
+        name = k["name"]
+        if name == "gather_blocks":
+            k["launches"] = (ceiling_launches[name]
+                             - ceiling_launches[name + "_bf16"])
+        elif name == "gather_blocks_bf16":
+            k["launches"] = ceiling_launches[name]
+        elif name.endswith("_bf16"):
+            k["launches"] = head_launches[name]
+        else:
+            k["launches"] = launches[name] - launches.get(name + "_bf16", 0)
+        if k["launches"] < 1:
+            raise AssertionError(f"{name} was not launched on its main path")
+        k["launches_serving"] = serving_launches[name]
+        for mode in ("dedup", "direct"):
+            k[f"launches_huge_f32_{mode}"] = huge_f32[mode]["launches"][name]
+            k[f"launches_huge_{mode}"] = huge[mode]["launches"][name]
         del k["shape"]
     print(json.dumps({"kernels": kernels}))
     print(card)

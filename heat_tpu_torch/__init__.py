@@ -8,11 +8,12 @@ clipped duplicate-safe row update — evaluates it with a tiled exact
 top-k, exports it (``export``) and serves top-k recommendations from it
 (``serving.Recommender``), on one CUDA device (or the CPU, for tests).
 
-The step's three row-irregular phases (row reads, history mean, row
-scatter-add) and the window extraction of the two-phase exact top-k are
-hand-written CUDA kernels for sm_90a (``heat_tpu_torch/csrc``, bound in
-``heat_tpu_torch.ops.cuda``); the rest is plain PyTorch. The package
-imports torch and never jax.
+The step's row-irregular phases (row reads, history mean, row scatter-add
+and scatter-set, each for f32 and bf16 tables), the window extraction of
+the two-phase exact top-k and the block gather of the gather-ceiling
+script are hand-written CUDA kernels for sm_90a (``heat_tpu_torch/csrc``,
+bound in ``heat_tpu_torch.ops.cuda``); the rest is plain PyTorch. The
+package imports torch and never jax.
 """
 
 from heat_tpu_torch.config import CFConfig, load_config

@@ -1,33 +1,39 @@
 """Huge-table training benchmark of the port: the sort-dedup update path.
 
     python -m heat_tpu_torch.bench_large [--update-mode dedup|direct]
-        [--device cuda|cpu] [--users N --items N --clicks N ...]
+        [--tile T] [--refresh N] [--device cuda|cpu]
+        [--users N --items N --clicks N ...]
 
 The port's counterpart of the JAX package's ``bench_large.py``, with its
 synthetic dataset (:func:`make_dataset`, the same arrays for the same
-seed) and its geometry defaults: 16M users x 6M items, d = 64, 40M
-interactions, batch 32,768, 16 negatives, 10 history items per user (the
-``BASELINE.json`` config 5 shape cut to one card). Both tables are above
-``DENSE_ROWS_THRESHOLD`` rows, so in ``dedup`` mode both take the
+seed), its geometry defaults (16M users x 6M items, d = 64, 40M
+interactions, batch 32,768, 16 negatives, 10 history items per user: the
+``BASELINE.json`` config 5 shape cut to one card) and its configuration:
+the tile negative sampler (``--tile``, 0 = auto, which derives 128 at
+batch 32,768; ``--refresh``), per-epoch cached history pools
+(``his_refresh: subepoch``) and bf16 tables and compute. Both tables are
+above ``DENSE_ROWS_THRESHOLD`` rows, so in ``dedup`` mode both take the
 sort-dedup row update of ``train/scatter.py`` (segment sums through K3,
 writes through S1 and K3); ``direct`` mode adds each occurrence's clipped
 step with K3.
 
-What the JAX script hard-codes and the port does not run is replaced, and
-each replacement is listed under ``"reduced"`` in the JSON line: the
-uniform sampler for the tile sampler, the per-step history mean (K1) for
-the per-sub-epoch cached pools, f32 tables and compute for bf16 (all
-three ROADMAP item 10), and (N, 64) rows for the TPU's 128-wide lane
-padding (``emb_pad``, not ported). The flags that ask for them raise
-``NotImplementedError`` naming the ROADMAP item.
+Memory held at the default geometry: bf16 tables 2.05 GB (users) +
+0.77 GB (items), the (U, d) bf16 pools another 2.05 GB during an epoch,
+history ids 0.64 GB + lengths 0.06 GB, pairs 0.32 GB, and the epoch's
+batch stream 0.48 GB.
 
-Prints one JSON line with the JAX script's keys. The byte model counts
-the rows the algorithm must move per step (f32, uniform sampler): the
-user, positive and negative row gathers, the history rows of the mean,
-the user rows' write-back + update and the item rows' update, each
-counted read + write as the JAX script does, and the ids. It is one model
-for both update modes (it counts no sort, segment buffer or per-mode
-write). ``hbm_gbps`` divides it by the epoch's host wall time and
+One thing of the JAX script is not run and is listed under ``"reduced"``
+in the JSON line: the TPU's 128-wide lane padding of the rows
+(``emb_pad``, not ported: rows stay (N, 64)). ``--emb-pad`` above ``--dim``
+raises ``NotImplementedError``.
+
+Prints one JSON line with the JAX script's keys. The byte model is the JAX
+script's: the per-epoch build of the pools (U x H history rows read, U
+pool rows written) and, per step, the user, pool and positive row gathers,
+the tile's rows, the user rows' write-back + update and the item rows'
+update over B + T rows, each counted read + write, and the ids, at 2 bytes
+an element. It is one model for both update modes (it counts no sort,
+segment buffer or per-mode write). ``hbm_gbps`` divides it by the epoch's host wall time and
 ``hbm_peak_frac`` that by the H100's 3.35 TB/s: on a host-bound epoch
 they say nothing of the device's bandwidth. They and
 ``peak_device_bytes`` are None unless the run was on a CUDA device.
@@ -56,10 +62,6 @@ from heat_tpu_torch.train.engine import Engine
 H100_HBM_GBPS = 3350.0  # NVIDIA H100 SXM data sheet, 3.35 TB/s
 
 REDUCED = [
-    "uniform negative sampler in place of the tile sampler (ROADMAP item 10)",
-    "per-step history mean (K1) in place of his_refresh: subepoch cached "
-    "pools (ROADMAP item 10)",
-    "f32 tables and compute in place of bf16 (ROADMAP item 10)",
     "(N, 64) rows in place of emb_pad=128 lane padding (TPU only, not ported)",
 ]
 
@@ -105,10 +107,11 @@ def _parser() -> argparse.ArgumentParser:
         choices=("mean", "user_attention"),
         help="history pooling; the attention kinds are not ported (item 12)",
     )
-    p.add_argument("--tile", type=int, default=None,
-                   help="tile sampler size: not ported (item 10)")
-    p.add_argument("--refresh", type=int, default=None,
-                   help="tile refresh interval: not ported (item 10)")
+    p.add_argument("--tile", type=int, default=0,
+                   help="tile sampler size; <= 0 derives (tile, refresh) "
+                   "from the batch size (samplers.derive_tile_params)")
+    p.add_argument("--refresh", type=int, default=32_768,
+                   help="samples between tile refreshes (used with --tile > 0)")
     p.add_argument("--emb-pad", type=int, default=0,
                    help="TPU lane padding of the rows: not ported")
     p.add_argument("--device", type=str, default="cuda",
@@ -125,7 +128,7 @@ def _bytes(tensors) -> int:
 
 def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
     """Where a step's time goes, in one process: one epoch's batch stream
-    is built (its peak memory is the shuffle's), ``steps`` steps run
+    and pools are built (their peak memory is the shuffle's), ``steps`` steps run
     unprofiled between two syncs (wall ms per step, and the steps' peak
     memory), then the next ``steps`` steps run under ``torch.profiler``
     (device ms per step: the sum of the device events, one stream, so no
@@ -149,6 +152,10 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     users, pos, weight = engine._make_batches(engine.pairs)
+    user_means = (
+        engine._pooled_history()
+        if engine.cfg.his_refresh == "subepoch" else None
+    )
     sync()
     shuffle_peak = torch.cuda.max_memory_allocated(dev) if on_card else None
     if 2 * steps > users.shape[0]:
@@ -163,6 +170,7 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
                 engine.state, engine.sampler_state, engine.generator,
                 Batch(users[i], pos[i], weight[i]),
                 engine.his_items, engine.his_masks, engine.cfg,
+                user_means=user_means,
             )
         sync()
         return (time.perf_counter() - t0) * 1e3 / steps
@@ -200,12 +208,6 @@ def run(argv=None) -> dict:
     """Build the dataset and engine, run a warm-up epoch and ``--reps``
     timed epochs; returns the JSON record."""
     args = _parser().parse_args(argv)
-    if args.tile is not None or args.refresh is not None:
-        raise NotImplementedError(
-            "--tile / --refresh select the tile sampler, which is not "
-            "ported to heat_tpu_torch (ROADMAP.md, modules still to port, "
-            "item 10)"
-        )
     dataset = make_dataset(args.users, args.items, args.clicks, args.max_his)
     cfg = CFConfig(
         emb_dim=args.dim,
@@ -216,6 +218,12 @@ def run(argv=None) -> dict:
         clip_val=1.0,
         milestones=[10],
         seed=2022,
+        neg_sampler=1,
+        tile_size=args.tile,
+        refresh_interval=args.refresh,
+        his_refresh="subepoch",
+        compute_dtype="bfloat16",
+        param_dtype="bfloat16",
         update_mode=args.update_mode,
         emb_pad=args.emb_pad if args.emb_pad > args.dim else 0,
         aggregator=args.aggregator,
@@ -232,6 +240,8 @@ def run(argv=None) -> dict:
         [st.user_emb, st.item_emb, st.w0, st.user_gacc, st.item_gacc, *slots]
     )
     data_bytes = _bytes([engine.pairs, engine.his_items, engine.his_masks])
+    # The per-epoch (U, d) pools, in the tables' type.
+    pools_bytes = st.user_emb.numel() * st.user_emb.element_size()
     nb = -(-args.clicks // args.batch)
     stream_bytes = nb * args.batch * 4 * 3  # users, pos (int32), weight (f32)
     if on_card:
@@ -246,18 +256,21 @@ def run(argv=None) -> dict:
         times.append(time.perf_counter() - t0)
     epoch_s = float(np.median(times))
 
-    d, b, negs, elem = args.dim, args.batch, args.negs, 4
-    per_step_bytes = (
-        2 * b * d * elem                 # user + positive row gathers
-        + b * negs * d * elem            # negative row gathers
-        + b * args.max_his * d * elem    # history rows of the mean
-        + 2 * 2 * b * d * elem           # user rows: write-back + update, r+w
-        + 2 * b * (1 + negs) * d * elem  # item rows: update r+w
-        + b * 4 * 3 + b * negs * 4       # ids and weights
+    tile = engine.cfg.tile_size
+    d, b, elem = args.dim, args.batch, 2  # bf16
+    pools_model_bytes = (
+        args.users * args.max_his * d * elem + args.users * d * elem
     )
-    hbm_gb = nb * per_step_bytes / 1e9
-    rows_scattered = nb * (b + b * (1 + negs))
-    rows_gathered = nb * (2 * b + b * negs + b * args.max_his)
+    per_step_bytes = (
+        3 * b * d * elem               # user + pool + positive row gathers
+        + tile * d * elem              # tile row gather
+        + 2 * 2 * b * d * elem         # user rows: write-back + update, r+w
+        + 2 * (b + tile) * d * elem    # item rows: update r+w
+        + b * 4 * 3 + b * args.negs * 4  # ids, weights and draws
+    )
+    hbm_gb = (pools_model_bytes + nb * per_step_bytes) / 1e9
+    rows_scattered = nb * (b + b + tile)
+    rows_gathered = nb * (3 * b + tile) + args.users * args.max_his
     record = {
         "metric": "large_scale_epoch_time",
         "value": round(epoch_s, 3),
@@ -270,6 +283,10 @@ def run(argv=None) -> dict:
         "emb_dim": args.dim,
         "sorted_dedup_path": sorted_path,
         "update_mode": args.update_mode,
+        "tile_size": tile,
+        "refresh_interval": engine.cfg.refresh_interval,
+        "param_dtype": engine.cfg.param_dtype,
+        "his_refresh": engine.cfg.his_refresh,
         "losses": [round(l, 4) for l in losses],
         "hbm_gb_modeled": round(hbm_gb, 2),
         "hbm_gbps": round(hbm_gb / epoch_s, 1) if on_card else None,
@@ -286,6 +303,7 @@ def run(argv=None) -> dict:
         "steps": int(engine.state.step),
         "state_bytes": state_bytes,
         "data_bytes": data_bytes,
+        "pools_bytes": pools_bytes,
         "epoch_stream_bytes": stream_bytes,
         "peak_device_bytes": (
             torch.cuda.max_memory_allocated(engine.device) if on_card else None

@@ -1,5 +1,7 @@
 // Row scatters for Hopper (sm_90a): the duplicate-safe in-place row
-// scatter-add (K3) and the in-place row scatter-set (S1).
+// scatter-add (K3) and the in-place row scatter-set (S1), each for f32 and
+// bf16 tables (heat_*_f32, heat_*_bf16; the Pallas kernels take f32 only
+// and XLA ran the bf16 tables).
 //
 // K3 replaces the Pallas kernel heat_tpu/ops/pallas/scatter.py:89
 // scatter_add_rows: table[ids[k]] += deltas[k], in place, with the sentinel
@@ -43,9 +45,19 @@
 // over a repeated id differ from a sequential sum in the last bits (the
 // tests allow rtol 1e-5 for that reason). S1 moves bits and is exact.
 //
+// bf16: K3 adds bf16 deltas into a bf16 table with the native
+// atomicAdd(__nv_bfloat162) of sm_90 where d is even (two elements an
+// atomic; each element is atomic on its own, which is all a sum needs),
+// and with atomicAdd(__nv_bfloat16) otherwise. Every add rounds to bf16,
+// so over a repeated id the result depends on the order: it lies within
+// (occurrences of the row) x (one bf16 ulp of the largest partial sum) of
+// the exact sum. On unique ids it is the one correctly rounded add. S1
+// copies bf16 rows as 16-byte vectors of 8 where d % 8 == 0.
+//
 // Each entry point launches on the given stream, does not synchronise,
 // allocates nothing and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,9 +77,12 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-__global__ void scatter_add_rows_kernel(float* __restrict__ table,
+// table[ids[k], c] += deltas[k, c], in units of A: float, __nv_bfloat16 or
+// __nv_bfloat162 (d is then the count of pairs in a row).
+template <typename A>
+__global__ void scatter_add_rows_kernel(A* __restrict__ table,
                                         const int32_t* __restrict__ ids,
-                                        const float* __restrict__ deltas,
+                                        const A* __restrict__ deltas,
                                         int64_t n_rows, int64_t m, int d) {
   const int64_t total = m * d;
   for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
@@ -80,7 +95,8 @@ __global__ void scatter_add_rows_kernel(float* __restrict__ table,
   }
 }
 
-// table[ids[k], c] = rows[k, c], in units of V (float4 or float).
+// table[ids[k], c] = rows[k, c], in units of V (a 16-byte vector or one
+// element).
 template <typename V>
 __global__ void scatter_set_rows_kernel(V* __restrict__ table,
                                         const int32_t* __restrict__ ids,
@@ -97,6 +113,23 @@ __global__ void scatter_set_rows_kernel(V* __restrict__ table,
   }
 }
 
+template <typename T>
+int launch_set(T* table, int64_t n_rows, int d, const int32_t* ids,
+               const T* rows, int64_t m, cudaStream_t s) {
+  constexpr int kPer = 16 / sizeof(T);
+  if (m == 0 || d == 0) return 0;
+  if (d % kPer == 0 && aligned16(table) && aligned16(rows)) {
+    const int dv = d / kPer;
+    scatter_set_rows_kernel<float4><<<grid_for(m * dv), kThreads, 0, s>>>(
+        reinterpret_cast<float4*>(table), ids,
+        reinterpret_cast<const float4*>(rows), n_rows, m, dv);
+  } else {
+    scatter_set_rows_kernel<T><<<grid_for(m * d), kThreads, 0, s>>>(
+        table, ids, rows, n_rows, m, d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int heat_scatter_add_rows_f32(float* table, int64_t n_rows, int d,
@@ -104,25 +137,48 @@ extern "C" int heat_scatter_add_rows_f32(float* table, int64_t n_rows, int d,
                                          const float* deltas, int64_t m,
                                          void* stream) {
   if (m == 0 || d == 0) return 0;
-  scatter_add_rows_kernel<<<grid_for(m * d), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  scatter_add_rows_kernel<float><<<grid_for(m * d), kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
       table, ids, deltas, n_rows, m, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int heat_scatter_add_rows_bf16(void* table, int64_t n_rows, int d,
+                                          const int32_t* ids,
+                                          const void* deltas, int64_t m,
+                                          void* stream) {
+  if (m == 0 || d == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned4 =
+      ((reinterpret_cast<uintptr_t>(table) |
+        reinterpret_cast<uintptr_t>(deltas)) & 3u) == 0;
+  if (d % 2 == 0 && aligned4) {
+    const int dp = d / 2;
+    scatter_add_rows_kernel<__nv_bfloat162>
+        <<<grid_for(m * dp), kThreads, 0, s>>>(
+            static_cast<__nv_bfloat162*>(table), ids,
+            static_cast<const __nv_bfloat162*>(deltas), n_rows, m, dp);
+  } else {
+    scatter_add_rows_kernel<__nv_bfloat16>
+        <<<grid_for(m * d), kThreads, 0, s>>>(
+            static_cast<__nv_bfloat16*>(table), ids,
+            static_cast<const __nv_bfloat16*>(deltas), n_rows, m, d);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int heat_scatter_set_rows_f32(float* table, int64_t n_rows, int d,
                                          const int32_t* ids, const float* rows,
                                          int64_t m, void* stream) {
-  if (m == 0 || d == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 4 == 0 && aligned16(table) && aligned16(rows)) {
-    const int dv = d / 4;
-    scatter_set_rows_kernel<float4><<<grid_for(m * dv), kThreads, 0, s>>>(
-        reinterpret_cast<float4*>(table), ids,
-        reinterpret_cast<const float4*>(rows), n_rows, m, dv);
-  } else {
-    scatter_set_rows_kernel<float><<<grid_for(m * d), kThreads, 0, s>>>(
-        table, ids, rows, n_rows, m, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_set<float>(table, n_rows, d, ids, rows, m,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int heat_scatter_set_rows_bf16(void* table, int64_t n_rows, int d,
+                                          const int32_t* ids, const void* rows,
+                                          int64_t m, void* stream) {
+  // A copy of bits: bf16 elements move as 16-bit integers.
+  return launch_set<uint16_t>(static_cast<uint16_t*>(table), n_rows, d, ids,
+                              static_cast<const uint16_t*>(rows), m,
+                              static_cast<cudaStream_t>(stream));
 }

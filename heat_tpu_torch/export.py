@@ -26,7 +26,9 @@ def export_embeddings(state, path: str, cfg=None) -> dict:
     """
 
     def host(x):
-        return x.detach().cpu().numpy().astype(np.float32)
+        # .float() first: numpy has no bfloat16, and a bf16 table exports
+        # exactly as f32.
+        return x.detach().cpu().float().numpy()
 
     out = {
         "user_emb": host(state.user_emb),

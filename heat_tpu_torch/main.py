@@ -13,7 +13,11 @@ printing the same lines as the JAX CLI and ending with one
 writes the trained model to a portable ``.npz`` (``heat_tpu_torch.export``,
 served by ``heat_tpu_torch.serving.Recommender``). ``--synthetic U,I`` trains on a
 generated planted-cluster dataset when the benchmark text files are not
-available. The device is ``cuda`` unless ``--device`` says otherwise, and
+available. ``--set KEY=VALUE`` overrides a config key: the headline
+configuration of the JAX package's ``bench.py`` is ``--set neg_sampler=1
+--set tile_size=512 --set refresh_interval=8192 --set his_refresh=subepoch
+--set param_dtype=bfloat16 --set compute_dtype=bfloat16 --set
+update_mode=direct``. The device is ``cuda`` unless ``--device`` says otherwise, and
 the run fails when CUDA is missing.
 """
 

@@ -41,21 +41,26 @@ def history_mean(his_embs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def history_mean_fused(
-    item_emb: torch.Tensor, his_ids: torch.Tensor, mask: torch.Tensor
+    item_emb: torch.Tensor,
+    his_ids: torch.Tensor,
+    mask: torch.Tensor,
+    compute_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Masked history mean fused with its own gather (kernel K1).
 
     Args:
-      item_emb: (I, d) f32 table.
+      item_emb: (I, d) f32 or bf16 table.
       his_ids: (B, H) int32 history ids.
       mask: (B,) int32 valid history length per sample.
+      compute_dtype: the type the rows are cast to and the result has; the
+        table's type when None.
 
     Returns:
-      (B, d) f32 means (empty histories pool to zero). On the card the
-      (B, H, d) gather never reaches device memory and masked slots are
-      never read.
+      (B, d) means in ``compute_dtype`` (empty histories pool to zero),
+      summed in f32 and rounded once. On the card the (B, H, d) gather
+      never reaches device memory and masked slots are never read.
     """
-    return history_mean_gather(item_emb, his_ids, mask)
+    return history_mean_gather(item_emb, his_ids, mask, compute_dtype)
 
 
 def require_mean_aggregator(kind: str) -> None:
@@ -91,7 +96,7 @@ def user_pools_impl(
     ever materialized.
 
     Args:
-      item_emb: (I, d) f32 table.
+      item_emb: (I, d) f32 or bf16 table; the pools have its type.
       his_items: (U, H) int32 history ids (the JAX package's flat (U*H,)
         layout is TPU lane machinery and is not taken).
       his_masks: (U,) int32 valid history lengths.
@@ -105,7 +110,7 @@ def user_pools_impl(
             f"his_items must be (U, H), got shape {tuple(his_items.shape)}"
         )
     u = his_items.shape[0]
-    out = torch.empty((u, item_emb.shape[1]), dtype=torch.float32,
+    out = torch.empty((u, item_emb.shape[1]), dtype=item_emb.dtype,
                       device=item_emb.device)
     for lo in range(0, u, chunk):
         out[lo : lo + chunk] = history_mean_fused(
@@ -119,7 +124,23 @@ def aggregate_history(
 ) -> torch.Tensor:
     """u_agg = gamma * u + (1 - gamma) * means @ w0.
 
-    The (B, d) x (d, d) product is a plain matmul; it is full f32 on the
-    card only with TF32 off, which the engine sets and checks.
+    The (B, d) x (d, d) product is a plain matmul in the type of ``means``
+    (``w0`` is cast to it, as the JAX step casts it to the compute type);
+    in f32 it is full f32 on the card only with TF32 off, which the engine
+    sets and checks. In bf16 the product and each of the three elementwise
+    operations round to bf16, as they do in the JAX package, where the two
+    scalar weights are rounded to bf16 as well before they multiply.
     """
-    return gamma * u + (1.0 - gamma) * (means @ w0)
+    f_c0 = means @ w0.to(means.dtype)
+    return scalar_in(gamma, u.dtype) * u + scalar_in(1.0 - gamma, f_c0.dtype) * f_c0
+
+
+def scalar_in(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float. JAX casts a
+    Python scalar to the array's type before an elementwise operation;
+    PyTorch keeps it in f32. Rounding it here first gives bf16 arithmetic
+    the JAX package's result (for f32 both agree already). Made on the
+    host: nothing waits for the device."""
+    if dtype == torch.float32:
+        return value
+    return float(torch.tensor(value, dtype=dtype))

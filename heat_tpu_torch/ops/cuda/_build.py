@@ -1,8 +1,9 @@
 """Build the package's CUDA sources into one shared library and load it.
 
 The sources under ``heat_tpu_torch/csrc/`` have a plain C interface, so
-they are compiled by ``nvcc`` alone (no PyTorch headers, a few seconds)
-into ``build/heat_tpu_torch/`` at the repository root and bound with
+they are compiled by ``nvcc`` alone (no PyTorch headers, a few seconds;
+one ``nvcc -c`` per source, all started together, then one link) into
+``build/heat_tpu_torch/`` at the repository root and bound with
 ``ctypes``. The library's file name carries a hash of the sources and the
 flags, so an edited source is rebuilt and a stale library is never loaded.
 The build happens at the first kernel launch, never at import.
@@ -18,12 +19,14 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "heat_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -31,18 +34,26 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # C entry point -> argtypes. Pointers and the stream are c_void_p: a plain
 # Python int would be passed as a 32-bit int and cut the pointer.
-SIGNATURES = {
+# One symbol per element type of the table: heat_<kernel>_{f32,bf16}.
+_BY_DTYPE = {
     # table, n_rows, d, ids, m, out, stream
-    "heat_gather_rows_f32": (_P, _I64, _I32, _P, _I64, _P, _P),
-    # table, n_rows, d, his_ids, lens, batch, his, out, stream
-    "heat_history_mean_f32": (_P, _I64, _I32, _P, _P, _I64, _I32, _P, _P),
+    "heat_gather_rows": (_P, _I64, _I32, _P, _I64, _P, _P),
+    # table, n_blocks, block_elems, ids, m, out, stream
+    "heat_gather_blocks": (_P, _I64, _I64, _P, _I64, _P, _P),
+    # table, n_rows, d, his_ids, lens, batch, his, out, out_bf16, stream
+    "heat_history_mean": (_P, _I64, _I32, _P, _P, _I64, _I32, _P, _I32, _P),
     # table, n_rows, d, ids, deltas, m, stream
-    "heat_scatter_add_rows_f32": (_P, _I64, _I32, _P, _P, _I64, _P),
+    "heat_scatter_add_rows": (_P, _I64, _I32, _P, _P, _I64, _P),
     # table, n_rows, d, ids, rows, m, stream
-    "heat_scatter_set_rows_f32": (_P, _I64, _I32, _P, _P, _I64, _P),
-    # sim, rows, n_cols, widx, kw, w, out, stream
-    "heat_window_extract_f32": (_P, _I64, _I64, _P, _I32, _I32, _P, _P),
+    "heat_scatter_set_rows": (_P, _I64, _I32, _P, _P, _I64, _P),
 }
+SIGNATURES = {
+    f"{name}_{suffix}": argtypes
+    for name, argtypes in _BY_DTYPE.items()
+    for suffix in ("f32", "bf16")
+}
+# sim, rows, n_cols, widx, kw, w, out, stream
+SIGNATURES["heat_window_extract_f32"] = (_P, _I64, _I64, _P, _I32, _I32, _P, _P)
 
 _lib: ctypes.CDLL | None = None
 
@@ -79,20 +90,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        compiles = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            for obj, src in zip(objects, sources())
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for cmd in compiles
+        ]
+        results = [(cmd, proc.communicate()[0], proc.returncode)
+                   for cmd, proc in zip(compiles, procs)]
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects]
+        for cmd, text, rc in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
                 f"{proc.stdout}{proc.stderr}"
             )
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        os.replace(lib, out)  # atomic: a concurrent build sees all or none
     return out
 
 
@@ -109,7 +132,12 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check(rc: int, name: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a C entry point."""
+def launch(symbol: str, name: str, device, *args) -> None:
+    """Call the C entry point ``symbol`` with ``args`` and, last, PyTorch's
+    current stream of ``device``, under that device's guard; raise on a
+    non-zero cudaError_t."""
+    fn = getattr(library(), symbol)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")

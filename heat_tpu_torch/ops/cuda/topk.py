@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from heat_tpu_torch.ops.cuda import _build
-from heat_tpu_torch.ops.cuda.gather import _check, _stream
+from heat_tpu_torch.ops.cuda.gather import _check
 
 LAUNCHES = {"window_extract": 0}
 
@@ -49,6 +49,8 @@ def window_extract(sim: torch.Tensor, widx: torch.Tensor, w: int) -> torch.Tenso
     Returns a new (R, kw, w) f32 tensor.
     """
     on_card = _check("window_extract", sim, widx)
+    if sim.dtype != torch.float32:  # the kernel has no bf16 instance
+        raise ValueError(f"window_extract: sim must be float32, got {sim.dtype}")
     rows, n_cols = sim.shape
     if w <= 0 or n_cols % w:
         raise ValueError(
@@ -64,12 +66,9 @@ def window_extract(sim: torch.Tensor, widx: torch.Tensor, w: int) -> torch.Tenso
     out = torch.empty((rows, kw, w), dtype=torch.float32, device=sim.device)
     if rows * kw == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(sim.device):
-        rc = lib.heat_window_extract_f32(
-            sim.data_ptr(), rows, n_cols, widx.data_ptr(), kw, w,
-            out.data_ptr(), _stream(sim),
-        )
-    _build.check(rc, "window_extract")
+    _build.launch(
+        "heat_window_extract_f32", "window_extract", sim.device,
+        sim.data_ptr(), rows, n_cols, widx.data_ptr(), kw, w, out.data_ptr(),
+    )
     LAUNCHES["window_extract"] += 1
     return out

@@ -3,8 +3,8 @@
 Counterpart of ``heat_tpu/serving.py``: load exported embeddings (or take
 a live engine's state), optionally apply behaviour aggregation to the user
 rows, and serve batched top-k item recommendations with already-seen items
-masked, on the state's device. A request's user rows come through kernel
-K2, aggregated histories through K1, and every selection through the
+masked, on the state's device. The tables are f32 or bf16; scores are
+always f32. A request's user rows come through kernel K2, aggregated histories through K1, and every selection through the
 two-phase exact top-k (``evaluation.evaluator.masked_topk``, kernel K4).
 
 A request takes one of three routes, fixed when the ``Recommender`` is
@@ -410,12 +410,17 @@ class Recommender:
             torch.as_tensor(ids, device=device),
             torch.as_tensor(lens, device=device),
         )
-        u = (1.0 - self.cfg.gamma) * (pooled @ self.state.w0)
-        u = u / torch.linalg.vector_norm(u, dim=1, keepdim=True).clamp(min=1e-12)
+        # In the item table's type, with f32 norms and f32 scores, as the
+        # JAX package computes them (a bf16 table serves in bf16).
+        compute = item_emb.dtype
+        u = (1.0 - self.cfg.gamma) * (pooled @ self.state.w0.to(compute))
+        u = u / torch.linalg.vector_norm(
+            u.float(), dim=1, keepdim=True
+        ).clamp(min=1e-12).to(compute)
         it = item_emb / torch.linalg.vector_norm(
-            item_emb, dim=1, keepdim=True
-        ).clamp(min=1e-12)
-        sims = u @ it.T  # (n, I)
+            item_emb.float(), dim=1, keepdim=True
+        ).clamp(min=1e-12).to(compute)
+        sims = (u @ it.T).float()  # (n, I)
         if exclude_history:
             r, p = np.nonzero(np.arange(h)[None, :] < lens[:, None])
             # finfo.min, not -inf: masked scores stay finite.

@@ -1,18 +1,25 @@
 """Training engine: the epoch loop and evaluation.
 
 Counterpart of ``heat_tpu/train/engine.py`` for the single-device slice:
-``Engine.__init__``, batch packing with weight-0 padding
-(``_make_batches`` / ``_shuffle_or_pack``, modes "epoch", "once" and
-"none"), ``train_one_epoch`` with the LR milestones, ``evaluate`` and
-``evaluate0``. Where the JAX epoch is one ``lax.scan`` program, here it is
-a Python loop over batches; the epoch's loss sum stays on the device and
-is read once per epoch.
+``Engine.__init__`` (with the tile sampler's "auto" parameters and the
+stable pre-sort of ``visit_order`` "user" / "item"), batch packing with
+weight-0 padding (``_make_batches`` / ``_shuffle_or_pack``, modes "epoch",
+"once" and "none"), ``train_one_epoch`` with the LR milestones,
+``evaluate`` and ``evaluate0``. Where the JAX epoch is one ``lax.scan``
+program, here it is a Python loop over batches; the epoch's loss sum stays
+on the device and is read once per epoch.
+
+Per epoch, before the first step: under ``his_refresh: subepoch`` the
+(U, d) pooled-history table is computed once from the live item table
+(kernel K1, chunk by chunk into one buffer of the table's type) and every
+step of the epoch reads its rows; under ``his_refresh: step`` with a fixed
+batch stream (``shuffle_mode`` "none" or "once") whose batches repeat
+users, ``_history_dedup`` gives each step the distinct users of its batch,
+so that K1 pools once per distinct user. The maps are computed on the host
+once per stream and cached.
 
 Configurations outside the ported slices raise ``NotImplementedError``
 naming the ROADMAP item that will add them; nothing falls back silently.
-The JAX engine's history dedup (active under ``shuffle_mode: none``) is an
-exact rewrite of the per-sample means, so this engine computes the
-per-sample means and gets the same values.
 
 Memory: the step updates the state in place (``train/scatter.py``), and
 the per-epoch visit order is built with int32 index tensors, so at a
@@ -30,7 +37,7 @@ import torch
 
 from heat_tpu_torch.config import (
     CFConfig,
-    NEG_SAMPLER_UNIFORM,
+    NEG_SAMPLER_TILE,
     SGD_MODE_ACCUM,
 )
 from heat_tpu_torch.data.datasets import ClickDataset
@@ -47,7 +54,7 @@ from heat_tpu_torch.models.state import (
     zero_grad_accumulators,
 )
 from heat_tpu_torch.train.optimizer import scheduled_lr
-from heat_tpu_torch.train.samplers import init_sampler_state
+from heat_tpu_torch.train.samplers import derive_tile_params, init_sampler_state
 from heat_tpu_torch.train.train_step import Batch, train_step
 
 
@@ -60,17 +67,8 @@ def check_slice(cfg: CFConfig) -> None:
     """Raise NotImplementedError for any setting this port does not run
     yet, naming where ROADMAP.md ("Modules still to port") places it."""
     off_slice = [
-        (cfg.neg_sampler != NEG_SAMPLER_UNIFORM, "the tile sampler", "item 10"),
-        (cfg.his_refresh != "step", "his_refresh: subepoch", "item 10"),
         (cfg.aggregator != "mean", f"aggregator: {cfg.aggregator}", "item 12"),
         (cfg.num_subepochs > 1, "num_subepochs > 1", "item 11"),
-        (cfg.param_dtype != "float32", f"param_dtype: {cfg.param_dtype}", "item 10"),
-        (
-            cfg.compute_dtype != "float32",
-            f"compute_dtype: {cfg.compute_dtype}",
-            "item 10",
-        ),
-        (cfg.visit_order != "file", f"visit_order: {cfg.visit_order}", "item 10"),
         (bool(cfg.emb_pad), "emb_pad (TPU lane padding)", "the do-not-port list"),
     ]
     for bad, what, where in off_slice:
@@ -127,6 +125,9 @@ class Engine:
         cfg.num_items = train_data.num_items
         cfg.train_size = train_data.train_size
         check_slice(cfg)
+        if cfg.neg_sampler == NEG_SAMPLER_TILE and cfg.tile_size <= 0:
+            # "auto": the paper's Alg. 1 tile tuning (derive_tile_params).
+            cfg.tile_size, cfg.refresh_interval = derive_tile_params(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -145,10 +146,18 @@ class Engine:
         self.state: TrainState = init_train_state(
             cfg, self.generator, self.device
         )
-        self.sampler_state = init_sampler_state(cfg, self.device)
-        self.pairs = torch.as_tensor(
-            np.asarray(train_data.pairs, np.int32), device=self.device
+        self.sampler_state = init_sampler_state(
+            cfg, self.device, self.generator
         )
+        pairs = np.asarray(train_data.pairs, np.int32)
+        if cfg.visit_order != "file" and pairs.shape[0] > 0:
+            # Stable pre-sort of the visit stream, on the host before the
+            # one upload: "user" groups the clicks by user on any input
+            # order (which is what gives the history dedup its repeats
+            # under a fixed stream), "item" groups them by item.
+            col = 0 if cfg.visit_order == "user" else 1
+            pairs = pairs[np.argsort(pairs[:, col], kind="stable")]
+        self.pairs = torch.as_tensor(pairs, device=self.device)
         self.his_items = torch.as_tensor(
             np.asarray(train_data.his_items, np.int32), device=self.device
         )
@@ -157,6 +166,7 @@ class Engine:
         )
         self._evaluator = None  # lazy TiledEvaluator (mask tensors cached)
         self._batch_cache = None  # shuffle_mode == "once" packed stream
+        self._dedup_cache = None  # (stream key, maps) of _history_dedup
 
     # ------------------------------------------------------------------
     def unpadded_state(self) -> TrainState:
@@ -204,6 +214,57 @@ class Engine:
         num_batches = -(-n // batch)
         return self._shuffle_or_pack(pairs, num_batches, batch)
 
+    def _history_dedup(self, pairs, users) -> Optional[tuple]:
+        """Per-batch (uniq_users (nb, Bu), uniq_inverse (nb, B)) int32 maps
+        for the train step's history-gather dedup, or None.
+
+        It applies when the pooled history is recomputed per step from the
+        live table (``his_refresh: step``) and the batch stream is fixed
+        across epochs (``shuffle_mode`` "none" or "once": a user-grouped
+        file order is where repeats are massive), and only if no batch has
+        more than 0.7 x batch distinct users: on a shuffled stream the
+        dedup would only add a (B,) gather. Bu is the largest distinct
+        count rounded up to 8; short batches pad by repeating their first
+        user. Computed on the host with ``np.unique`` (one download of the
+        stream) and cached per stream, so a fixed stream pays once."""
+        cfg = self.cfg
+        if cfg.his_refresh != "step" or cfg.shuffle_mode not in ("none", "once"):
+            return None
+        key = (id(pairs), tuple(users.shape))
+        if self._dedup_cache is not None and self._dedup_cache[0] == key:
+            return self._dedup_cache[1]
+        users_np = users.cpu().numpy()
+        nb, batch = users_np.shape
+        uniqs, invs, max_u = [], [], 1
+        for b in range(nb):
+            uu, inv = np.unique(users_np[b], return_inverse=True)
+            uniqs.append(uu)
+            invs.append(inv)
+            max_u = max(max_u, len(uu))
+        out = None
+        if max_u <= 0.7 * batch:  # worth the extra (B,) means gather
+            bu = -(-max_u // 8) * 8
+            uu_arr = np.zeros((nb, bu), np.int32)
+            for b, uu in enumerate(uniqs):
+                uu_arr[b, : len(uu)] = uu
+                uu_arr[b, len(uu):] = uu[0] if len(uu) else 0
+            out = (
+                torch.as_tensor(uu_arr, device=self.device),
+                torch.as_tensor(
+                    np.stack(invs).astype(np.int32), device=self.device
+                ),
+            )
+        self._dedup_cache = (key, out)
+        return out
+
+    def _pooled_history(self) -> torch.Tensor:
+        """(U, d) pooled history of every user from the live item table,
+        in the table's type."""
+        return compute_user_pools(
+            self.state.item_emb, self.his_items, self.his_masks,
+            aggregator=self.cfg.aggregator,
+        )
+
     def train_one_epoch(self) -> float:
         """Run one epoch; returns the mean per-sample loss."""
         cfg = self.cfg
@@ -213,6 +274,11 @@ class Engine:
             self.epoch += 1
             return 0.0
         users, pos, weight = self._make_batches(self.pairs)
+        dedup = self._history_dedup(self.pairs, users)
+        # Cached pools: once per epoch, from the epoch-start tables.
+        user_means = (
+            self._pooled_history() if cfg.his_refresh == "subepoch" else None
+        )
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(users.shape[0]):
             self.state, self.sampler_state, loss = train_step(
@@ -223,6 +289,9 @@ class Engine:
                 self.his_items,
                 self.his_masks,
                 cfg,
+                user_means=user_means,
+                uniq_users=dedup[0][i] if dedup else None,
+                uniq_inverse=dedup[1][i] if dedup else None,
             )
             loss_sum += loss
         if cfg.sgd_mode == SGD_MODE_ACCUM:
@@ -269,4 +338,5 @@ class Engine:
     def evaluate0(self) -> np.ndarray:
         """Dense user x item dot-product matrix on the host (small problems
         and parity tests only)."""
-        return (self.state.user_emb @ self.state.item_emb.T).cpu().numpy()
+        user, item = self.state.user_emb.float(), self.state.item_emb.float()
+        return (user @ item.T).cpu().numpy()

@@ -30,6 +30,12 @@ copy a table. On the card nothing here waits for the host: no
 
 Ids equal to the table size mark weight-0 padding and are dropped, as
 JAX's ``mode="drop"`` does.
+
+Tables (and the accum mode's gradient rows) are f32 or bf16; gradients,
+segment sums, the dense accumulator and the optimizer slots are always
+f32. A bf16 table is rounded to where the JAX package rounds: the step
+``lr * g`` (or the new row ``base - lr * g``) is computed in f32, cast to
+the table's type, and then added (or written) in that type.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from heat_tpu_torch.models.aggregator import scalar_in
 from heat_tpu_torch.ops.cuda.gather import gather_rows
 from heat_tpu_torch.ops.cuda.scatter import scatter_add_rows, scatter_set_rows
 
@@ -106,13 +113,15 @@ def _sorted_dedup_with_base(ids, grads, num_rows, writeback):
     return rep_ids, summed, base
 
 
-def _valid(rep_ids: torch.Tensor, num_rows: int) -> torch.Tensor:
-    return (rep_ids < num_rows).to(torch.float32)[:, None]
+def _valid(rep_ids: torch.Tensor, num_rows: int,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return (rep_ids < num_rows).to(dtype)[:, None]
 
 
 def _read(table: torch.Tensor, rep_ids: torch.Tensor) -> torch.Tensor:
-    """Rows table[min(rep_ids, N - 1)] (K2): the sentinel slots read the
-    last row, and their results are masked or dropped."""
+    """Rows table[min(rep_ids, N - 1)] (K2), in the table's type: the
+    sentinel slots read the last row, and their results are masked or
+    dropped."""
     return gather_rows(table, rep_ids.clamp(max=table.shape[0] - 1))
 
 
@@ -129,20 +138,24 @@ def _apply_row_updates_sorted(
         if l2:
             summed = summed + l2 * base * _valid(rep_ids, num_rows)
         g = summed.clamp_(-clip_val, clip_val)
-        scatter_set_rows(table, rep_ids, base.sub_(lr * g))
+        scatter_set_rows(table, rep_ids, base.sub_(lr * g).to(table.dtype))
         return table, None
     rep_ids, summed = segment_sum_by_id(ids, grads, num_rows)
     if l2:
         rows = _read(table, rep_ids)
-        summed = summed + l2 * rows * _valid(rep_ids, num_rows)
+        summed = summed + (
+            scalar_in(l2, rows.dtype) * rows * _valid(rep_ids, num_rows, rows.dtype)
+        )
     if gacc is None:
         g = summed.clamp_(-clip_val, clip_val)
-        scatter_add_rows(table, rep_ids, g.mul_(-lr))
+        scatter_add_rows(table, rep_ids, g.mul_(-lr).to(table.dtype))
         return table, None
-    acc_rows = _read(gacc, rep_ids) * _valid(rep_ids, num_rows)
-    acc_new = torch.clamp(decay * acc_rows + summed, -clip_val, clip_val)
-    scatter_add_rows(table, rep_ids, -lr * acc_new)
-    scatter_set_rows(gacc, rep_ids, acc_new)
+    acc_rows = _read(gacc, rep_ids) * _valid(rep_ids, num_rows, gacc.dtype)
+    acc_new = torch.clamp(
+        scalar_in(decay, gacc.dtype) * acc_rows + summed, -clip_val, clip_val
+    )
+    scatter_add_rows(table, rep_ids, (-lr * acc_new).to(table.dtype))
+    scatter_set_rows(gacc, rep_ids, acc_new.to(gacc.dtype))
     return table, gacc
 
 
@@ -150,9 +163,9 @@ def _write_rows(table, rep_ids, upd, lr, base) -> None:
     """table[rep] -= lr * upd (K3), or table[rep] = base - lr * upd when
     the write-back is fused (S1)."""
     if base is None:
-        scatter_add_rows(table, rep_ids, -lr * upd)
+        scatter_add_rows(table, rep_ids, (-lr * upd).to(table.dtype))
     else:
-        scatter_set_rows(table, rep_ids, base.sub_(lr * upd))
+        scatter_set_rows(table, rep_ids, base.sub_(lr * upd).to(table.dtype))
 
 
 def _apply_row_updates_opt_sorted(
@@ -169,7 +182,7 @@ def _apply_row_updates_opt_sorted(
         )
     valid = _valid(rep_ids, num_rows)
     if l2:
-        rows = base if base is not None else _read(table, rep_ids)
+        rows = base if base is not None else _read(table, rep_ids).float()
         summed = summed + l2 * rows * valid
     g = torch.clamp(summed, -clip_val, clip_val) * valid
     if m is None:  # adagrad
@@ -212,13 +225,15 @@ def _apply_row_updates_dense(table, ids, grads, *, lr, clip_val, gacc, decay, l2
     if l2 or gacc is not None:
         touched = _touched(table, ids)
     if l2:
-        acc += l2 * table * touched
+        acc += l2 * table.float() * touched
     if gacc is None:
-        table.sub_(lr * acc.clamp_(-clip_val, clip_val))
+        table.sub_((lr * acc.clamp_(-clip_val, clip_val)).to(table.dtype))
         return table, None
-    new_acc = torch.clamp(decay * gacc + acc, -clip_val, clip_val)
+    new_acc = torch.clamp(
+        scalar_in(decay, gacc.dtype) * gacc + acc, -clip_val, clip_val
+    )
     gacc.copy_(torch.where(touched > 0, new_acc, gacc))
-    table.sub_(lr * new_acc * touched)
+    table.sub_((lr * new_acc * touched).to(table.dtype))
     return table, gacc
 
 
@@ -228,11 +243,11 @@ def _apply_row_updates_opt_dense(
     acc = _dense_acc(table, ids, grads)
     touched = _touched(table, ids)
     if l2:
-        acc += l2 * table * touched
+        acc += l2 * table.float() * touched
     g = acc.clamp_(-clip_val, clip_val)
     if m is None:  # adagrad: untouched rows have g == 0, v unchanged
         v += g * g
-        table.sub_(lr * (g / (torch.sqrt(v) + eps) * touched))
+        table.sub_((lr * (g / (torch.sqrt(v) + eps) * touched)).to(table.dtype))
         return table, None, v
     t = step.to(torch.float32)
     hit = touched > 0
@@ -240,7 +255,8 @@ def _apply_row_updates_opt_dense(
     v.copy_(torch.where(hit, beta2 * v + (1.0 - beta2) * g * g, v))
     m_hat = m / (1.0 - beta1**t)
     v_hat = v / (1.0 - beta2**t)
-    table.sub_(lr * (m_hat / (torch.sqrt(v_hat) + eps) * touched))
+    upd = m_hat / (torch.sqrt(v_hat) + eps) * touched
+    table.sub_((lr * upd).to(table.dtype))
     return table, m, v
 
 
@@ -268,7 +284,7 @@ def apply_row_updates(
         row -= lr * acc_new;  acc stored clipped.
     ``decay`` is gamma for the user table, 1.0 for the item table.
 
-    writeback: optional (M, d) f32 rows written to ``table[ids]`` BEFORE
+    writeback: optional (M, d) rows written to ``table[ids]`` BEFORE
     the update (the user table's aggregated-row write-back). Repeated ids
     carry identical rows: every read of a batched step sees the
     batch-start tables. On the sorted path it fuses with the update into
@@ -281,7 +297,7 @@ def apply_row_updates(
         raise ValueError("writeback fusion is batch-mode only (gacc=None)")
     if table.shape[0] <= DENSE_ROWS_THRESHOLD:
         if writeback is not None:
-            scatter_set_rows(table, ids, writeback)
+            scatter_set_rows(table, ids, writeback.to(table.dtype))
         return _apply_row_updates_dense(
             table, ids, grads, lr=lr, clip_val=clip_val, gacc=gacc,
             decay=decay, l2=l2,
@@ -309,13 +325,13 @@ def apply_row_updates_direct(
     the combined row; l2 reads the forward-pass ``rows`` (the aggregated
     rows for the user table). Returns ``table``."""
     if writeback is not None:
-        scatter_set_rows(table, ids, writeback)
+        scatter_set_rows(table, ids, writeback.to(table.dtype))
     g = torch.clamp(grads, -clip_val, clip_val)
     if l2:
         if rows is None:
             raise ValueError("l2 under update_mode='direct' needs rows")
         g = g + l2 * rows.float()
-    return scatter_add_rows(table, ids, g.mul_(-lr))
+    return scatter_add_rows(table, ids, g.mul_(-lr).to(table.dtype))
 
 
 def dense_opt_update(
@@ -384,7 +400,7 @@ def apply_row_updates_opt(
               beta2=beta2, eps=eps, l2=l2)
     if table.shape[0] <= DENSE_ROWS_THRESHOLD:
         if writeback is not None:
-            scatter_set_rows(table, ids, writeback)
+            scatter_set_rows(table, ids, writeback.to(table.dtype))
         return _apply_row_updates_opt_dense(table, ids, grads, **kw)
     return _apply_row_updates_opt_sorted(
         table, ids, grads, writeback=writeback, **kw

@@ -1,15 +1,24 @@
 """One training step: gather -> history mean -> score -> loss -> grad ->
 duplicate-safe row update.
 
-Counterpart of the uniform-sampler / mean-aggregator branches of
+Counterpart of the mean-aggregator branches of
 ``heat_tpu/train/train_step.py`` ``train_step``:
 
-1. gather the user, positive and negative rows (kernel K2);
-2. the masked history mean of each sample's user (kernel K1), outside
-   autograd: history rows never receive a gradient;
+1. gather the user and positive rows and the negatives' rows (kernel K2),
+   cast to ``cfg.compute_dtype``: with the tile sampler in batch mode the
+   T rows of the tile, once, and the draws enter only as per-(sample,
+   slot) multiplicities; otherwise the (B, K) sampled rows;
+2. the pooled history of each sample's user, outside autograd (history
+   rows never receive a gradient): the cached pool rows
+   ``user_means[users]`` (K2) under ``his_refresh: subepoch``; with the
+   engine's dedup maps the masked mean once per distinct user (kernel K1
+   over (Bu, H) ids) read back per sample (K2); else the masked mean per
+   sample (K1);
 3. aggregation, cosine (or dot) scores and the loss, differentiated by
    autograd with respect to the gathered rows and ``w0`` only (leaf
-   tensors made from the gathered rows, never the whole tables);
+   tensors made from the gathered rows, never the whole tables); the
+   tile path scores with one (B, d) x (d, T) product, and its (T, d)
+   gradient holds one row per tile slot;
 4. under ``sgd_mode: accum``, the stale accumulated user rows' term of the
    ``w0`` gradient;
 5. the user table takes the aggregated rows (write-back) and then its
@@ -18,6 +27,8 @@ Counterpart of the uniform-sampler / mean-aggregator branches of
    write-back fused on the sorted path), per-occurrence SGD (``direct``),
    or row-sparse Adagrad / lazy Adam; each optionally with l2
    (``train/scatter.py`` picks the dense or sort-dedup path per table);
+   the item update covers B + T rows on the tile path, B * (1 + K)
+   otherwise; gradients are cast to f32 first;
 6. ``w0`` by SGD, or by Adagrad/Adam gated on the batch holding real
    samples.
 
@@ -27,6 +38,12 @@ the write-back nor the update touches a real row through them. The
 1-based ``step`` counts batches with real samples; an all-padding batch is
 not an optimizer step.
 
+With bf16 tables or compute the step rounds where the JAX step does: at
+the casts of the gathered rows, at the end of K1, at the aggregation's
+product and its three elementwise operations, at the casts of the
+gradients back to the rows' type, and at every table write. Scores and
+losses are f32.
+
 The step reads the tables once at batch start. It updates the tables, the
 gradient rows and the table slots in place and returns a new TrainState
 holding them; nothing in it waits for the device.
@@ -34,7 +51,7 @@ holding them; nothing in it waits for the device.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,11 +60,11 @@ from heat_tpu_torch.models.aggregator import (
     aggregate_history,
     history_mean_fused,
 )
-from heat_tpu_torch.models.state import TrainState
+from heat_tpu_torch.models.state import TrainState, torch_dtype
 from heat_tpu_torch.ops.cuda.gather import gather_rows
 from heat_tpu_torch.ops.cuda.scatter import scatter_set_rows
-from heat_tpu_torch.ops.losses import sample_losses
-from heat_tpu_torch.ops.similarity import pair_scores
+from heat_tpu_torch.ops.losses import sample_losses, sample_losses_weighted
+from heat_tpu_torch.ops.similarity import pair_scores, tile_scores
 from heat_tpu_torch.train.samplers import SamplerState, sample_negatives
 from heat_tpu_torch.train.scatter import (
     apply_row_updates,
@@ -71,9 +88,24 @@ def train_step(
     his_items: torch.Tensor,
     his_masks: torch.Tensor,
     cfg: CFConfig,
+    user_means: Optional[torch.Tensor] = None,
+    uniq_users: Optional[torch.Tensor] = None,
+    uniq_inverse: Optional[torch.Tensor] = None,
 ) -> tuple[TrainState, SamplerState, torch.Tensor]:
     """One minibatch step. Returns (state', sampler_state', loss_sum) with
-    loss_sum a 0-d tensor on the step's device."""
+    loss_sum a 0-d tensor on the step's device.
+
+    user_means: optional precomputed (U, d) pooled-history table
+      (cfg.his_refresh == "subepoch"); None recomputes the means from the
+      live item table every step.
+    uniq_users / uniq_inverse: optional history-gather dedup
+      (his_refresh == "step" only): uniq_users (Bu,) int32 lists the
+      batch's distinct user ids (padded by repetition), uniq_inverse (B,)
+      int32 maps each sample to its slot. Every read of a step sees the
+      batch-start tables, so repeated users have identical means: pooling
+      once per distinct user is an exact rewrite. The engine computes the
+      maps per fixed batch stream (``Engine._history_dedup``).
+    """
     users, pos, weight = batch
     real = weight.sum().to(torch.int32)
     sample, sampler_state = sample_negatives(
@@ -83,38 +115,72 @@ def train_step(
     b, k = negs.shape
     user_emb, item_emb, w0 = state.user_emb, state.item_emb, state.w0
     d = item_emb.shape[1]
+    compute = torch_dtype(cfg.compute_dtype)
+    # Whole-tile scoring is batch-mode only: accum mode treats every
+    # updated id as touched, so folding gradients onto all T tile rows
+    # would re-apply accumulated rows that got no fresh gradient. It falls
+    # back to the gathered tile[idx] rows.
+    tiled = sample.tile is not None and state.item_gacc is None
 
-    u_rows = gather_rows(user_emb, users)
-    p_rows = gather_rows(item_emb, pos)
-    n_rows = gather_rows(item_emb, negs.reshape(-1)).view(b, k, d)
-    with torch.no_grad():
-        his_ids = his_items.index_select(0, users.long())
-        means = history_mean_fused(
-            item_emb, his_ids, his_masks.index_select(0, users.long())
+    u_rows = gather_rows(user_emb, users).to(compute)
+    p_rows = gather_rows(item_emb, pos).to(compute)
+    if tiled:
+        tile_ids = sample.tile
+        n_rows = gather_rows(item_emb, tile_ids).to(compute)  # (T, d)
+        # counts[b, t]: how many of sample b's K draws hit tile slot t.
+        # Exact small integers, so the order of the adds does not matter.
+        counts = torch.zeros(
+            (b, tile_ids.shape[0]), dtype=torch.float32, device=negs.device
+        ).scatter_add_(
+            1, sample.tile_idx.long(),
+            torch.ones((b, k), dtype=torch.float32, device=negs.device),
         )
+    else:
+        n_rows = gather_rows(item_emb, negs.reshape(-1)).view(b, k, d).to(compute)
+    with torch.no_grad():
+        if user_means is not None:
+            means = gather_rows(user_means, users).to(compute)
+        elif uniq_users is not None:
+            idx = uniq_users.long()
+            means_u = history_mean_fused(
+                item_emb, his_items.index_select(0, idx),
+                his_masks.index_select(0, idx), compute,
+            )
+            means = gather_rows(means_u, uniq_inverse)
+        else:
+            idx = users.long()
+            means = history_mean_fused(
+                item_emb, his_items.index_select(0, idx),
+                his_masks.index_select(0, idx), compute,
+            )
 
     u_l, p_l, n_l, w0_l = (
         t.detach().requires_grad_() for t in (u_rows, p_rows, n_rows, w0)
     )
     u_agg = aggregate_history(u_l, means, w0_l, cfg.gamma)
-    s_up, s_un = pair_scores(u_agg, p_l, n_l, similarity=cfg.similarity)
-    loss_sum = (sample_losses(s_up, s_un, cfg) * weight).sum()
+    if tiled:
+        s_up, S = tile_scores(u_agg, p_l, n_l, similarity=cfg.similarity)
+        losses = sample_losses_weighted(s_up, S, counts, cfg.num_negs, cfg)
+    else:
+        s_up, s_un = pair_scores(u_agg, p_l, n_l, similarity=cfg.similarity)
+        losses = sample_losses(s_up, s_un, cfg)
+    loss_sum = (losses * weight).sum()
     g_u, g_p, g_n, g_w0 = torch.autograd.grad(loss_sum, (u_l, p_l, n_l, w0_l))
+    g_u, g_p, g_n = g_u.float(), g_p.float(), g_n.float()
 
     if state.user_gacc is not None:
         # Accum mode: the reference's aggregator backward works on the
         # persistent user-grad row, so the w0 gradient also holds the stale
         # accumulated rows' term (f32 GEMM; the engine turns TF32 off).
-        prev_acc = gather_rows(state.user_gacc, users)
+        prev_acc = gather_rows(state.user_gacc, users).float()
         g_w0 = g_w0 + (1.0 - cfg.gamma) * (
-            (means * weight[:, None]).T @ prev_acc
+            (means.float() * weight[:, None]).T @ prev_acc
         )
 
     num_users, num_items = user_emb.shape[0], item_emb.shape[0]
     valid = weight > 0
     users_w = torch.where(valid, users, num_users)
     pos_w = torch.where(valid, pos, num_items)
-    negs_w = torch.where(valid[:, None], negs, num_items)
     u_agg = u_agg.detach()
     l2 = cfg.l2 if cfg.l2_enabled else 0.0
     step1 = state.step + (real > 0).to(state.step.dtype)
@@ -129,7 +195,7 @@ def train_step(
     # mode writes it first (its update reads the persistent grad rows).
     user_gacc = item_gacc = None
     if state.user_gacc is not None:
-        scatter_set_rows(user_emb, users_w, u_agg)
+        scatter_set_rows(user_emb, users_w, u_agg.to(user_emb.dtype))
         u_writeback = None
     else:
         u_writeback = u_agg
@@ -151,8 +217,17 @@ def train_step(
             v=opt_slots["user_v"], writeback=u_writeback, **opt,
         )
 
-    # Item table: positives and negatives in one deduplicated update.
-    item_ids = torch.cat([pos_w, negs_w.reshape(-1)])
+    # Item table: positives and negatives in one deduplicated update. On
+    # the tile path g_n already is the per-tile-row gradient (T, d): the
+    # update touches B + T rows, not B * (1 + K), and each slot of the tile
+    # (repeated ids included) is one occurrence. Weight-0 samples put no
+    # gradient into the tile rows, so only their positives need the
+    # sentinel.
+    if tiled:
+        neg_ids = tile_ids
+    else:
+        neg_ids = torch.where(valid[:, None], negs, num_items).reshape(-1)
+    item_ids = torch.cat([pos_w, neg_ids])
     item_grads = torch.cat([g_p, g_n.reshape(-1, d)])
     del g_n  # 134 MB at B = 32,768, K = 16: freed before the update's buffers
     if cfg.update_mode == "direct":

@@ -2,7 +2,8 @@
 at a tiny size on the CPU: the same dataset from the same seed, a JSON
 line with every key of the JAX script's, the sort-dedup path reported
 (and taken) when both tables are above the threshold (lowered here), and
-the flags of unported features refused.
+the tile sampler, cached pools and bf16 of the JAX script's configuration,
+and the flags of unported features refused.
 """
 
 import ast
@@ -65,8 +66,12 @@ def test_tiny_cpu_run_prints_the_jax_keys(monkeypatch, capsys, mode):
     assert record["device"] == "cpu"
     # Device numbers are not made up on the CPU.
     assert record["hbm_gbps"] is record["peak_device_bytes"] is None
-    assert record["state_bytes"] == (300 + 200 + 16) * 16 * 4
-    assert len(record["reduced"]) == 4
+    # bf16 tables, f32 w0; the pools are one more user table.
+    assert record["state_bytes"] == (300 + 200) * 16 * 2 + 16 * 16 * 4
+    assert record["pools_bytes"] == 300 * 16 * 2
+    assert (record["param_dtype"], record["his_refresh"]) == ("bfloat16", "subepoch")
+    assert record["tile_size"] == 128 and record["refresh_interval"] == 2048
+    assert len(record["reduced"]) == 1 and "emb_pad" in record["reduced"][0]
     assert kscatter.LAUNCHES == before  # plain versions on the CPU
 
 
@@ -87,10 +92,22 @@ def test_profile_on_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tile", "128"], "item 10"), (["--refresh", "4096"], "item 10"),
+    # --tile and --refresh work; what stays refused stays so beside them.
+    (["--tile", "128", "--aggregator", "user_attention"], "item 12"),
+    (["--refresh", "4096", "--emb-pad", "128"], "do-not-port"),
     (["--aggregator", "user_attention"], "item 12"),
     (["--emb-pad", "128"], "do-not-port"),
 ])
 def test_unported_flags_are_refused(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         bench_large.run(TINY + flags)
+
+
+def test_tile_and_refresh_flags_set_the_sampler():
+    record = bench_large.run(TINY + ["--tile", "32", "--refresh", "512"])
+    assert (record["tile_size"], record["refresh_interval"]) == (32, 512)
+    assert np.isfinite(record["losses"]).all()
+    # The byte model counts B + T item rows and the per-epoch pools.
+    nb = -(-1500 // 256)
+    assert record["rows_scattered"] == nb * (256 + 256 + 32)
+    assert record["rows_gathered"] == nb * (3 * 256 + 32) + 300 * 10

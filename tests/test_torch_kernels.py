@@ -340,6 +340,9 @@ def test_window_extract_rejects_what_the_kernel_does_not_take(device):
         topk.window_extract(sim, widx.long(), 128)
     with pytest.raises(ValueError, match="f32"):
         topk.window_extract(sim.double(), widx, 128)
+    # bf16 tables pass the gathers' contract; K4 has an f32 instance only.
+    with pytest.raises(ValueError, match="float32"):
+        topk.window_extract(sim.bfloat16(), widx, 128)
     with pytest.raises(ValueError, match="contiguous"):
         topk.window_extract(sim, torch.zeros(4, 6, dtype=torch.int32, device=device)[:, ::2], 128)
     with pytest.raises(ValueError, match="contiguous"):
@@ -349,3 +352,188 @@ def test_window_extract_rejects_what_the_kernel_does_not_take(device):
     if device.type == "cuda":
         with pytest.raises(ValueError, match="must be on cuda"):
             topk.window_extract(sim, widx.cpu(), 128)
+
+
+# --- bf16 instances and the block gather S2, on the card ----------------
+
+
+def _bf16(x, device):
+    return torch.from_numpy(x).to(device).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 30, 33])  # 16-byte path; element path
+def test_gather_rows_bf16_kernel_matches_plain(cuda, d):
+    rng = np.random.default_rng(20)
+    table = _bf16(rng.normal(size=(500, d)).astype(np.float32), cuda)
+    ids = torch.from_numpy(rng.integers(0, 500, 3000).astype(np.int32)).to(cuda)
+    before = gather.LAUNCHES["gather_rows"]
+    got = gather.gather_rows(table, ids)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES["gather_rows"] == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, gather.gather_rows_ref(table, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 30])
+@pytest.mark.parametrize("table_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16),
+])
+def test_history_mean_bf16_kernel_matches_plain(cuda, d, table_dtype, out_dtype):
+    """The kernel sums in history order, the plain version blocked: both in
+    f32 with one rounding to the output type, so a bf16 output is within
+    one bf16 ulp (2^-8 relative) of the other, an f32 output within rtol
+    1e-5."""
+    rng = np.random.default_rng(21)
+    table, his, lens = _history_inputs(rng, 500, d, 300, 13)
+    t = torch.from_numpy(table).to(cuda).to(table_dtype)
+    h, l = torch.from_numpy(his).to(cuda), torch.from_numpy(lens).to(cuda)
+    before = gather.LAUNCHES["history_mean_gather"]
+    got = gather.history_mean_gather(t, h, l, out_dtype)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES["history_mean_gather"] == before + 1
+    assert got.dtype == out_dtype
+    want = gather.history_mean_gather_ref(t, h, l, out_dtype)
+    if out_dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-8,
+                                   atol=1e-6)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 33])  # bf16 pairs; single bf16 elements
+def test_scatter_add_bf16_kernel_unique_ids_is_exact(cuda, d):
+    """One add per element: the correctly rounded bf16 sum, bit-equal to
+    the plain version."""
+    rng = np.random.default_rng(22)
+    n, m = 900, 400
+    table = _bf16(rng.normal(size=(n, d)).astype(np.float32), cuda)
+    ids = rng.choice(n, size=m, replace=False).astype(np.int32)
+    ids[-9:] = n  # sentinels
+    i = torch.from_numpy(ids).to(cuda)
+    deltas = _bf16(rng.normal(size=(m, d)).astype(np.float32), cuda)
+    before = scatter.LAUNCHES["scatter_add_rows"]
+    got = scatter.scatter_add_rows(table.clone(), i, deltas)
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES["scatter_add_rows"] == before + 1
+    assert torch.equal(got, scatter.scatter_add_rows_ref(table.clone(), i, deltas))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 33])
+def test_scatter_add_bf16_kernel_repeated_ids_within_bound(cuda, d):
+    """Every bf16 add rounds, in an order that changes from run to run:
+    each element lies within (occurrences of its row) x (one bf16 ulp,
+    2^-8 relative, of the largest partial sum, itself at most the sum of
+    the magnitudes) of the exact f64 sum."""
+    rng = np.random.default_rng(23)
+    n, m = 200, 3000  # about 15 repeats per id
+    ids = rng.integers(0, n + 1, m).astype(np.int32)
+    i = torch.from_numpy(ids).to(cuda)
+    table = _bf16(rng.normal(size=(n, d)).astype(np.float32), cuda)
+    deltas = _bf16(rng.normal(size=(m, d)).astype(np.float32), cuda)
+    got = scatter.scatter_add_rows(table.clone(), i, deltas)
+    torch.cuda.synchronize()
+    keep = i < n
+    rows, x = i[keep].long(), deltas[keep].double()
+    exact = table.double().index_add_(0, rows, x)
+    mag = table.double().abs().index_add_(0, rows, x.abs())
+    k = torch.bincount(rows, minlength=n).double()[:, None]
+    bound = k * 2.0**-8 * mag
+    err = (got.double() - exact).abs()
+    assert (err <= bound).all(), float((err - bound).max())
+    assert (err > 0).any()  # it did round
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 30, 33])
+def test_scatter_set_bf16_kernel_matches_plain(cuda, d):
+    rng = np.random.default_rng(24)
+    table, ids, rows = _set_inputs(rng, 700, 3000, d)
+    t, r = _bf16(table, cuda), _bf16(rows, cuda)
+    i = torch.from_numpy(ids).to(cuda)
+    before = scatter.LAUNCHES["scatter_set_rows"]
+    got = scatter.scatter_set_rows(t.clone(), i, r)
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES["scatter_set_rows"] == before + 1
+    assert torch.equal(got, scatter.scatter_set_rows_ref(t.clone(), i, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,d", [(1, 128), (4, 128), (16, 128), (3, 30), (5, 33)])
+def test_gather_blocks_kernel_matches_plain(cuda, dtype, r, d):
+    """S2 copies bits: bit-equal to index_select on the (N / r, r * d)
+    view, on the 16-byte path and on the element path."""
+    rng = np.random.default_rng(25)
+    n = 240 * r
+    table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    table = table.to(cuda).to(dtype)
+    ids = torch.from_numpy(rng.integers(0, n // r, 1000).astype(np.int32)).to(cuda)
+    before = gather.LAUNCHES["gather_blocks"]
+    got = gather.gather_blocks(table, ids, r)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES["gather_blocks"] == before + 1
+    assert got.shape == (1000 * r, d) and got.dtype == dtype
+    assert torch.equal(got, gather.gather_blocks_ref(table, ids, r))
+
+
+# --- bf16 on the CPU: the plain versions and the contract ---------------
+
+
+def test_bf16_wrappers_run_plain_versions_on_cpu():
+    rng = np.random.default_rng(30)
+    table, his, lens = _history_inputs(rng, 60, 16, 12, 5)
+    t16 = torch.from_numpy(table).bfloat16()
+    h, l = torch.from_numpy(his), torch.from_numpy(lens)
+    ids = torch.from_numpy(rng.integers(0, 61, 40).astype(np.int32))
+    rows = torch.from_numpy(rng.normal(size=(40, 16)).astype(np.float32)).bfloat16()
+    before = {**gather.LAUNCHES, **scatter.LAUNCHES}
+
+    got = gather.gather_rows(t16, h[:, 0].contiguous())
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, t16[h[:, 0].long()])
+    for out_dtype in (None, torch.bfloat16, torch.float32):
+        mean = gather.history_mean_gather(t16, h, l, out_dtype)
+        assert mean.dtype == (out_dtype or torch.bfloat16)
+        # bf16 rows are exact in f32: one rounding at the end, if any.
+        f32 = gather.history_mean_gather_ref(t16.float(), h, l)
+        assert torch.equal(mean, f32.to(mean.dtype))
+    # From an f32 table into bf16 the rows are rounded first.
+    mixed = gather.history_mean_gather(torch.from_numpy(table), h, l, torch.bfloat16)
+    assert torch.equal(mixed, gather.history_mean_gather(t16, h, l))
+
+    added = scatter.scatter_add_rows(t16.clone(), ids, rows)
+    assert added.dtype == torch.bfloat16
+    once = np.flatnonzero(np.bincount(ids.numpy(), minlength=61)[:60] == 1)
+    for r in once:  # one occurrence: the correctly rounded bf16 sum
+        k = int(np.flatnonzero(ids.numpy() == r)[0])
+        assert torch.equal(added[r], (t16[r].float() + rows[k].float()).bfloat16())
+    keep = ids < 60
+    uniq = torch.unique(ids[keep]).long()
+    set_ = scatter.scatter_set_rows(t16.clone(), ids, rows)
+    assert set_.dtype == torch.bfloat16
+    untouched = np.setdiff1d(np.arange(60), uniq.numpy())
+    assert torch.equal(set_[untouched], t16[untouched])
+    assert torch.equal(added[untouched], t16[untouched])
+    assert {**gather.LAUNCHES, **scatter.LAUNCHES} == before
+
+
+def test_wrappers_reject_mixed_and_unknown_types(device):
+    """Rows to add or write have the table's type; a table is f32 or
+    bf16; K1's output is f32 or bf16."""
+    t32 = torch.zeros(10, 8, device=device)
+    t16 = t32.bfloat16()
+    ids = torch.zeros(4, dtype=torch.int32, device=device)
+    rows32 = torch.zeros(4, 8, device=device)
+    with pytest.raises(ValueError, match="table's type"):
+        scatter.scatter_add_rows(t16, ids, rows32)
+    with pytest.raises(ValueError, match="table's type"):
+        scatter.scatter_set_rows(t32, ids, rows32.bfloat16())
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        gather.gather_rows(t32.half(), ids)
+    with pytest.raises(ValueError, match="out_dtype"):
+        gather.history_mean_gather(t16, ids.reshape(2, 2), ids[:2], torch.float16)

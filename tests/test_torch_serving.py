@@ -533,3 +533,102 @@ def test_cpu_window_extract_launches_nothing(model):
     j, t = _recommenders(model, seen_pairs=model["seen"])
     t.recommend(UIDS, 5)
     assert ktopk.LAUNCHES == before
+
+
+# --- bf16 tables ----------------------------------------------------------
+
+
+def _bf16_recommenders(model):
+    """Both packages' Recommenders over the model's tables rounded to bf16
+    (the tables cross as f32, which is exact)."""
+    cfg_kw = dict(emb_dim=16, max_his=8, gamma=0.4)
+    user16 = jnp.asarray(model["user"], jnp.bfloat16)
+    item16 = jnp.asarray(model["item"], jnp.bfloat16)
+    j = jserving.Recommender(
+        jstate(user16, item16, model["w0"]), JCFConfig(**cfg_kw),
+        seen_pairs=model["seen"], his_items=model["his"], his_masks=model["lens"],
+    )
+    t = tserving.Recommender(
+        state_from_numpy(np.asarray(user16, np.float32),
+                         np.asarray(item16, np.float32), model["w0"], lr=0.05,
+                         step=0, device="cpu", param_dtype=torch.bfloat16),
+        CFConfig(**cfg_kw), seen_pairs=model["seen"], his_items=model["his"],
+        his_masks=model["lens"],
+    )
+    scores = np.asarray(user16, np.float64) @ np.asarray(item16, np.float64).T
+    return j, t, scores
+
+
+def test_recommend_over_bf16_tables_matches_jax(model):
+    """bf16 tables are scored in f32 (exact products of bf16 values), so
+    requests and the whole-table ranking agree with the JAX package's as
+    the f32 ones do; the request rows come through the bf16 row gather."""
+    j, t, scores = _bf16_recommenders(model)
+    assert t.state.user_emb.dtype == t._item_pad.dtype == torch.bfloat16
+    got, want = t.recommend(UIDS, 21), j.recommend(UIDS, 21)
+    assert_same_topk(got, want, scores[UIDS], 20)
+    assert_same_topk(t.recommend_all(21)[UIDS], got, scores[UIDS], 20)
+
+
+def test_aggregated_and_cold_requests_over_bf16_tables(model):
+    """The aggregated and cold-start routes multiply bf16 pools by the f32
+    ``w0``: it is cast to the tables' type, as the JAX package casts it.
+    (Before bf16 tables were let through, both products raised on the
+    mixed types.) An aggregated request ranks as ``recommend_all`` does;
+    the aggregated rows are within bf16 rounding (rtol 2^-6: four bf16
+    operations) of the f32 formula over the same bf16 tables; the cold
+    route returns unseen, in-range ids, a tie-aware match of the JAX
+    package's where the bf16 user vectors are the same."""
+    j, t, _ = _bf16_recommenders(model)
+    agg = t._user_embeddings(True)
+    assert agg.dtype == torch.bfloat16
+    pooled = tagg.user_pools_impl(
+        t.state.item_emb.float(), t._his_dev, t._masks_dev)
+    want = 0.4 * t.state.user_emb.float() + 0.6 * (pooled @ t.state.w0)
+    torch.testing.assert_close(agg.float(), want, rtol=2.0**-6, atol=2e-2)
+    scores = agg.double().numpy() @ t.state.item_emb.double().numpy().T
+    got = t.recommend(UIDS, 21, aggregate_users=True)
+    assert_same_topk(got, t.recommend_all(21, aggregate_users=True)[UIDS],
+                     scores[UIDS], 20)
+
+    some = [u for u in range(40) if model["lens"][u] > 0][:4]  # no empty history
+    hist = [model["his"][u, : model["lens"][u]].tolist() for u in some]
+    cold = t.recommend_cold(hist, 10)
+    assert cold.shape == (4, 10) and cold.min() >= 0 and cold.max() < 4500
+    for row, h in zip(cold, hist):
+        assert not set(row) & set(h)
+    jcold = np.asarray(j.recommend_cold(hist, 10))
+    assert np.mean([len(set(a) & set(b)) for a, b in zip(cold, jcold)]) >= 9
+
+
+def test_export_of_bf16_tables_is_exact_f32(model, tmp_path):
+    """The .npz stays f32 whatever the tables are, and holds the bf16
+    values exactly. (numpy has no bfloat16: before, exporting a bf16
+    state raised.)"""
+    _, t, _ = _bf16_recommenders(model)
+    out = export_embeddings(t.state, str(tmp_path / "e.npz"), cfg=t.cfg)
+    back = load_embeddings(str(tmp_path / "e.npz"))
+    for name in ("user_emb", "item_emb", "w0"):
+        assert back[name].dtype == np.float32
+        np.testing.assert_array_equal(back[name], out[name])
+    assert torch.equal(torch.from_numpy(back["item_emb"]).bfloat16(),
+                       t.state.item_emb)
+    served = state_from_numpy(back["user_emb"], back["item_emb"], back["w0"],
+                              lr=0.05, step=0, device="cpu",
+                              param_dtype=torch.bfloat16)
+    assert torch.equal(served.user_emb, t.state.user_emb)
+
+
+def test_from_engine_on_a_bf16_engine():
+    train, test = tsynthetic(60, 200, max_his=6, seed=3)
+    cfg = CFConfig(max_his=6, emb_dim=16, batch_size=256, neg_sampler=1,
+                   tile_size=32, refresh_interval=512, his_refresh="subepoch",
+                   param_dtype="bfloat16", compute_dtype="bfloat16",
+                   update_mode="direct")
+    eng = TEngine(cfg, train, test, device="cpu")
+    eng.train_one_epoch()
+    rec = tserving.Recommender.from_engine(eng)
+    assert rec.state.item_emb.dtype == torch.bfloat16
+    ids = rec.recommend(list(range(20)), 10)
+    np.testing.assert_array_equal(ids, rec.recommend_all(10)[:20])
+    assert rec.recommend(list(range(20)), 10, aggregate_users=True).shape == (20, 10)
