@@ -9,12 +9,19 @@ Phases, each of which raises (exit code 1) on failure:
 2. build: the CUDA kernels of heat_tpu_torch/csrc with nvcc (one compile
    per source, started together);
 3. kernels: every kernel instance against its plain PyTorch version at the
-   shapes its paths give it, with median times over 30 runs of the kernel,
-   the plain version and, where there is one, the single PyTorch call that
-   computes the same function (a yardstick the port never calls), beside
+   shapes its paths give it, with times of the kernel, the plain version
+   and, where there is one, the single PyTorch call that computes the same
+   function (a yardstick the port never calls; for an update entry the
+   unfused sequence of PyTorch launches and the plain entry that it
+   replaced): ``ms`` the median of 30 single launches between two events
+   (it holds the host's launch latency), ``loop_ms`` 100 launches between
+   two events over 100, ``host_us`` the host clock around those 100 calls
+   per call, ``graph_ms`` the 100 launches captured into one CUDA graph and
+   replayed, per launch: the device's own time, the one to read against
    the bound: the bytes the function must move over the card's 3.35 TB/s
    (ids, each distinct table row once, the output; or its operations over
-   the f32 rate, whichever is larger). f32: K1
+   the f32 rate, whichever is larger). A kernel that cannot be captured
+   fails the run. f32: K1
    (history mean), K2 (row gather) and K3 (row scatter-add) at the config0
    step's shapes and at the f32 huge-table path's (``_big*``), K4 (top-k
    window extraction) at the eval tile and a B = 8192 request, S1 (row
@@ -26,8 +33,14 @@ Phases, each of which raises (exit code 1) on failure:
    ulp of the largest partial sum per add), S1 at the user write-back
    (bit-equal); and all four at the shapes ``bench_large`` gives them on
    its 16,000,000 x 6,000,000 bf16 tables in both update modes
-   (``_big*``). S2 (block gather) at the measuring script's shapes, f32
-   and bf16 at r = 1, 4, 16 (bit-equal). Then train steps on the
+   (``_big*``). The update entries of K3 and S1 (clip, l2, lr and the
+   rounding inside the kernel) at the shapes of their paths: K3's in bf16
+   at the headline's item and user updates (repeats: K3's bound; the
+   increments bit-equal) and, f32 and bf16, at the sorted item update of
+   the 6,000,000-row table (unique ids: bit-equal); S1's, f32 and bf16, at
+   the 16,000,000-row user table (bit-equal). K3 also with every id
+   distinct and with sorted ids (what repeats cost). S2 (block gather) at the measuring script's
+   shapes, f32 and bf16 at r = 1, 4, 16 (bit-equal). Then train steps on the
    card against the same steps on the CPU at a small size, for each
    branch of the update menu (dense, sorted, direct, l2, Adagrad, Adam,
    accum) and of the tile path (whole-tile scoring with pinned tile and
@@ -53,17 +66,22 @@ Phases, each of which raises (exit code 1) on failure:
    chunked route (4,096 users) and the retrieve-and-filter route (9,216
    users, the seen bitmap above its budget), each held against a plain
    on-card oracle;
-7. huge-table training: the f32 path (uniform
-   sampler, per-step history mean, 16,000,000 x 6,000,000 f32 tables), a
-   warm-up and a timed ``Engine.train_one_epoch`` of BIG_F32_STEPS steps
-   per update mode; then ``heat_tpu_torch.bench_large``
+7. huge-table training: the path without the tile sampler (uniform
+   sampler, per-step history mean, 16,000,000 x 6,000,000 tables), a
+   warm-up and a timed ``Engine.train_one_epoch`` of BIG_F32_STEPS steps in
+   f32 per update mode and in bf16 under row-sparse Adagrad (the main path
+   of the plain K3 bf16 instance and of S1's conversion of f32 rows); then
+   ``heat_tpu_torch.bench_large``
    at its default geometry and configuration (tile sampler, cached pools,
    bf16; 40M clicks, batch 32,768), a warm-up and a timed epoch in
    ``dedup`` mode (both tables on the sort-dedup path) and in ``direct``
    mode, with the launch counts read around each run and peak device
    memory against the bytes held; then one full-size sort-dedup update of
    both tables on the card against the same update on the CPU (plain
-   versions), untouched rows bit-equal to before;
+   versions), untouched rows bit-equal to before; then the launches per
+   step (device events under ``torch.profiler`` over PROFILE_STEPS steps)
+   of the headline step and of both 16M x 6M steps, on a line
+   ``{"launches_per_step": ...}``;
 8. ``heat_tpu_torch.profile_exact_ceiling`` at 10 timed calls per
    measurement: the one path that runs S2;
 9. the kernels' JSON line (each instance with its launches on its own main
@@ -110,6 +128,10 @@ S1_SHAPES = (  # (table rows, ids, key suffix): user and item sides
     (BIG_ITEMS, BIG_BATCH * (1 + BIG_NEGS), "_items"),
 )
 MEM_RATIO = 1.25  # peak device memory / bytes held, at most
+PROFILE_STEPS = 50  # steps timed, then traced, for the launches per step
+# Device launches per step before the update entries existed, traced by the
+# same command on that tree (NVIDIA H100 80GB HBM3).
+LAUNCHES_BEFORE = {"headline": 176, "dedup_16m_6m": 235, "direct_16m_6m": 176}
 EXPORT = Path(__file__).resolve().parent / "build" / "chip_smoke" / "config0.npz"
 
 
@@ -141,18 +163,80 @@ def median_ms(fn) -> float:
 
 H100_BYTES_PER_MS = 3.35e12 / 1e3  # NVIDIA H100 SXM data sheet: 3.35 TB/s
 H100_F32_OPS_PER_MS = 67e12 / 1e3  # f32 outside the tensor cores
+LOOP = 100  # launches between two events, and captured into one graph
+
+
+def loop_times(fn) -> tuple[float, float]:
+    """(loop_ms, host_us) of fn(): LOOP calls between two CUDA events over
+    the count (the device's time per launch when the host keeps ahead, the
+    host's when it does not), and the host clock around the same calls
+    before any synchronise, per call (what a caller pays to enqueue one)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(LOOP):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / LOOP, host * 1e6 / LOOP
+
+
+def graph_ms(fn) -> float:
+    """The device's own time per launch of fn(): LOOP launches captured
+    once into a CUDA graph, the median of 5 timed replays over LOOP. No
+    host work lies between the launches. A kernel that cannot be captured
+    raises here. In-place functions run on: their values drift, their
+    addresses and work do not."""
+    import torch
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(LOOP):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / LOOP)
+    del graph
+    return statistics.median(times)
 
 
 def timed(entry: dict, key: str, fn, ref, lib, nbytes: float, nops: float) -> None:
     """Time the kernel ``fn``, its plain version ``ref`` and, where there is
-    one, the single PyTorch call ``lib`` that computes the same function
-    (a yardstick: the port never calls it); and write the bound beside
-    them: the least time the card could take, the larger of ``nbytes``
-    (each input read once, each output written once) over the memory rate
-    and ``nops`` over the f32 rate. Keys get the suffix ``key``."""
-    entry["ms" + key] = median_ms(fn)
-    entry["plain_ms" + key] = median_ms(ref)
-    entry["library_ms" + key] = None if lib is None else median_ms(lib)
+    one, the single PyTorch call (or, for an update entry, the unfused
+    sequence) ``lib`` that computes the same function (a yardstick: the
+    port never calls it); and write the bound beside them: the least time
+    the card could take, the larger of ``nbytes`` (each input read once,
+    each output written once) over the memory rate and ``nops`` over the
+    f32 rate. ``ms`` is one launch between two events (it holds the host's
+    launch latency), ``loop_ms`` and ``host_us`` are :func:`loop_times`,
+    ``graph_ms`` (kernel and PyTorch call) is :func:`graph_ms`, the time
+    to read against the bound. Keys get the suffix ``key``."""
+    for name, f in (("", fn), ("plain_", ref), ("library_", lib)):
+        if f is None:
+            for what in ("ms", "loop_ms", "host_us", "graph_ms"):
+                entry[name + what + key] = None
+            continue
+        entry[name + "ms" + key] = median_ms(f)
+        loop, host = loop_times(f)
+        entry[name + "loop_ms" + key] = loop
+        entry[name + "host_us" + key] = host
+        # Not the plain versions: their masks wait for the host.
+        entry[name + "graph_ms" + key] = None if f is ref else graph_ms(f)
     by_bytes = nbytes / H100_BYTES_PER_MS
     by_ops = nops / H100_F32_OPS_PER_MS
     entry["bound_ms" + key] = max(by_bytes, by_ops)
@@ -248,12 +332,50 @@ def _distinct(ids) -> int:
     return int(torch.unique(ids).numel())
 
 
+def hold_scatter_add(what, table, ids, deltas, outs) -> None:
+    """``outs`` (name -> result) against ``table[ids] += deltas``. Atomics
+    land in another order every run. f32: rtol 1e-5, atol 1e-6 between the
+    results. bf16: every add rounds, so each element is held to
+    (occurrences of its row) x 2^-8 x (the sum of the magnitudes added,
+    which bounds every partial sum) around the exact f64 sum: a half ulp of
+    the largest partial sum per add; untouched rows bit-equal. Where no id
+    repeats, the results must be bit-equal."""
+    import torch
+
+    n = table.shape[0]
+    keep = (ids >= 0) & (ids < n)
+    rows = ids[keep].long()
+    kept = deltas[keep]
+    results = list(outs.values())
+    touched, inverse = torch.unique(rows, return_inverse=True)
+    if touched.numel() == rows.numel():
+        if not all(torch.equal(results[0], r) for r in results[1:]):
+            raise AssertionError(f"{what}: not bit-equal on unique ids")
+    elif table.dtype == torch.bfloat16:
+        base = table[touched].double()
+        exact = base.clone().index_add_(0, inverse, kept.double())
+        mag = base.abs().index_add_(0, inverse, kept.double().abs())
+        k = torch.bincount(inverse).double()[:, None]
+        for name, out in outs.items():
+            err = (out[touched].double() - exact).abs()
+            if not bool((err <= k * 2.0**-8 * mag).all()):
+                raise AssertionError(
+                    f"{what} {name} at {n} rows, {ids.shape[0]} ids: outside "
+                    f"occurrences x half a bf16 ulp of the largest partial sum"
+                )
+            changed = (out != table).any(1)
+            changed[touched] = False
+            if bool(changed.any()):
+                raise AssertionError(
+                    f"{what} {name} at {n} rows: an untouched row changed")
+    else:
+        for r in results[1:]:
+            torch.testing.assert_close(results[0], r, rtol=1e-5, atol=1e-6)
+
+
 def check_scatter_add(entry, key, table, ids, deltas) -> None:
-    """K3 at one shape. Atomics land in another order every run. f32: rtol
-    1e-5, atol 1e-6 against ``index_add_``. bf16: every add rounds, so each
-    element is held to (occurrences of its row) x 2^-8 x (the sum of the
-    magnitudes added, which bounds every partial sum) around the exact f64
-    sum: a half ulp of the largest partial sum per add."""
+    """K3 at one shape, held by :func:`hold_scatter_add` against its plain
+    version; the library call is ``index_add_`` over pre-filtered ids."""
     import torch
 
     from heat_tpu_torch.ops.cuda import scatter
@@ -262,32 +384,13 @@ def check_scatter_add(entry, key, table, ids, deltas) -> None:
     got = scatter.scatter_add_rows(table.clone(), ids, deltas)
     want = scatter.scatter_add_rows_ref(table.clone(), ids, deltas)
     torch.cuda.synchronize()
+    hold_scatter_add("K3", table, ids, deltas,
+                     {"kernel": got, "plain version": want})
+    worst(entry, got, want)
+    del got, want
     keep = (ids >= 0) & (ids < n)
     rows = ids[keep].long()
     kept = deltas[keep]
-    if table.dtype == torch.bfloat16:
-        touched, inverse = torch.unique(rows, return_inverse=True)
-        base = table[touched].double()
-        exact = base.clone().index_add_(0, inverse, kept.double())
-        mag = base.abs().index_add_(0, inverse, kept.double().abs())
-        k = torch.bincount(inverse).double()[:, None]
-        for name, out in (("kernel", got), ("plain version", want)):
-            err = (out[touched].double() - exact).abs()
-            if not bool((err <= k * 2.0**-8 * mag).all()):
-                raise AssertionError(
-                    f"K3 bf16 {name} at {n} rows, {ids.shape[0]} ids: outside "
-                    f"occurrences x half a bf16 ulp of the largest partial sum"
-                )
-            changed = (out != table).any(1)
-            changed[touched] = False
-            if bool(changed.any()):
-                raise AssertionError(
-                    f"K3 bf16 {name} at {n} rows: an untouched row changed")
-        del base, exact, mag, err, changed
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    worst(entry, got, want)
-    del got, want
     m = ids.shape[0]
     timed(entry, key,
           lambda: scatter.scatter_add_rows(table, ids, deltas),
@@ -297,6 +400,105 @@ def check_scatter_add(entry, key, table, ids, deltas) -> None:
           nbytes=4 * m + m * d * table.element_size()
           + 2 * _distinct(rows) * d * table.element_size(),
           nops=int(keep.sum()) * d)
+
+
+def check_add_update(entry, key, table, ids, grads, lr, clip_val, l2=0.0,
+                     rows=None, *, clip_first) -> None:
+    """K3's update entry at one shape against its plain version: the
+    increments are bit-equal (f32 arithmetic without contraction, one
+    rounding), so on unique ids the tables are too, and over repeats they
+    are held as K3 is. Timed beside the unfused sequence it replaced: the
+    elementwise PyTorch launches, then the plain scatter-add entry."""
+    import torch
+
+    from heat_tpu_torch.models.aggregator import scalar_in
+    from heat_tpu_torch.ops.cuda import gather, scatter
+
+    n, d = table.shape
+    kw = dict(lr=lr, clip_val=clip_val, l2=l2, rows=rows, clip_first=clip_first)
+    got = scatter.scatter_add_update(table.clone(), ids, grads, **kw)
+    want = scatter.scatter_add_update_ref(table.clone(), ids, grads, **kw)
+    torch.cuda.synchronize()
+    if clip_first or not l2:
+        # The increments the plain version adds (row k of a zero table gets
+        # increment k), for the bound over repeats.
+        each = torch.arange(ids.shape[0], device=ids.device, dtype=torch.int32)
+        inc = scatter.scatter_add_update_ref(
+            torch.zeros(ids.shape[0], d, dtype=table.dtype, device=table.device),
+            each, grads, **kw)
+        hold_scatter_add("K3 update", table, ids, inc,
+                         {"kernel": got, "plain version": want})
+    elif not torch.equal(got, want):  # l2 reads the table: unique ids only
+        raise AssertionError("K3 update (l2 first): not bit-equal on unique ids")
+    worst(entry, got, want)
+    del got, want
+
+    def unfused():
+        if clip_first:
+            g = torch.clamp(grads.float(), -clip_val, clip_val)
+            if l2:
+                g = g + l2 * rows.float()
+        else:
+            g = grads.float()
+            if l2:
+                own = gather.gather_rows(table, ids.clamp(max=n - 1))
+                valid = (ids < n).to(own.dtype)[:, None]
+                g = g + scalar_in(l2, own.dtype) * own * valid
+            g = torch.clamp(g, -clip_val, clip_val)
+        scatter.scatter_add_rows(table, ids, g.mul_(-lr).to(table.dtype))
+
+    keep = (ids >= 0) & (ids < n)
+    m = ids.shape[0]
+    src = grads.element_size() + (rows.element_size() if rows is not None else 0)
+    timed(entry, key,
+          lambda: scatter.scatter_add_update(table, ids, grads, **kw),
+          lambda: scatter.scatter_add_update_ref(table, ids, grads, **kw),
+          unfused,
+          # Ids, gradient rows and forward rows in; each touched row read
+          # and written once; clip, l2, lr: about 4 operations an element.
+          nbytes=4 * m + m * d * src
+          + 2 * _distinct(ids[keep]) * d * table.element_size(),
+          nops=4 * int(keep.sum()) * d)
+
+
+def check_set_update(entry, key, table, ids, base, summed, lr, clip_val,
+                     l2=0.0) -> None:
+    """S1's update entry at one shape: bit-equal to its plain version on
+    the whole table. Timed beside the unfused sequence it replaced (clamp,
+    product, subtraction, cast, then the plain scatter-set entry)."""
+    import torch
+
+    from heat_tpu_torch.ops.cuda import scatter
+
+    n, d = table.shape
+    kw = dict(lr=lr, clip_val=clip_val, l2=l2)
+    got = scatter.scatter_set_update(table.clone(), ids, base, summed, **kw)
+    want = scatter.scatter_set_update_ref(table.clone(), ids, base, summed, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"S1 update disagrees with its plain version at "
+            f"{tuple(table.shape)} {table.dtype}, {ids.shape[0]} ids"
+        )
+    worst(entry, got, want)
+    del got, want
+
+    def unfused():
+        b = base.float()
+        g = summed + l2 * b * (ids < n).float()[:, None] if l2 else summed
+        g = torch.clamp(g, -clip_val, clip_val)
+        scatter.scatter_set_rows(table, ids, (b - lr * g).to(table.dtype))
+
+    keep = (ids >= 0) & (ids < n)
+    m = ids.shape[0]
+    timed(entry, key,
+          lambda: scatter.scatter_set_update(table, ids, base, summed, **kw),
+          lambda: scatter.scatter_set_update_ref(table, ids, base, summed, **kw),
+          unfused,
+          # Ids, base and summed rows in; each row in range written once.
+          nbytes=4 * m + m * d * (base.element_size() + 4)
+          + int(keep.sum()) * d * table.element_size(),
+          nops=4 * int(keep.sum()) * d)
 
 
 def check_scatter_set_at(entry, key, table, ids, rows) -> None:
@@ -418,9 +620,56 @@ def check_kernels(dev) -> list[dict]:
                     f"({NUM_ITEMS}, {DIM}) bf16 table, {m} ids with repeats")
     sc_ids = ids(m, NUM_ITEMS)
     sc_ids[:64] = sc_ids[0]  # a heavy repeat
-    check_scatter_add(k3b, "", items16.clone(),
-                      with_sentinels(sc_ids, NUM_ITEMS),
-                      (0.01 * torch.randn(m, DIM, generator=g, device=dev)).bfloat16())
+    sc_ids = with_sentinels(sc_ids, NUM_ITEMS)
+    small = 0.01 * torch.randn(m, DIM, generator=g, device=dev)
+    check_scatter_add(k3b, "", items16.clone(), sc_ids, small.bfloat16())
+    # What repeats cost (would combining equal neighbours in a warp pay?):
+    # the same two shapes with every id distinct, and config0's ids sorted,
+    # so that the occurrences of a row are neighbours.
+    m0 = BATCH * (1 + NUM_NEGS)
+    check_scatter_add(
+        k3, "_sorted_ids", torch.zeros(NUM_ITEMS, DIM, device=dev),
+        ids(m0, NUM_ITEMS).sort().values,
+        torch.randn(m0, DIM, generator=g, device=dev))
+    check_scatter_add(
+        k3b, "_unique_ids", items16.clone(),
+        torch.randperm(NUM_ITEMS, generator=g, device=dev)[:m].to(torch.int32),
+        small.bfloat16())
+
+    # The update entries at the headline step's shapes (direct mode, bf16
+    # tables, gradient rows in the compute type, no l2, config0's clip 1.0
+    # made to bind): the item update's ids above, and the user update's
+    # 8,192 ids.
+    lr = torch.tensor(0.05, device=dev)
+    k3u = new_entry("scatter_add_update", "scatter.cu", k3["replaces"] + " with "
+                    "heat_tpu/train/scatter.py:395-401 (l2, clip, -lr, cast)",
+                    f"({BIG_ITEMS}, {DIM}) f32 table, "
+                    f"{BIG_BATCH + BIG_TILE} unique-or-sentinel ids, l2 first")
+    k3ub = new_entry("scatter_add_update_bf16", "scatter.cu", k3["replaces"]
+                     + " with heat_tpu/train/scatter.py:161-167 (clip, l2, "
+                     "-lr, cast)",
+                     f"({NUM_ITEMS}, {DIM}) bf16 table, {m} ids, a 64-fold "
+                     f"repeat, bf16 gradient rows, clip first; _users: "
+                     f"({NUM_USERS}, {DIM}), {BATCH} ids; _big_items: "
+                     f"({BIG_ITEMS}, {DIM}), {BIG_BATCH + BIG_TILE} "
+                     f"unique-or-sentinel ids, f32 rows, l2 first")
+    check_add_update(k3ub, "", items16.clone(), sc_ids, (100 * small).bfloat16(),
+                     lr, 1.0, clip_first=True)
+    uid = ids(BATCH, NUM_USERS)
+    uid[:64] = uid[0]
+    uid[-(BATCH // 64):] = NUM_USERS
+    check_add_update(k3ub, "_users", users16.clone(), uid,
+                     torch.randn(BATCH, DIM, generator=g, device=dev).bfloat16(),
+                     lr, 1.0, clip_first=True)
+    s1u = new_entry("scatter_set_update", "scatter.cu",
+                    "scripts/profile_scatter_pallas.py:65 (pallas_scatter_set) "
+                    "with heat_tpu/train/scatter.py:380-390 (l2, clip, base - "
+                    "lr * g, cast)",
+                    f"({BIG_USERS}, {DIM}) f32, {BIG_BATCH} sorted ids, 1/8 "
+                    f"sentinels, f32 base")
+    s1ub = new_entry("scatter_set_update_bf16", "scatter.cu", s1u["replaces"],
+                     f"({BIG_USERS}, {DIM}) bf16, {BIG_BATCH} sorted ids, 1/8 "
+                     f"sentinels, bf16 base")
 
     k4 = check_window_extract(dev)
     s1 = check_scatter_set(dev)
@@ -451,7 +700,8 @@ def check_kernels(dev) -> list[dict]:
         check_gather_blocks_at(s2, key, wide, ids(S2_ROWS // r, n // r), r)
         check_gather_blocks_at(s2b, key, wide.bfloat16(),
                                ids(S2_ROWS // r, n // r), r)
-    return [k2, k2b, k1, k1b, k3, k3b, k4, s1, s1b, s2, s2b]
+    return [k2, k2b, k1, k1b, k3, k3b, k3u, k3ub, k4, s1, s1b, s1u, s1ub, s2,
+            s2b]
 
 
 def check_window_extract(dev) -> dict:
@@ -563,6 +813,29 @@ def check_path_shapes(dev, entries: dict) -> None:
     sc_ids = torch.where(sentinel, BIG_ITEMS, sc_ids).to(torch.int32)
     check_scatter_add(entries["scatter_add_rows"], "_big_items", items, sc_ids,
                       torch.randn(m, DIM, generator=g, device=dev))
+
+    # The update entries on the sort-dedup path: bench_large's lr and clip
+    # (made to bind by unit-normal sums), no l2. The item update's 32,896
+    # representative ids (sorted, unique, the tail sentinels) with f32
+    # segment sums; the user update's 32,768 with its write-back rows.
+    lr = torch.tensor(0.01, device=dev)
+
+    def sorted_reps(n, m):
+        out = torch.randperm(n, generator=g, device=dev)[:m].sort().values
+        out = out.to(torch.int32)
+        out[-(m // 8):] = n
+        return out
+
+    def sums(m):
+        return torch.randn(m, DIM, generator=g, device=dev)
+
+    m = BIG_BATCH + BIG_TILE
+    check_add_update(entries["scatter_add_update"], "", items,
+                     sorted_reps(BIG_ITEMS, m), sums(m), lr, 1.0,
+                     clip_first=False)
+    check_set_update(entries["scatter_set_update"], "", users,
+                     sorted_reps(BIG_USERS, BIG_BATCH), sums(BIG_BATCH),
+                     sums(BIG_BATCH), lr, 1.0)
     del users, items
 
     # S1: the config0 step's user write-back, 8,192 unsorted ids into
@@ -605,11 +878,14 @@ def check_path_shapes(dev, entries: dict) -> None:
         ids(POOL_CHUNK, BIG_HIS + 1))
     # S1: the sort-dedup path's 32,768 sorted representative ids, 1/8
     # sentinels, into the 16M table.
-    rep_ids = torch.randperm(BIG_USERS, generator=g, device=dev)[:BIG_BATCH]
-    rep_ids = rep_ids.sort().values.to(torch.int32)
-    rep_ids[-(BIG_BATCH // 8):] = BIG_USERS
+    rep_ids = sorted_reps(BIG_USERS, BIG_BATCH)
     check_scatter_set_at(entries["scatter_set_rows_bf16"], "_big", users16,
                          rep_ids, small(BIG_BATCH))
+    check_set_update(entries["scatter_set_update_bf16"], "", users16, rep_ids,
+                     sums(BIG_BATCH).bfloat16(), sums(BIG_BATCH), lr, 1.0)
+    check_add_update(entries["scatter_add_update_bf16"], "_big_items", items16,
+                     sorted_reps(BIG_ITEMS, BIG_BATCH + BIG_TILE),
+                     sums(BIG_BATCH + BIG_TILE), lr, 1.0, clip_first=False)
     # K3: direct mode's per-occurrence adds, 32,768 into the 16M table and
     # 32,768 + 128 into the 6M table, repeats and about 1% sentinels.
     k3 = entries["scatter_add_rows_bf16"]
@@ -992,15 +1268,36 @@ def check_step_against_cpu(dev) -> dict:
     return worst
 
 
+HUGE_ENGINE_RUNS = {  # name: (config overrides, kernels launched every step)
+    # dedup: the segment sums (K3), the item update (K3's update entry) and
+    # the user write-back + update (S1's).
+    "dedup": ({"update_mode": "dedup"}, (
+        "gather_rows", "history_mean_gather", "scatter_add_rows",
+        "scatter_add_update", "scatter_set_update")),
+    # direct: the write-back (S1) and both per-occurrence updates.
+    "direct": ({"update_mode": "direct"}, (
+        "gather_rows", "history_mean_gather", "scatter_add_update",
+        "scatter_set_rows")),
+    # Row-sparse Adagrad on bf16 tables: the path that adds rows as they are
+    # into a bf16 table (the plain K3 bf16 instance, item update) and writes
+    # f32 rows into one (S1's conversion, user write-back + update).
+    "adagrad_bf16": ({"optimizer": "adagrad", "param_dtype": "bfloat16",
+                      "compute_dtype": "bfloat16"}, (
+        "gather_rows_bf16", "history_mean_gather_bf16",
+        "scatter_add_rows_bf16", "scatter_set_rows_bf16")),
+}
+
+
 def check_huge_f32(dev, reset, read) -> dict:
-    """The f32 huge-table path (uniform sampler, per-step history mean, f32
-    tables of 16,000,000 x 6,000,000 rows, both above the threshold) on a
-    dataset cut to BIG_F32_STEPS batches: per update mode a warm-up
-    ``Engine.train_one_epoch`` and a timed one (it ends by reading the
-    loss, a device sync). It keeps the f32 sort-dedup path, K1 at
-    (32,768, 10), K2 at 524,288 negatives and S1 / K3 at the 16M table on
-    a main path, with their launch counts over the timed epoch and the
-    peak memory of both against the bytes held."""
+    """The huge-table path without the tile sampler (uniform sampler,
+    per-step history mean, tables of 16,000,000 x 6,000,000 rows, both
+    above the threshold) on a dataset cut to BIG_F32_STEPS batches: per run
+    of HUGE_ENGINE_RUNS (f32 in both update modes, and bf16 tables under
+    Adagrad) a warm-up ``Engine.train_one_epoch`` and a timed one (it ends
+    by reading the loss, a device sync). It keeps the f32 sort-dedup path,
+    K1 at (32,768, 10), K2 at 524,288 negatives and S1 / K3 at the 16M table
+    on a main path, with their launch counts over the timed epoch and the
+    peak memory against the bytes held."""
     import torch
 
     from heat_tpu_torch import bench_large
@@ -1011,16 +1308,17 @@ def check_huge_f32(dev, reset, read) -> dict:
     dataset = bench_large.make_dataset(
         BIG_USERS, BIG_ITEMS, steps * BIG_BATCH, BIG_HIS)
     out = {}
-    for mode in ("dedup", "direct"):
+    for mode, (overrides, every_step) in HUGE_ENGINE_RUNS.items():
         torch.cuda.empty_cache()
         cfg = CFConfig(emb_dim=DIM, num_negs=BIG_NEGS, max_his=BIG_HIS,
                        batch_size=BIG_BATCH, l_r=0.01, clip_val=1.0,
-                       milestones=[10], seed=2022, update_mode=mode)
+                       milestones=[10], seed=2022, **overrides)
         engine = Engine(cfg, dataset, device=dev)
         st = engine.state
+        slots = list(st.opt_slots.values()) if st.opt_slots else []
         held = sum(t.numel() * t.element_size() for t in (
             st.user_emb, st.item_emb, st.w0, engine.pairs, engine.his_items,
-            engine.his_masks))
+            engine.his_masks, *slots))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         losses = [engine.train_one_epoch()]  # warm-up
@@ -1030,16 +1328,18 @@ def check_huge_f32(dev, reset, read) -> dict:
         ms = (time.perf_counter() - t0) * 1e3 / steps
         launches = read()
         if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"huge f32 {mode}: losses {losses}")
-        for name in ("gather_rows", "history_mean_gather", "scatter_add_rows",
-                     "scatter_set_rows"):
-            if launches[name] < steps or launches[name + "_bf16"]:
+            raise AssertionError(f"huge {mode}: losses {losses}")
+        bf16 = cfg.param_dtype == "bfloat16"
+        for name in every_step:
+            if launches[name] < steps:
                 raise AssertionError(
-                    f"huge f32 {mode}: {name} launched {launches[name]} times "
-                    f"({launches[name + '_bf16']} bf16) in {steps} steps"
-                )
+                    f"huge {mode}: {name} launched {launches[name]} times "
+                    f"in {steps} steps")
+        if not bf16 and any(n for name, n in launches.items()
+                            if name.endswith("_bf16")):
+            raise AssertionError(f"huge {mode}: a bf16 kernel ran: {launches}")
         peak = torch.cuda.max_memory_allocated(dev)
-        print(f"huge f32 {mode}: {steps} steps an epoch, {ms:.3f} ms a step "
+        print(f"huge {mode}: {steps} steps an epoch, {ms:.3f} ms a step "
               f"({BIG_BATCH / ms * 1e3:.0f} interactions/s); epoch losses "
               f"{losses}; launches {launches}; peak device memory "
               f"{peak / 1e9:.3f} GB against {held / 1e9:.3f} GB held "
@@ -1069,7 +1369,8 @@ def check_huge_training(reset, read) -> dict:
         torch.cuda.empty_cache()
         reset()
         t0 = time.perf_counter()
-        record = bench_large.run(["--update-mode", mode, "--reps", "1"])
+        record = bench_large.run(["--update-mode", mode, "--reps", "1",
+                                  "--profile", str(PROFILE_STEPS)])
         wall = time.perf_counter() - t0
         launches = read()
         print(json.dumps(record))
@@ -1091,8 +1392,14 @@ def check_huge_training(reset, read) -> dict:
         # K3 in both modes; K1 only for the pools (3,907 chunks an epoch),
         # all on bf16 tables (the segment sums' K3 adds into f32 buffers).
         chunks = 2 * -(-record["users"] // POOL_CHUNK)
-        need = {"gather_rows_bf16": 4 * steps, "history_mean_gather_bf16": chunks,
-                "scatter_add_rows": steps, "scatter_set_rows_bf16": steps}
+        need = {"gather_rows_bf16": 4 * steps, "history_mean_gather_bf16": chunks}
+        if mode == "dedup":  # segment sums; item update; user write-back + update
+            need.update({"scatter_add_rows": 2 * steps,
+                         "scatter_add_update_bf16": steps,
+                         "scatter_set_update_bf16": steps})
+        else:  # the write-back, then both per-occurrence updates
+            need.update({"scatter_set_rows_bf16": steps,
+                         "scatter_add_update_bf16": 2 * steps})
         for name, least in need.items():
             if launches[name] < least:
                 raise AssertionError(
@@ -1211,13 +1518,19 @@ def main() -> int:
     for k in kernels:
         for key in [key for key in k if key == "ms" or key.startswith("ms_")]:
             suffix = key[2:]
-            lib_ms = k["library_ms" + suffix]
+            def of(prefix):
+                return " / ".join(
+                    "none" if k[prefix + what + suffix] is None
+                    else format(k[prefix + what + suffix], ".4f")
+                    for what in ("ms", "loop_ms", "graph_ms"))
+
             print(f"kernel {k['name']}{' at ' + suffix[1:] if suffix else ''}: "
-                  f"{k[key]:.4f} ms (plain {k['plain_ms' + suffix]:.4f} ms, "
-                  f"PyTorch call "
-                  f"{'none' if lib_ms is None else format(lib_ms, '.4f') + ' ms'}, "
+                  f"ms / loop_ms / graph_ms {of('')} (plain {of('plain_')}; "
+                  f"PyTorch call {of('library_')}); host_us "
+                  f"{k['host_us' + suffix]:.2f} (PyTorch call "
+                  f"{k['library_host_us' + suffix] or float('nan'):.2f}); "
                   f"bound {k['bound_ms' + suffix]:.4f} ms by "
-                  f"{k['bound_by' + suffix]})")
+                  f"{k['bound_by' + suffix]}")
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, {k['shape']}")
     print(f"train_step card vs CPU, max state diff per branch: "
           f"{json.dumps(check_step_against_cpu(dev))}")
@@ -1295,11 +1608,16 @@ def main() -> int:
     pool_chunks = 5 * -(-NUM_USERS // POOL_CHUNK)  # once an epoch
     check_run("headline", head, head_launches, {
         # user, positive, tile and pool rows; the pools; the user and the
-        # item update; the user write-back: all on bf16 tables.
+        # item update (K3's update entry); the user write-back: all on bf16
+        # tables.
         "gather_rows_bf16": 4 * steps, "history_mean_gather_bf16": pool_chunks,
-        "scatter_add_rows_bf16": 2 * steps, "scatter_set_rows_bf16": steps,
+        "scatter_add_update_bf16": 2 * steps, "scatter_set_rows_bf16": steps,
         "window_extract": eval_tiles})
-    for name in ("gather_rows", "history_mean_gather", "scatter_add_rows",
+    if head_launches["scatter_add_rows"]:
+        raise AssertionError(
+            f"headline: the plain scatter-add ran beside its update entry: "
+            f"{head_launches}")
+    for name in ("gather_rows", "history_mean_gather", "scatter_add_update",
                  "scatter_set_rows"):
         if head_launches[name] != head_launches[name + "_bf16"]:
             raise AssertionError(f"headline launched an f32 {name}: {head_launches}")
@@ -1333,9 +1651,32 @@ def main() -> int:
 
     huge_f32 = check_huge_f32(dev, reset, read)
     huge = check_huge_training(reset, read)
+    # The headline step at its own geometry through the same entry point,
+    # for its launches per step (a warm-up and one timed epoch, then
+    # PROFILE_STEPS steps timed and as many traced).
+    from heat_tpu_torch import bench_large
+
+    head_profile = bench_large.run([
+        "--users", str(NUM_USERS), "--items", str(NUM_ITEMS), "--clicks",
+        "1895148", "--max-his", str(MAX_HIS), "--batch", str(BATCH), "--tile",
+        str(TILE), "--refresh", "8192", "--update-mode", "direct", "--reps",
+        "1", "--profile", str(PROFILE_STEPS)])["profile"]
+    per_step = {
+        "headline": head_profile, "dedup_16m_6m": huge["dedup"]["profile"],
+        "direct_16m_6m": huge["direct"]["profile"]}
+    print(json.dumps({"launches_per_step": {
+        name: {"before": LAUNCHES_BEFORE.get(name),
+               "after": p["device_launches_per_step"],
+               "device_ms_per_step": p["device_ms_per_step"],
+               "wall_ms_per_step": p["wall_ms_per_step"],
+               "idle_share": p["idle_share"]}
+        for name, p in per_step.items()}}))
     step = check_huge_step(dev)
-    if step["launches"]["scatter_set_rows"] < 1:
-        raise AssertionError("the full-size dedup update did not launch S1")
+    if min(step["launches"][name] for name in
+           ("scatter_set_update", "scatter_add_update", "scatter_add_rows")) < 1:
+        raise AssertionError(
+            f"the full-size dedup update did not launch the segment sums and "
+            f"both update entries: {step['launches']}")
     print(f"full-size dedup update, card vs CPU: max touched-row diff "
           f"{step['max_abs_diff']:.3g}; untouched rows bit-equal; "
           f"launches {step['launches']}")
@@ -1357,14 +1698,26 @@ def main() -> int:
 
     # Each instance's launches on its own main path: the f32 instances on
     # config0 (K4 too), the bf16 instances on the headline run, S2 on its
-    # measuring entry point.
+    # measuring entry point; the update entries' f32 instances on the f32
+    # huge-table run in dedup mode, S1's bf16 update entry on bench_large in
+    # dedup mode, and the plain K3 bf16 instance (whose headline callers now
+    # use the update entry) on the bf16 Adagrad huge-table run.
+    dedup_f32 = huge_f32["dedup"]["launches"]
+    on_path = {
+        "gather_blocks": (ceiling_launches["gather_blocks"]
+                          - ceiling_launches["gather_blocks_bf16"]),
+        "gather_blocks_bf16": ceiling_launches["gather_blocks_bf16"],
+        "scatter_add_update": dedup_f32["scatter_add_update"],
+        "scatter_set_update": dedup_f32["scatter_set_update"],
+        "scatter_set_update_bf16":
+            huge["dedup"]["launches"]["scatter_set_update_bf16"],
+        "scatter_add_rows_bf16":
+            huge_f32["adagrad_bf16"]["launches"]["scatter_add_rows_bf16"],
+    }
     for k in kernels:
         name = k["name"]
-        if name == "gather_blocks":
-            k["launches"] = (ceiling_launches[name]
-                             - ceiling_launches[name + "_bf16"])
-        elif name == "gather_blocks_bf16":
-            k["launches"] = ceiling_launches[name]
+        if name in on_path:
+            k["launches"] = on_path[name]
         elif name.endswith("_bf16"):
             k["launches"] = head_launches[name]
         else:
@@ -1372,8 +1725,9 @@ def main() -> int:
         if k["launches"] < 1:
             raise AssertionError(f"{name} was not launched on its main path")
         k["launches_serving"] = serving_launches[name]
-        for mode in ("dedup", "direct"):
+        for mode in HUGE_ENGINE_RUNS:
             k[f"launches_huge_f32_{mode}"] = huge_f32[mode]["launches"][name]
+        for mode in ("dedup", "direct"):
             k[f"launches_huge_{mode}"] = huge[mode]["launches"][name]
         del k["shape"]
     print(json.dumps({"kernels": kernels}))

@@ -132,7 +132,8 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
     unprofiled between two syncs (wall ms per step, and the steps' peak
     memory), then the next ``steps`` steps run under ``torch.profiler``
     (device ms per step: the sum of the device events, one stream, so no
-    overlap; the ``top`` largest by name). The idle share is
+    overlap; the ``top`` largest by name; and how many device events a
+    step made, its launches). The idle share is
     1 - device / unprofiled wall. The profiled wall is reported too: the
     profiler's host overhead inflates it. On the CPU the device numbers
     are None. The steps train the model further."""
@@ -184,12 +185,13 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         profiled_wall_ms = run(steps)
-    device = {}
+    device, launches = {}, 0
     for event in prof.key_averages():
         if event.device_type != DeviceType.CPU:
             device[event.key] = device.get(event.key, 0.0) + (
                 event.self_device_time_total / 1e3 / steps
             )
+            launches += event.count
     device_ms = sum(device.values()) if on_card else None
     largest = sorted(device.items(), key=lambda kv: -kv[1])[:top]
     return {
@@ -198,6 +200,8 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
         "profiled_wall_ms_per_step": profiled_wall_ms,
         "device_ms_per_step": device_ms,
         "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
+        # Kernels, copies and memsets the device ran, per step.
+        "device_launches_per_step": launches / steps if on_card else None,
         "device_ms_per_step_by_kernel": {k[:80]: v for k, v in largest},
         "shuffle_peak_device_bytes": shuffle_peak,
         "step_peak_device_bytes": step_peak,

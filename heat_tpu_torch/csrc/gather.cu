@@ -42,13 +42,16 @@
 // Contract (checked by the Python wrappers in heat_tpu_torch/ops/cuda):
 // f32 or bf16 tables, int32 ids, contiguous row-major arrays, ids in
 // [0, n_rows). An id outside that range is not read: K2 and S2 write zeros
-// for it and K1 leaves it out of the sum. Each entry point launches on the
-// given stream, does not synchronise, allocates nothing and returns
+// for it and K1 leaves it out of the sum. Each entry point makes `device`
+// current (launch.cuh), launches on the given stream, does not synchronise,
+// allocates nothing, may be captured in a CUDA graph and returns
 // cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -228,14 +231,18 @@ int history_mean(const T* table, int64_t n_rows, int d, const int32_t* his_ids,
 
 extern "C" int heat_gather_rows_f32(const float* table, int64_t n_rows, int d,
                                     const int32_t* ids, int64_t m, float* out,
-                                    void* stream) {
+                                    int device, void* stream) {
+  heat::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   return launch_gather<float>(table, n_rows, d, ids, m, out,
                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int heat_gather_rows_bf16(const void* table, int64_t n_rows, int d,
                                      const int32_t* ids, int64_t m, void* out,
-                                     void* stream) {
+                                     int device, void* stream) {
+  heat::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   // A copy of bits: bf16 elements move as 16-bit integers.
   return launch_gather<uint16_t>(static_cast<const uint16_t*>(table), n_rows,
                                  d, ids, m, static_cast<uint16_t*>(out),
@@ -246,14 +253,20 @@ extern "C" int heat_gather_rows_bf16(const void* table, int64_t n_rows, int d,
 // as n_blocks blocks of block_elems = r * d contiguous elements.
 extern "C" int heat_gather_blocks_f32(const float* table, int64_t n_blocks,
                                       int64_t block_elems, const int32_t* ids,
-                                      int64_t m, float* out, void* stream) {
+                                      int64_t m, float* out, int device,
+                                      void* stream) {
+  heat::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   return launch_gather<float>(table, n_blocks, block_elems, ids, m, out,
                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int heat_gather_blocks_bf16(const void* table, int64_t n_blocks,
                                        int64_t block_elems, const int32_t* ids,
-                                       int64_t m, void* out, void* stream) {
+                                       int64_t m, void* out, int device,
+                                       void* stream) {
+  heat::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   return launch_gather<uint16_t>(static_cast<const uint16_t*>(table), n_blocks,
                                  block_elems, ids, m,
                                  static_cast<uint16_t*>(out),
@@ -266,7 +279,9 @@ extern "C" int heat_history_mean_f32(const float* table, int64_t n_rows, int d,
                                      const int32_t* his_ids,
                                      const int32_t* lens, int64_t batch,
                                      int his, void* out, int out_bf16,
-                                     void* stream) {
+                                     int device, void* stream) {
+  heat::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   return history_mean<float>(table, n_rows, d, his_ids, lens, batch, his, out,
                              out_bf16, static_cast<cudaStream_t>(stream));
 }
@@ -275,7 +290,9 @@ extern "C" int heat_history_mean_bf16(const void* table, int64_t n_rows, int d,
                                       const int32_t* his_ids,
                                       const int32_t* lens, int64_t batch,
                                       int his, void* out, int out_bf16,
-                                      void* stream) {
+                                      int device, void* stream) {
+  heat::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   return history_mean<__nv_bfloat16>(
       static_cast<const __nv_bfloat16*>(table), n_rows, d, his_ids, lens,
       batch, his, out, out_bf16, static_cast<cudaStream_t>(stream));

@@ -31,12 +31,15 @@
 //
 // Contract (checked by heat_tpu_torch/ops/cuda/topk.py): sim f32 row-major
 // (rows, n_cols) with n_cols % w == 0, widx int32 row-major (rows, kw), out
-// f32 (rows, kw, w). Launches on the given stream, does not synchronise,
-// allocates nothing and returns cudaGetLastError().
+// f32 (rows, kw, w). Makes `device` current (launch.cuh), launches on the
+// given stream, does not synchronise, allocates nothing, may be captured in
+// a CUDA graph and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -96,7 +99,9 @@ bool aligned16(const void* p) {
 extern "C" int heat_window_extract_f32(const float* sim, int64_t rows,
                                        int64_t n_cols, const int32_t* widx,
                                        int kw, int w, float* out,
-                                       void* stream) {
+                                       int device, void* stream) {
+  heat::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   const int64_t pairs = rows * kw;
   if (pairs == 0 || w == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -17,6 +17,8 @@ so a module would add a parameter container that nothing else uses.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from heat_tpu_torch.ops.cuda.gather import history_mean_gather
@@ -135,12 +137,13 @@ def aggregate_history(
     return scalar_in(gamma, u.dtype) * u + scalar_in(1.0 - gamma, f_c0.dtype) * f_c0
 
 
+@functools.lru_cache(maxsize=None)
 def scalar_in(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype``, as a Python float. JAX casts a
     Python scalar to the array's type before an elementwise operation;
     PyTorch keeps it in f32. Rounding it here first gives bf16 arithmetic
     the JAX package's result (for f32 both agree already). Made on the
-    host: nothing waits for the device."""
+    host, once per value: nothing waits for the device."""
     if dtype == torch.float32:
         return value
     return float(torch.tensor(value, dtype=dtype))

@@ -10,7 +10,13 @@ the exact top-k, the counterpart of the Pallas kernels in
 * K2 ``gather.gather_rows`` — user, positive and negative row reads, and
   the request rows of serving (``csrc/gather.cu``);
 * K3 ``scatter.scatter_add_rows`` — duplicate-safe row scatter-add that
-  builds the dense gradient accumulator (``csrc/scatter.cu``);
+  builds the dense gradient accumulator and the segment sums, and
+  ``scatter.scatter_add_update``, the same add with the SGD step (clip,
+  l2, learning rate, rounding) computed inside the kernel
+  (``csrc/scatter.cu``);
+* S1 ``scatter.scatter_set_rows`` — row scatter-set of the write-backs and
+  the optimizer rows, and ``scatter.scatter_set_update``, the sort-dedup
+  path's fused write-back and SGD step (``csrc/scatter.cu``);
 * K4 ``topk.window_extract`` — phase 2 of the two-phase exact top-k of
   evaluation and serving, the selected 128-wide score windows of each row
   (``csrc/topk.cu``).

@@ -31,6 +31,17 @@ LAUNCHES = {
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+def symbols(kernel: str) -> dict:
+    """Table dtype -> C entry point of ``kernel``, made once per wrapper so
+    that a launch formats no string."""
+    return {dtype: f"heat_{kernel}_{suffix}" for dtype, suffix in SUFFIX.items()}
+
+
+_GATHER_ROWS = symbols("gather_rows")
+_GATHER_BLOCKS = symbols("gather_blocks")
+_HISTORY_MEAN = symbols("history_mean")
+
+
 def gather_rows_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`gather_rows`: out[j] = table[ids[j]]."""
     return table.index_select(0, ids.long())
@@ -76,8 +87,10 @@ def _check(name: str, table: torch.Tensor, *int_tensors: torch.Tensor) -> bool:
     """Validate the kernel contract on either device, so that the CPU tests
     catch what the card would refuse. Returns True for CUDA tensors, False
     for CPU tensors; raises for mixed or other devices."""
-    if table.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name}: needs CUDA or CPU tensors, got {table.device}")
+    device = table.device
+    kind = device.type
+    if kind != "cuda" and kind != "cpu":
+        raise ValueError(f"{name}: needs CUDA or CPU tensors, got {device}")
     if table.dtype not in SUFFIX:
         raise ValueError(
             f"{name}: needs an f32 or bf16 table, got {table.dtype}"
@@ -85,13 +98,13 @@ def _check(name: str, table: torch.Tensor, *int_tensors: torch.Tensor) -> bool:
     if table.dim() != 2 or not table.is_contiguous():
         raise ValueError(f"{name}: needs a contiguous (N, d) table")
     for t in int_tensors:
-        if t.device != table.device:
-            raise ValueError(f"{name}: all tensors must be on {table.device}")
+        if t.device != device:
+            raise ValueError(f"{name}: all tensors must be on {device}")
         if t.dtype != torch.int32:
             raise ValueError(f"{name}: ids must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: ids must be contiguous")
-    return table.device.type == "cuda"
+    return kind == "cuda"
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -108,7 +121,7 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if m == 0:
         return out
     _build.launch(
-        "heat_gather_rows_" + SUFFIX[table.dtype], "gather_rows", table.device,
+        _GATHER_ROWS[table.dtype], "gather_rows", table.device.index,
         table.data_ptr(), n, d, ids.data_ptr(), m, out.data_ptr(),
     )
     count_launch(LAUNCHES, "gather_rows", table)
@@ -139,8 +152,7 @@ def gather_blocks(
     if m == 0:
         return out
     _build.launch(
-        "heat_gather_blocks_" + SUFFIX[table.dtype], "gather_blocks",
-        table.device,
+        _GATHER_BLOCKS[table.dtype], "gather_blocks", table.device.index,
         table.data_ptr(), n // r, r * d, block_ids.data_ptr(), m, out.data_ptr(),
     )
     count_launch(LAUNCHES, "gather_blocks", table)
@@ -176,8 +188,7 @@ def history_mean_gather(
     if b == 0:
         return out
     _build.launch(
-        "heat_history_mean_" + SUFFIX[table.dtype], "history_mean_gather",
-        table.device,
+        _HISTORY_MEAN[table.dtype], "history_mean_gather", table.device.index,
         table.data_ptr(), n, d, his_ids.data_ptr(), lens.data_ptr(), b, h,
         out.data_ptr(), int(out_dtype == torch.bfloat16),
     )

@@ -67,7 +67,7 @@ def window_extract(sim: torch.Tensor, widx: torch.Tensor, w: int) -> torch.Tenso
     if rows * kw == 0:
         return out
     _build.launch(
-        "heat_window_extract_f32", "window_extract", sim.device,
+        "heat_window_extract_f32", "window_extract", sim.device.index,
         sim.data_ptr(), rows, n_cols, widx.data_ptr(), kw, w, out.data_ptr(),
     )
     LAUNCHES["window_extract"] += 1

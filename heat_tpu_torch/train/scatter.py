@@ -11,10 +11,13 @@ implementations, picked per table by its row count
 * sort-dedup, for huge tables where an O(rows) pass per step is too much:
   stable-sort the ids, sum each run of equal ids into one of M segments
   (K3 into an (M, d) buffer) and update one representative row per run.
-  SGD adds its step with K3; the fused user write-back, the optimizer
-  slots and the accum rows are written with the row scatter-set S1. It is
-  shape-static like the JAX version: M segments, and the unused tail has
-  ``rep_ids == num_rows``, which every scatter drops.
+  Batch-mode SGD is one launch from the segment sums on: K3's update entry
+  (``scatter_add_update``: l2, clip, ``-lr`` and the rounding inside the
+  kernel) or, with the user write-back fused in, S1's
+  (``scatter_set_update``). The optimizer slots and the accum rows are
+  written with the plain row scatter-set S1. It is shape-static like the
+  JAX version: M segments, and the unused tail has ``rep_ids ==
+  num_rows``, which every scatter drops.
 
 Besides: the per-occurrence ``direct`` update, row-sparse Adagrad and lazy
 Adam (``apply_row_updates_opt``), ``dense_opt_update`` for ``w0``, the l2
@@ -35,7 +38,9 @@ Tables (and the accum mode's gradient rows) are f32 or bf16; gradients,
 segment sums, the dense accumulator and the optimizer slots are always
 f32. A bf16 table is rounded to where the JAX package rounds: the step
 ``lr * g`` (or the new row ``base - lr * g``) is computed in f32, cast to
-the table's type, and then added (or written) in that type.
+the table's type, and then added (or written) in that type. Gradient rows
+may arrive in the compute type (bf16): they are widened where they are
+first read (exactly), never by a pass of their own on the ``direct`` path.
 """
 
 from __future__ import annotations
@@ -46,7 +51,12 @@ import torch
 
 from heat_tpu_torch.models.aggregator import scalar_in
 from heat_tpu_torch.ops.cuda.gather import gather_rows
-from heat_tpu_torch.ops.cuda.scatter import scatter_add_rows, scatter_set_rows
+from heat_tpu_torch.ops.cuda.scatter import (
+    scatter_add_rows,
+    scatter_add_update,
+    scatter_set_rows,
+    scatter_set_update,
+)
 
 # Tables at or below this row count use the dense-accumulator path; above
 # it, the sort-dedup path (dense cost is O(rows * dim) per step).
@@ -100,7 +110,8 @@ def segment_sum_by_id(
 
 def _sorted_dedup_with_base(ids, grads, num_rows, writeback):
     """Sorted dedup that also picks each unique id's write-back row (the
-    first occurrence in sorted order). Returns (rep_ids, summed, base)."""
+    first occurrence in sorted order). Returns (rep_ids, summed, base),
+    ``base`` in the write-back's type."""
     m = ids.shape[0]
     order, seg, rep_ids = _sort_segments(ids, num_rows)
     summed = _segment_sum(order, seg, grads)
@@ -109,7 +120,7 @@ def _sorted_dedup_with_base(ids, grads, num_rows, writeback):
     ).scatter_reduce_(
         0, seg, torch.arange(m, device=ids.device), "amin"
     )
-    base = writeback.index_select(0, order[first_pos]).float()
+    base = writeback.index_select(0, order[first_pos])
     return rep_ids, summed, base
 
 
@@ -131,31 +142,32 @@ def _apply_row_updates_sorted(
     """Sort-dedup path for huge tables: O(M log M), no O(rows) pass."""
     num_rows = table.shape[0]
     if writeback is not None:
-        # Fused write-back + update: one row scatter-set (S1) in all.
+        # Fused write-back + update, l2 against the written-back rows: one
+        # launch of S1's update entry in all.
         rep_ids, summed, base = _sorted_dedup_with_base(
             ids, grads, num_rows, writeback
         )
-        if l2:
-            summed = summed + l2 * base * _valid(rep_ids, num_rows)
-        g = summed.clamp_(-clip_val, clip_val)
-        scatter_set_rows(table, rep_ids, base.sub_(lr * g).to(table.dtype))
+        scatter_set_update(table, rep_ids, base, summed, lr=lr,
+                           clip_val=clip_val, l2=l2)
         return table, None
     rep_ids, summed = segment_sum_by_id(ids, grads, num_rows)
+    if gacc is None:
+        # l2 against the table's own rows (in the table's type), then the
+        # clip: K3's update entry reads each representative row itself.
+        scatter_add_update(table, rep_ids, summed, lr=lr, clip_val=clip_val,
+                           l2=l2, clip_first=False)
+        return table, None
     if l2:
         rows = _read(table, rep_ids)
         summed = summed + (
             scalar_in(l2, rows.dtype) * rows * _valid(rep_ids, num_rows, rows.dtype)
         )
-    if gacc is None:
-        g = summed.clamp_(-clip_val, clip_val)
-        scatter_add_rows(table, rep_ids, g.mul_(-lr).to(table.dtype))
-        return table, None
     acc_rows = _read(gacc, rep_ids) * _valid(rep_ids, num_rows, gacc.dtype)
     acc_new = torch.clamp(
         scalar_in(decay, gacc.dtype) * acc_rows + summed, -clip_val, clip_val
     )
     scatter_add_rows(table, rep_ids, (-lr * acc_new).to(table.dtype))
-    scatter_set_rows(gacc, rep_ids, acc_new.to(gacc.dtype))
+    scatter_set_rows(gacc, rep_ids, acc_new)
     return table, gacc
 
 
@@ -165,7 +177,7 @@ def _write_rows(table, rep_ids, upd, lr, base) -> None:
     if base is None:
         scatter_add_rows(table, rep_ids, (-lr * upd).to(table.dtype))
     else:
-        scatter_set_rows(table, rep_ids, base.sub_(lr * upd).to(table.dtype))
+        scatter_set_rows(table, rep_ids, base - lr * upd)
 
 
 def _apply_row_updates_opt_sorted(
@@ -181,6 +193,8 @@ def _apply_row_updates_opt_sorted(
             ids, grads, num_rows, writeback
         )
     valid = _valid(rep_ids, num_rows)
+    if base is not None:
+        base = base.float()
     if l2:
         rows = base if base is not None else _read(table, rep_ids).float()
         summed = summed + l2 * rows * valid
@@ -297,7 +311,7 @@ def apply_row_updates(
         raise ValueError("writeback fusion is batch-mode only (gacc=None)")
     if table.shape[0] <= DENSE_ROWS_THRESHOLD:
         if writeback is not None:
-            scatter_set_rows(table, ids, writeback.to(table.dtype))
+            scatter_set_rows(table, ids, writeback)
         return _apply_row_updates_dense(
             table, ids, grads, lr=lr, clip_val=clip_val, gacc=gacc,
             decay=decay, l2=l2,
@@ -320,18 +334,21 @@ def apply_row_updates_direct(
     writeback: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-occurrence SGD (``update_mode: direct``), in place: the
-    write-back (S1), then one K3 scatter-add of every occurrence's
-    ``-lr * (clip(g) [+ l2 * row])``. The clip binds per occurrence, not on
-    the combined row; l2 reads the forward-pass ``rows`` (the aggregated
-    rows for the user table). Returns ``table``."""
+    write-back (S1), then one launch of K3's update entry that adds every
+    occurrence's ``-lr * (clip(g) [+ l2 * row])``. The two stay two
+    launches: every write-back of a row must land before any add to it,
+    and the blocks of one kernel run in no order. The clip binds per
+    occurrence, not on the combined row; l2 reads the forward-pass
+    ``rows`` (the aggregated rows for the user table). Returns
+    ``table``."""
+    if l2 and rows is None:
+        raise ValueError("l2 under update_mode='direct' needs rows")
     if writeback is not None:
-        scatter_set_rows(table, ids, writeback.to(table.dtype))
-    g = torch.clamp(grads, -clip_val, clip_val)
-    if l2:
-        if rows is None:
-            raise ValueError("l2 under update_mode='direct' needs rows")
-        g = g + l2 * rows.float()
-    return scatter_add_rows(table, ids, g.mul_(-lr).to(table.dtype))
+        scatter_set_rows(table, ids, writeback)
+    return scatter_add_update(
+        table, ids, grads.contiguous(), lr=lr, clip_val=clip_val, l2=l2,
+        rows=rows.contiguous() if l2 else None, clip_first=True,
+    )
 
 
 def dense_opt_update(
@@ -400,7 +417,7 @@ def apply_row_updates_opt(
               beta2=beta2, eps=eps, l2=l2)
     if table.shape[0] <= DENSE_ROWS_THRESHOLD:
         if writeback is not None:
-            scatter_set_rows(table, ids, writeback.to(table.dtype))
+            scatter_set_rows(table, ids, writeback)
         return _apply_row_updates_opt_dense(table, ids, grads, **kw)
     return _apply_row_updates_opt_sorted(
         table, ids, grads, writeback=writeback, **kw

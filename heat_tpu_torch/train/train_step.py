@@ -165,8 +165,9 @@ def train_step(
         s_up, s_un = pair_scores(u_agg, p_l, n_l, similarity=cfg.similarity)
         losses = sample_losses(s_up, s_un, cfg)
     loss_sum = (losses * weight).sum()
+    # The row gradients stay in the compute type: the updates widen them
+    # where they first read them (bf16 to f32 is exact).
     g_u, g_p, g_n, g_w0 = torch.autograd.grad(loss_sum, (u_l, p_l, n_l, w0_l))
-    g_u, g_p, g_n = g_u.float(), g_p.float(), g_n.float()
 
     if state.user_gacc is not None:
         # Accum mode: the reference's aggregator backward works on the
@@ -195,7 +196,7 @@ def train_step(
     # mode writes it first (its update reads the persistent grad rows).
     user_gacc = item_gacc = None
     if state.user_gacc is not None:
-        scatter_set_rows(user_emb, users_w, u_agg.to(user_emb.dtype))
+        scatter_set_rows(user_emb, users_w, u_agg)
         u_writeback = None
     else:
         u_writeback = u_agg

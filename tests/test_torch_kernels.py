@@ -523,17 +523,255 @@ def test_bf16_wrappers_run_plain_versions_on_cpu():
 
 
 def test_wrappers_reject_mixed_and_unknown_types(device):
-    """Rows to add or write have the table's type; a table is f32 or
-    bf16; K1's output is f32 or bf16."""
+    """Rows to add have the table's type; rows to write are f32 or bf16
+    for either table type and are cast on the way; a table is f32 or bf16;
+    K1's output is f32 or bf16."""
     t32 = torch.zeros(10, 8, device=device)
     t16 = t32.bfloat16()
     ids = torch.zeros(4, dtype=torch.int32, device=device)
     rows32 = torch.zeros(4, 8, device=device)
     with pytest.raises(ValueError, match="table's type"):
         scatter.scatter_add_rows(t16, ids, rows32)
-    with pytest.raises(ValueError, match="table's type"):
-        scatter.scatter_set_rows(t32, ids, rows32.bfloat16())
+    with pytest.raises(ValueError, match="contiguous f32 or bf16"):
+        scatter.scatter_set_rows(t32, ids, rows32.half())
+    ids = torch.arange(4, dtype=torch.int32, device=device)
+    rows = torch.linspace(0.1, 3.3, 32, device=device).reshape(4, 8)
+    assert torch.equal(scatter.scatter_set_rows(t16, ids, rows)[:4], rows.bfloat16())
+    assert torch.equal(scatter.scatter_set_rows(t32, ids, rows.bfloat16())[:4],
+                       rows.bfloat16().float())
     with pytest.raises(ValueError, match="f32 or bf16"):
         gather.gather_rows(t32.half(), ids)
     with pytest.raises(ValueError, match="out_dtype"):
         gather.history_mean_gather(t16, ids.reshape(2, 2), ids[:2], torch.float16)
+
+
+# --- the update entries and the vector instances, on the card -----------
+
+
+def _update_case(rng, n, m, d, unique):
+    """Ids (unique with a sentinel tail, or with about m / n repeats and a
+    few sentinels), gradient rows that the clip 0.25 binds on, forward rows
+    and write-back rows."""
+    if unique:
+        ids = rng.permutation(n)[:m].astype(np.int32)
+        ids[-(m // 8):] = n
+    else:
+        ids = rng.integers(0, n + 1, m).astype(np.int32)
+        ids[:40] = 17  # a heavy repeat
+    grads = (rng.normal(size=(m, d)) * 0.3).astype(np.float32)
+    rows = rng.normal(size=(m, d)).astype(np.float32)
+    base = rng.normal(size=(m, d)).astype(np.float32)
+    return ids, grads, rows, base
+
+
+def _offset_view(x, offset):
+    """A contiguous copy of ``x`` that starts ``offset`` elements into its
+    buffer: off 16-byte alignment for offset = 1."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clip_first", [True, False])
+@pytest.mark.parametrize("l2", [0.0, 0.01])
+# 16-byte vectors; bf16 pairs; single elements; vectors refused by alignment
+@pytest.mark.parametrize("d,offset", [(64, 0), (30, 0), (33, 0), (64, 1)])
+def test_scatter_add_update_kernel_unique_ids_is_bit_equal(
+        cuda, dtype, grad_dtype, clip_first, l2, d, offset):
+    """One increment per element, computed in f32 without FMA contraction
+    and rounded once: bit-equal to the plain version, whose elementwise
+    passes are PyTorch's."""
+    rng = np.random.default_rng(40)
+    n, m = 900, 400
+    ids, grads, rows, _ = _update_case(rng, n, m, d, unique=True)
+    table = _offset_view(
+        torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda).to(dtype),
+        offset)
+    i = torch.from_numpy(ids).to(cuda)
+    g = torch.from_numpy(grads).to(cuda).to(grad_dtype)
+    kw = dict(lr=torch.tensor(0.1, device=cuda), clip_val=0.25, l2=l2,
+              clip_first=clip_first)
+    if clip_first and l2:
+        kw["rows"] = torch.from_numpy(rows).to(cuda).to(grad_dtype)
+    before = dict(scatter.LAUNCHES)
+    got = scatter.scatter_add_update(table.clone(), i, g, **kw)
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES["scatter_add_update"] == before["scatter_add_update"] + 1
+    assert scatter.LAUNCHES["scatter_add_rows"] == before["scatter_add_rows"]
+    want = scatter.scatter_add_update_ref(table.clone(), i, g, **kw)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 33])
+def test_scatter_add_update_kernel_repeated_ids_within_bound(cuda, dtype, d):
+    """Over repeats the increments (bit-equal to the plain version's, see
+    above) land in any order: each element within occurrences x one
+    rounding (2^-24 f32, 2^-8 bf16) x the sum of magnitudes of the exact
+    f64 sum of the table's value and the rounded increments."""
+    rng = np.random.default_rng(41)
+    n, m = 200, 3000
+    ids, grads, rows, _ = _update_case(rng, n, m, d, unique=False)
+    table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda).to(dtype)
+    i = torch.from_numpy(ids).to(cuda)
+    g, r = torch.from_numpy(grads).to(cuda), torch.from_numpy(rows).to(cuda)
+    lr = torch.tensor(0.1, device=cuda)
+    got = scatter.scatter_add_update(table.clone(), i, g, lr=lr, clip_val=0.25,
+                                     l2=0.01, rows=r, clip_first=True)
+    torch.cuda.synchronize()
+    inc = ((torch.clamp(g, -0.25, 0.25) + 0.01 * r) * -lr).to(dtype)
+    keep = i < n
+    at, x = i[keep].long(), inc[keep].double()
+    exact = table.double().index_add_(0, at, x)
+    mag = table.double().abs().index_add_(0, at, x.abs())
+    k = torch.bincount(at, minlength=n).double()[:, None]
+    ulp = 2.0**-24 if dtype == torch.float32 else 2.0**-8
+    err = (got.double() - exact).abs()
+    assert (err <= k * ulp * mag).all(), float((err - k * ulp * mag).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("base_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l2", [0.0, 0.01])
+@pytest.mark.parametrize("d,offset", [(64, 0), (30, 0), (33, 0), (64, 1)])
+def test_scatter_set_update_kernel_is_bit_equal(cuda, dtype, base_dtype, l2, d, offset):
+    rng = np.random.default_rng(42)
+    n, m = 900, 400
+    ids, grads, _, base = _update_case(rng, n, m, d, unique=True)
+    table = _offset_view(
+        torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda).to(dtype),
+        offset)
+    i = torch.from_numpy(ids).to(cuda)
+    b = torch.from_numpy(base).to(cuda).to(base_dtype)
+    s = torch.from_numpy(grads).to(cuda)
+    kw = dict(lr=torch.tensor(0.1, device=cuda), clip_val=0.25, l2=l2)
+    before = scatter.LAUNCHES["scatter_set_update"]
+    got = scatter.scatter_set_update(table.clone(), i, b, s, **kw)
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES["scatter_set_update"] == before + 1
+    assert torch.equal(got, scatter.scatter_set_update_ref(table.clone(), i, b, s, **kw))
+    untouched = np.setdiff1d(np.arange(n), ids)
+    assert torch.equal(got[untouched], table[untouched])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rows_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("d,offset", [(64, 0), (30, 0), (33, 0), (64, 1)])
+def test_scatter_set_kernel_casts_rows_of_the_other_type(cuda, dtype, rows_dtype, d, offset):
+    """The conversion in registers rounds as ``.to`` does: bit-equal."""
+    rng = np.random.default_rng(43)
+    table, ids, rows = _set_inputs(rng, 700, 3000, d)
+    t = _offset_view(torch.from_numpy(table).to(cuda).to(dtype), offset)
+    i = torch.from_numpy(ids).to(cuda)
+    r = torch.from_numpy(rows).to(cuda).to(rows_dtype)
+    got = scatter.scatter_set_rows(t.clone(), i, r)
+    torch.cuda.synchronize()
+    assert torch.equal(got, scatter.scatter_set_rows_ref(t.clone(), i, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_kernels_on_unaligned_views_match_plain(cuda, dtype):
+    """Table and rows one element off 16-byte alignment: the element paths
+    of K3 (exact on unique ids) and S1 (bits)."""
+    rng = np.random.default_rng(44)
+    n, m, d = 300, 120, 64
+    ids = rng.permutation(n)[:m].astype(np.int32)
+    i = torch.from_numpy(ids).to(cuda)
+    table = _offset_view(
+        torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda).to(dtype), 1)
+    rows = _offset_view(
+        torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(cuda).to(dtype), 1)
+    assert table.data_ptr() % 16 and rows.data_ptr() % 16
+    for fn, ref in ((scatter.scatter_add_rows, scatter.scatter_add_rows_ref),
+                    (scatter.scatter_set_rows, scatter.scatter_set_rows_ref)):
+        got = fn(table.clone(), i, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref(table.clone(), i, rows)), fn.__name__
+
+
+@pytest.mark.cuda
+def test_launch_follows_the_tensors_device(cuda):
+    """A tensor on another device than the current one launches on its own
+    device (the guard is in the C entry points). With one card the two
+    coincide, and all that can be shown is that the launch passes the
+    tensor's index and leaves the current device as it was."""
+    last = torch.cuda.device_count() - 1
+    dev = torch.device("cuda", last)
+    table = torch.arange(40, dtype=torch.float32, device=dev).reshape(10, 4)
+    ids = torch.tensor([3, 1], dtype=torch.int32, device=dev)
+    torch.cuda.set_device(0)
+    got = gather.gather_rows(table, ids)
+    added = scatter.scatter_add_rows(table.clone(), ids, got)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    assert got.device == dev and torch.equal(got, table[[3, 1]])
+    assert torch.equal(added[[3, 1]], 2 * table[[3, 1]])
+
+
+def _capture_cases(dev):
+    """name -> (fn(out_or_table) -> result, fresh-state maker) for every
+    kernel entry, at small shapes; in-place entries get a fresh table."""
+    rng = np.random.default_rng(46)
+    n, m, d = 500, 256, 64
+    f32 = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.permutation(n)[:m].astype(np.int32)).to(dev)
+    rows = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(dev)
+    his = torch.from_numpy(rng.integers(0, n, (m, 9)).astype(np.int32)).to(dev)
+    lens = torch.from_numpy(rng.integers(0, 10, m).astype(np.int32)).to(dev)
+    sim = torch.from_numpy(rng.normal(size=(32, 1024)).astype(np.float32)).to(dev)
+    widx = torch.from_numpy(rng.integers(0, 8, (32, 5)).astype(np.int32)).to(dev)
+    lr = torch.tensor(0.1, device=dev)
+    cases = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        t, r = f32.to(dtype), rows.to(dtype)
+        cases[f"gather_rows_{tag}"] = (lambda x, t=t: gather.gather_rows(t, ids), None)
+        cases[f"gather_blocks_{tag}"] = (
+            lambda x, t=t: gather.gather_blocks(t, ids[:100] // 4, 4), None)
+        cases[f"history_mean_{tag}"] = (
+            lambda x, t=t: gather.history_mean_gather(t, his, lens), None)
+        cases[f"scatter_add_rows_{tag}"] = (
+            lambda x, r=r: scatter.scatter_add_rows(x, ids, r), t)
+        cases[f"scatter_set_rows_{tag}"] = (
+            lambda x: scatter.scatter_set_rows(x, ids, rows), t)
+        cases[f"scatter_add_update_{tag}"] = (
+            lambda x: scatter.scatter_add_update(
+                x, ids, rows, lr=lr, clip_val=0.25, l2=0.01, rows=rows,
+                clip_first=True), t)
+        cases[f"scatter_add_update_own_{tag}"] = (
+            lambda x: scatter.scatter_add_update(
+                x, ids, rows, lr=lr, clip_val=0.25, l2=0.01, clip_first=False), t)
+        cases[f"scatter_set_update_{tag}"] = (
+            lambda x: scatter.scatter_set_update(
+                x, ids, rows, rows, lr=lr, clip_val=0.25, l2=0.01), t)
+    cases["window_extract"] = (lambda x: topk.window_extract(sim, widx, 128), None)
+    return cases
+
+
+@pytest.mark.cuda
+def test_every_kernel_captures_into_a_cuda_graph_and_replays(cuda):
+    """Each entry launches on the capture stream (read at every launch) and
+    does nothing a capture forbids: the replayed graph gives the eager
+    result (the ids are unique, so the adds are exact)."""
+    for name, (fn, state) in _capture_cases(cuda).items():
+        want = fn(None if state is None else state.clone())
+        torch.cuda.synchronize()
+        static = None if state is None else state.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(static)
+        if static is not None:
+            static.copy_(state)  # the capture ran nothing; start from the state
+        else:
+            out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), name
