@@ -40,7 +40,15 @@ Phases, each of which raises (exit code 1) on failure:
    the 6,000,000-row table (unique ids: bit-equal); S1's, f32 and bf16, at
    the 16,000,000-row user table (bit-equal). K3 also with every id
    distinct and with sorted ids (what repeats cost). S2 (block gather) at the measuring script's
-   shapes, f32 and bf16 at r = 1, 4, 16 (bit-equal). Then train steps on the
+   shapes, f32 and bf16 at r = 1, 4, 16 (bit-equal). K1 with the user
+   indirection at config0's step (8,192 ``rows`` into the (52,643, 100)
+   history table) and over whole tables of pools in one launch into a given
+   buffer ((52,643, 100) and (16,000,000, 10) histories, bf16; the latter
+   held chunk by chunk), and that a user's mean has the same bits at any
+   position of any batch under one split of the history. K2's multi-table
+   entry at the row reads of the config0, headline and 16M x 6M steps and
+   with f32 tables read into bf16 (bit-equal to ``index_select`` and the
+   cast). Then train steps on the
    card against the same steps on the CPU at a small size, for each
    branch of the update menu (dense, sorted, direct, l2, Adagrad, Adam,
    accum) and of the tile path (whole-tile scoring with pinned tile and
@@ -61,7 +69,9 @@ Phases, each of which raises (exit code 1) on failure:
    of 1, 256 and 8192 users timed and held against ``recommend_all``, the
    Recall@20 of every user's requested top-20 against the run's final
    eval, aggregated-user requests and cold-start users against plain
-   oracles, with the launch counts read around the phase;
+   oracles, with the launch counts read around the phase; then the
+   headline run's export served from bf16 tables (the main path of K2's
+   single bf16 instance and of K1 bf16 with ``rows``);
 6. huge item table: a random 1,048,576-item state whose requests take the
    chunked route (4,096 users) and the retrieve-and-filter route (9,216
    users, the seen bitmap above its budget), each held against a plain
@@ -85,7 +95,8 @@ Phases, each of which raises (exit code 1) on failure:
 8. ``heat_tpu_torch.profile_exact_ceiling`` at 10 timed calls per
    measurement: the one path that runs S2;
 9. the kernels' JSON line (each instance with its launches on its own main
-   path: f32 on config0, bf16 on the headline run, S2 on its script), the
+   path: f32 on config0, bf16 on the headline run, K2's single entry on
+   serving, S2 on its script), the
    card's line, and last ``{"ok": true, "device": {...}}``.
 
 Fails without a CUDA device, and outside a checkout of the repository.
@@ -105,7 +116,8 @@ CONFIG0 = "benchmarks/AmazonBooks/config0.yaml"
 SYNTHETIC = "52643,91599"  # AmazonBooks users x items
 NUM_USERS, NUM_ITEMS = 52643, 91599
 BATCH, MAX_HIS, NUM_NEGS, DIM = 8192, 100, 16, 64
-TILE, POOL_CHUNK = 512, 4096  # the headline's tile; users per K1 launch of the pools
+TILE, POOL_CHUNK = 512, 4096  # the headline's tile; a K1 shape kept from chunked pools
+PLAIN_CHUNK = 1 << 20  # users a call of K1's plain version over 16M histories
 # The headline configuration of the JAX package's bench.py, on config0.
 HEADLINE = ["neg_sampler=1", "tile_size=512", "refresh_interval=8192",
             "his_refresh=subepoch", "param_dtype=bfloat16",
@@ -129,10 +141,11 @@ S1_SHAPES = (  # (table rows, ids, key suffix): user and item sides
 )
 MEM_RATIO = 1.25  # peak device memory / bytes held, at most
 PROFILE_STEPS = 50  # steps timed, then traced, for the launches per step
-# Device launches per step before the update entries existed, traced by the
-# same command on that tree (NVIDIA H100 80GB HBM3).
-LAUNCHES_BEFORE = {"headline": 176, "dedup_16m_6m": 235, "direct_16m_6m": 176}
+# Device launches per step before the step read its rows in one launch,
+# traced by the same command on that tree (NVIDIA H100 80GB HBM3).
+LAUNCHES_BEFORE = {"headline": 165, "dedup_16m_6m": 225, "direct_16m_6m": 165}
 EXPORT = Path(__file__).resolve().parent / "build" / "chip_smoke" / "config0.npz"
+EXPORT_HEADLINE = EXPORT.with_name("headline.npz")
 
 
 def card_line() -> str:
@@ -280,48 +293,194 @@ def check_gather_rows(entry, key, table, ids) -> None:
           nops=0)
 
 
-def check_history_mean(entry, key, table, his, lens, out_dtype=None) -> None:
-    """K1 at one shape. f32: the kernel sums in history order, the plain
-    version blocked: rtol 1e-5, atol 1e-6. bf16: within one bf16 ulp
-    (2^-7 of its magnitude) of the f32-accumulated mean of the same rows.
-    The library call is ``embedding_bag(mode="mean")`` over the valid ids,
-    flattened beforehand."""
+def hold_history_mean(got, table, his, lens, out_dtype=None, rows=None,
+                      order_term=False) -> None:
+    """K1's result against its plain version. f32: the kernel sums each
+    lane group's history slots in order and then the groups, the plain
+    version blocked; any order is within H x 2^-24 x sum|x| / len of the
+    exact sum: rtol 1e-5, atol 1e-6. bf16: within one bf16 ulp (2^-7 of
+    its magnitude) of the f32-accumulated mean of the same rows; with
+    ``order_term`` plus that f32 bound on the order of the sum, which alone
+    decides where a mean cancels to nearly nothing (over 10^9 elements some
+    do)."""
     import torch
 
     from heat_tpu_torch.ops.cuda import gather
 
-    got = gather.history_mean_gather(table, his, lens, out_dtype)
-    want = gather.history_mean_gather_ref(table, his, lens, out_dtype)
-    torch.cuda.synchronize()
     if got.dtype == torch.bfloat16:
-        exact = gather.history_mean_gather_ref(table, his, lens, torch.float32)
+        exact = gather.history_mean_gather_ref(table, his, lens, torch.float32,
+                                               rows)
         err = (got.float() - exact).abs()
-        if not bool((err <= 2.0**-7 * exact.abs() + 1e-30).all()):
+        bound = 2.0**-7 * exact.abs() + 1e-30
+        if order_term:
+            bound += his.shape[1] * 2.0**-24 * gather.history_mean_gather_ref(
+                table.abs(), his, lens, torch.float32, rows)
+        if not bool((err <= bound).all()):
+            at = int((err - bound).argmax())
             raise AssertionError(
-                f"K1 bf16 at {tuple(his.shape)}: further than one bf16 ulp "
-                f"from the f32-accumulated mean"
+                f"K1 bf16 at {tuple(got.shape)} of {tuple(his.shape)}: further "
+                f"than one bf16 ulp from the f32-accumulated mean: "
+                f"{float(got.flatten()[at])} against {float(exact.flatten()[at])}"
+                f", {int((err > bound).sum())} elements"
             )
     else:
+        want = gather.history_mean_gather_ref(table, his, lens, out_dtype, rows)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    worst(entry, got, want)
-    b, h = his.shape
-    d = table.shape[1]
-    n = lens.clamp(0, h)
-    valid = torch.arange(h, device=his.device)[None, :] < n[:, None]
-    flat = his[valid].long()
-    offsets = torch.cumsum(n, 0) - n
-    rows_read = int(n.sum())
+
+
+def _bags(his, lens):
+    """(flat valid ids, offsets, their count) of (B, H) histories: the
+    inputs of ``embedding_bag``, made beforehand."""
+    import torch
+
+    n = lens.clamp(0, his.shape[1])
+    valid = torch.arange(his.shape[1], device=his.device)[None, :] < n[:, None]
+    return his[valid].long(), torch.cumsum(n, 0) - n, int(n.sum())
+
+
+def check_history_mean(entry, key, table, his, lens, out_dtype=None,
+                       rows=None) -> None:
+    """K1 at one shape, held by :func:`hold_history_mean`. With ``rows`` the
+    kernel reads sample b's history ``his[rows[b]]`` itself. The library
+    call is ``embedding_bag(mode="mean")`` over the valid ids, flattened
+    beforehand; with ``rows`` after the two ``index_select`` calls that
+    fetch the samples' ids and lengths, which the kernel no longer needs."""
+    import torch
+
+    from heat_tpu_torch.ops.cuda import gather
+
+    got = gather.history_mean_gather(table, his, lens, out_dtype, rows=rows)
+    torch.cuda.synchronize()
+    hold_history_mean(got, table, his, lens, out_dtype, rows)
+    worst(entry, got, gather.history_mean_gather_ref(table, his, lens,
+                                                     out_dtype, rows))
+    b, d = got.shape
+    if rows is None:
+        flat, offsets, rows_read = _bags(his, lens)
+
+        def library():
+            return torch.nn.functional.embedding_bag(
+                flat, table, offsets, mode="mean")
+    else:
+        idx = rows.long()
+        flat, offsets, rows_read = _bags(his.index_select(0, idx),
+                                         lens.index_select(0, idx))
+
+        def library():
+            his.index_select(0, idx)
+            lens.index_select(0, idx)
+            return torch.nn.functional.embedding_bag(
+                flat, table, offsets, mode="mean")
+
     timed(entry, key,
-          lambda: gather.history_mean_gather(table, his, lens, out_dtype),
-          lambda: gather.history_mean_gather_ref(table, his, lens, out_dtype),
+          lambda: gather.history_mean_gather(table, his, lens, out_dtype,
+                                             rows=rows),
+          lambda: gather.history_mean_gather_ref(table, his, lens, out_dtype,
+                                                 rows),
+          library,
+          # This run's valid ids and the lengths (and the rows), each distinct
+          # table row they name read once (a row read again comes from cache,
+          # not from memory), the means written; one add per valid element.
+          nbytes=_distinct(flat) * d * table.element_size() + 4 * rows_read
+          + 4 * b * (1 if rows is None else 2) + b * d * got.element_size(),
+          nops=rows_read * d)
+
+
+def check_pools(entry, key, table, his, lens, plain_chunk=None) -> None:
+    """K1 over every user's history in ONE launch into a given buffer (what
+    ``user_pools_impl`` does on the card), held by
+    :func:`hold_history_mean`, ``plain_chunk`` users at a time where the
+    plain version's (U, H, d) f32 buffer would not fit (it is then not
+    timed). The library call is ``embedding_bag`` over the valid ids."""
+    import torch
+
+    from heat_tpu_torch.ops.cuda import gather
+
+    u, d = his.shape[0], table.shape[1]
+    out = torch.empty((u, d), dtype=table.dtype, device=table.device)
+    before = gather.LAUNCHES["history_mean_gather"]
+    got = gather.history_mean_gather(table, his, lens, out=out)
+    torch.cuda.synchronize()
+    if got is not out or gather.LAUNCHES["history_mean_gather"] != before + 1:
+        raise AssertionError("K1 over the whole pools: not one launch in place")
+    step = plain_chunk or u
+    for lo in range(0, u, step):
+        hold_history_mean(got[lo:lo + step], table, his[lo:lo + step],
+                          lens[lo:lo + step], order_term=True)
+    worst(entry, got[:step], gather.history_mean_gather_ref(
+        table, his[:step], lens[:step]))
+    flat, offsets, rows_read = _bags(his, lens)
+    timed(entry, key,
+          lambda: gather.history_mean_gather(table, his, lens, out=out),
+          None if plain_chunk else
+          (lambda: gather.history_mean_gather_ref(table, his, lens)),
           lambda: torch.nn.functional.embedding_bag(
               flat, table, offsets, mode="mean"),
-          # This run's valid ids and the lengths, each distinct row they
-          # name read once (a row read again comes from cache, not from
-          # memory), the means written; one add per valid element.
           nbytes=_distinct(flat) * d * table.element_size() + 4 * rows_read
-          + 4 * b + b * d * got.element_size(),
+          + 4 * u + u * d * out.element_size(),
           nops=rows_read * d)
+
+
+def check_same_bits(table, his, lens, rows) -> None:
+    """The order of K1's sum depends on the valid length and the split of
+    the history over lanes only: under one split a user's mean has the same
+    bits in the table of all pools, at any position of a batch of ``rows``
+    and in a batch of another size (another grid)."""
+    import torch
+
+    from heat_tpu_torch.ops.cuda import gather
+
+    few = rows[:256].contiguous()
+    for split in (1, 2):
+        every = gather.history_mean_gather(table, his, lens, split=split)
+        batch = gather.history_mean_gather(table, his, lens, rows=rows,
+                                           split=split)
+        short = gather.history_mean_gather(table, his, lens, rows=few,
+                                           split=split)
+        torch.cuda.synchronize()
+        if not (torch.equal(batch, every[rows.long()])
+                and torch.equal(short, batch[:256])):
+            raise AssertionError(
+                f"K1 {table.dtype}, split {split}: a user's mean differs "
+                f"between batches")
+
+
+def check_gather_multi(entry, key, segments, out_dtype) -> None:
+    """K2's multi-table entry at one step's row reads: every segment
+    bit-equal to its plain version (``index_select`` and the cast). The
+    library yardstick is that sequence of PyTorch calls over ids made int64
+    beforehand; the bound is the sum of the segments' bytes."""
+    import torch
+
+    from heat_tpu_torch.ops.cuda import gather
+
+    got = gather.gather_rows_multi(segments, out_dtype)
+    want = gather.gather_rows_multi_ref(segments, out_dtype)
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(
+                f"K2 gather_rows_multi{key}: segment {k} disagrees with its "
+                f"plain version")
+        worst(entry, g, w)
+    longs = [ids.long() for _, ids in segments]
+
+    def library():
+        for (table, _), ids in zip(segments, longs):
+            rows = table.index_select(0, ids)
+            if out_dtype is not None and out_dtype != table.dtype:
+                rows = rows.to(out_dtype)
+
+    nbytes = sum(
+        4 * ids.shape[0]
+        + _distinct(ids) * table.shape[1] * table.element_size()
+        + out.numel() * out.element_size()
+        for (table, ids), out in zip(segments, got))
+    del got, want
+    timed(entry, key,
+          lambda: gather.gather_rows_multi(segments, out_dtype),
+          lambda: gather.gather_rows_multi_ref(segments, out_dtype),
+          library, nbytes=nbytes, nops=0)
 
 
 def _distinct(ids) -> int:
@@ -604,6 +763,43 @@ def check_kernels(dev) -> list[dict]:
     lens = ids(POOL_CHUNK, MAX_HIS + 1)
     check_history_mean(k1b, "", items16, his, lens)
     check_history_mean(k1b, "_f32out", items16, his, lens, torch.float32)
+    # K1 reading the samples' histories out of the whole (52,643, 100)
+    # history table through config0's 8,192 ``rows``; every user's pools in
+    # one launch into a given buffer (the headline's refresh, bf16); and the
+    # same bits for a user wherever it stands.
+    his = ids(NUM_USERS * MAX_HIS, NUM_ITEMS).reshape(NUM_USERS, MAX_HIS)
+    lens = ids(NUM_USERS, MAX_HIS + 1)
+    rows = ids(BATCH, NUM_USERS)
+    k1["shape"] += (f"; _rows: {BATCH} rows into ({NUM_USERS}, {MAX_HIS}) "
+                    f"histories")
+    k1b["shape"] += (f"; _pools: all ({NUM_USERS}, {MAX_HIS}) histories, one "
+                     f"launch into a given buffer")
+    check_history_mean(k1, "_rows", items, his, lens, rows=rows)
+    check_pools(k1b, "_pools", items16, his, lens)
+    check_same_bits(items, his, lens, rows)
+    check_same_bits(items16, his, lens, rows)
+
+    # K2's multi-table entry at the row reads of a step: config0's three
+    # (users, positives, 131,072 negatives; f32), the same read into bf16
+    # compute, and the headline's four (users, positives, 512 tile rows,
+    # pool rows; bf16).
+    users = torch.randn(NUM_USERS, DIM, generator=g, device=dev)
+    k2m = new_entry("gather_rows_multi", "gather.cu", k2["replaces"],
+                    f"({NUM_USERS}, {DIM}) and ({NUM_ITEMS}, {DIM}) f32 tables, "
+                    f"{BATCH} + {BATCH} + {BATCH * NUM_NEGS} ids; _mixed: the "
+                    f"same into bf16")
+    step0 = [(users, rows), (items, ids(BATCH, NUM_ITEMS)),
+             (items, ids(BATCH * NUM_NEGS, NUM_ITEMS))]
+    check_gather_multi(k2m, "", step0, None)
+    check_gather_multi(k2m, "_mixed", step0, torch.bfloat16)
+    k2mb = new_entry("gather_rows_multi_bf16", "gather.cu", k2["replaces"],
+                     f"({NUM_USERS}, {DIM}) users and pools, ({NUM_ITEMS}, {DIM}) "
+                     f"items, bf16, {BATCH} + {BATCH} + {TILE} + {BATCH} ids")
+    pools16 = users16.roll(1, 0)
+    check_gather_multi(k2mb, "", [
+        (users16, rows), (items16, ids(BATCH, NUM_ITEMS)),
+        (items16, ids(TILE, NUM_ITEMS)), (pools16, rows)], torch.bfloat16)
+    del users, pools16, step0
 
     # K3: the item update's ids, with repeats and about 1% sentinels
     # (id == N): config0's 8192 + 131,072 into a zeroed f32 accumulator,
@@ -700,8 +896,8 @@ def check_kernels(dev) -> list[dict]:
         check_gather_blocks_at(s2, key, wide, ids(S2_ROWS // r, n // r), r)
         check_gather_blocks_at(s2b, key, wide.bfloat16(),
                                ids(S2_ROWS // r, n // r), r)
-    return [k2, k2b, k1, k1b, k3, k3b, k3u, k3ub, k4, s1, s1b, s1u, s1ub, s2,
-            s2b]
+    return [k2, k2b, k2m, k2mb, k1, k1b, k3, k3b, k3u, k3ub, k4, s1, s1b, s1u,
+            s1ub, s2, s2b]
 
 
 def check_window_extract(dev) -> dict:
@@ -869,13 +1065,25 @@ def check_path_shapes(dev, entries: dict) -> None:
     check_gather_rows(k2, "_big_users", users16, ids(BIG_BATCH, BIG_USERS))
     pools16 = users16.roll(1, 0)
     check_gather_rows(k2, "_big_pool", pools16, ids(BIG_BATCH, BIG_USERS))
-    del pools16
     check_gather_rows(k2, "_big_tile", items16, ids(BIG_TILE, BIG_ITEMS))
+    # The same step's four row reads in one launch.
+    uid = ids(BIG_BATCH, BIG_USERS)
+    check_gather_multi(entries["gather_rows_multi_bf16"], "_big", [
+        (users16, uid), (items16, ids(BIG_BATCH, BIG_ITEMS)),
+        (items16, ids(BIG_TILE, BIG_ITEMS)), (pools16, uid)], torch.bfloat16)
+    del pools16
     # K1: one (4,096, 10) chunk of the pools over the 6M table.
     check_history_mean(
         entries["history_mean_gather_bf16"], "_big", items16,
         ids(POOL_CHUNK * BIG_HIS, BIG_ITEMS).reshape(POOL_CHUNK, BIG_HIS),
         ids(POOL_CHUNK, BIG_HIS + 1))
+    # K1: the pools of all 16,000,000 users in one launch into a given
+    # buffer, held against the plain version PLAIN_CHUNK users at a time.
+    his = ids(BIG_USERS * BIG_HIS, BIG_ITEMS).reshape(BIG_USERS, BIG_HIS)
+    check_pools(entries["history_mean_gather_bf16"], "_big_pools", items16, his,
+                ids(BIG_USERS, BIG_HIS + 1), plain_chunk=PLAIN_CHUNK)
+    del his
+    torch.cuda.empty_cache()
     # S1: the sort-dedup path's 32,768 sorted representative ids, 1/8
     # sentinels, into the 16M table.
     rep_ids = sorted_reps(BIG_USERS, BIG_BATCH)
@@ -1035,6 +1243,68 @@ def check_serving(dev, final_recall: float) -> dict:
               k, "recommend_cold vs a plain oracle", atol=1e-6)
     out["cold_b64_ms"] = time_request(lambda: rec.recommend_cold(hist, k), 20)
     return out
+
+
+def check_serving_bf16(dev) -> dict:
+    """The headline run's export served from bf16 tables: a 256-user request
+    against ``recommend_all`` (the requested rows come through K2's bf16
+    instance bit for bit, so the rankings agree tie-aware), and the rows of
+    an aggregated request (K1 bf16 reading the users' histories through
+    ``rows``) against the same users' rows of the whole aggregated table:
+    the request splits a history over more lanes than the table of all
+    pools does, so each of the two means is within one bf16 ulp of the
+    exact one and they are within 2^-6 of each other; through the product
+    with ``w0`` and the blend (bf16 roundings of 2^-8 each) the aggregated
+    rows are within 2^-6 x ((1 - gamma) |means| @ |w0| + gamma |u| + |row|)."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.config import load_config
+    from heat_tpu_torch.data.synthetic import synthetic_click_dataset
+    from heat_tpu_torch.export import load_embeddings
+    from heat_tpu_torch.models.aggregator import user_pools_impl
+    from heat_tpu_torch.models.state import state_from_numpy
+    from heat_tpu_torch.serving import Recommender
+
+    cfg, _ = load_config(CONFIG0)
+    train, _ = synthetic_click_dataset(
+        num_users=NUM_USERS, num_items=NUM_ITEMS, max_his=cfg.max_his,
+        seed=cfg.seed,
+    )
+    emb = load_embeddings(str(EXPORT_HEADLINE))
+    state = state_from_numpy(emb["user_emb"], emb["item_emb"], emb["w0"],
+                             lr=cfg.l_r, step=0, device=dev,
+                             param_dtype=torch.bfloat16)
+    rec = Recommender(state, cfg, seen_pairs=train.pairs,
+                      his_items=train.his_items, his_masks=train.masks)
+    k = REQUEST_K
+    uids = np.random.default_rng(8).integers(0, NUM_USERS, 256)
+    got = rec.recommend(uids, k + 1)
+    same_topk(got, rec.recommend_all(k + 1)[uids],
+              lambda ids: _score_rows(state.user_emb, state.item_emb, uids, ids),
+              k, "bf16 request B=256 vs recommend_all")
+    on_card = torch.as_tensor(uids.astype(np.int32), device=dev)
+    rows = rec._user_rows(on_card, True).float()
+    idx = on_card.long()
+    every = rec._user_embeddings(True)[idx].float()
+    means = user_pools_impl(state.item_emb, rec._his_dev, rec._masks_dev)[idx]
+    torch.cuda.synchronize()
+    bound = 2.0**-6 * (
+        (1.0 - cfg.gamma) * (means.float().abs() @ state.w0.abs())
+        + cfg.gamma * state.user_emb[idx].float().abs() + every.abs())
+    if not bool(((rows - every).abs() <= bound).all()):
+        raise AssertionError(
+            "bf16 aggregated request rows: outside the bf16 rounding of the "
+            "whole aggregated table's")
+    top = rec.recommend(uids, k, aggregate_users=True)
+    if top.shape != (256, k) or top.min() < 0 or top.max() >= NUM_ITEMS:
+        raise AssertionError("bf16 aggregated request: ids out of range")
+    return {
+        "serve_bf16_b256_ms": time_request(lambda: rec.recommend(uids, k), 20),
+        "agg_bf16_b256_ms": time_request(
+            lambda: rec.recommend(uids, k, aggregate_users=True), 20),
+        "agg_rows_max_abs_diff": float((rows - every).abs().max()),
+    }
 
 
 def check_huge_table(dev) -> dict:
@@ -1272,18 +1542,18 @@ HUGE_ENGINE_RUNS = {  # name: (config overrides, kernels launched every step)
     # dedup: the segment sums (K3), the item update (K3's update entry) and
     # the user write-back + update (S1's).
     "dedup": ({"update_mode": "dedup"}, (
-        "gather_rows", "history_mean_gather", "scatter_add_rows",
+        "gather_rows_multi", "history_mean_gather", "scatter_add_rows",
         "scatter_add_update", "scatter_set_update")),
     # direct: the write-back (S1) and both per-occurrence updates.
     "direct": ({"update_mode": "direct"}, (
-        "gather_rows", "history_mean_gather", "scatter_add_update",
+        "gather_rows_multi", "history_mean_gather", "scatter_add_update",
         "scatter_set_rows")),
     # Row-sparse Adagrad on bf16 tables: the path that adds rows as they are
     # into a bf16 table (the plain K3 bf16 instance, item update) and writes
     # f32 rows into one (S1's conversion, user write-back + update).
     "adagrad_bf16": ({"optimizer": "adagrad", "param_dtype": "bfloat16",
                       "compute_dtype": "bfloat16"}, (
-        "gather_rows_bf16", "history_mean_gather_bf16",
+        "gather_rows_multi_bf16", "history_mean_gather_bf16",
         "scatter_add_rows_bf16", "scatter_set_rows_bf16")),
 }
 
@@ -1388,11 +1658,21 @@ def check_huge_training(reset, read) -> dict:
                 f"bench_large: tile {record['tile_size']}, but the kernels "
                 f"were checked at {BIG_TILE} tile rows")
         steps = record["steps"]
-        # Per step: K2 for the user, pool, positive and tile rows; S1 and
-        # K3 in both modes; K1 only for the pools (3,907 chunks an epoch),
-        # all on bf16 tables (the segment sums' K3 adds into f32 buffers).
-        chunks = 2 * -(-record["users"] // POOL_CHUNK)
-        need = {"gather_rows_bf16": 4 * steps, "history_mean_gather_bf16": chunks}
+        # Per step: one K2 launch for the user, pool, positive and tile rows;
+        # S1 and K3 in both modes; K1 only for the pools, one launch a
+        # refresh (the warm-up epoch, the timed one and the profile's), all
+        # on bf16 tables (the segment sums' K3 adds into f32 buffers).
+        refreshes = 3
+        if launches["history_mean_gather_bf16"] != refreshes:
+            raise AssertionError(
+                f"bench_large {mode}: K1 launched "
+                f"{launches['history_mean_gather_bf16']} times for "
+                f"{refreshes} pool refreshes")
+        if launches["gather_rows_bf16"]:
+            raise AssertionError(
+                f"bench_large {mode}: a step read rows outside the "
+                f"multi-table launch: {launches}")
+        need = {"gather_rows_multi_bf16": steps}
         if mode == "dedup":  # segment sums; item update; user write-back + update
             need.update({"scatter_add_rows": 2 * steps,
                          "scatter_add_update_bf16": steps,
@@ -1590,7 +1870,7 @@ def main() -> int:
     launches = read()
     steps = record["steps"]
     check_run("config0", record, launches, {
-        "gather_rows": steps, "history_mean_gather": steps,
+        "gather_rows_multi": steps, "history_mean_gather": steps,
         "scatter_add_rows": steps, "scatter_set_rows": steps,
         "window_extract": eval_tiles})
     if any(n for name, n in launches.items() if name.endswith("_bf16")):
@@ -1602,29 +1882,30 @@ def main() -> int:
     # The headline configuration at full width: tile sampler with
     # whole-tile scoring, cached pools, bf16 tables and compute, direct.
     reset()
-    head = cli.main(args + [x for kv in HEADLINE for x in ("--set", kv)])
+    head = cli.main(args + [x for kv in HEADLINE for x in ("--set", kv)]
+                    + ["--export-embeddings", str(EXPORT_HEADLINE)])
     head_launches = read()
     steps = head["steps"]
-    pool_chunks = 5 * -(-NUM_USERS // POOL_CHUNK)  # once an epoch
+    pool_chunks = 5  # the pools of every user: one launch an epoch
     check_run("headline", head, head_launches, {
-        # user, positive, tile and pool rows; the pools; the user and the
-        # item update (K3's update entry); the user write-back: all on bf16
-        # tables.
-        "gather_rows_bf16": 4 * steps, "history_mean_gather_bf16": pool_chunks,
+        # user, positive, tile and pool rows in one launch; the pools; the
+        # user and the item update (K3's update entry); the user write-back:
+        # all on bf16 tables.
+        "gather_rows_multi_bf16": steps, "history_mean_gather_bf16": pool_chunks,
         "scatter_add_update_bf16": 2 * steps, "scatter_set_rows_bf16": steps,
         "window_extract": eval_tiles})
     if head_launches["scatter_add_rows"]:
         raise AssertionError(
             f"headline: the plain scatter-add ran beside its update entry: "
             f"{head_launches}")
-    for name in ("gather_rows", "history_mean_gather", "scatter_add_update",
-                 "scatter_set_rows"):
+    for name in ("gather_rows", "gather_rows_multi", "history_mean_gather",
+                 "scatter_add_update", "scatter_set_rows"):
         if head_launches[name] != head_launches[name + "_bf16"]:
             raise AssertionError(f"headline launched an f32 {name}: {head_launches}")
     if head_launches["history_mean_gather"] != pool_chunks:
         raise AssertionError(
             f"headline: K1 launched {head_launches['history_mean_gather']} "
-            f"times, not once per pool chunk per epoch ({pool_chunks})"
+            f"times, not once an epoch ({pool_chunks})"
         )
     head_final = head["final_metrics"]
     gap = head_final["Recall(k=20)"] - final["Recall(k=20)"]
@@ -1648,6 +1929,14 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched by serving")
     print(f"serving: {json.dumps(serving)}")
     print(f"serving launches: {serving_launches}")
+    reset()
+    serving16 = check_serving_bf16(dev)
+    serving16_launches = read()
+    for name in ("gather_rows_bf16", "history_mean_gather_bf16"):
+        if serving16_launches[name] < 1:
+            raise AssertionError(f"{name} was not launched by bf16 serving")
+    print(f"serving, bf16 tables: {json.dumps(serving16)}")
+    print(f"serving launches, bf16 tables: {serving16_launches}")
 
     huge_f32 = check_huge_f32(dev, reset, read)
     huge = check_huge_training(reset, read)
@@ -1701,9 +1990,15 @@ def main() -> int:
     # measuring entry point; the update entries' f32 instances on the f32
     # huge-table run in dedup mode, S1's bf16 update entry on bench_large in
     # dedup mode, and the plain K3 bf16 instance (whose headline callers now
-    # use the update entry) on the bf16 Adagrad huge-table run.
+    # use the update entry) on the bf16 Adagrad huge-table run. K2's single
+    # entry, which the steps left for the multi-table launch: the requested
+    # users' rows in serving, f32 on the config0 export and bf16 on the
+    # headline's.
     dedup_f32 = huge_f32["dedup"]["launches"]
     on_path = {
+        "gather_rows": (serving_launches["gather_rows"]
+                        - serving_launches["gather_rows_bf16"]),
+        "gather_rows_bf16": serving16_launches["gather_rows_bf16"],
         "gather_blocks": (ceiling_launches["gather_blocks"]
                           - ceiling_launches["gather_blocks_bf16"]),
         "gather_blocks_bf16": ceiling_launches["gather_blocks_bf16"],
@@ -1725,6 +2020,7 @@ def main() -> int:
         if k["launches"] < 1:
             raise AssertionError(f"{name} was not launched on its main path")
         k["launches_serving"] = serving_launches[name]
+        k["launches_serving_bf16"] = serving16_launches[name]
         for mode in HUGE_ENGINE_RUNS:
             k[f"launches_huge_f32_{mode}"] = huge_f32[mode]["launches"][name]
         for mode in ("dedup", "direct"):

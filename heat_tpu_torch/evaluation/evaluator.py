@@ -366,3 +366,11 @@ def topk_scores(
     )
     scores, ids = ev.topk(user_emb, item_emb, k, exact=exact, return_scores=True)
     return scores.cpu().numpy(), ids.cpu().numpy()
+
+
+def full_sim_matrix(user_emb: torch.Tensor, item_emb: torch.Tensor) -> np.ndarray:
+    """The reference ``evaluate0`` API (engine.cpp:388-400): the dense
+    user x item dot-product matrix, an f32 product (TF32 off) brought to
+    the host. Only for small problems and parity tests; production
+    evaluation uses :func:`topk_scores`."""
+    return (user_emb.float() @ item_emb.float().T).cpu().numpy()

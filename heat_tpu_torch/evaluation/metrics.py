@@ -2,7 +2,8 @@
 
 The host formulas below are a copy of ``heat_tpu/evaluation/metrics.py``
 (that package cannot be imported without jax), verbatim apart from the
-native hits kernel, which is not ported. ``evaluate_metrics_device`` is
+native hits kernel, which is not ported (``evaluate_sim_matrix``, the
+dense host oracle, included). ``evaluate_metrics_device`` is
 the torch counterpart of the JAX on-device metrics: the same formulas on
 the engine's device, so only len(metrics) scalars reach the host.
 
@@ -245,3 +246,25 @@ def evaluate_metrics_device(
         ]
     ).cpu()
     return {m: float(v) for m, v in zip(metrics, vals)}
+
+
+def evaluate_sim_matrix(
+    metrics: Sequence[str],
+    sim_matrix: np.ndarray,
+    train_items: Sequence[Sequence[int]],
+    true_items: Sequence[Sequence[int]],
+) -> dict[str, float]:
+    """Reference-compatible path (metrics.py:5-36): mask train items to
+    -inf in a dense sim matrix, top-k on host, then score. Used as the
+    oracle in tests against the tiled on-device evaluator."""
+    sim = np.array(sim_matrix, np.float32, copy=True)
+    for u, items in enumerate(train_items):
+        if len(items):
+            sim[u, np.asarray(items)] = -np.inf
+    parsed = [parse_metric(m) for m in metrics]
+    max_k = max(k for _, k in parsed)
+    idx = np.argpartition(-sim, max_k)[:, :max_k]
+    part = np.take_along_axis(sim, idx, axis=1)
+    order = np.argsort(-part, axis=1)
+    top_k_items = np.take_along_axis(idx, order, axis=1)
+    return evaluate_metrics(metrics, top_k_items, true_items)

@@ -47,22 +47,26 @@ def history_mean_fused(
     his_ids: torch.Tensor,
     mask: torch.Tensor,
     compute_dtype: torch.dtype | None = None,
+    rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Masked history mean fused with its own gather (kernel K1).
 
     Args:
       item_emb: (I, d) f32 or bf16 table.
-      his_ids: (B, H) int32 history ids.
-      mask: (B,) int32 valid history length per sample.
+      his_ids: (U, H) int32 history ids.
+      mask: (U,) int32 valid history length per history.
       compute_dtype: the type the rows are cast to and the result has; the
         table's type when None.
+      rows: optional (B,) int32 users: sample b pools history ``rows[b]``
+        of the (U, H) table, which the kernel reads itself. None pools
+        every history (B = U).
 
     Returns:
       (B, d) means in ``compute_dtype`` (empty histories pool to zero),
       summed in f32 and rounded once. On the card the (B, H, d) gather
       never reaches device memory and masked slots are never read.
     """
-    return history_mean_gather(item_emb, his_ids, mask, compute_dtype)
+    return history_mean_gather(item_emb, his_ids, mask, compute_dtype, rows=rows)
 
 
 def require_mean_aggregator(kind: str) -> None:
@@ -93,9 +97,10 @@ def user_pools_impl(
     aggregator: str = "mean",
     chunk: int = 4096,
 ) -> torch.Tensor:
-    """(U, d) pooled history of every user, ``chunk`` users at a time; the
-    mean runs each chunk through kernel K1, so no (chunk, H, d) gather is
-    ever materialized.
+    """(U, d) pooled history of every user, through kernel K1. On the card
+    one launch writes the whole table of pools in place: the kernel never
+    materializes a (U, H, d) gather. On the CPU the plain version does, so
+    it runs ``chunk`` users at a time.
 
     Args:
       item_emb: (I, d) f32 or bf16 table; the pools have its type.
@@ -104,7 +109,7 @@ def user_pools_impl(
       his_masks: (U,) int32 valid history lengths.
       aggregator: "mean" (the attention aggregators raise
         ``NotImplementedError``).
-      chunk: users per K1 launch.
+      chunk: users per call of the plain version on the CPU.
     """
     require_mean_aggregator(aggregator)
     if his_items.dim() != 2:
@@ -114,6 +119,8 @@ def user_pools_impl(
     u = his_items.shape[0]
     out = torch.empty((u, item_emb.shape[1]), dtype=item_emb.dtype,
                       device=item_emb.device)
+    if out.is_cuda:
+        return history_mean_gather(item_emb, his_items, his_masks, out=out)
     for lo in range(0, u, chunk):
         out[lo : lo + chunk] = history_mean_fused(
             item_emb, his_items[lo : lo + chunk], his_masks[lo : lo + chunk]

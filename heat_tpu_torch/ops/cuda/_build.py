@@ -59,8 +59,10 @@ _BY_DTYPE = {
     "heat_gather_rows": (_P, _I64, _I32, _P, _I64, _P),
     # table, n_blocks, block_elems, ids, m, out
     "heat_gather_blocks": (_P, _I64, _I64, _P, _I64, _P),
-    # table, n_rows, d, his_ids, lens, batch, his, out, out_bf16
-    "heat_history_mean": (_P, _I64, _I32, _P, _P, _I64, _I32, _P, _I32),
+    # table, n_rows, d, his_ids, lens, rows (or null), n_users, batch, his,
+    # out, out_bf16, split
+    "heat_history_mean": (_P, _I64, _I32, _P, _P, _P, _I64, _I64, _I32, _P,
+                          _I32, _I32),
     # table, n_rows, d, ids, deltas, m
     "heat_scatter_add_rows": (_P, _I64, _I32, _P, _P, _I64),
     # table, n_rows, d, ids, grads, grads_bf16, rows, rows_bf16, m, lr, clip,
@@ -80,6 +82,9 @@ SIGNATURES = {
 }
 # sim, rows, n_cols, widx, kw, w, out
 SIGNATURES["heat_window_extract_f32"] = (_P, _I64, _I64, _P, _I32, _I32, _P)
+# segments: a host array of 8 int64 fields a segment (table, n_rows, d,
+# table_bf16, ids, m, out, out_bf16), n_segments
+SIGNATURES["heat_gather_rows_multi"] = (_P, _I32)
 
 # C entry point -> bound function, filled by library().
 FUNCS: dict[str, Callable[..., int]] = {}

@@ -276,11 +276,8 @@ class Recommender:
         if not aggregate_users:
             return u
         self._require_history()
-        idx = uids.long()
         pooled = history_mean_fused(
-            self.state.item_emb,
-            self._his_dev.index_select(0, idx),
-            self._masks_dev.index_select(0, idx),
+            self.state.item_emb, self._his_dev, self._masks_dev, rows=uids
         )
         return aggregate_history(u, pooled, self.state.w0, self.cfg.gamma)
 

@@ -11,7 +11,7 @@ on the device and is read once per epoch.
 
 Per epoch, before the first step: under ``his_refresh: subepoch`` the
 (U, d) pooled-history table is computed once from the live item table
-(kernel K1, chunk by chunk into one buffer of the table's type) and every
+(kernel K1, one launch into one buffer of the table's type) and every
 step of the epoch reads its rows; under ``his_refresh: step`` with a fixed
 batch stream (``shuffle_mode`` "none" or "once") whose batches repeat
 users, ``_history_dedup`` gives each step the distinct users of its batch,
@@ -41,13 +41,17 @@ from heat_tpu_torch.config import (
     SGD_MODE_ACCUM,
 )
 from heat_tpu_torch.data.datasets import ClickDataset
-from heat_tpu_torch.evaluation.evaluator import TiledEvaluator
+from heat_tpu_torch.evaluation.evaluator import (
+    TiledEvaluator,
+    full_sim_matrix,
+    require_exact,
+)
 from heat_tpu_torch.evaluation.metrics import (
     evaluate_metrics_device,
     pad_truth,
     parse_metric,
 )
-from heat_tpu_torch.models.aggregator import user_pools_impl
+from heat_tpu_torch.models.aggregator import aggregate_history, user_pools_impl
 from heat_tpu_torch.models.state import (
     TrainState,
     init_train_state,
@@ -321,22 +325,38 @@ class Engine:
         self,
         metrics: Optional[Sequence[str]] = None,
         user_tile: int = 512,
+        aggregate_users: bool = False,
+        exact: bool = True,
+        recall_target: float = 0.99,
     ) -> dict[str, float]:
         """Exact tiled top-k over all items (train items masked) and the
-        metric library, on the engine's device. Scores the raw user table,
-        whose rows were aggregated during training by the write-back."""
+        metric library, on the engine's device.
+
+        aggregate_users: score with freshly aggregated user embeddings
+        (gamma * u + (1 - gamma) * mean(history) @ w0, the pools through
+        kernel K1) instead of the raw user table. With the default False,
+        scoring uses the raw table, whose rows were already aggregated
+        during training by the write-back.
+
+        exact=False (the JAX package's ``approx_max_k`` at
+        ``recall_target``) has no torch counterpart and raises
+        ``NotImplementedError``.
+        """
+        require_exact(exact)
         if self.test_data is None:
             raise ValueError("no test_data provided")
         metrics = list(metrics if metrics is not None else self.cfg.metrics)
         max_k = max(parse_metric(m)[1] for m in metrics)
+        user_emb = self.state.user_emb
+        if aggregate_users:
+            user_emb = aggregate_history(
+                user_emb, self._pooled_history(), self.state.w0, self.cfg.gamma
+            )
         self._ensure_evaluator(user_tile)
-        _, top_ids = self._evaluator.topk(
-            self.state.user_emb, self.state.item_emb, max_k
-        )
+        _, top_ids = self._evaluator.topk(user_emb, self.state.item_emb, max_k)
         return evaluate_metrics_device(metrics, top_ids, *self._truth_dev)
 
     def evaluate0(self) -> np.ndarray:
         """Dense user x item dot-product matrix on the host (small problems
         and parity tests only)."""
-        user, item = self.state.user_emb.float(), self.state.item_emb.float()
-        return (user @ item.T).cpu().numpy()
+        return full_sim_matrix(self.state.user_emb, self.state.item_emb)

@@ -4,16 +4,18 @@ duplicate-safe row update.
 Counterpart of the mean-aggregator branches of
 ``heat_tpu/train/train_step.py`` ``train_step``:
 
-1. gather the user and positive rows and the negatives' rows (kernel K2),
-   cast to ``cfg.compute_dtype``: with the tile sampler in batch mode the
-   T rows of the tile, once, and the draws enter only as per-(sample,
-   slot) multiplicities; otherwise the (B, K) sampled rows;
+1. gather the user and positive rows and the negatives' rows, cast to
+   ``cfg.compute_dtype``, in one launch of kernel K2's multi-table entry:
+   with the tile sampler in batch mode the T rows of the tile, once, and
+   the draws enter only as per-(sample, slot) multiplicities; otherwise the
+   (B, K) sampled rows; under ``his_refresh: subepoch`` the same launch
+   reads the cached pool rows ``user_means[users]``;
 2. the pooled history of each sample's user, outside autograd (history
-   rows never receive a gradient): the cached pool rows
-   ``user_means[users]`` (K2) under ``his_refresh: subepoch``; with the
-   engine's dedup maps the masked mean once per distinct user (kernel K1
-   over (Bu, H) ids) read back per sample (K2); else the masked mean per
-   sample (K1);
+   rows never receive a gradient): those pool rows; with the engine's
+   dedup maps the masked mean once per distinct user (kernel K1, which
+   reads the (Bu,) users' histories out of the whole history table itself)
+   read back per sample (K2); else the masked mean per sample (K1 over the
+   (B,) users);
 3. aggregation, cosine (or dot) scores and the loss, differentiated by
    autograd with respect to the gathered rows and ``w0`` only (leaf
    tensors made from the gathered rows, never the whole tables); the
@@ -28,7 +30,8 @@ Counterpart of the mean-aggregator branches of
    or row-sparse Adagrad / lazy Adam; each optionally with l2
    (``train/scatter.py`` picks the dense or sort-dedup path per table);
    the item update covers B + T rows on the tile path, B * (1 + K)
-   otherwise; gradients are cast to f32 first;
+   otherwise; the gradients stay in the compute type, and the updates
+   widen them where they first read them;
 6. ``w0`` by SGD, or by Adagrad/Adam gated on the batch holding real
    samples.
 
@@ -61,7 +64,7 @@ from heat_tpu_torch.models.aggregator import (
     history_mean_fused,
 )
 from heat_tpu_torch.models.state import TrainState, torch_dtype
-from heat_tpu_torch.ops.cuda.gather import gather_rows
+from heat_tpu_torch.ops.cuda.gather import gather_rows, gather_rows_multi
 from heat_tpu_torch.ops.cuda.scatter import scatter_set_rows
 from heat_tpu_torch.ops.losses import sample_losses, sample_losses_weighted
 from heat_tpu_torch.ops.similarity import pair_scores, tile_scores
@@ -122,11 +125,12 @@ def train_step(
     # back to the gathered tile[idx] rows.
     tiled = sample.tile is not None and state.item_gacc is None
 
-    u_rows = gather_rows(user_emb, users).to(compute)
-    p_rows = gather_rows(item_emb, pos).to(compute)
+    # One launch reads every row the step needs from the batch-start tables,
+    # cast to the compute type inside the kernel.
+    segments = [(user_emb, users), (item_emb, pos)]
     if tiled:
         tile_ids = sample.tile
-        n_rows = gather_rows(item_emb, tile_ids).to(compute)  # (T, d)
+        segments.append((item_emb, tile_ids))  # (T, d)
         # counts[b, t]: how many of sample b's K draws hit tile slot t.
         # Exact small integers, so the order of the adds does not matter.
         counts = torch.zeros(
@@ -136,22 +140,23 @@ def train_step(
             torch.ones((b, k), dtype=torch.float32, device=negs.device),
         )
     else:
-        n_rows = gather_rows(item_emb, negs.reshape(-1)).view(b, k, d).to(compute)
+        segments.append((item_emb, negs.reshape(-1)))
+    if user_means is not None:
+        segments.append((user_means, users))
+    u_rows, p_rows, n_rows, *pool_rows = gather_rows_multi(segments, compute)
+    if not tiled:
+        n_rows = n_rows.view(b, k, d)
     with torch.no_grad():
         if user_means is not None:
-            means = gather_rows(user_means, users).to(compute)
+            means = pool_rows[0]
         elif uniq_users is not None:
-            idx = uniq_users.long()
             means_u = history_mean_fused(
-                item_emb, his_items.index_select(0, idx),
-                his_masks.index_select(0, idx), compute,
+                item_emb, his_items, his_masks, compute, rows=uniq_users
             )
             means = gather_rows(means_u, uniq_inverse)
         else:
-            idx = users.long()
             means = history_mean_fused(
-                item_emb, his_items.index_select(0, idx),
-                his_masks.index_select(0, idx), compute,
+                item_emb, his_items, his_masks, compute, rows=users
             )
 
     u_l, p_l, n_l, w0_l = (

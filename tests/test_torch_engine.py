@@ -153,6 +153,84 @@ def test_evaluate0_matches_jax():
     np.testing.assert_allclose(te.evaluate0(), je.evaluate0(), rtol=1e-6, atol=1e-8)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_evaluate_with_aggregated_users_matches_jax(dtype):
+    """``aggregate_users=True`` scores gamma * u + (1 - gamma) * pools @ w0
+    over the pools of the live item table, on the same injected tables:
+    the metrics agree to 1e-6 and the top-k tie-aware, in f32 and over
+    bf16 tables (whose aggregation rounds where the JAX package's does)."""
+    import jax.numpy as jnp
+    from heat_tpu.models.aggregator import aggregate_history as jaggregate
+    from heat_tpu_torch.models.aggregator import aggregate_history as taggregate
+
+    je, te = _engines(param_dtype=dtype, compute_dtype=dtype)
+    rng = np.random.default_rng(12)
+    user = rng.normal(size=(80, 16)).astype(np.float32)
+    item = rng.normal(size=(300, 16)).astype(np.float32)
+    w0 = (np.eye(16) + 0.3 * rng.normal(size=(16, 16))).astype(np.float32)
+    jdtype = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    je.state = je.state.replace(user_emb=jnp.asarray(user, jdtype),
+                                item_emb=jnp.asarray(item, jdtype),
+                                w0=jnp.asarray(w0))
+    te.state = state_from_numpy(
+        user, item, w0, lr=LR, step=0, device="cpu",
+        param_dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    want = je.evaluate(aggregate_users=True)
+    got = te.evaluate(aggregate_users=True)
+    raw = te.evaluate()
+    assert list(got) == METRICS
+    for m in METRICS:
+        assert abs(got[m] - want[m]) <= 1e-6, (m, got[m], want[m])
+    assert any(abs(got[m] - raw[m]) > 1e-4 for m in METRICS)  # it aggregated
+
+    k = 20
+    jagg = jaggregate(je.state.user_emb, je._pooled_history()[:80], je.state.w0,
+                      je.cfg.gamma)
+    tagg = taggregate(te.state.user_emb, te._pooled_history(), te.state.w0,
+                      te.cfg.gamma)
+    np.testing.assert_allclose(
+        tagg.float().numpy(), np.asarray(jagg.astype(jnp.float32)),
+        rtol=1e-6 if dtype == "float32" else 0, atol=1e-7 if dtype == "float32" else 0)
+    jev = JTiledEvaluator(je.train_data.pairs, 80, num_items=300)
+    js, jids = jev.topk(jagg, je.state.item_emb, k + 1, return_scores=True)
+    ts, tids = te._evaluator.topk(tagg, te.state.item_emb, k + 1,
+                                  return_scores=True)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5, atol=1e-6)
+    strict = ts[:, k - 1] > ts[:, k] + 1e-5
+    assert strict.float().mean() > 0.9
+    for row in np.flatnonzero(strict.numpy()):
+        assert set(tids[row, :k].tolist()) == set(np.asarray(jids)[row, :k].tolist())
+
+
+def test_evaluate_refuses_approximate_selection():
+    _, te = _engines()
+    with pytest.raises(NotImplementedError, match="item 16"):
+        te.evaluate(exact=False)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        te.evaluate(aggregate_users=True, exact=False, recall_target=0.95)
+
+
+def test_copied_sim_matrix_oracle_matches_the_original():
+    """``evaluate_sim_matrix`` and ``full_sim_matrix`` are copies of the
+    JAX package's: the same metrics from the same dense matrix."""
+    from heat_tpu.evaluation.evaluator import full_sim_matrix as jfull
+    from heat_tpu_torch.evaluation.evaluator import full_sim_matrix as tfull
+
+    je, te = _engines()
+    sim = tfull(te.state.user_emb, te.state.item_emb)
+    assert sim.dtype == np.float32 and sim.shape == (80, 300)
+    np.testing.assert_allclose(
+        sim, jfull(je.state.user_emb, je.state.item_emb), rtol=1e-6, atol=1e-8)
+    np.testing.assert_array_equal(sim, te.evaluate0())
+    train_items = [[] for _ in range(80)]
+    for u, i in np.asarray(te.train_data.pairs):
+        train_items[u].append(int(i))
+    args = (METRICS, sim, train_items, te.test_data.user_items)
+    want = jmetrics.evaluate_sim_matrix(*args)
+    got = tmetrics.evaluate_sim_matrix(*args)
+    assert got == want and list(got) == METRICS
+
+
 def test_cli_prints_final_metrics(capsys):
     record = tmain.main([
         "--config", CONFIG0, "--synthetic", "200,400", "--epochs", "2",

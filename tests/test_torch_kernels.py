@@ -730,6 +730,8 @@ def _capture_cases(dev):
     sim = torch.from_numpy(rng.normal(size=(32, 1024)).astype(np.float32)).to(dev)
     widx = torch.from_numpy(rng.integers(0, 8, (32, 5)).astype(np.int32)).to(dev)
     lr = torch.tensor(0.1, device=dev)
+    pooled = {tag: torch.empty(100, d, dtype=dtype, device=dev)
+              for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
     cases = {}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         t, r = f32.to(dtype), rows.to(dtype)
@@ -738,6 +740,12 @@ def _capture_cases(dev):
             lambda x, t=t: gather.gather_blocks(t, ids[:100] // 4, 4), None)
         cases[f"history_mean_{tag}"] = (
             lambda x, t=t: gather.history_mean_gather(t, his, lens), None)
+        cases[f"history_mean_rows_out_{tag}"] = (
+            lambda x, t=t: gather.history_mean_gather(
+                t, his, lens, rows=ids[:100], out=pooled[tag], split=2), None)
+        cases[f"gather_rows_multi_{tag}"] = (
+            lambda x, t=t: torch.cat(gather.gather_rows_multi(
+                [(t, ids), (f32, ids[:7]), (t, ids[:100])], torch.float32)), None)
         cases[f"scatter_add_rows_{tag}"] = (
             lambda x, r=r: scatter.scatter_add_rows(x, ids, r), t)
         cases[f"scatter_set_rows_{tag}"] = (
