@@ -64,7 +64,29 @@ Phases, each of which raises (exit code 1) on failure:
    tables and compute, ``update_mode: direct``), its Recall@20 held within
    RECALL_BAND of the config0 run's; every kernel's launch count is read
    around each run, and the headline run must go through the bf16
-   instances only;
+   instances only. Every training epoch on the card runs each step as
+   one replay of the captured step; a wrapper counts a launch where it
+   launches (the capture's eager warm-up step, the capture itself, and
+   everything eager), so the kernels of the replayed steps are counted
+   from device traces (``bench_large.profile_steps``: per step, the port's
+   kernels by family, equal in the eager and the replayed steps and equal
+   to the wrappers' counts over the eager ones) at config0, the headline
+   geometry, 16M x 6M in both update modes and the f32 huge-table runs.
+   Then config0 again through the CLI's
+   ``--fused-epochs 5`` and ``--fused-run`` (the same checks, Recall@20
+   within RECALL_BAND of the default run's); then, from one seed, three
+   engines each of config0 and the headline (two epochs: an epoch boundary
+   with its eager shuffle) and of bench_large's 16M x 6M bf16 dedup
+   geometry (one epoch): eager, eager again and replayed. The replayed
+   draws (every negative, tile and tile index; fingerprints at 16M x 6M)
+   equal the eager ones, ``step`` and ``iterations`` are equal, and the
+   per-step losses, ``w0`` and tables lie within twice the eager-vs-eager
+   spread by root mean square (K3's atomics add in no fixed order); and,
+   in config0's and the headline's configurations on 48 clicks in which no
+   user and no item repeats (batch 16, 4,000,000 items: no row takes two
+   adds in a step, so the step is deterministic), two epochs of three
+   steps eager, eager again and replayed are bit-equal after each epoch
+   (``heat_tpu_torch.testing.replayed_equals_eager``);
 5. serving: the exported model in a ``Recommender`` on the card, requests
    of 1, 256 and 8192 users timed and held against ``recommend_all``, the
    Recall@20 of every user's requested top-20 against the run's final
@@ -86,12 +108,18 @@ Phases, each of which raises (exit code 1) on failure:
    bf16; 40M clicks, batch 32,768), a warm-up and a timed epoch in
    ``dedup`` mode (both tables on the sort-dedup path) and in ``direct``
    mode, with the launch counts read around each run and peak device
-   memory against the bytes held; then one full-size sort-dedup update of
+   memory against the bytes held (nothing subtracted: the live blocks
+   left by earlier phases are printed); then one full-size sort-dedup update of
    both tables on the card against the same update on the CPU (plain
    versions), untouched rows bit-equal to before; then the launches per
    step (device events under ``torch.profiler`` over PROFILE_STEPS steps)
    of the headline step and of both 16M x 6M steps, on a line
-   ``{"launches_per_step": ...}``;
+   ``{"launches_per_step": ...}`` (the eager steps), and on a line
+   ``{"eager_vs_replayed": ...}`` the eager and the replayed steps' wall
+   and device ms, idle share, launches and peak memory against the bytes
+   held, the graph pool,
+   config0's CLI epoch seconds in its three forms and the replay phase's
+   spreads and host time per replay call;
 8. ``heat_tpu_torch.profile_exact_ceiling`` at 10 timed calls per
    measurement: the one path that runs S2;
 9. the kernels' JSON line (each instance with its launches on its own main
@@ -135,11 +163,17 @@ BIG_USERS, BIG_ITEMS = 16_000_000, 6_000_000  # bench_large's default tables
 BIG_BATCH, BIG_NEGS, BIG_HIS = 32_768, 16, 10
 BIG_TILE = 128  # bench_large's tile from "auto" at this geometry
 BIG_F32_STEPS = 150  # steps an epoch of the f32 huge-table phase
+HUGE_TRACE_STEPS = 10  # steps timed, then traced, after its epochs
 S1_SHAPES = (  # (table rows, ids, key suffix): user and item sides
     (BIG_USERS, BIG_BATCH, ""),
     (BIG_ITEMS, BIG_BATCH * (1 + BIG_NEGS), "_items"),
 )
 MEM_RATIO = 1.25  # peak device memory / bytes held, at most
+# The bit-equal replay check: clicks (= users), items (below the dense-path
+# threshold), batch, negatives, tile and tile refresh.
+DISTINCT_CLICKS, DISTINCT_ITEMS = 48, 4_000_000
+DISTINCT_SETS = {"batch_size": 16, "num_negs": 2}
+DISTINCT_TILE_SETS = {"tile_size": 16, "refresh_interval": 32}
 PROFILE_STEPS = 50  # steps timed, then traced, for the launches per step
 # Device launches per step before the step read its rows in one launch,
 # traced by the same command on that tree (NVIDIA H100 80GB HBM3).
@@ -1566,8 +1600,10 @@ def check_huge_f32(dev, reset, read) -> dict:
     Adagrad) a warm-up ``Engine.train_one_epoch`` and a timed one (it ends
     by reading the loss, a device sync). It keeps the f32 sort-dedup path,
     K1 at (32,768, 10), K2 at 524,288 negatives and S1 / K3 at the 16M table
-    on a main path, with their launch counts over the timed epoch and the
-    peak memory against the bytes held."""
+    on a main path, with their launch counts over both epochs (the
+    capture's warm-up step and the capture: the replays call no wrapper),
+    the timed epoch's replayed steps traced (``check_trace``, over
+    HUGE_TRACE_STEPS steps) and the peak memory against the bytes held."""
     import torch
 
     from heat_tpu_torch import bench_large
@@ -1591,8 +1627,8 @@ def check_huge_f32(dev, reset, read) -> dict:
             engine.his_masks, *slots))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        losses = [engine.train_one_epoch()]  # warm-up
         reset()
+        losses = [engine.train_one_epoch()]  # warm-up
         t0 = time.perf_counter()
         losses.append(engine.train_one_epoch())
         ms = (time.perf_counter() - t0) * 1e3 / steps
@@ -1601,10 +1637,9 @@ def check_huge_f32(dev, reset, read) -> dict:
             raise AssertionError(f"huge {mode}: losses {losses}")
         bf16 = cfg.param_dtype == "bfloat16"
         for name in every_step:
-            if launches[name] < steps:
+            if launches[name] < 1:
                 raise AssertionError(
-                    f"huge {mode}: {name} launched {launches[name]} times "
-                    f"in {steps} steps")
+                    f"huge {mode}: {name} was not launched: {launches}")
         if not bf16 and any(n for name, n in launches.items()
                             if name.endswith("_bf16")):
             raise AssertionError(f"huge {mode}: a bf16 kernel ran: {launches}")
@@ -1619,8 +1654,13 @@ def check_huge_f32(dev, reset, read) -> dict:
                 f"huge f32 dedup: peak device memory {peak} B above "
                 f"{MEM_RATIO} x {held} B held: a step-time table copy?"
             )
+        trace = check_trace(f"huge {mode}",
+                            bench_large.profile_steps(engine, HUGE_TRACE_STEPS),
+                            ("K1", "K2_multi", "K3", "S1"))
         out[mode] = {"ms_per_step": ms, "steps": steps, "launches": launches,
-                     "peak_device_bytes": peak, "held_bytes": held}
+                     "peak_device_bytes": peak, "held_bytes": held,
+                     "port_kernels_per_step": trace,
+                     "captures": engine._epoch_fns[True].captures}
         del engine, st
     return out
 
@@ -1638,6 +1678,10 @@ def check_huge_training(reset, read) -> dict:
     for mode in ("dedup", "direct"):
         torch.cuda.empty_cache()
         reset()
+        # What earlier phases left allocated, counted in the peak below.
+        before = torch.cuda.memory_allocated()
+        print(f"bench_large {mode}: {before / 1e9:.3f} GB allocated before "
+              f"it, live blocks (MiB): {live_blocks()}")
         t0 = time.perf_counter()
         record = bench_large.run(["--update-mode", mode, "--reps", "1",
                                   "--profile", str(PROFILE_STEPS)])
@@ -1657,7 +1701,6 @@ def check_huge_training(reset, read) -> dict:
             raise AssertionError(
                 f"bench_large: tile {record['tile_size']}, but the kernels "
                 f"were checked at {BIG_TILE} tile rows")
-        steps = record["steps"]
         # Per step: one K2 launch for the user, pool, positive and tile rows;
         # S1 and K3 in both modes; K1 only for the pools, one launch a
         # refresh (the warm-up epoch, the timed one and the profile's), all
@@ -1672,35 +1715,49 @@ def check_huge_training(reset, read) -> dict:
             raise AssertionError(
                 f"bench_large {mode}: a step read rows outside the "
                 f"multi-table launch: {launches}")
-        need = {"gather_rows_multi_bf16": steps}
+        need = ["gather_rows_multi_bf16"]
         if mode == "dedup":  # segment sums; item update; user write-back + update
-            need.update({"scatter_add_rows": 2 * steps,
-                         "scatter_add_update_bf16": steps,
-                         "scatter_set_update_bf16": steps})
+            need += ["scatter_add_rows", "scatter_add_update_bf16",
+                     "scatter_set_update_bf16"]
         else:  # the write-back, then both per-occurrence updates
-            need.update({"scatter_set_rows_bf16": steps,
-                         "scatter_add_update_bf16": 2 * steps})
-        for name, least in need.items():
-            if launches[name] < least:
+            need += ["scatter_set_rows_bf16", "scatter_add_update_bf16"]
+        for name in need:
+            if launches[name] < 1:
                 raise AssertionError(
-                    f"bench_large {mode}: {name} launched {launches[name]} "
-                    f"times in {steps} steps, expected >= {least}"
-                )
+                    f"bench_large {mode}: {name} was not launched: {launches}")
+        # Per replayed step, from the trace: one K2 multi launch, the
+        # segment sums and the item update (dedup: 3 K3) or both updates
+        # (direct: 2 K3), and the user write-back (one S1); no K1.
+        got = check_trace(f"bench_large {mode}", record["profile"],
+                          ("K2_multi", "K3", "S1"))
+        if got["K1"] or got["K3"] != (3 if mode == "dedup" else 2):
+            raise AssertionError(f"bench_large {mode}: per step {got}")
         held = record["state_bytes"] + record["data_bytes"] + record["pools_bytes"]
         peak = record["peak_device_bytes"]
-        print(f"bench_large {mode}: {wall:.1f} s in all; launches {launches}; "
+        print(f"bench_large {mode}: {record['captures']} capture(s); "
+              f"{wall:.1f} s in all; launches {launches}; "
               f"peak device memory {peak / 1e9:.3f} GB against "
               f"{held / 1e9:.3f} GB of state, data and pools held "
               f"({peak / held:.3f}x; with the epoch's batch stream "
               f"{record['epoch_stream_bytes'] / 1e9:.3f} GB: "
               f"{peak / (held + record['epoch_stream_bytes']):.3f}x)")
-        if mode == "dedup" and peak > MEM_RATIO * held:
+        # The steps' peak, where a step-time table copy would show: the
+        # replayed steps of the profile. The epochs' peak also holds the
+        # shuffle's randperm (32 B a click), which the pools buffer's memory
+        # takes while the engine drops it.
+        step_peak = record["profile"]["replayed"]["step_peak_device_bytes"]
+        print(f"bench_large {mode}: replayed steps' peak {step_peak / 1e9:.3f} "
+              f"GB ({step_peak / held:.3f}x held); graph pool "
+              f"{record['profile']['replayed']['graph_pool_bytes'] / 1e9:.3f} GB")
+        if mode == "dedup" and max(step_peak, peak) > MEM_RATIO * held:
             raise AssertionError(
-                f"bench_large dedup: peak device memory {peak} B above "
-                f"{MEM_RATIO} x {held} B held: a step-time table copy?"
+                f"bench_large dedup: peak device memory {step_peak} B in the "
+                f"steps, {peak} B in the epochs, against {held} B held: a "
+                f"table copy?"
             )
         record["launches"] = launches
         record["wall_s"] = wall
+        record["allocated_before_bytes"] = before
         out[mode] = record
     return out
 
@@ -1769,6 +1826,219 @@ def check_huge_step(dev, users=BIG_USERS, items=BIG_ITEMS, batch=BIG_BATCH,
     return {"max_abs_diff": worst, "launches": dict(scatter.LAUNCHES)}
 
 
+def rms_diff(a, b, rows=1 << 20) -> tuple[float, float]:
+    """(root-mean-square, max) of a - b over all elements, in f64, the
+    tables chunk by chunk."""
+    total, worst = 0.0, 0.0
+    for lo in range(0, a.shape[0], rows):
+        d = a[lo: lo + rows].double() - b[lo: lo + rows].double()
+        total += float((d * d).sum())
+        worst = max(worst, float(d.abs().max()))
+    return math.sqrt(total / max(1, a.numel())), worst
+
+
+def live_blocks() -> list:
+    """The sizes in MiB of the allocator's live blocks of 1 MiB or more,
+    largest first: what is left allocated between phases."""
+    import torch
+
+    sizes = [b["size"] for seg in torch.cuda.memory._snapshot()["segments"]
+             for b in seg["blocks"] if b["state"] == "active_allocated"]
+    return sorted((round(n / 2**20, 1) for n in sizes if n >= 2**20),
+                  reverse=True)
+
+
+def check_trace(what, profile, every_step) -> dict:
+    """The kernels of the replayed steps, from the device trace of
+    ``bench_large.profile_steps``: per step, the port's kernels by family
+    are those of the eager steps on the same batches, the wrappers counted
+    exactly the kernels the trace saw over the eager steps and none over
+    the replayed ones (a replay calls no wrapper), and each family of
+    ``every_step`` ran at least once a step."""
+    eager, replayed = profile["eager"], profile["replayed"]
+    got = replayed["port_kernels_per_step"]
+    if got != eager["port_kernels_per_step"]:
+        raise AssertionError(
+            f"{what}: the replayed steps launched {got} of the port's "
+            f"kernels a step, the eager ones {eager['port_kernels_per_step']}")
+    if eager["wrapper_launches_per_step"] != eager["port_kernels_per_step"]:
+        raise AssertionError(
+            f"{what}: the wrappers counted {eager['wrapper_launches_per_step']} "
+            f"a step, the trace saw {eager['port_kernels_per_step']}")
+    if any(replayed["wrapper_launches_per_step"].values()):
+        raise AssertionError(
+            f"{what}: a replay called a wrapper: "
+            f"{replayed['wrapper_launches_per_step']}")
+    for fam in every_step:
+        if got[fam] < 1:
+            raise AssertionError(
+                f"{what}: {fam} ran {got[fam]} times a replayed step")
+    print(f"{what}: port kernels a replayed step (device trace of "
+          f"{profile['steps']} steps): {json.dumps(got)}")
+    return got
+
+
+def check_replayed_against_eager(what, make_engine, epochs, full, dev) -> dict:
+    """The replay phase: ``epochs`` epochs of three engines from
+    one seed: eager, eager again, and replayed (each step one replay of the
+    captured step). Every run's draws (``full``: every negative, tile and
+    tile index; otherwise a fingerprint a step) are ``torch.equal`` to the
+    first eager run's, across the epochs' boundaries with their eager
+    shuffles; ``step`` and the sampler's ``iterations`` are equal in all
+    three. The per-step losses, ``w0`` and both tables of the replayed run
+    differ from the first eager run's by at most twice what the second
+    eager run differs by (K3's atomics add in no fixed order), and not at
+    all where that spread is 0. The difference is the root mean square over
+    the elements (over the steps for the losses): the max over millions of
+    elements, and one epoch loss, are single extremes of a chaotic
+    divergence and moved 3x between calls. Returns the spreads and
+    differences (root mean square and max), each run's seconds, the
+    replayed engine's host time per replay call and its graph pool."""
+    import torch
+
+    from heat_tpu_torch.testing import StepRecorder
+
+    runs = {}
+    for name, capture in (("eager", False), ("eager_again", False),
+                          ("replayed", True)):
+        torch.cuda.empty_cache()
+        engine = make_engine()
+        engine._capture = capture
+        cfg = engine.cfg
+        steps = epochs * -(-cfg.train_size // cfg.batch_size)
+        tile = cfg.tile_size if cfg.neg_sampler == 1 else 0
+        rec = StepRecorder(steps, cfg.batch_size, cfg.num_negs, tile, dev, full)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with rec:
+            losses = engine.train_epochs(epochs)
+        seconds = time.perf_counter() - t0
+        st = engine.state
+        *draws, step_losses = rec.records()
+        run = {"epoch_losses": losses, "step_losses": step_losses,
+               "w0": st.w0.clone(), "user_emb": st.user_emb.clone(),
+               "item_emb": st.item_emb.clone(), "step": int(st.step),
+               "iterations": int(engine.sampler_state.iterations),
+               "draws": draws, "count": int(rec.count), "seconds": seconds,
+               "steps": steps}
+        if capture:
+            # The host's cost of one replay call, 20 calls from the stream's
+            # first batch, not waited for (the recorder, in the graph,
+            # writes from slot 0 again: its records are cloned above).
+            rec.count.fill_(0)
+            fn = engine._epoch_fns[True]
+            fn._index.fill_(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn._graph.replay()
+            run["host_us_per_replay"] = (time.perf_counter() - t0) * 1e6 / 20
+            torch.cuda.synchronize()
+            run["graph_pool_bytes"] = fn.graph_pool_bytes
+        runs[name] = run
+        del engine, st, rec
+    eager, again, replayed = runs["eager"], runs["eager_again"], runs["replayed"]
+    steps = eager["steps"]
+    for run in runs.values():
+        if run["count"] != steps:
+            raise AssertionError(f"{what}: {run['count']} steps recorded, not {steps}")
+        for want, got in zip(eager["draws"], run["draws"]):
+            if not torch.equal(want, got):
+                raise AssertionError(f"{what}: a step drew other values")
+    for key in ("step", "iterations"):
+        if not eager[key] == again[key] == replayed[key]:
+            raise AssertionError(
+                f"{what}: {key} {eager[key]} / {again[key]} / {replayed[key]}")
+    out = {"epochs": epochs, "steps": steps,
+           "seconds": {k: r["seconds"] for k, r in runs.items()},
+           "epoch_losses": {k: r["epoch_losses"] for k, r in runs.items()},
+           "host_us_per_replay": replayed["host_us_per_replay"],
+           "graph_pool_bytes": replayed["graph_pool_bytes"]}
+    for key in ("step_losses", "w0", "user_emb", "item_emb"):
+        spread, spread_max = rms_diff(again[key], eager[key])
+        diff, diff_max = rms_diff(replayed[key], eager[key])
+        out[key] = {"eager_spread_rms": spread, "replayed_vs_eager_rms": diff,
+                    "eager_spread_max": spread_max,
+                    "replayed_vs_eager_max": diff_max}
+        if diff > 2 * spread:
+            raise AssertionError(
+                f"{what}: replayed {key} off the eager run's by {diff} (rms), "
+                f"more than twice the eager-vs-eager spread {spread}")
+    print(f"replayed vs eager, {what}: draws equal over {steps} steps, step "
+          f"{eager['step']}, iterations {eager['iterations']}; "
+          f"{json.dumps(out)}")
+    return out
+
+
+def check_replay(dev) -> dict:
+    """(a) and (b) at config0 and the headline at full width (two epochs:
+    an epoch boundary and its eager shuffle between the replays; every
+    draw held), the same two configurations bit-equal on clicks that
+    repeat no id, config0's replayed steps traced (``check_trace``), and
+    (b) at bench_large's 16M x 6M bf16 dedup geometry (one epoch,
+    fingerprints of the draws)."""
+    import torch
+    import yaml
+
+    from heat_tpu_torch import bench_large
+    from heat_tpu_torch.config import load_config
+    from heat_tpu_torch.data.synthetic import synthetic_click_dataset
+    from heat_tpu_torch.testing import distinct_id_dataset, replayed_equals_eager
+    from heat_tpu_torch.train.engine import Engine
+
+    out = {}
+    train, _ = synthetic_click_dataset(num_users=NUM_USERS, num_items=NUM_ITEMS,
+                                       max_his=MAX_HIS, seed=2022)
+    distinct = distinct_id_dataset(DISTINCT_CLICKS, DISTINCT_ITEMS, MAX_HIS)
+    for what, sets in (("config0", []), ("headline", HEADLINE)):
+        overrides = {k: yaml.safe_load(v)
+                     for k, _, v in (kv.partition("=") for kv in sets)}
+
+        def make(overrides=overrides):
+            return Engine(load_config(CONFIG0, **overrides)[0], train, device=dev)
+
+        out[what] = check_replayed_against_eager(what, make, 2, True, dev)
+        small = {**overrides, **DISTINCT_SETS}
+        if overrides.get("neg_sampler") == 1:
+            small.update(DISTINCT_TILE_SETS)
+
+        def make_small(small=small):
+            return Engine(load_config(CONFIG0, **small)[0], distinct, device=dev)
+
+        torch.cuda.empty_cache()
+        exact = replayed_equals_eager(make_small, 2)
+        print(f"replayed vs eager, {what} on {DISTINCT_CLICKS} clicks that "
+              f"repeat no id ({json.dumps(small)}): bit-equal after each of "
+              f"{exact['epochs']} epochs, {exact['steps']} steps, "
+              f"{exact['captures']} capture(s)")
+        out[what]["bit_equal"] = exact
+    del distinct
+    torch.cuda.empty_cache()
+    # The replayed config0 step's kernels, from a device trace.
+    engine = Engine(load_config(CONFIG0)[0], train, device=dev)
+    profile = bench_large.profile_steps(engine, PROFILE_STEPS)
+    out["config0"]["trace"] = check_trace(
+        "config0", profile, ("K1", "K2_multi", "K3", "S1"))
+    out["config0"]["profile"] = {
+        form: {k: profile[form][k] for k in (
+            "wall_ms_per_step", "device_ms_per_step", "idle_share",
+            "device_launches_per_step")}
+        for form in ("eager", "replayed")}
+    del engine, train
+    args = bench_large._parser().parse_args(["--update-mode", "dedup"])
+    dataset = bench_large.make_dataset(args.users, args.items, args.clicks,
+                                       args.max_his)
+
+    def make_big():
+        return Engine(bench_large.make_config(args), dataset, device=dev)
+
+    out["dedup_16m_6m"] = check_replayed_against_eager(
+        "16M x 6M bf16 dedup", make_big, 1, False, dev)
+    del dataset
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1832,7 +2102,11 @@ def main() -> int:
     def check_run(what, record, launches, least):
         """The checks every full training run is held to: five finite
         epoch losses that fall, metrics in range, every eval tile through
-        K4, and each kernel of ``least`` launched at least that often."""
+        K4, and each wrapper of ``least`` launched at least that often (a
+        step's wrappers launch in the capture's warm-up step and record
+        their launch in the capture; the replays call none, so the
+        replayed steps' kernels are counted from device traces:
+        ``check_trace``)."""
         losses = record["losses"]
         if len(losses) != 5 or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{what}: expected 5 finite epoch losses, got {losses}")
@@ -1868,10 +2142,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     record = cli.main(args + ["--export-embeddings", str(EXPORT)])
     launches = read()
-    steps = record["steps"]
     check_run("config0", record, launches, {
-        "gather_rows_multi": steps, "history_mean_gather": steps,
-        "scatter_add_rows": steps, "scatter_set_rows": steps,
+        "gather_rows_multi": 1, "history_mean_gather": 1,
+        "scatter_add_rows": 1, "scatter_set_rows": 1,
         "window_extract": eval_tiles})
     if any(n for name, n in launches.items() if name.endswith("_bf16")):
         raise AssertionError(f"config0 launched a bf16 kernel: {launches}")
@@ -1879,20 +2152,35 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     final = record["final_metrics"]
 
+    # config0 through the CLI's fused flags: train_epochs chunks up to the
+    # next evaluation, and the whole schedule in run_epochs_with_eval.
+    cli_runs = {"default": record}
+    for flags in (["--fused-epochs", "5"], ["--fused-run"]):
+        reset()
+        fused = cli.main(args + flags)
+        fused_launches = read()
+        check_run(f"config0 {' '.join(flags)}", fused, fused_launches, {
+            "gather_rows_multi": 1, "history_mean_gather": 1,
+            "scatter_add_rows": 1, "scatter_set_rows": 1,
+            "window_extract": eval_tiles})
+        gap = fused["final_metrics"]["Recall(k=20)"] - final["Recall(k=20)"]
+        if not abs(gap) <= RECALL_BAND:
+            raise AssertionError(f"config0 {flags}: Recall@20 gap {gap}")
+        cli_runs[flags[0].lstrip("-")] = fused
+
     # The headline configuration at full width: tile sampler with
     # whole-tile scoring, cached pools, bf16 tables and compute, direct.
     reset()
     head = cli.main(args + [x for kv in HEADLINE for x in ("--set", kv)]
                     + ["--export-embeddings", str(EXPORT_HEADLINE)])
     head_launches = read()
-    steps = head["steps"]
     pool_chunks = 5  # the pools of every user: one launch an epoch
     check_run("headline", head, head_launches, {
         # user, positive, tile and pool rows in one launch; the pools; the
         # user and the item update (K3's update entry); the user write-back:
         # all on bf16 tables.
-        "gather_rows_multi_bf16": steps, "history_mean_gather_bf16": pool_chunks,
-        "scatter_add_update_bf16": 2 * steps, "scatter_set_rows_bf16": steps,
+        "gather_rows_multi_bf16": 1, "history_mean_gather_bf16": pool_chunks,
+        "scatter_add_update_bf16": 1, "scatter_set_rows_bf16": 1,
         "window_extract": eval_tiles})
     if head_launches["scatter_add_rows"]:
         raise AssertionError(
@@ -1920,6 +2208,8 @@ def main() -> int:
             f"{RECALL_BAND} of config0's {final['Recall(k=20)']}"
         )
 
+    replay = check_replay(dev)
+
     reset()
     serving = check_serving(dev, final["Recall(k=20)"])
     serving.update(check_huge_table(dev))
@@ -1945,14 +2235,20 @@ def main() -> int:
     # PROFILE_STEPS steps timed and as many traced).
     from heat_tpu_torch import bench_large
 
-    head_profile = bench_large.run([
+    head_before = torch.cuda.memory_allocated()
+    head_bench = bench_large.run([
         "--users", str(NUM_USERS), "--items", str(NUM_ITEMS), "--clicks",
         "1895148", "--max-his", str(MAX_HIS), "--batch", str(BATCH), "--tile",
         str(TILE), "--refresh", "8192", "--update-mode", "direct", "--reps",
-        "1", "--profile", str(PROFILE_STEPS)])["profile"]
-    per_step = {
-        "headline": head_profile, "dedup_16m_6m": huge["dedup"]["profile"],
-        "direct_16m_6m": huge["direct"]["profile"]}
+        "1", "--profile", str(PROFILE_STEPS)])
+    head_bench["allocated_before_bytes"] = head_before
+    head_trace = check_trace("headline geometry", head_bench["profile"],
+                             ("K2_multi", "K3", "S1"))
+    if head_trace["K1"]:
+        raise AssertionError(f"the headline step ran K1: {head_trace}")
+    benches = {"headline": head_bench, "dedup_16m_6m": huge["dedup"],
+               "direct_16m_6m": huge["direct"]}
+    per_step = {name: b["profile"] for name, b in benches.items()}
     print(json.dumps({"launches_per_step": {
         name: {"before": LAUNCHES_BEFORE.get(name),
                "after": p["device_launches_per_step"],
@@ -1960,6 +2256,31 @@ def main() -> int:
                "wall_ms_per_step": p["wall_ms_per_step"],
                "idle_share": p["idle_share"]}
         for name, p in per_step.items()}}))
+    # (c): eager and replayed steps, from one call, beside what is held.
+    forms = {}
+    for name, b in benches.items():
+        held = b["state_bytes"] + b["data_bytes"] + b["pools_bytes"]
+        forms[name] = {"epoch_s": b["value"], "held_bytes": held,
+                       "allocated_before_bytes": b["allocated_before_bytes"],
+                       "captures": b["captures"],
+                       "epoch_peak_over_held": b["peak_device_bytes"] / held}
+        for form in ("eager", "replayed"):
+            f = b["profile"][form]
+            forms[name][form] = {
+                key: f[key] for key in (
+                    "wall_ms_per_step", "device_ms_per_step", "idle_share",
+                    "device_launches_per_step", "step_peak_device_bytes")}
+            forms[name][form]["step_peak_over_held"] = (
+                f["step_peak_device_bytes"] / held)
+        forms[name]["replayed"]["graph_pool_bytes"] = (
+            b["profile"]["replayed"]["graph_pool_bytes"])
+        forms[name]["replayed"]["first_step_ms"] = (
+            b["profile"]["replayed"]["first_step_ms"])
+    forms["config0_cli_epoch_s"] = {
+        name: r["epoch_times"] for name, r in cli_runs.items()}
+    forms["replay"] = replay
+    print(json.dumps({"eager_vs_replayed": forms}))
+    print(f"card for the line above: {card}")
     step = check_huge_step(dev)
     if min(step["launches"][name] for name in
            ("scatter_set_update", "scatter_add_update", "scatter_add_rows")) < 1:

@@ -18,9 +18,11 @@ writes through S1 and K3); ``direct`` mode adds each occurrence's clipped
 step with K3.
 
 Memory held at the default geometry: bf16 tables 2.05 GB (users) +
-0.77 GB (items), the (U, d) bf16 pools another 2.05 GB during an epoch,
-history ids 0.64 GB + lengths 0.06 GB, pairs 0.32 GB, and the epoch's
-batch stream 0.48 GB.
+0.77 GB (items), the (U, d) bf16 pools another 2.05 GB (dropped over each
+epoch's shuffle, whose temporaries take its memory, and taken again after
+it: the captured step reads its address), history ids
+0.64 GB + lengths 0.06 GB, pairs 0.32 GB, and the batch stream's buffers
+0.48 GB.
 
 One thing of the JAX script is not run and is listed under ``"reduced"``
 in the JSON line: the TPU's 128-wide lane padding of the rows
@@ -38,17 +40,21 @@ segment buffer or per-mode write). ``hbm_gbps`` divides it by the epoch's host w
 they say nothing of the device's bandwidth. They and
 ``peak_device_bytes`` are None unless the run was on a CUDA device.
 
+The epochs run as the engine runs them: on the card each step is one
+replay of the captured step (``Engine.train_one_epoch``).
+
 ``--profile STEPS`` adds a ``"profile"`` object, measured in the same
 process after the timed epochs (see :func:`profile_steps`): wall time per
 step unprofiled, device time per step by kernel under ``torch.profiler``,
 the device's idle share, and the peak memory of the shuffle and of the
-steps.
+steps, for the eager steps and for the replayed ones.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 
 import numpy as np
@@ -56,6 +62,9 @@ import torch
 
 from heat_tpu_torch.config import CFConfig
 from heat_tpu_torch.data.datasets import ClickDataset
+from heat_tpu_torch.ops.cuda import gather as cuda_gather
+from heat_tpu_torch.ops.cuda import scatter as cuda_scatter
+from heat_tpu_torch.ops.cuda import topk as cuda_topk
 from heat_tpu_torch.train import scatter
 from heat_tpu_torch.train.engine import Engine
 
@@ -122,25 +131,66 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+# The port's kernels by family: the names a device trace gives their CUDA
+# kernels, and the wrappers (launch counters) that launch them.
+KERNEL_FAMILIES = {
+    "K1": (("history_mean_kernel",), ("history_mean_gather",)),
+    "K2": (("gather_rows_kernel",), ("gather_rows", "gather_blocks")),
+    "K2_multi": (("gather_rows_multi_kernel",), ("gather_rows_multi",)),
+    "K3": (("scatter_add_kernel",), ("scatter_add_rows", "scatter_add_update")),
+    "S1": (("scatter_set_kernel", "scatter_copy_kernel"),
+           ("scatter_set_rows", "scatter_set_update")),
+    "K4": (("window_extract_kernel",), ("window_extract",)),
+}
+_FAMILY_OF_KERNEL = {k: fam for fam, (kernels, _) in KERNEL_FAMILIES.items()
+                     for k in kernels}
+_KERNEL_WORD = re.compile(r"\b(\w+_kernel)\b")
+
+
+def kernel_family(event_name: str):
+    """The family of KERNEL_FAMILIES a device event's name belongs to, or
+    None for a kernel of PyTorch's own."""
+    for word in _KERNEL_WORD.findall(event_name):
+        if word in _FAMILY_OF_KERNEL:
+            return _FAMILY_OF_KERNEL[word]
+    return None
+
+
+def wrapper_launches() -> dict:
+    """The kernel wrappers' launch counts so far, summed by family."""
+    counts = {**cuda_gather.LAUNCHES, **cuda_scatter.LAUNCHES, **cuda_topk.LAUNCHES}
+    return {fam: sum(counts[w] for w in wrappers)
+            for fam, (_, wrappers) in KERNEL_FAMILIES.items()}
+
+
 def _bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
-    """Where a step's time goes, in one process: one epoch's batch stream
-    and pools are built (their peak memory is the shuffle's), ``steps`` steps run
-    unprofiled between two syncs (wall ms per step, and the steps' peak
-    memory), then the next ``steps`` steps run under ``torch.profiler``
-    (device ms per step: the sum of the device events, one stream, so no
-    overlap; the ``top`` largest by name; and how many device events a
-    step made, its launches). The idle share is
+    """Where a step's time goes, in one process, in two forms: ``"eager"``,
+    the steps one by one (``train_step`` per batch), and ``"replayed"``,
+    each step one replay of the engine's captured step (on the card only;
+    None on the CPU). One epoch's batch stream and pools are built into the
+    engine's buffers (their peak memory is the shuffle's). Per form,
+    ``steps`` steps run unprofiled between two syncs (wall ms per step, and
+    the steps' peak memory), then the next ``steps`` steps of the stream run
+    under ``torch.profiler`` (device ms per step: the sum of the device
+    events, one stream, so no overlap; the ``top`` largest by name; how
+    many device events a step made, its launches; and of those, the port's
+    kernels by family of ``KERNEL_FAMILIES``, ``port_kernels_per_step``,
+    beside the wrappers' launch counts over the same steps,
+    ``wrapper_launches_per_step``: equal for the eager steps, 0 for the
+    replayed ones, whose kernels only the trace sees). The idle share is
     1 - device / unprofiled wall. The profiled wall is reported too: the
-    profiler's host overhead inflates it. On the CPU the device numbers
-    are None. The steps train the model further."""
+    profiler's host overhead inflates it. The replayed form first runs one
+    step untimed, which captures the graph if the epochs before have not;
+    ``graph_pool_bytes`` is what the capture's memory pool holds beside the
+    tensors in use, measured right after the capture. The two forms run
+    the same batches; the steps train the model further. The top-level keys
+    are the eager form's. On the CPU the device numbers are None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from heat_tpu_torch.train.train_step import Batch, train_step
 
     dev = engine.device
     on_card = dev.type == "cuda"
@@ -153,8 +203,9 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     users, pos, weight = engine._make_batches(engine.pairs)
+    dedup = engine._history_dedup(engine.pairs, users)
     user_means = (
-        engine._pooled_history()
+        engine._pooled_history(out=engine._pools_buffer())
         if engine.cfg.his_refresh == "subepoch" else None
     )
     sync()
@@ -163,57 +214,85 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
         raise ValueError(f"--profile {steps}: the epoch has {users.shape[0]} "
                          f"steps, at least {2 * steps} are needed")
 
-    def run(first: int) -> float:
+    def run(fn, first: int, count: int = steps) -> float:
         sync()
         t0 = time.perf_counter()
-        for i in range(first, first + steps):
-            engine.state, engine.sampler_state, _ = train_step(
-                engine.state, engine.sampler_state, engine.generator,
-                Batch(users[i], pos[i], weight[i]),
-                engine.his_items, engine.his_masks, engine.cfg,
-                user_means=user_means,
-            )
+        engine.state, engine.sampler_state, _ = fn(
+            engine.state, engine.sampler_state, engine.generator,
+            users, pos, weight, engine.his_items, engine.his_masks,
+            user_means=user_means,
+            uniq_users=dedup[0] if dedup else None,
+            uniq_inverse=dedup[1] if dedup else None,
+            first=first, count=count,
+        )
         sync()
-        return (time.perf_counter() - t0) * 1e3 / steps
+        return (time.perf_counter() - t0) * 1e3 / max(1, count)
 
+    def measure(fn) -> dict:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        wall_ms = run(fn, 0)
+        step_peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+        activities = [ProfilerActivity.CPU]
+        if on_card:
+            activities.append(ProfilerActivity.CUDA)
+        wrappers = wrapper_launches()
+        with profile(activities=activities) as prof:
+            profiled_wall_ms = run(fn, steps)
+        wrappers = {fam: n - wrappers[fam]
+                    for fam, n in wrapper_launches().items()}
+        device, launches = {}, 0
+        port = dict.fromkeys(KERNEL_FAMILIES, 0)
+        for event in prof.key_averages():
+            if event.device_type != DeviceType.CPU:
+                device[event.key] = device.get(event.key, 0.0) + (
+                    event.self_device_time_total / 1e3 / steps
+                )
+                launches += event.count
+                fam = kernel_family(event.key)
+                if fam is not None:
+                    port[fam] += event.count
+        device_ms = sum(device.values()) if on_card else None
+        largest = sorted(device.items(), key=lambda kv: -kv[1])[:top]
+        return {
+            "wall_ms_per_step": wall_ms,
+            "profiled_wall_ms_per_step": profiled_wall_ms,
+            "device_ms_per_step": device_ms,
+            "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
+            # Kernels, copies and memsets the device ran, per step.
+            "device_launches_per_step": launches / steps if on_card else None,
+            "device_ms_per_step_by_kernel": {k[:80]: v for k, v in largest},
+            "port_kernels_per_step": (
+                {f: n / steps for f, n in port.items()} if on_card else None),
+            "wrapper_launches_per_step": {
+                f: n / steps for f, n in wrappers.items()},
+            "step_peak_device_bytes": step_peak,
+        }
+
+    eager = measure(engine._epoch_fn(False))
+    replayed = None
     if on_card:
+        fn = engine._epoch_fn(True)
         torch.cuda.reset_peak_memory_stats(dev)
-    wall_ms = run(0)
-    step_peak = torch.cuda.max_memory_allocated(dev) if on_card else None
-    activities = [ProfilerActivity.CPU]
-    if on_card:
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        profiled_wall_ms = run(steps)
-    device, launches = {}, 0
-    for event in prof.key_averages():
-        if event.device_type != DeviceType.CPU:
-            device[event.key] = device.get(event.key, 0.0) + (
-                event.self_device_time_total / 1e3 / steps
-            )
-            launches += event.count
-    device_ms = sum(device.values()) if on_card else None
-    largest = sorted(device.items(), key=lambda kv: -kv[1])[:top]
+        capture_ms = run(fn, 0, 1)  # captures unless the epochs already did
+        capture_peak = torch.cuda.max_memory_allocated(dev)
+        replayed = measure(fn)
+        replayed.update(first_step_ms=capture_ms,
+                        first_step_peak_device_bytes=capture_peak,
+                        graph_pool_bytes=fn.graph_pool_bytes)
     return {
         "steps": steps,
-        "wall_ms_per_step": wall_ms,
-        "profiled_wall_ms_per_step": profiled_wall_ms,
-        "device_ms_per_step": device_ms,
-        "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
-        # Kernels, copies and memsets the device ran, per step.
-        "device_launches_per_step": launches / steps if on_card else None,
-        "device_ms_per_step_by_kernel": {k[:80]: v for k, v in largest},
+        **eager,
         "shuffle_peak_device_bytes": shuffle_peak,
-        "step_peak_device_bytes": step_peak,
+        "eager": eager,
+        "replayed": replayed,
     }
 
 
-def run(argv=None) -> dict:
-    """Build the dataset and engine, run a warm-up epoch and ``--reps``
-    timed epochs; returns the JSON record."""
-    args = _parser().parse_args(argv)
-    dataset = make_dataset(args.users, args.items, args.clicks, args.max_his)
-    cfg = CFConfig(
+def make_config(args: argparse.Namespace) -> CFConfig:
+    """The training configuration of parsed arguments (see the module
+    docstring)."""
+    return CFConfig(
         emb_dim=args.dim,
         num_negs=args.negs,
         max_his=args.max_his,
@@ -232,7 +311,14 @@ def run(argv=None) -> dict:
         emb_pad=args.emb_pad if args.emb_pad > args.dim else 0,
         aggregator=args.aggregator,
     )
-    engine = Engine(cfg, dataset, device=args.device)
+
+
+def run(argv=None) -> dict:
+    """Build the dataset and engine, run a warm-up epoch and ``--reps``
+    timed epochs; returns the JSON record."""
+    args = _parser().parse_args(argv)
+    dataset = make_dataset(args.users, args.items, args.clicks, args.max_his)
+    engine = Engine(make_config(args), dataset, device=args.device)
     on_card = engine.device.type == "cuda"
     threshold = scatter.DENSE_ROWS_THRESHOLD
     sorted_path = args.update_mode == "dedup" and (
@@ -312,6 +398,8 @@ def run(argv=None) -> dict:
         "peak_device_bytes": (
             torch.cuda.max_memory_allocated(engine.device) if on_card else None
         ),
+        # Captures of the step (one unless an input's address moved).
+        "captures": engine._epoch_fns[True].captures if on_card else None,
         "reduced": REDUCED,
     }
     if args.profile:

@@ -208,7 +208,8 @@ class TiledEvaluator:
       user_tile: users per tile.
       num_items: item-space size (inferred from the pairs when None; a
         wider item table at ``topk`` time is handled).
-      device: where the mask lives and ranking runs.
+      device: where the mask lives and ranking runs: "cuda" (the default;
+        fails without a card) or "cpu".
     """
 
     def __init__(
@@ -218,12 +219,17 @@ class TiledEvaluator:
         user_tile: int = 512,
         *,
         num_items: int | None = None,
-        device="cpu",
+        device="cuda",
     ):
         self.num_users = num_users
         self.user_tile = user_tile
         self.num_tiles = -(-num_users // user_tile)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but torch.cuda.is_available() is "
+                "False (pass device='cpu' to rank on the CPU)"
+            )
         if train_pairs is None:
             train_pairs = np.zeros((0, 2), np.int32)
         train_pairs = np.asarray(train_pairs)

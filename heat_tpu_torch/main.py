@@ -19,6 +19,14 @@ configuration of the JAX package's ``bench.py`` is ``--set neg_sampler=1
 --set param_dtype=bfloat16 --set compute_dtype=bfloat16 --set
 update_mode=direct``. The device is ``cuda`` unless ``--device`` says otherwise, and
 the run fails when CUDA is missing.
+
+On the card each training step is one replay of a CUDA graph captured once
+(``Engine.train_one_epoch``). ``--fused-epochs N`` runs up to N epochs a
+call of ``Engine.train_epochs`` (one read of their losses), a chunk never
+running past the next evaluation; ``--fused-run`` runs the whole schedule,
+its evaluations included, through ``Engine.run_epochs_with_eval``. Both
+print the same lines with per-epoch times that are chunk (or run)
+averages.
 """
 
 from __future__ import annotations
@@ -46,8 +54,9 @@ def _sync(engine: Engine) -> None:
 def main(argv=None) -> dict:
     """Run the CLI; returns the run's record: per-epoch ``losses`` and
     ``epoch_times`` (s), the periodic ``evals`` (each with its epoch and
-    seconds), the ``final_metrics`` and their ``final_eval_s``, and the
-    ``steps`` taken."""
+    seconds, None under ``--fused-run``, whose epoch times include them),
+    the ``final_metrics`` and their ``final_eval_s``, and the ``steps``
+    taken."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument(
         "--config", type=str, required=True, help="YAML config path"
@@ -75,6 +84,22 @@ def main(argv=None) -> dict:
         metavar="PATH",
         help="after the run, write the trained tables and w0 to PATH as a "
         "portable f32 .npz (heat_tpu_torch.export)",
+    )
+    parser.add_argument(
+        "--fused-epochs",
+        type=int,
+        default=1,
+        metavar="N",
+        help="run up to N epochs a call of Engine.train_epochs (one read of "
+        "their losses); the eval cadence is kept, and per-epoch times "
+        "become chunk averages",
+    )
+    parser.add_argument(
+        "--fused-run",
+        action="store_true",
+        help="run the whole schedule, its periodic evaluations included, "
+        "through Engine.run_epochs_with_eval; per-epoch times become the "
+        "run's average (evaluations included)",
     )
     parser.add_argument(
         "--set",
@@ -129,28 +154,54 @@ def main(argv=None) -> dict:
 
     engine = Engine(cfg, train_data, test_data, device=args.device)
     record = {"losses": [], "epoch_times": [], "evals": []}
-    while engine.epoch < cfg.epochs:
-        _sync(engine)
-        t0 = time.perf_counter()
-        loss = engine.train_one_epoch()  # reads the loss: waits for the device
-        dt = time.perf_counter() - t0
-        epoch = engine.epoch - 1
+
+    def report(epoch: int, loss: float, dt: float) -> None:
         print(f"epoch: {epoch}; loss: {loss:.6f}; epoch_time: {dt:.3f}s")
         record["losses"].append(loss)
         record["epoch_times"].append(dt)
-        # The reference evaluates after finishing epoch e when
-        # e % eval_interval == 0 and e > 0.
+
+    def report_eval(epoch: int, metrics: dict, seconds) -> None:
+        record["evals"].append(
+            {"epoch": epoch, "seconds": seconds, "metrics": metrics}
+        )
+        print(
+            "[Metrics] "
+            + " - ".join(f"{k}: {v:.6f}" for k, v in metrics.items())
+        )
+
+    if args.fused_run:
+        _sync(engine)
+        t0 = time.perf_counter()
+        start = engine.epoch
+        losses, evals = engine.run_epochs_with_eval(
+            cfg.epochs - start, cfg.eval_interval
+        )
+        dt = (time.perf_counter() - t0) / max(1, len(losses))
+        for i, loss in enumerate(losses):
+            report(start + i, loss, dt)
+            for ev in evals:
+                if ev["epoch"] == start + i:  # timed inside the run's average
+                    report_eval(ev["epoch"], {k: v for k, v in ev.items()
+                                              if k != "epoch"}, None)
+    fused = max(1, args.fused_epochs)
+    while engine.epoch < cfg.epochs:
+        start = engine.epoch
+        # A chunk ends at the end of training and at the next epoch after
+        # which the reference evaluates (e % eval_interval == 0, e > 0):
+        # it may run through that epoch but not past it.
+        next_eval = -(-max(start, 1) // cfg.eval_interval) * cfg.eval_interval
+        n = min(fused, cfg.epochs - start, next_eval - start + 1)
+        _sync(engine)
+        t0 = time.perf_counter()
+        losses = engine.train_epochs(n)  # reads the losses: waits for the device
+        dt = (time.perf_counter() - t0) / n
+        for i, loss in enumerate(losses):
+            report(start + i, loss, dt)
+        epoch = engine.epoch - 1
         if epoch > 0 and epoch % cfg.eval_interval == 0:
             t0 = time.perf_counter()
             metrics = engine.evaluate()
-            record["evals"].append(
-                {"epoch": epoch, "seconds": time.perf_counter() - t0,
-                 "metrics": metrics}
-            )
-            print(
-                "[Metrics] "
-                + " - ".join(f"{k}: {v:.6f}" for k, v in metrics.items())
-            )
+            report_eval(epoch, metrics, time.perf_counter() - t0)
 
     _sync(engine)
     t0 = time.perf_counter()

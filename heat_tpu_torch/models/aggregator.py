@@ -96,6 +96,7 @@ def user_pools_impl(
     his_masks: torch.Tensor,
     aggregator: str = "mean",
     chunk: int = 4096,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(U, d) pooled history of every user, through kernel K1. On the card
     one launch writes the whole table of pools in place: the kernel never
@@ -110,6 +111,9 @@ def user_pools_impl(
       aggregator: "mean" (the attention aggregators raise
         ``NotImplementedError``).
       chunk: users per call of the plain version on the CPU.
+      out: optional contiguous (U, d) tensor of the table's type on its
+        device, written and returned (the engine refreshes one buffer every
+        epoch, whose address its captured step reads); a new one when None.
     """
     require_mean_aggregator(aggregator)
     if his_items.dim() != 2:
@@ -117,8 +121,16 @@ def user_pools_impl(
             f"his_items must be (U, H), got shape {tuple(his_items.shape)}"
         )
     u = his_items.shape[0]
-    out = torch.empty((u, item_emb.shape[1]), dtype=item_emb.dtype,
-                      device=item_emb.device)
+    if out is None:
+        out = torch.empty((u, item_emb.shape[1]), dtype=item_emb.dtype,
+                          device=item_emb.device)
+    elif (out.shape != (u, item_emb.shape[1]) or out.dtype != item_emb.dtype
+          or out.device != item_emb.device or not out.is_contiguous()):
+        raise ValueError(
+            f"out must be a contiguous ({u}, {item_emb.shape[1]}) "
+            f"{item_emb.dtype} tensor on {item_emb.device}, got "
+            f"{tuple(out.shape)} {out.dtype} on {out.device}"
+        )
     if out.is_cuda:
         return history_mean_gather(item_emb, his_items, his_masks, out=out)
     for lo in range(0, u, chunk):

@@ -5,9 +5,24 @@ Counterpart of ``heat_tpu/train/engine.py`` for the single-device slice:
 stable pre-sort of ``visit_order`` "user" / "item"), batch packing with
 weight-0 padding (``_make_batches`` / ``_shuffle_or_pack``, modes "epoch",
 "once" and "none"), ``train_one_epoch`` with the LR milestones,
-``evaluate`` and ``evaluate0``. Where the JAX epoch is one ``lax.scan``
-program, here it is a Python loop over batches; the epoch's loss sum stays
-on the device and is read once per epoch.
+``evaluate`` and ``evaluate0``; ``train_epochs`` and
+``run_epochs_with_eval``, the JAX engine's fused programs. Where the JAX
+epoch is one ``lax.scan`` program, here on the card each step is one replay
+of a CUDA graph of the step, captured once (``train_step.make_epoch_fn``),
+and the epoch is a host loop of replays; on the CPU, and for the eager
+oracle (``self._capture = False``), the steps run one by one. The epoch
+shuffle, the pool refresh and the evaluation stay eager between the
+replays. The epoch's loss sum stays on the device and is read once per
+call (per epoch for ``train_one_epoch``, once for ``train_epochs(n)``).
+
+The captured step reads fixed addresses, so everything it reads is kept in
+place: the state (``train_step`` updates every tensor of it in place, and
+``lr`` is filled in place each epoch), the (nb, B) batch stream buffers
+(``_shuffle_or_pack`` writes each epoch's stream into them). The pools
+buffer is dropped before each shuffle and taken again after it, which
+gives its block back unless the shuffle kept part of it; a caller that
+assigns a new ``state``, or pools that come back at another address, get
+a new capture at the next epoch.
 
 Per epoch, before the first step: under ``his_refresh: subepoch`` the
 (U, d) pooled-history table is computed once from the live item table
@@ -58,8 +73,9 @@ from heat_tpu_torch.models.state import (
     zero_grad_accumulators,
 )
 from heat_tpu_torch.train.optimizer import scheduled_lr
+from heat_tpu_torch.train.run import reference_schedule
 from heat_tpu_torch.train.samplers import derive_tile_params, init_sampler_state
-from heat_tpu_torch.train.train_step import Batch, train_step
+from heat_tpu_torch.train.train_step import make_epoch_fn
 
 
 # Chunked whole-table pooling; the implementation lives next to the pooling
@@ -171,6 +187,12 @@ class Engine:
         self._evaluator = None  # lazy TiledEvaluator (mask tensors cached)
         self._batch_cache = None  # shuffle_mode == "once" packed stream
         self._dedup_cache = None  # (stream key, maps) of _history_dedup
+        # Each step one replay of a captured CUDA graph (on the card), or
+        # the eager steps (the CPU; the oracle the tests compare with).
+        self._capture = self.device.type == "cuda"
+        self._epoch_fns = {}  # capture: make_epoch_fn(cfg, capture)
+        self._stream = None  # (key, (users, pos, weight) (nb, B) buffers)
+        self._pools = None  # the (U, d) pools buffer of his_refresh: subepoch
 
     # ------------------------------------------------------------------
     def unpadded_state(self) -> TrainState:
@@ -180,18 +202,36 @@ class Engine:
         return self.state
 
     # ------------------------------------------------------------------
+    def _stream_buffers(self, n: int, num_batches: int, batch: int):
+        """The engine's (users, pos, weight) (num_batches, batch) buffers,
+        made once for a stream of ``n`` pairs: every epoch's stream is
+        written into them, so the captured step reads one address. The
+        weights (1, then 0 on the padded tail) are the same every epoch."""
+        key = (n, num_batches, batch)
+        if self._stream is None or self._stream[0] != key:
+            shape = (num_batches, batch)
+            weight = torch.ones(shape, dtype=torch.float32, device=self.device)
+            weight.view(-1)[n:] = 0.0
+            self._stream = (key, (
+                torch.empty(shape, dtype=torch.int32, device=self.device),
+                torch.empty(shape, dtype=torch.int32, device=self.device),
+                weight,
+            ))
+        return self._stream[1]
+
     def _shuffle_or_pack(self, pairs, num_batches: int, batch: int):
         """(users, pos, weight), each (num_batches, batch): pairs in a
         shuffled ("epoch"; "once" shuffles once and reuses the stream) or
         file ("none") order, the tail padded by repeating the stream with
         weight 0. The order is an int32 index vector, and each column is
         gathered once into its contiguous batch rows (the kernels take
-        contiguous ids)."""
+        contiguous ids), written into the engine's stream buffers."""
         mode = self.cfg.shuffle_mode
         if mode == "once" and self._batch_cache is not None:
             return self._batch_cache
         n = pairs.shape[0]
         total = num_batches * batch
+        self._pools = None  # not held over the shuffle (_pools_buffer)
         if mode == "none":
             idx = torch.arange(n, dtype=torch.int32, device=self.device)
         else:
@@ -201,13 +241,9 @@ class Engine:
             )
         if total > n:  # total - n < batch <= n
             idx = torch.cat([idx, idx[: total - n]])
-        weight = torch.ones(total, dtype=torch.float32, device=self.device)
-        weight[n:] = 0.0
-        out = (
-            pairs[:, 0].index_select(0, idx).reshape(num_batches, batch),
-            pairs[:, 1].index_select(0, idx).reshape(num_batches, batch),
-            weight.reshape(num_batches, batch),
-        )
+        out = self._stream_buffers(n, num_batches, batch)
+        for col, buf in enumerate(out[:2]):
+            torch.index_select(pairs[:, col], 0, idx, out=buf.view(-1))
         if mode == "once":
             self._batch_cache = out
         return out
@@ -261,49 +297,124 @@ class Engine:
         self._dedup_cache = (key, out)
         return out
 
-    def _pooled_history(self) -> torch.Tensor:
+    def _pooled_history(self, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(U, d) pooled history of every user from the live item table,
-        in the table's type."""
+        in the table's type (written into ``out`` when given)."""
         return compute_user_pools(
             self.state.item_emb, self.his_items, self.his_masks,
-            aggregator=self.cfg.aggregator,
+            aggregator=self.cfg.aggregator, out=out,
         )
 
-    def train_one_epoch(self) -> float:
-        """Run one epoch; returns the mean per-sample loss."""
+    def _pools_buffer(self) -> torch.Tensor:
+        """The (U, d) buffer the pools are refreshed into. The shuffle
+        (``_shuffle_or_pack``) drops it first, so that its temporaries may
+        use that memory, and the epoch takes a new one after; the allocator
+        gives the same block back when the shuffle freed it whole, and the
+        step is captured again only when the address moved."""
+        item = self.state.item_emb
+        shape = (self.his_items.shape[0], item.shape[1])
+        if self._pools is None or self._pools.shape != shape \
+                or self._pools.dtype != item.dtype:
+            self._pools = torch.empty(shape, dtype=item.dtype, device=self.device)
+        return self._pools
+
+    def _epoch_fn(self, capture: bool):
+        fn = self._epoch_fns.get(capture)
+        if fn is None:
+            fn = self._epoch_fns[capture] = make_epoch_fn(self.cfg, capture)
+        return fn
+
+    def _epoch(self, capture: bool) -> torch.Tensor:
+        """One epoch: its learning rate, its batch stream, its pools and its
+        steps (replays of the captured step when ``capture``). Returns the
+        epoch's loss sum, a 0-d tensor on the device; nothing waits."""
         cfg = self.cfg
         lr = scheduled_lr(cfg.l_r, self.epoch, cfg.milestones, cfg.lr_gamma)
-        self.state.lr = torch.tensor(lr, dtype=torch.float32, device=self.device)
+        self.state.lr.fill_(lr)  # in place: kernels read it by its address
         if int(self.pairs.shape[0]) == 0:
             self.epoch += 1
-            return 0.0
+            return torch.zeros((), dtype=torch.float32, device=self.device)
         users, pos, weight = self._make_batches(self.pairs)
         dedup = self._history_dedup(self.pairs, users)
         # Cached pools: once per epoch, from the epoch-start tables.
-        user_means = (
-            self._pooled_history() if cfg.his_refresh == "subepoch" else None
+        user_means = None
+        if cfg.his_refresh == "subepoch":
+            user_means = self._pooled_history(out=self._pools_buffer())
+        self.state, self.sampler_state, loss_sum = self._epoch_fn(capture)(
+            self.state,
+            self.sampler_state,
+            self.generator,
+            users,
+            pos,
+            weight,
+            self.his_items,
+            self.his_masks,
+            user_means=user_means,
+            uniq_users=dedup[0] if dedup else None,
+            uniq_inverse=dedup[1] if dedup else None,
         )
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for i in range(users.shape[0]):
-            self.state, self.sampler_state, loss = train_step(
-                self.state,
-                self.sampler_state,
-                self.generator,
-                Batch(users[i], pos[i], weight[i]),
-                self.his_items,
-                self.his_masks,
-                cfg,
-                user_means=user_means,
-                uniq_users=dedup[0][i] if dedup else None,
-                uniq_inverse=dedup[1][i] if dedup else None,
-            )
-            loss_sum += loss
         if cfg.sgd_mode == SGD_MODE_ACCUM:
             # The reference zeroes the grad rows at the end of every
             # sub-epoch, the only one included (engine.cpp:345-347).
             zero_grad_accumulators(self.state)
         self.epoch += 1
-        return float(loss_sum) / max(1, cfg.train_size)
+        return loss_sum
+
+    def train_one_epoch(self) -> float:
+        """Run one epoch; returns the mean per-sample loss."""
+        return float(self._epoch(self._capture)) / max(1, self.cfg.train_size)
+
+    def _train_epochs(self, n: int, capture: bool) -> list[float]:
+        if n <= 0:
+            return []
+        sums = torch.stack([self._epoch(capture) for _ in range(n)]).cpu()
+        return [float(s) / max(1, self.cfg.train_size) for s in sums]
+
+    def train_epochs(self, n: int) -> list[float]:
+        """Run ``n`` epochs; returns the mean per-sample loss of each.
+
+        The same draws, learning rates and results as ``n`` sequential
+        ``train_one_epoch`` calls (the epochs run one after the other, each
+        with its own shuffle and pool refresh), with one read of the ``n``
+        loss sums at the end: the port of the JAX engine's
+        ``train_epochs`` / ``_train_epochs_fixed``, whose one device program
+        here is the replays of the captured step."""
+        return self._train_epochs(n, self._capture)
+
+    def run_epochs_with_eval(
+        self,
+        epochs: int,
+        eval_interval: int,
+        metrics: Optional[Sequence[str]] = None,
+        user_tile: int = 512,
+        fused: bool = True,
+    ) -> tuple[list[float], list[dict]]:
+        """The reference's full deployment shape (cf/main.py:106-124):
+        ``epochs`` epochs with a ranking evaluation after epoch ``e``
+        whenever ``e > 0 and e % eval_interval == 0``, the schedule
+        anchored at the engine's current epoch (``reference_schedule``), so
+        a resumed run evaluates at the same absolute epochs.
+
+        Each segment of the schedule runs through ``train_epochs`` (on the
+        card, replays of the captured step) and each evaluation through
+        ``evaluate``, eagerly: the JAX engine's own fallback shape (its
+        ``make_run_fn`` makes the whole run one program; capturing the
+        evaluation waits for a fused seen-mask kernel). ``fused=False`` runs
+        the eager step (the oracle) with the same draws.
+
+        Returns (per-epoch mean losses, evals), each eval
+        ``{"epoch": e, metric: value, ...}`` in schedule order.
+        """
+        metrics = list(metrics if metrics is not None else self.cfg.metrics)
+        capture = self._capture and fused
+        losses: list[float] = []
+        evals: list[dict] = []
+        for n, do_eval in reference_schedule(epochs, eval_interval, self.epoch):
+            losses.extend(self._train_epochs(n, capture))
+            if do_eval:
+                evals.append({"epoch": self.epoch - 1,
+                              **self.evaluate(metrics, user_tile=user_tile)})
+        return losses, evals
 
     # ------------------------------------------------------------------
     def _ensure_evaluator(self, user_tile: int) -> None:

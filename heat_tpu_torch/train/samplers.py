@@ -13,7 +13,9 @@ Counterpart of ``heat_tpu/train/samplers.py``:
 Draws come from an explicit ``torch.Generator``; they match the JAX
 samplers in distribution, not bit for bit (tests pin the draws instead).
 The state (tile and sample counter) lives on the device, and nothing here
-waits for it: the refresh is a ``torch.where`` on a device condition.
+waits for it: the refresh is a ``torch.where`` on a device condition. A
+draw advances the state in place (the counter and the tile keep their
+tensors), so a step that draws can be captured into a CUDA graph.
 """
 
 from __future__ import annotations
@@ -166,11 +168,8 @@ def _tile_negatives(
     """
     it = state.iterations
     device = it.device
-    adv = (
-        torch.tensor(batch, dtype=torch.int32, device=device)
-        if real is None
-        else real.to(torch.int32)
-    )
+    # A fill, not a copy from the host: the step stays capturable either way.
+    adv = it.new_full((), batch) if real is None else real.to(torch.int32)
     # Refresh iff some sample j in [it, it + adv) has
     # j % refresh_interval == 0 (the reference's per-sample condition).
     phase = it % refresh_interval
@@ -178,12 +177,10 @@ def _tile_negatives(
     fresh, idx = _tile_draws(
         generator, device, batch, num_negs, num_items, tile_size
     )
-    tile = torch.where(needs_refresh, fresh, state.tile)
+    tile = state.tile.copy_(torch.where(needs_refresh, fresh, state.tile))
     ids = tile.index_select(0, idx.reshape(-1).long()).view(batch, num_negs)
-    return (
-        NegSample(ids=ids, tile=tile, tile_idx=idx),
-        SamplerState(iterations=it + adv, tile=tile),
-    )
+    it.add_(adv)
+    return NegSample(ids=ids, tile=tile, tile_idx=idx), state
 
 
 def sample_negatives(
@@ -197,7 +194,8 @@ def sample_negatives(
     reference tile sampler (no positive-avoidance); uniform mode redraws
     positives when ``cfg.ignore_pos``. ``real``: optional 0-d count of real
     (weight > 0) samples; the iteration counter, and with it the tile's
-    refresh cadence, advances by it (by the batch width when None)."""
+    refresh cadence, advances by it (by the batch width when None). Returns
+    the sample and ``state``, advanced in place."""
     batch = pos_ids.shape[0]
     if cfg.neg_sampler == NEG_SAMPLER_TILE:
         return _tile_negatives(
@@ -207,7 +205,5 @@ def sample_negatives(
     negs = _uniform_negatives(
         generator, batch, cfg.num_negs, cfg.num_items, pos_ids, cfg.ignore_pos
     )
-    adv = batch if real is None else real.to(torch.int32)
-    return NegSample(ids=negs), SamplerState(
-        iterations=state.iterations + adv, tile=state.tile
-    )
+    state.iterations.add_(batch if real is None else real.to(torch.int32))
+    return NegSample(ids=negs), state

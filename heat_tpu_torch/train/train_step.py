@@ -47,9 +47,13 @@ product and its three elementwise operations, at the casts of the
 gradients back to the rows' type, and at every table write. Scores and
 losses are f32.
 
-The step reads the tables once at batch start. It updates the tables, the
-gradient rows and the table slots in place and returns a new TrainState
-holding them; nothing in it waits for the device.
+The step reads the tables once at batch start. It updates every tensor of
+the state in place (the tables, the gradient rows, the table slots, ``w0``,
+its slots and ``step``; the sampler's ``iterations`` and ``tile`` in
+``sample_negatives``) and returns the same TrainState and SamplerState
+objects; nothing in it waits for the device or copies from the host. So
+one step can be captured into a CUDA graph and replayed against the same
+addresses: :func:`make_epoch_fn` runs an epoch of such replays.
 """
 
 from __future__ import annotations
@@ -189,17 +193,17 @@ def train_step(
     pos_w = torch.where(valid, pos, num_items)
     u_agg = u_agg.detach()
     l2 = cfg.l2 if cfg.l2_enabled else 0.0
-    step1 = state.step + (real > 0).to(state.step.dtype)
-    moments = dict(lr=state.lr, step=step1, beta1=cfg.adam_beta1,
+    state.step.add_((real > 0).to(state.step.dtype))  # 1-based from here on
+    moments = dict(lr=state.lr, step=state.step, beta1=cfg.adam_beta1,
                    beta2=cfg.adam_beta2, eps=cfg.opt_eps)
     opt = dict(clip_val=cfg.clip_val, l2=l2, **moments)
     sgd = dict(lr=state.lr, clip_val=cfg.clip_val, l2=l2)
-    opt_slots = None if state.opt_slots is None else dict(state.opt_slots)
+    opt_slots = state.opt_slots
 
     # User table: the aggregated rows replace the rows, then the update.
     # In batch mode the write-back rides the update's own scatter; accum
     # mode writes it first (its update reads the persistent grad rows).
-    user_gacc = item_gacc = None
+    # Every update below works in place on the state's tensors.
     if state.user_gacc is not None:
         scatter_set_rows(user_emb, users_w, u_agg)
         u_writeback = None
@@ -207,12 +211,12 @@ def train_step(
         u_writeback = u_agg
     if cfg.update_mode == "direct":
         # Config validation guarantees batch-mode SGD here.
-        user_emb = apply_row_updates_direct(
+        apply_row_updates_direct(
             user_emb, users_w, g_u, rows=u_agg if l2 else None,
             writeback=u_writeback, **sgd,
         )
     elif cfg.optimizer == "sgd":
-        user_emb, user_gacc = apply_row_updates(
+        apply_row_updates(
             user_emb, users_w, g_u, gacc=state.user_gacc, decay=cfg.gamma,
             writeback=u_writeback, **sgd,
         )
@@ -238,11 +242,11 @@ def train_step(
     del g_n  # 134 MB at B = 32,768, K = 16: freed before the update's buffers
     if cfg.update_mode == "direct":
         item_rows = torch.cat([p_rows, n_rows.reshape(-1, d)]) if l2 else None
-        item_emb = apply_row_updates_direct(
+        apply_row_updates_direct(
             item_emb, item_ids, item_grads, rows=item_rows, **sgd
         )
     elif cfg.optimizer == "sgd":
-        item_emb, item_gacc = apply_row_updates(
+        apply_row_updates(
             item_emb, item_ids, item_grads, gacc=state.item_gacc, **sgd
         )
     else:
@@ -253,7 +257,7 @@ def train_step(
 
     # w0: B / aggr_minibatch reference updates collapsed into one.
     if cfg.optimizer == "sgd":
-        w0 = w0 - state.lr * g_w0 / cfg.aggr_minibatch
+        w0.sub_(state.lr * g_w0 / cfg.aggr_minibatch)
     else:
         # Dense moment updates are not no-ops at zero gradient (Adam
         # decays its moments, Adagrad divides by sqrt(v)), so an
@@ -264,19 +268,213 @@ def train_step(
         )
         for key in ("w0_m", "w0_v"):
             if key in slots_new:
-                opt_slots[key] = torch.where(
-                    has_real, slots_new[key], opt_slots[key]
+                opt_slots[key].copy_(
+                    torch.where(has_real, slots_new[key], opt_slots[key])
                 )
-        w0 = torch.where(has_real, w0_new, w0)
-
-    state = TrainState(
-        user_emb=user_emb,
-        item_emb=item_emb,
-        w0=w0,
-        lr=state.lr,
-        step=step1,
-        user_gacc=user_gacc,
-        item_gacc=item_gacc,
-        opt_slots=opt_slots,
-    )
+        w0.copy_(torch.where(has_real, w0_new, w0))
     return state, sampler_state, loss_sum.detach()
+
+
+_CAPTURE_STREAMS: dict = {}  # device index: the side stream of every capture
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """One side stream per card for every warm-up and capture: PyTorch
+    keeps a cuBLAS workspace for each stream a product ran on, for the
+    life of the process, so a new stream per capture would hold one more
+    workspace each time."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
+def _key(tensors) -> tuple:
+    """What a captured graph reads: the address, type and shape of each
+    tensor (None for an absent input)."""
+    return tuple(
+        None if t is None else (t.data_ptr(), t.dtype, tuple(t.shape))
+        for t in tensors
+    )
+
+
+class EpochFn:
+    """Steps of :func:`train_step` over an epoch's (nb, B) batch stream: the
+    counterpart of the JAX package's ``make_epoch_fn`` (a jitted
+    ``lax.scan`` over the batches), without the pool refresh, which the
+    engine runs before it.
+
+    ``fn(state, sampler_state, generator, users, pos, weight, his_items,
+    his_masks, user_means=None, uniq_users=None, uniq_inverse=None,
+    first=0, count=None)`` runs steps ``first`` to ``first + count - 1`` of
+    the stream (users, pos, weight: (nb, B); the dedup maps (nb, Bu) and
+    (nb, B)), the rest of the epoch when ``count`` is None, and returns
+    ``(state, sampler_state, loss_sum)``: the state and the sampler state
+    passed, advanced in place, and a new 0-d f32 tensor, the steps' loss sum,
+    on the step's device. Nothing waits for the device.
+
+    ``capture=False`` runs the steps one by one: the CPU, and the eager
+    oracle on the card. ``capture=True`` (CUDA tensors only) runs each step
+    as one replay of a CUDA graph of: batch ``index`` of the stream buffers
+    (``index_select`` on a device step index) -> ``train_step`` -> the loss
+    into a device accumulator -> index + 1. The graph reads every input at
+    the address it was captured at, so it is keyed on the address, type and
+    shape of each tensor it reads (the state's, the sampler's, the stream
+    buffers, the pools, the dedup maps and the histories) and captured
+    again when one of them changes, for example when a caller assigns a new
+    state or the pools come back at another address. It holds no reference
+    to them between calls: the caller keeps them alive. The capture is
+    preceded by its warm-up, which is the first of the steps asked for, run
+    eagerly on the capture stream (autograd, cuBLAS and the allocator set
+    themselves up there): it trains exactly what the epoch trains, needs no
+    copy of the tables (a copy would cost a table-sized buffer at the
+    16M x 6M geometry) and leaves the generator where the next step expects
+    it. The capture itself runs nothing. ``captures`` counts the captures.
+
+    The engine's generator is registered with the graph
+    (``CUDAGraph.register_generator_state``), so every replay draws what
+    an eager step would draw from the same generator state, and eager draws
+    between replays (the epoch shuffle) stay in the same stream; a PyTorch
+    without that call raises. The kernel wrappers count their launches
+    where they launch: in the warm-up, and once in the capture, which
+    records the launch into the graph. A replay runs the graph's kernels
+    without a wrapper call, so a device trace counts those
+    (``bench_large.profile_steps``). Capture and replay errors propagate;
+    there is no fallback to the eager steps.
+    """
+
+    def __init__(self, cfg, capture: bool):
+        self.cfg = cfg
+        self.capture = capture
+        self.captures = 0
+        self._graph = None
+        self._key = None
+        self._index = None  # (1,) int64 device step index
+        self._loss = None  # 0-d f32 device loss accumulator
+        self._inputs = None  # the call's inputs, while a capture reads them
+        # The bytes of the capture's private memory pool (the step's
+        # temporaries, kept for the replays), from the allocator's segments.
+        self.graph_pool_bytes = None
+
+    def _release(self) -> None:
+        """Free the captured graph and its memory pool."""
+        if self._graph is not None:
+            self._graph.reset()
+        self._graph = self._key = None
+
+    def _step(self) -> None:
+        """The captured body: one step on batch ``index``, its loss into the
+        accumulator, index + 1."""
+        (state, sampler_state, generator, users, pos, weight, his_items,
+         his_masks, user_means, uniq_users, uniq_inverse) = self._inputs
+        i = self._index
+
+        def row(t):
+            return None if t is None else t.index_select(0, i)[0]
+
+        _, _, loss = train_step(
+            state, sampler_state, generator,
+            Batch(row(users), row(pos), row(weight)), his_items, his_masks,
+            self.cfg, user_means=user_means, uniq_users=row(uniq_users),
+            uniq_inverse=row(uniq_inverse),
+        )
+        self._loss += loss
+        i += 1
+
+    def _capture(self, generator, stream) -> None:
+        current = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self._step()  # the warm-up: the first step asked for, eagerly
+        current.wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        with torch.cuda.graph(graph, stream=stream):
+            self._step()
+        self._graph = graph
+        self.captures += 1
+        pool = tuple(graph.pool())
+        self.graph_pool_bytes = sum(
+            seg["total_size"] for seg in torch.cuda.memory._snapshot()["segments"]
+            if tuple(seg["segment_pool_id"]) == pool
+        )
+
+    def __call__(
+        self,
+        state: TrainState,
+        sampler_state: SamplerState,
+        generator: torch.Generator,
+        users: torch.Tensor,
+        pos: torch.Tensor,
+        weight: torch.Tensor,
+        his_items: torch.Tensor,
+        his_masks: torch.Tensor,
+        user_means: Optional[torch.Tensor] = None,
+        uniq_users: Optional[torch.Tensor] = None,
+        uniq_inverse: Optional[torch.Tensor] = None,
+        *,
+        first: int = 0,
+        count: Optional[int] = None,
+    ) -> tuple[TrainState, SamplerState, torch.Tensor]:
+        nb = users.shape[0]
+        count = nb - first if count is None else count
+        if first < 0 or count < 0 or first + count > nb:
+            raise ValueError(
+                f"steps {first}..{first + count - 1} outside the stream's {nb}"
+            )
+        device = users.device
+        if not self.capture:
+            loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+            for i in range(first, first + count):
+                state, sampler_state, loss = train_step(
+                    state, sampler_state, generator,
+                    Batch(users[i], pos[i], weight[i]), his_items, his_masks,
+                    self.cfg, user_means=user_means,
+                    uniq_users=None if uniq_users is None else uniq_users[i],
+                    uniq_inverse=None if uniq_inverse is None else uniq_inverse[i],
+                )
+                loss_sum += loss
+            return state, sampler_state, loss_sum
+        if device.type != "cuda":
+            raise ValueError(f"a captured epoch needs CUDA tensors, got {device}")
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError(
+                "this PyTorch has no CUDAGraph.register_generator_state: a "
+                "captured step could not draw from the engine's generator"
+            )
+        if self._index is None:
+            self._index = torch.zeros(1, dtype=torch.int64, device=device)
+            self._loss = torch.zeros((), dtype=torch.float32, device=device)
+        self._index.fill_(first)
+        self._loss.zero_()
+        if count == 0:
+            return state, sampler_state, self._loss.clone()
+        slots = [] if state.opt_slots is None else [
+            state.opt_slots[k] for k in sorted(state.opt_slots)]
+        key = (generator, self.cfg) + _key((
+            state.user_emb, state.item_emb, state.w0, state.lr, state.step,
+            state.user_gacc, state.item_gacc, *slots, sampler_state.iterations,
+            sampler_state.tile, users, pos, weight, his_items, his_masks,
+            user_means, uniq_users, uniq_inverse,
+        ))
+        replays = count
+        if key != self._key:
+            self._release()
+            self._inputs = (state, sampler_state, generator, users, pos,
+                            weight, his_items, his_masks, user_means,
+                            uniq_users, uniq_inverse)
+            try:
+                self._capture(generator, _capture_stream(device))
+            finally:
+                self._inputs = None
+            self._key = key
+            replays -= 1
+        for _ in range(replays):
+            self._graph.replay()
+        return state, sampler_state, self._loss.clone()
+
+
+def make_epoch_fn(cfg: CFConfig, capture: bool) -> EpochFn:
+    """The epoch function of ``cfg`` (see :class:`EpochFn`): one CUDA
+    graph replay a step when ``capture``, the eager steps otherwise."""
+    return EpochFn(cfg, capture)

@@ -637,17 +637,16 @@ def test_pools_are_taken_once_per_epoch_from_the_epoch_start_tables(monkeypatch)
     calls, seen = [], []
     orig_pools, orig_step = te._pooled_history, tts.train_step
 
-    def pools():
+    def pools(out=None):
         calls.append(te.state.item_emb.clone())
-        return orig_pools()
+        return orig_pools(out=out)
 
     def step(state, ss, gen, batch, his, masks, cfg, **kw):
         seen.append(kw["user_means"])
         return orig_step(state, ss, gen, batch, his, masks, cfg, **kw)
 
     monkeypatch.setattr(te, "_pooled_history", pools)
-    import heat_tpu_torch.train.engine as teng
-    monkeypatch.setattr(teng, "train_step", step)
+    monkeypatch.setattr(tts, "train_step", step)  # the epoch's steps call it
     te.train_one_epoch()
     nb = -(-te.cfg.train_size // te.cfg.batch_size)
     assert nb > 1 and len(calls) == 1 and len(seen) == nb
@@ -658,7 +657,11 @@ def test_pools_are_taken_once_per_epoch_from_the_epoch_start_tables(monkeypatch)
     assert not torch.equal(user_pools_impl(te.state.item_emb, te.his_items,
                                            te.his_masks), start)
     te.train_one_epoch()
+    # A buffer taken again after the second epoch's shuffle, refreshed from
+    # that epoch's start tables.
     assert len(calls) == 2 and seen[nb] is not seen[0]
+    assert torch.equal(seen[nb], user_pools_impl(calls[1], te.his_items,
+                                                 te.his_masks))
 
 
 def test_pools_are_not_built_under_his_refresh_step(monkeypatch):

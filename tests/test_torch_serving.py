@@ -135,11 +135,21 @@ def test_masked_topk_matches_jax(n):
             assert set(tids[r, :k].tolist()) == set(np.asarray(jids)[r, :k].tolist())
 
 
+def test_tiled_evaluator_fails_without_cuda():
+    """Like the engine, the evaluator runs on the card unless asked for
+    the CPU, and says so where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tev.TiledEvaluator(None, 2, num_items=256)
+    assert tev.TiledEvaluator(None, 2, num_items=256, device="cpu").device.type == "cpu"
+
+
 def test_approximate_topk_is_refused():
     sim = torch.zeros(2, 256)
     with pytest.raises(NotImplementedError, match="item 16"):
         tev.masked_topk(sim, None, 5, exact=False)
-    ev = tev.TiledEvaluator(None, 2, num_items=256)
+    ev = tev.TiledEvaluator(None, 2, num_items=256, device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
         ev.topk(torch.zeros(2, 4), torch.zeros(256, 4), 5, exact=False)
 
@@ -174,7 +184,8 @@ def _ranking_both(model, tile, k, monkeypatch=None, budget=None):
         monkeypatch.setattr(tev, "MASK_BITS_MAX_BYTES", budget)
     u, n_items = model["user"].shape[0], model["item"].shape[0]
     j = jev.TiledEvaluator(model["seen"], u, user_tile=tile, num_items=n_items)
-    t = tev.TiledEvaluator(model["seen"], u, user_tile=tile, num_items=n_items)
+    t = tev.TiledEvaluator(model["seen"], u, user_tile=tile, num_items=n_items,
+                           device="cpu")
     _, jids = j.topk(model["user"], model["item"], k + 1)
     ts, tids = t.topk(torch.from_numpy(model["user"]),
                       torch.from_numpy(model["item"]), k + 1,
@@ -217,7 +228,7 @@ def test_tiled_evaluator_widens_to_the_item_table(model):
     assert pairs[:, 1].max() == 999
     u, k = model["user"], 20
     j = jev.TiledEvaluator(pairs, 300, user_tile=128)
-    t = tev.TiledEvaluator(pairs, 300, user_tile=128)
+    t = tev.TiledEvaluator(pairs, 300, user_tile=128, device="cpu")
     _, jids = j.topk(u, model["item"], k + 1)
     _, tids = t.topk(torch.from_numpy(u), torch.from_numpy(model["item"]), k + 1)
     assert_same_topk(tids.numpy(), np.asarray(jids), model["scores"], k)
