@@ -86,7 +86,19 @@ Phases, each of which raises (exit code 1) on failure:
    user and no item repeats (batch 16, 4,000,000 items: no row takes two
    adds in a step, so the step is deterministic), two epochs of three
    steps eager, eager again and replayed are bit-equal after each epoch
-   (``heat_tpu_torch.testing.replayed_equals_eager``);
+   (``heat_tpu_torch.testing.replayed_equals_eager``). Then sub-epochs
+   (``check_subepochs``): the reference's default run shape
+   (DEFAULT_SHAPE: the headline with ``num_subepochs: 2``, global scope)
+   through the CLI plain, ``--fused-epochs 5`` and ``--fused-run``, each
+   held to the run checks and its Recall@20 to RECALL_BAND of config0's,
+   with each sub-epoch's steps, the captures (one a run), K1's launches
+   (one pool refresh a sub-epoch) and the host's share of each epoch;
+   that shape replayed against eager over two epochs, and config0's and
+   that shape's configurations with two sub-epochs bit-equal on the
+   distinct clicks; complement scope on config0 with two sub-epochs, the
+   uniform and the tile sampler, eager and replayed, every negative a step
+   reads outside its sub-epoch's partition; the device trace of a replayed
+   sub-epoch step, equal to the headline step's;
 5. serving: the exported model in a ``Recommender`` on the card, requests
    of 1, 256 and 8192 users timed and held against ``recommend_all``, the
    Recall@20 of every user's requested top-20 against the run's final
@@ -109,9 +121,12 @@ Phases, each of which raises (exit code 1) on failure:
    ``dedup`` mode (both tables on the sort-dedup path) and in ``direct``
    mode, with the launch counts read around each run and peak device
    memory against the bytes held (nothing subtracted: the live blocks
-   left by earlier phases are printed); then one full-size sort-dedup update of
-   both tables on the card against the same update on the CPU (plain
-   versions), untouched rows bit-equal to before; then the launches per
+   left by earlier phases are printed); one epoch (after a warm-up epoch)
+   at that geometry in dedup mode with two sub-epochs, its peak device
+   memory held to MEM_RATIO of the bytes held; then one full-size
+   sort-dedup update of both tables on the card against the same update
+   on the CPU (plain versions), untouched rows bit-equal to before; then
+   the launches per
    step (device events under ``torch.profiler`` over PROFILE_STEPS steps)
    of the headline step and of both 16M x 6M steps, on a line
    ``{"launches_per_step": ...}`` (the eager steps), and on a line
@@ -151,6 +166,12 @@ HEADLINE = ["neg_sampler=1", "tile_size=512", "refresh_interval=8192",
             "his_refresh=subepoch", "param_dtype=bfloat16",
             "compute_dtype=bfloat16", "update_mode=direct"]
 RECALL_BAND = 0.0015  # headline Recall@20 against the f32 config0 run's
+# The reference's default run shape (cf_config.py:7 pairs the tile sampler
+# with num_subepoches = 2): the headline with two sub-epochs, global scope
+# (bench.py:515-517). The JAX package's full-scale Recall@20 at this shape
+# and exact (PARITY.md:102, README.md:39): a quality record, not a speed.
+DEFAULT_SHAPE = HEADLINE + ["num_subepochs=2"]
+JAX_DEFAULT_SHAPE_RECALL, JAX_EXACT_RECALL = 0.0122, 0.0126
 S2_WIDTH, S2_ROWS = 128, 65_536  # the measuring script's block gather
 RUNS = 30
 I_PAD = 91_648  # NUM_ITEMS padded to the 128-wide top-k windows
@@ -1853,8 +1874,9 @@ def check_trace(what, profile, every_step) -> dict:
     ``bench_large.profile_steps``: per step, the port's kernels by family
     are those of the eager steps on the same batches, the wrappers counted
     exactly the kernels the trace saw over the eager steps and none over
-    the replayed ones (a replay calls no wrapper), and each family of
-    ``every_step`` ran at least once a step."""
+    the replayed ones (a replay calls no wrapper), each family of
+    ``every_step`` ran at least once a step, and the replayed steps' device
+    time is at most 1.25x their wall time."""
     eager, replayed = profile["eager"], profile["replayed"]
     got = replayed["port_kernels_per_step"]
     if got != eager["port_kernels_per_step"]:
@@ -1873,6 +1895,12 @@ def check_trace(what, profile, every_step) -> dict:
         if got[fam] < 1:
             raise AssertionError(
                 f"{what}: {fam} ran {got[fam]} times a replayed step")
+    # One stream: the device's time a step cannot much exceed the wall's.
+    if replayed["device_ms_per_step"] > 1.25 * replayed["wall_ms_per_step"]:
+        raise AssertionError(
+            f"{what}: {replayed['device_ms_per_step']} ms of device time a "
+            f"replayed step in {replayed['wall_ms_per_step']} ms of wall: "
+            f"the trace counts something that is not device work")
     print(f"{what}: port kernels a replayed step (device trace of "
           f"{profile['steps']} steps): {json.dumps(got)}")
     return got
@@ -1905,7 +1933,9 @@ def check_replayed_against_eager(what, make_engine, epochs, full, dev) -> dict:
         engine = make_engine()
         engine._capture = capture
         cfg = engine.cfg
-        steps = epochs * -(-cfg.train_size // cfg.batch_size)
+        # At most one step more an epoch for each sub-epoch past the first.
+        steps = epochs * (-(-cfg.train_size // cfg.batch_size)
+                          + cfg.num_subepochs - 1)
         tile = cfg.tile_size if cfg.neg_sampler == 1 else 0
         rec = StepRecorder(steps, cfg.batch_size, cfg.num_negs, tile, dev, full)
         torch.cuda.synchronize()
@@ -1919,8 +1949,7 @@ def check_replayed_against_eager(what, make_engine, epochs, full, dev) -> dict:
                "w0": st.w0.clone(), "user_emb": st.user_emb.clone(),
                "item_emb": st.item_emb.clone(), "step": int(st.step),
                "iterations": int(engine.sampler_state.iterations),
-               "draws": draws, "count": int(rec.count), "seconds": seconds,
-               "steps": steps}
+               "draws": draws, "count": int(rec.count), "seconds": seconds}
         if capture:
             # The host's cost of one replay call, 20 calls from the stream's
             # first batch, not waited for (the recorder, in the graph,
@@ -1938,10 +1967,12 @@ def check_replayed_against_eager(what, make_engine, epochs, full, dev) -> dict:
         runs[name] = run
         del engine, st, rec
     eager, again, replayed = runs["eager"], runs["eager_again"], runs["replayed"]
-    steps = eager["steps"]
+    steps = eager["count"]
     for run in runs.values():
-        if run["count"] != steps:
-            raise AssertionError(f"{what}: {run['count']} steps recorded, not {steps}")
+        if run["count"] != steps or run["step"] != steps:
+            raise AssertionError(
+                f"{what}: {run['count']} steps recorded, {run['step']} taken, "
+                f"the first eager run {steps}")
         for want, got in zip(eager["draws"], run["draws"]):
             if not torch.equal(want, got):
                 raise AssertionError(f"{what}: a step drew other values")
@@ -1978,7 +2009,6 @@ def check_replay(dev) -> dict:
     (b) at bench_large's 16M x 6M bf16 dedup geometry (one epoch,
     fingerprints of the draws)."""
     import torch
-    import yaml
 
     from heat_tpu_torch import bench_large
     from heat_tpu_torch.config import load_config
@@ -1991,8 +2021,7 @@ def check_replay(dev) -> dict:
                                        max_his=MAX_HIS, seed=2022)
     distinct = distinct_id_dataset(DISTINCT_CLICKS, DISTINCT_ITEMS, MAX_HIS)
     for what, sets in (("config0", []), ("headline", HEADLINE)):
-        overrides = {k: yaml.safe_load(v)
-                     for k, _, v in (kv.partition("=") for kv in sets)}
+        overrides = overrides_of(sets)
 
         def make(overrides=overrides):
             return Engine(load_config(CONFIG0, **overrides)[0], train, device=dev)
@@ -2035,6 +2064,256 @@ def check_replay(dev) -> dict:
     out["dedup_16m_6m"] = check_replayed_against_eager(
         "16M x 6M bf16 dedup", make_big, 1, False, dev)
     del dataset
+    torch.cuda.empty_cache()
+    return out
+
+
+def overrides_of(sets) -> dict:
+    import yaml
+
+    return {k: yaml.safe_load(v) for k, _, v in (kv.partition("=") for kv in sets)}
+
+
+class SubepochWatch:
+    """Records, while installed, every sub-epoch an engine runs (the
+    ``count`` of steps of each ``Engine._steps`` call, which under
+    sub-epochs is one a sub-epoch), the partitions it draws and the engines
+    themselves, so that their captures can be read after a CLI run; and,
+    host clock, per epoch the seconds of the host's permutation and bucket
+    sizes (``partition_s``) and from its start to the first sub-epoch's
+    steps (``prep_s``: the permutation, the device grouping, which waits
+    for the device, the first shuffle)."""
+
+    def __init__(self):
+        from heat_tpu_torch.train.engine import Engine
+
+        self.cls, self.engines, self.counts, self.partitions = Engine, [], [], []
+        self.orig = (Engine._steps, Engine._partition)
+        self.partition_s, self.prep_s, self._t0 = [], [], None
+
+    def __enter__(self):
+        watch = self
+        steps, partition = self.orig
+
+        def counted(engine, capture, count, *args, **kw):
+            if engine not in watch.engines:
+                watch.engines.append(engine)
+            watch.counts.append(count)
+            if watch._t0 is not None:
+                watch.prep_s.append(time.perf_counter() - watch._t0)
+                watch._t0 = None
+            return steps(engine, capture, count, *args, **kw)
+
+        def drawn(engine):
+            watch._t0 = time.perf_counter()
+            out = partition(engine)
+            watch.partitions.append(out)
+            watch.partition_s.append(time.perf_counter() - watch._t0)
+            return out
+
+        self.cls._steps, self.cls._partition = counted, drawn
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._steps, self.cls._partition = self.orig
+
+    def captures(self) -> int:
+        return sum(e._epoch_fns[True].captures for e in self.engines
+                   if True in e._epoch_fns)
+
+
+def check_complement_draws(what, engine, dev) -> dict:
+    """One epoch of ``engine`` (config0 with two sub-epochs under
+    "complement") with every step's positives and the negative ids it
+    reads recorded (``StepRecorder``): each step's positives lie in one
+    partition, its negatives all outside it; the losses are finite."""
+    import torch
+
+    from heat_tpu_torch.testing import StepRecorder
+
+    cfg = engine.cfg
+    steps = -(-cfg.train_size // cfg.batch_size) + cfg.num_subepochs - 1
+    tile = cfg.tile_size if cfg.neg_sampler == 1 else 0
+    rec = StepRecorder(steps, cfg.batch_size, cfg.num_negs, tile, dev, True)
+    with SubepochWatch() as watch, rec:
+        loss = engine.train_one_epoch()
+    n = int(rec.count)
+    if n != int(engine.state.step) or not math.isfinite(loss):
+        raise AssertionError(f"{what}: {n} steps recorded, loss {loss}")
+    (perm, bounds), = watch.partitions
+    part_of = torch.empty(cfg.num_items, dtype=torch.int64, device=dev)
+    for s in range(cfg.num_subepochs):
+        part_of[torch.as_tensor(perm[bounds[s]: bounds[s + 1]], device=dev)] = s
+    pos_part = part_of[rec.pos[:n].long()]  # (n, B)
+    sub = pos_part[:, 0]
+    if not bool((pos_part == sub[:, None]).all()):
+        raise AssertionError(f"{what}: a step's positives span two partitions")
+    inside = int((part_of[rec.negs[:n].long()] == sub[:, None, None]).sum())
+    if inside:
+        raise AssertionError(
+            f"{what}: {inside} negatives inside their sub-epoch's partition")
+    print(f"{what}: {n} steps ({watch.counts} a sub-epoch), "
+          f"{rec.negs[:n].numel()} negatives, none inside its sub-epoch's "
+          f"partition; loss {loss}")
+    return {"steps": n, "steps_per_subepoch": watch.counts, "loss": loss}
+
+
+def check_subepochs(dev, cli, reset, read, config0_recall, check_run) -> dict:
+    """The reference's default shape (DEFAULT_SHAPE) at full width through
+    the CLI, plain, ``--fused-epochs 5`` and ``--fused-run``, each held to
+    ``check_run`` and to RECALL_BAND of config0's Recall@20, with each
+    sub-epoch's replays, the captures and K1's launches (one pool refresh
+    a sub-epoch); replayed against eager at that shape (two epochs) and
+    bit-equal on clicks that repeat no id; complement scope's draws outside
+    their partition (config0 with two sub-epochs, uniform sampler, then
+    the tile sampler; eager and replayed); and the device trace of a
+    replayed sub-epoch step."""
+    import torch
+
+    from heat_tpu_torch import bench_large
+    from heat_tpu_torch.config import load_config
+    from heat_tpu_torch.data.synthetic import synthetic_click_dataset
+    from heat_tpu_torch.testing import distinct_id_dataset, replayed_equals_eager
+    from heat_tpu_torch.train.engine import Engine
+
+    out = {"runs": {}}
+    args = ["--config", CONFIG0, "--synthetic", SYNTHETIC, "--device", "cuda"]
+    sets = [x for kv in DEFAULT_SHAPE for x in ("--set", kv)]
+    epochs = 5
+    for flags in ([], ["--fused-epochs", "5"], ["--fused-run"]):
+        name = " ".join(["default shape"] + flags)
+        reset()
+        with SubepochWatch() as watch:
+            record = cli.main(args + sets + flags)
+        launches = read()
+        check_run(name, record, launches, {
+            "gather_rows_multi_bf16": 1,
+            "history_mean_gather_bf16": 2 * epochs,
+            "scatter_add_update_bf16": 1, "scatter_set_rows_bf16": 1,
+            "window_extract": 3 * -(-NUM_USERS // EVAL_TILE)})
+        if launches["history_mean_gather_bf16"] != 2 * epochs:
+            raise AssertionError(
+                f"{name}: K1 launched {launches['history_mean_gather_bf16']} "
+                f"times, not once a sub-epoch ({2 * epochs})")
+        if len(watch.counts) != 2 * epochs or watch.captures() != 1:
+            raise AssertionError(
+                f"{name}: sub-epochs {watch.counts}, captures {watch.captures()}")
+        recall = record["final_metrics"]["Recall(k=20)"]
+        gap = recall - config0_recall
+        print(f"{name}: Recall@20 {recall:.6f} vs config0 {config0_recall:.6f} "
+              f"(gap {gap:+.6f}, band {RECALL_BAND}); the JAX package's record "
+              f"at this shape {JAX_DEFAULT_SHAPE_RECALL} vs {JAX_EXACT_RECALL} "
+              f"exact (gap {JAX_DEFAULT_SHAPE_RECALL - JAX_EXACT_RECALL:+.4f}, "
+              f"a quality figure); steps a sub-epoch {watch.counts} (the "
+              f"first of the run captures, then replays); captures "
+              f"{watch.captures()}; K1 launches "
+              f"{launches['history_mean_gather_bf16'] / epochs:.0f} an epoch; "
+              f"host permutation s {watch.partition_s}, until the first step "
+              f"s {watch.prep_s}")
+        if not abs(gap) <= RECALL_BAND:
+            raise AssertionError(f"{name}: Recall@20 gap {gap} to config0")
+        out["runs"][name] = {
+            "epoch_times": record["epoch_times"], "recall": recall,
+            "gap_to_config0": gap, "steps_per_subepoch": watch.counts,
+            "captures": watch.captures(), "partition_s": watch.partition_s,
+            "prep_s": watch.prep_s,
+            "k1_launches_per_epoch": launches["history_mean_gather_bf16"] / epochs}
+        del watch
+
+    train, _ = synthetic_click_dataset(num_users=NUM_USERS, num_items=NUM_ITEMS,
+                                       max_his=MAX_HIS, seed=2022)
+    shape = overrides_of(DEFAULT_SHAPE)
+
+    def make(overrides=shape):
+        return Engine(load_config(CONFIG0, **overrides)[0], train, device=dev)
+
+    out["replay"] = check_replayed_against_eager("default shape", make, 2, True, dev)
+    distinct = distinct_id_dataset(DISTINCT_CLICKS, DISTINCT_ITEMS, MAX_HIS)
+    for what, sets_ in (("config0, 2 sub-epochs", ["num_subepochs=2"]),
+                        ("default shape", DEFAULT_SHAPE)):
+        small = {**overrides_of(sets_), **DISTINCT_SETS}
+        if small.get("neg_sampler") == 1:
+            small.update(DISTINCT_TILE_SETS)
+        exact = replayed_equals_eager(
+            lambda small=small: Engine(load_config(CONFIG0, **small)[0],
+                                       distinct, device=dev), 2)
+        print(f"replayed vs eager, {what} on {DISTINCT_CLICKS} clicks that "
+              f"repeat no id ({json.dumps(small)}): bit-equal after each of "
+              f"{exact['epochs']} epochs, {exact['steps']} steps, "
+              f"{exact['captures']} capture(s)")
+        out[f"bit_equal {what}"] = exact
+    del distinct
+
+    complement = {"num_subepochs": 2, "subepoch_neg_scope": "complement"}
+    tile = {"neg_sampler": 1, "tile_size": TILE, "refresh_interval": 8192}
+    for what, extra in (("uniform", {}), ("tile", tile)):
+        for capture in (False, True):
+            torch.cuda.empty_cache()
+            engine = make({**complement, **extra})
+            engine._capture = capture
+            name = f"complement scope, {what}, {'replayed' if capture else 'eager'}"
+            out[name] = check_complement_draws(name, engine, dev)
+            del engine
+
+    torch.cuda.empty_cache()
+    engine = make()
+    profile = bench_large.profile_steps(engine, PROFILE_STEPS)
+    out["trace"] = check_trace("default shape (a sub-epoch's replayed steps)",
+                               profile, ("K2_multi", "K3", "S1"))
+    del engine, train
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_huge_subepochs(dev) -> dict:
+    """One epoch at bench_large's 16M x 6M bf16 geometry in dedup mode with
+    two sub-epochs (global scope), through the engine factory of the other
+    huge runs: a warm-up epoch (the capture) and a timed one, the peak
+    device memory over both against the bytes held (state, data and pools,
+    nothing subtracted)."""
+    import dataclasses
+
+    import torch
+
+    from heat_tpu_torch import bench_large
+    from heat_tpu_torch.train.engine import Engine
+
+    args = bench_large._parser().parse_args(["--update-mode", "dedup"])
+    dataset = bench_large.make_dataset(args.users, args.items, args.clicks,
+                                       args.max_his)
+    cfg = dataclasses.replace(bench_large.make_config(args), num_subepochs=2)
+    torch.cuda.empty_cache()
+    engine = Engine(cfg, dataset, device=dev)
+    st = engine.state
+    held = sum(t.numel() * t.element_size() for t in (
+        st.user_emb, st.item_emb, st.w0, engine.pairs, engine.his_items,
+        engine.his_masks)) + st.user_emb.numel() * st.user_emb.element_size()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with SubepochWatch() as watch:
+        losses = [engine.train_one_epoch()]
+        t0 = time.perf_counter()
+        losses.append(engine.train_one_epoch())
+        seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"16M x 6M, 2 sub-epochs: losses {losses}")
+    print(f"16M x 6M bf16 dedup, 2 sub-epochs: epoch {seconds:.4f} s (the "
+          f"second; the first captured), of which the host's permutation "
+          f"{watch.partition_s[1]:.4f} s and until the first step "
+          f"{watch.prep_s[1]:.4f} s; losses {losses}; steps a sub-epoch "
+          f"{watch.counts}; captures {watch.captures()}; peak device memory "
+          f"{peak / 1e9:.3f} GB against {held / 1e9:.3f} GB held "
+          f"({peak / held:.3f}x)")
+    if peak > MEM_RATIO * held:
+        raise AssertionError(
+            f"16M x 6M, 2 sub-epochs: peak device memory {peak} B above "
+            f"{MEM_RATIO} x {held} B held")
+    out = {"epoch_s": seconds, "partition_s": watch.partition_s,
+           "prep_s": watch.prep_s, "losses": losses, "peak_over_held": peak / held,
+           "peak_device_bytes": peak, "held_bytes": held,
+           "steps_per_subepoch": watch.counts, "captures": watch.captures()}
+    del engine, st, dataset
     torch.cuda.empty_cache()
     return out
 
@@ -2209,6 +2488,8 @@ def main() -> int:
         )
 
     replay = check_replay(dev)
+    subepochs = check_subepochs(dev, cli, reset, read, final["Recall(k=20)"],
+                                check_run)
 
     reset()
     serving = check_serving(dev, final["Recall(k=20)"])
@@ -2230,6 +2511,10 @@ def main() -> int:
 
     huge_f32 = check_huge_f32(dev, reset, read)
     huge = check_huge_training(reset, read)
+    huge_sub = check_huge_subepochs(dev)
+    print(f"16M x 6M dedup epoch: 2 sub-epochs {huge_sub['epoch_s']:.4f} s "
+          f"against {huge['dedup']['value']} s unpartitioned (bench_large, "
+          f"this call)")
     # The headline step at its own geometry through the same entry point,
     # for its launches per step (a warm-up and one timed epoch, then
     # PROFILE_STEPS steps timed and as many traced).
@@ -2246,6 +2531,11 @@ def main() -> int:
                              ("K2_multi", "K3", "S1"))
     if head_trace["K1"]:
         raise AssertionError(f"the headline step ran K1: {head_trace}")
+    if subepochs["trace"] != head_trace:
+        raise AssertionError(
+            f"a replayed default-shape sub-epoch step launched "
+            f"{subepochs['trace']} of the port's kernels, the headline step "
+            f"{head_trace}")
     benches = {"headline": head_bench, "dedup_16m_6m": huge["dedup"],
                "direct_16m_6m": huge["direct"]}
     per_step = {name: b["profile"] for name, b in benches.items()}
@@ -2279,6 +2569,7 @@ def main() -> int:
     forms["config0_cli_epoch_s"] = {
         name: r["epoch_times"] for name, r in cli_runs.items()}
     forms["replay"] = replay
+    forms["subepochs"] = {**subepochs, "huge_16m_6m": huge_sub}
     print(json.dumps({"eager_vs_replayed": forms}))
     print(f"card for the line above: {card}")
     step = check_huge_step(dev)

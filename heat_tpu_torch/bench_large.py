@@ -171,11 +171,14 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
     """Where a step's time goes, in one process, in two forms: ``"eager"``,
     the steps one by one (``train_step`` per batch), and ``"replayed"``,
     each step one replay of the engine's captured step (on the card only;
-    None on the CPU). One epoch's batch stream and pools are built into the
-    engine's buffers (their peak memory is the shuffle's). Per form,
+    None on the CPU). One epoch's batch stream (under sub-epochs, the first
+    sub-epoch's of a new partition, with its negative pool) and pools are
+    built into the engine's buffers (their peak memory is the shuffle's).
+    Per form,
     ``steps`` steps run unprofiled between two syncs (wall ms per step, and
-    the steps' peak memory), then the next ``steps`` steps of the stream run
-    under ``torch.profiler`` (device ms per step: the sum of the device
+    the steps' peak memory), then, after one step in the profiler's
+    warm-up, the next ``steps`` steps of the stream run under
+    ``torch.profiler`` (device ms per step: the sum of the device
     events, one stream, so no overlap; the ``top`` largest by name; how
     many device events a step made, its launches; and of those, the port's
     kernels by family of ``KERNEL_FAMILIES``, ``port_kernels_per_step``,
@@ -190,7 +193,7 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
     the same batches; the steps train the model further. The top-level keys
     are the eager form's. On the CPU the device numbers are None."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     dev = engine.device
     on_card = dev.type == "cuda"
@@ -202,17 +205,26 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
     sync()
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
-    users, pos, weight = engine._make_batches(engine.pairs)
-    dedup = engine._history_dedup(engine.pairs, users)
+    dedup, pool = None, (None, None)
+    if engine.cfg.num_subepochs > 1:
+        # The first sub-epoch of a new partition, in the buffers its replays
+        # read (the grow-only stream buffers, the negative pool).
+        streams = engine._bucketed_streams()
+        nb, pool = next(streams)
+        streams.close()
+    else:
+        nb = engine._make_batches(engine.pairs)[0].shape[0]
+        dedup = engine._history_dedup(engine.pairs, engine._stream[0][:nb])
+    users, pos, weight = engine._stream
     user_means = (
         engine._pooled_history(out=engine._pools_buffer())
         if engine.cfg.his_refresh == "subepoch" else None
     )
     sync()
     shuffle_peak = torch.cuda.max_memory_allocated(dev) if on_card else None
-    if 2 * steps > users.shape[0]:
-        raise ValueError(f"--profile {steps}: the epoch has {users.shape[0]} "
-                         f"steps, at least {2 * steps} are needed")
+    if 2 * steps + 1 > nb:
+        raise ValueError(f"--profile {steps}: the stream has {nb} steps, at "
+                         f"least {2 * steps + 1} are needed")
 
     def run(fn, first: int, count: int = steps) -> float:
         sync()
@@ -223,6 +235,7 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
             user_means=user_means,
             uniq_users=dedup[0] if dedup else None,
             uniq_inverse=dedup[1] if dedup else None,
+            neg_candidates=pool[0], neg_candidates_size=pool[1],
             first=first, count=count,
         )
         sync()
@@ -236,15 +249,25 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
         activities = [ProfilerActivity.CPU]
         if on_card:
             activities.append(ProfilerActivity.CUDA)
-        wrappers = wrapper_launches()
-        with profile(activities=activities) as prof:
-            profiled_wall_ms = run(fn, steps)
+        # The device tracing starts in the profiler's warm-up, one step
+        # that is run and not kept: an eager trace whose window opened on a
+        # traced step once missed that step's first kernels.
+        with profile(activities=activities, schedule=schedule(
+                wait=0, warmup=1, active=1, repeat=1)) as prof:
+            run(fn, steps, 1)
+            prof.step()
+            wrappers = wrapper_launches()
+            profiled_wall_ms = run(fn, steps + 1)
+            prof.step()
         wrappers = {fam: n - wrappers[fam]
                     for fam, n in wrapper_launches().items()}
         device, launches = {}, 0
         port = dict.fromkeys(KERNEL_FAMILIES, 0)
         for event in prof.key_averages():
-            if event.device_type != DeviceType.CPU:
+            # The schedule's step annotation ("ProfilerStep#n") spans the
+            # traced window on the device timeline too: it is no device work.
+            if (event.device_type != DeviceType.CPU
+                    and not event.key.startswith("ProfilerStep")):
                 device[event.key] = device.get(event.key, 0.0) + (
                     event.self_device_time_total / 1e3 / steps
                 )

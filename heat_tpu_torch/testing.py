@@ -54,9 +54,12 @@ class StepRecorder:
     """Wraps ``train_step.sample_negatives`` and ``train_step.train_step``
     and writes each step's draws and loss into device buffers at a device
     counter, which a captured step replays too. ``full``: every negative,
-    tile index and tile; otherwise a fingerprint a step of each (an int64
-    weighted sum). Installed for the duration of a ``with`` block, which
-    must hold the capture: the graph records whatever the step calls."""
+    tile index and tile as drawn, and the step's positives (``pos``) and the
+    negative ids it reads (``negs``: the draws remapped through a
+    sub-epoch's negative pool where it has one); otherwise a fingerprint a
+    step of the draws (an int64 weighted sum). ``steps`` bounds the steps
+    recorded. Installed for the duration of a ``with`` block, which must
+    hold the capture: the graph records whatever the step calls."""
 
     def __init__(self, steps, batch, negs, tile, device, full):
         import torch
@@ -73,6 +76,9 @@ class StepRecorder:
             self.idx = torch.zeros_like(self.ids)
             self.tiles = torch.zeros((steps, max(tile, 1)), dtype=torch.int32,
                                      device=device)
+            self.pos = torch.zeros((steps, batch), dtype=torch.int32,
+                                   device=device)
+            self.negs = torch.zeros_like(self.ids)
         else:
             self.prints = torch.zeros((steps, 3), dtype=torch.int64,
                                       device=device)
@@ -101,8 +107,21 @@ class StepRecorder:
         return sample, state
 
     def step(self, *args, **kw):
+        import torch
+
         state, sampler_state, loss = self.orig[1](*args, **kw)
-        self.losses.index_copy_(0, self.count - 1, loss.view(1))
+        at = self.count - 1
+        self.losses.index_copy_(0, at, loss.view(1))
+        if self.full:
+            self.pos.index_copy_(0, at, args[3].pos[None])
+            negs = self.ids.index_select(0, at)[0]
+            pool = kw.get("neg_candidates")
+            if pool is not None:
+                size = kw.get("neg_candidates_size")
+                negs = pool.index_select(0, torch.remainder(
+                    negs, pool.shape[0] if size is None else size
+                ).view(-1)).view(negs.shape)
+            self.negs.index_copy_(0, at, negs[None])
         return state, sampler_state, loss
 
     def __enter__(self):
@@ -142,7 +161,9 @@ def replayed_equals_eager(make_engine, epochs: int) -> dict:
     atomics add in a fixed order.
 
     ``make_engine()`` gives a fresh CUDA engine on a ``distinct_id_dataset``
-    (no batch repeats a user or a positive). Three engines from it run
+    (no batch repeats a user or a positive), with sub-epochs or without
+    (then each epoch takes one step more for each sub-epoch past the first
+    at most). Three engines from it run
     ``epochs`` ``train_one_epoch`` calls each: eager, eager again and
     replayed (each step one replay of the captured step, the first step
     the capture's eager warm-up), every step's draws and loss recorded
@@ -165,7 +186,7 @@ def replayed_equals_eager(make_engine, epochs: int) -> dict:
         engine._capture = capture
         cfg = engine.cfg
         tiled = cfg.neg_sampler == 1
-        nb = -(-cfg.train_size // cfg.batch_size)
+        nb = -(-cfg.train_size // cfg.batch_size) + cfg.num_subepochs - 1
         rec = StepRecorder(epochs * nb, cfg.batch_size, cfg.num_negs,
                            cfg.tile_size if tiled else 0, engine.device, True)
         taken = []
@@ -177,10 +198,10 @@ def replayed_equals_eager(make_engine, epochs: int) -> dict:
                     st.user_emb, st.item_emb, st.w0, st.step, st.lr,
                     ss.iterations) + ((ss.tile,) if tiled else ())])
         runs[name] = (rec.records(), taken, int(rec.count), engine)
-    steps = epochs * nb
-    (draws, taken, count, engine) = runs["eager"]
-    if count != steps:
-        raise AssertionError(f"{count} steps recorded, not {steps}")
+    (draws, taken, steps, engine) = runs["eager"]
+    if steps != int(engine.state.step) or (
+            engine.cfg.num_subepochs == 1 and steps != epochs * nb):
+        raise AssertionError(f"{steps} steps recorded, {int(engine.state.step)} taken")
     positives = engine.pairs[:, 1]
     ids, idx, tiles, _ = draws
     for s in range(steps):

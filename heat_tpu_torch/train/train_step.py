@@ -4,7 +4,10 @@ duplicate-safe row update.
 Counterpart of the mean-aggregator branches of
 ``heat_tpu/train/train_step.py`` ``train_step``:
 
-1. gather the user and positive rows and the negatives' rows, cast to
+1. under a sub-epoch's negative pool (``neg_candidates``), remap the tile
+   on the tile path, the draws otherwise, through it (``pool[id % size]``;
+   the sampler keeps the raw tile); gather the
+   user and positive rows and the negatives' rows, cast to
    ``cfg.compute_dtype``, in one launch of kernel K2's multi-table entry:
    with the tile sampler in batch mode the T rows of the tile, once, and
    the draws enter only as per-(sample, slot) multiplicities; otherwise the
@@ -98,9 +101,21 @@ def train_step(
     user_means: Optional[torch.Tensor] = None,
     uniq_users: Optional[torch.Tensor] = None,
     uniq_inverse: Optional[torch.Tensor] = None,
+    neg_candidates: Optional[torch.Tensor] = None,
+    neg_candidates_size: Optional[torch.Tensor] = None,
 ) -> tuple[TrainState, SamplerState, torch.Tensor]:
     """One minibatch step. Returns (state', sampler_state', loss_sum) with
     loss_sum a 0-d tensor on the step's device.
+
+    neg_candidates: optional (C,) int32 item-id pool the negatives are
+      drawn from (a sub-epoch's partition complement, the reference's
+      engine.cpp:222-237); None draws from the whole item space. The draws
+      are read as indices into the pool, ``pool[draw % size]``: on the
+      tile path the T tile ids are remapped (the sampler keeps the raw
+      tile), otherwise the (B, K) draws.
+    neg_candidates_size: optional 0-d int32 tensor, the pool's valid
+      prefix (the engine pads every sub-epoch's pool to one width, so pad
+      entries are never drawn); None takes the pool's length.
 
     user_means: optional precomputed (U, d) pooled-history table
       (cfg.his_refresh == "subepoch"); None recomputes the means from the
@@ -128,12 +143,23 @@ def train_step(
     # would re-apply accumulated rows that got no fresh gradient. It falls
     # back to the gathered tile[idx] rows.
     tiled = sample.tile is not None and state.item_gacc is None
+    tile_ids = sample.tile
+    if neg_candidates is not None:
+        size = (neg_candidates.shape[0] if neg_candidates_size is None
+                else neg_candidates_size)
+        # Remapping the tile gives the ids remapping every draw would
+        # (pool[tile % size][idx] == pool[tile[idx] % size]) at T reads.
+        if tiled:
+            tile_ids = neg_candidates.index_select(
+                0, torch.remainder(tile_ids, size))
+        else:
+            negs = neg_candidates.index_select(
+                0, torch.remainder(negs, size).view(-1)).view(b, k)
 
     # One launch reads every row the step needs from the batch-start tables,
     # cast to the compute type inside the kernel.
     segments = [(user_emb, users), (item_emb, pos)]
     if tiled:
-        tile_ids = sample.tile
         segments.append((item_emb, tile_ids))  # (T, d)
         # counts[b, t]: how many of sample b's K draws hit tile slot t.
         # Exact small integers, so the order of the adds does not matter.
@@ -306,9 +332,11 @@ class EpochFn:
 
     ``fn(state, sampler_state, generator, users, pos, weight, his_items,
     his_masks, user_means=None, uniq_users=None, uniq_inverse=None,
-    first=0, count=None)`` runs steps ``first`` to ``first + count - 1`` of
-    the stream (users, pos, weight: (nb, B); the dedup maps (nb, Bu) and
-    (nb, B)), the rest of the epoch when ``count`` is None, and returns
+    neg_candidates=None, neg_candidates_size=None, first=0, count=None)``
+    runs steps ``first`` to ``first + count - 1`` of the stream (users, pos,
+    weight: (nb, B); the dedup maps (nb, Bu) and (nb, B); the negative pool
+    and its 0-d size as :func:`train_step` takes them), the rest of the
+    stream when ``count`` is None, and returns
     ``(state, sampler_state, loss_sum)``: the state and the sampler state
     passed, advanced in place, and a new 0-d f32 tensor, the steps' loss sum,
     on the step's device. Nothing waits for the device.
@@ -320,9 +348,11 @@ class EpochFn:
     into a device accumulator -> index + 1. The graph reads every input at
     the address it was captured at, so it is keyed on the address, type and
     shape of each tensor it reads (the state's, the sampler's, the stream
-    buffers, the pools, the dedup maps and the histories) and captured
-    again when one of them changes, for example when a caller assigns a new
-    state or the pools come back at another address. It holds no reference
+    buffers, the pools, the dedup maps, the negative pool and its size, and
+    the histories) and captured again when one of them changes, for
+    example when a caller assigns a new state or the pools come back at
+    another address; new values written into the same tensors (each
+    sub-epoch's stream and negative pool) are replayed over. It holds no reference
     to them between calls: the caller keeps them alive. The capture is
     preceded by its warm-up, which is the first of the steps asked for, run
     eagerly on the capture stream (autograd, cuBLAS and the allocator set
@@ -366,7 +396,8 @@ class EpochFn:
         """The captured body: one step on batch ``index``, its loss into the
         accumulator, index + 1."""
         (state, sampler_state, generator, users, pos, weight, his_items,
-         his_masks, user_means, uniq_users, uniq_inverse) = self._inputs
+         his_masks, user_means, uniq_users, uniq_inverse, neg_candidates,
+         neg_candidates_size) = self._inputs
         i = self._index
 
         def row(t):
@@ -376,7 +407,8 @@ class EpochFn:
             state, sampler_state, generator,
             Batch(row(users), row(pos), row(weight)), his_items, his_masks,
             self.cfg, user_means=user_means, uniq_users=row(uniq_users),
-            uniq_inverse=row(uniq_inverse),
+            uniq_inverse=row(uniq_inverse), neg_candidates=neg_candidates,
+            neg_candidates_size=neg_candidates_size,
         )
         self._loss += loss
         i += 1
@@ -412,6 +444,8 @@ class EpochFn:
         user_means: Optional[torch.Tensor] = None,
         uniq_users: Optional[torch.Tensor] = None,
         uniq_inverse: Optional[torch.Tensor] = None,
+        neg_candidates: Optional[torch.Tensor] = None,
+        neg_candidates_size: Optional[torch.Tensor] = None,
         *,
         first: int = 0,
         count: Optional[int] = None,
@@ -432,6 +466,8 @@ class EpochFn:
                     self.cfg, user_means=user_means,
                     uniq_users=None if uniq_users is None else uniq_users[i],
                     uniq_inverse=None if uniq_inverse is None else uniq_inverse[i],
+                    neg_candidates=neg_candidates,
+                    neg_candidates_size=neg_candidates_size,
                 )
                 loss_sum += loss
             return state, sampler_state, loss_sum
@@ -455,14 +491,16 @@ class EpochFn:
             state.user_emb, state.item_emb, state.w0, state.lr, state.step,
             state.user_gacc, state.item_gacc, *slots, sampler_state.iterations,
             sampler_state.tile, users, pos, weight, his_items, his_masks,
-            user_means, uniq_users, uniq_inverse,
+            user_means, uniq_users, uniq_inverse, neg_candidates,
+            neg_candidates_size,
         ))
         replays = count
         if key != self._key:
             self._release()
             self._inputs = (state, sampler_state, generator, users, pos,
                             weight, his_items, his_masks, user_means,
-                            uniq_users, uniq_inverse)
+                            uniq_users, uniq_inverse, neg_candidates,
+                            neg_candidates_size)
             try:
                 self._capture(generator, _capture_stream(device))
             finally:

@@ -87,7 +87,7 @@ def test_profile_on_the_cpu(monkeypatch):
     assert prof["device_ms_per_step"] is prof["idle_share"] is None
     assert prof["device_ms_per_step_by_kernel"] == {}
     assert prof["shuffle_peak_device_bytes"] is prof["step_peak_device_bytes"] is None
-    with pytest.raises(ValueError, match="at least 8"):
+    with pytest.raises(ValueError, match="at least 9"):  # 2 x 4 and the warm-up step
         bench_large.run(TINY + ["--profile", "4"])
 
 
