@@ -137,6 +137,25 @@ Phases, each of which raises (exit code 1) on failure:
    spreads and host time per replay call;
 8. ``heat_tpu_torch.profile_exact_ceiling`` at 10 timed calls per
    measurement: the one path that runs S2;
+
+The attention aggregators (ROADMAP item 12) add, in phase 3, K2's
+multi-table entry at the attention steps' reads (``_attn``: the (B, H)
+history rows beside the step's rows) and its single entry at a chunk of
+the user-attention pools, and the card-vs-CPU step in five attention
+variants; in phase 4, after the sub-epochs, ``check_attention``: config0
+with self-attention through the CLI (plain, exported, and
+``--fused-epochs 5``) and the JAX bench's three ACCL rows (``accl_user_s``,
+``accl_self_s``, ``accl_self_grouped_s``), each held to the run checks, to
+K1 never running, runs 1-3 to RECALL_BAND of config0's Recall@20, the
+dedup maps on the grouped stream and ``attn_q`` moving; the grouped run
+with the dedup against two without it (DEDUP_BAND); replayed against eager
+at config0 self-attention and accl_user_s, and bit-equal on the distinct
+clicks; the device traces of replayed and eager steps; in phase 5 the
+self-attention export served (``check_serving_attention``); in phase 7
+``bench_large --aggregator user_attention`` at 16M x 6M in dedup mode
+(``check_huge_attention``, peak at most MEM_RATIO); and, before the
+kernels' line, the plain pooling's time against K2's and the replayed
+step's (``time_pooling``) on a line ``{"attention": ...}``;
 9. the kernels' JSON line (each instance with its launches on its own main
    path: f32 on config0, bf16 on the headline run, K2's single entry on
    serving, S2 on its script), the
@@ -201,6 +220,26 @@ PROFILE_STEPS = 50  # steps timed, then traced, for the launches per step
 LAUNCHES_BEFORE = {"headline": 165, "dedup_16m_6m": 225, "direct_16m_6m": 165}
 EXPORT = Path(__file__).resolve().parent / "build" / "chip_smoke" / "config0.npz"
 EXPORT_HEADLINE = EXPORT.with_name("headline.npz")
+# The attention aggregators (ROADMAP item 12): config0 with self-attention,
+# and the JAX bench's three ACCL rows (bench.py:602-640): user attention
+# over the headline's cached pools; self attention, which needs the history
+# pooled every step; and that on the user-grouped stream, where the history
+# dedup with the first-occurrence map applies.
+CONFIG0_SELF = ["aggregator=self_attention"]
+ACCL_USER = HEADLINE + ["aggregator=user_attention"]
+ACCL_SELF = [kv for kv in HEADLINE if not kv.startswith("his_refresh=")] + [
+    "his_refresh=step", "aggregator=self_attention"]
+ACCL_SELF_GROUPED = ACCL_SELF + ["shuffle_mode=none", "visit_order=user"]
+EXPORT_SELF = EXPORT.with_name("self_attention.npz")
+DEDUP_BAND = 0.0003  # dedup against no dedup: at least this, or 2x the spread
+
+
+def attn_pool_chunk(his: int, elem: int = 2) -> int:
+    """Users a chunk of the attention pools at width DIM (the port's
+    ``models/aggregator.py`` POOL_CHUNK_BYTES of history rows)."""
+    from heat_tpu_torch.models.aggregator import POOL_CHUNK_BYTES
+
+    return POOL_CHUNK_BYTES // (his * DIM * elem)
 
 
 def card_line() -> str:
@@ -854,7 +893,24 @@ def check_kernels(dev) -> list[dict]:
     check_gather_multi(k2mb, "", [
         (users16, rows), (items16, ids(BATCH, NUM_ITEMS)),
         (items16, ids(TILE, NUM_ITEMS)), (pools16, rows)], torch.bfloat16)
-    del users, pools16, step0
+    # The attention steps' reads (ROADMAP item 12): the same launch also
+    # reads the samples' (B, H) history rows, 819,200 ids more: config0's
+    # self-attention step in f32, the tile step (accl_self_s) in bf16. And
+    # K2's single entry at one chunk of the user-attention pools.
+    his_ids = his.index_select(0, rows).reshape(-1)
+    k2m["shape"] += (f"; _attn: and {BATCH} x {MAX_HIS} history rows of the "
+                     f"item table")
+    k2mb["shape"] += (f"; _attn: users, items, {TILE} tile rows and "
+                      f"{BATCH} x {MAX_HIS} history rows")
+    check_gather_multi(k2m, "_attn", step0 + [(items, his_ids)], None)
+    check_gather_multi(k2mb, "_attn", [
+        (users16, rows), (items16, ids(BATCH, NUM_ITEMS)),
+        (items16, ids(TILE, NUM_ITEMS)), (items16, his_ids)], torch.bfloat16)
+    chunk = attn_pool_chunk(MAX_HIS)
+    k2b["shape"] += (f"; _attn_pools: {chunk} x {MAX_HIS} history rows, a "
+                     f"chunk of the user-attention pools")
+    check_gather_rows(k2b, "_attn_pools", items16, his[:chunk].reshape(-1))
+    del users, pools16, step0, his_ids
 
     # K3: the item update's ids, with repeats and about 1% sentinels
     # (id == N): config0's 8192 + 131,072 into a zeroed f32 accumulator,
@@ -1443,6 +1499,17 @@ STEP_VARIANTS = {  # name: (sort-dedup forced, config overrides)
     "tile_bf16_pools_direct": (False, {
         "neg_sampler": 1, "update_mode": "direct", "his_refresh": "subepoch",
         **BF16}),
+    # The attention aggregators: the history rows in the multi-table read,
+    # the pooling inside the loss, attn_q's SGD update.
+    "self_attention": (False, {"aggregator": "self_attention"}),
+    "user_attention": (False, {"aggregator": "user_attention"}),
+    "self_attention_sorted": (True, {"aggregator": "self_attention"}),
+    "tile_bf16_self_attention_direct": (False, {
+        "neg_sampler": 1, "update_mode": "direct",
+        "aggregator": "self_attention", **BF16}),
+    "tile_bf16_user_attention_pools_direct": (False, {
+        "neg_sampler": 1, "update_mode": "direct", "his_refresh": "subepoch",
+        "aggregator": "user_attention", **BF16}),
 }
 
 
@@ -1460,7 +1527,9 @@ def check_step_against_cpu(dev) -> dict:
     the element's row in the step (at least 1): one bf16 ulp where a row
     is written once, and the order-dependence of k rounded adds under
     ``direct``; ``w0`` (f32; its gradient is a bf16 product, 2^-8
-    relative a rounding) to 2% of its largest move. Returns the largest state difference of each variant."""
+    relative a rounding) to 2% of its largest move, ``attn_q`` (f32; its
+    gradient runs through the bf16 softmax and contractions) to 5% of its
+    largest move. Returns the largest state difference of each variant."""
     import numpy as np
     import torch
 
@@ -1536,8 +1605,10 @@ def check_step_against_cpu(dev) -> dict:
                 for _ in range(1 if bf16 else 2):
                     means = None
                     if cfg.his_refresh == "subepoch":
-                        means = user_pools_impl(state.item_emb, put(his),
-                                                put(masks))
+                        means = user_pools_impl(
+                            state.item_emb, put(his), put(masks),
+                            user_emb=state.user_emb, attn_q=state.attn_q,
+                            aggregator=cfg.aggregator)
                     state, sstate, loss = ts.train_step(
                         state, sstate, None,
                         ts.Batch(put(users), put(pos), put(weight)),
@@ -1567,12 +1638,15 @@ def check_step_against_cpu(dev) -> dict:
                             f"by up to {diff.max():.3g}, outside its bound"
                         )
                     worst[name] = max(worst[name], float(diff.max()))
-                move = np.abs(cpu["w0"] - init["w0"]).max()
-                diff = float(np.abs(card["w0"] - cpu["w0"]).max())
-                if not diff <= 2e-2 * move:
-                    raise AssertionError(
-                        f"step on the card vs the CPU, {name}: w0 off by {diff}"
-                    )
+                for key, share in (("w0", 2e-2), ("attn_q", 5e-2)):
+                    if key not in cpu:
+                        continue
+                    move = np.abs(cpu[key] - init[key]).max()
+                    diff = float(np.abs(card[key] - cpu[key]).max())
+                    if not diff <= share * move:
+                        raise AssertionError(
+                            f"step on the card vs the CPU, {name}: {key} off "
+                            f"by {diff}, {share} of its move {move} at most")
                 continue
             # The tests' rule (heat_tpu_torch.testing), with atol 1e-6: K3's
             # atomics add in another order than index_add_.
@@ -1913,7 +1987,8 @@ def check_replayed_against_eager(what, make_engine, epochs, full, dev) -> dict:
     tile index; otherwise a fingerprint a step) are ``torch.equal`` to the
     first eager run's, across the epochs' boundaries with their eager
     shuffles; ``step`` and the sampler's ``iterations`` are equal in all
-    three. The per-step losses, ``w0`` and both tables of the replayed run
+    three. The per-step losses, ``w0``, ``attn_q`` (self-attention) and
+    both tables of the replayed run
     differ from the first eager run's by at most twice what the second
     eager run differs by (K3's atomics add in no fixed order), and not at
     all where that spread is 0. The difference is the root mean square over
@@ -1947,6 +2022,7 @@ def check_replayed_against_eager(what, make_engine, epochs, full, dev) -> dict:
         *draws, step_losses = rec.records()
         run = {"epoch_losses": losses, "step_losses": step_losses,
                "w0": st.w0.clone(), "user_emb": st.user_emb.clone(),
+               "attn_q": None if st.attn_q is None else st.attn_q.clone(),
                "item_emb": st.item_emb.clone(), "step": int(st.step),
                "iterations": int(engine.sampler_state.iterations),
                "draws": draws, "count": int(rec.count), "seconds": seconds}
@@ -1985,7 +2061,9 @@ def check_replayed_against_eager(what, make_engine, epochs, full, dev) -> dict:
            "epoch_losses": {k: r["epoch_losses"] for k, r in runs.items()},
            "host_us_per_replay": replayed["host_us_per_replay"],
            "graph_pool_bytes": replayed["graph_pool_bytes"]}
-    for key in ("step_losses", "w0", "user_emb", "item_emb"):
+    for key in ("step_losses", "w0", "user_emb", "item_emb", "attn_q"):
+        if eager[key] is None:
+            continue
         spread, spread_max = rms_diff(again[key], eager[key])
         diff, diff_max = rms_diff(replayed[key], eager[key])
         out[key] = {"eager_spread_rms": spread, "replayed_vs_eager_rms": diff,
@@ -2318,6 +2396,424 @@ def check_huge_subepochs(dev) -> dict:
     return out
 
 
+class AttentionWatch:
+    """Records, while installed, the engines whose steps run (with each
+    engine's ``attn_q`` before its first step) and the history dedup maps
+    of every ``Engine._steps`` call, so that a CLI run's query and maps can
+    be read after it."""
+
+    def __init__(self):
+        from heat_tpu_torch.train.engine import Engine
+
+        self.cls, self.orig = Engine, Engine._steps
+        self.engines, self.start_q, self.dedups = [], [], []
+
+    def __enter__(self):
+        watch, steps = self, self.orig
+
+        def counted(engine, capture, count, dedup=None, *args, **kw):
+            if engine not in watch.engines:
+                watch.engines.append(engine)
+                q = engine.state.attn_q
+                watch.start_q.append(None if q is None else q.clone())
+            watch.dedups.append(dedup)
+            return steps(engine, capture, count, dedup, *args, **kw)
+
+        self.cls._steps = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._steps = self.orig
+
+    def query_move(self) -> float:
+        """The largest move of the run's ``attn_q`` from its first value."""
+        (engine,), (q0,) = self.engines, self.start_q
+        return float((engine.state.attn_q - q0).abs().max())
+
+
+def check_attention(dev, cli, reset, read, config0_recall, check_run) -> dict:
+    """The attention aggregators (ROADMAP item 12) at full width on the
+    planted clusters of config0's geometry (seed 2022):
+
+    1. config0 with self-attention (f32, uniform sampler, pooled every step
+       from its (B, H, d) history rows) through the CLI, plain (with
+       ``--export-embeddings``, served by :func:`check_serving_attention`)
+       and ``--fused-epochs 5``;
+    2. ``accl_user_s`` (ACCL_USER: the headline with user attention over the
+       pools refreshed once an epoch, the history rows of each chunk of
+       users read by K2's single entry);
+    3. ``accl_self_s`` (ACCL_SELF: the headline with self-attention pooled
+       every step);
+    4. ``accl_self_grouped_s`` (ACCL_SELF_GROUPED: run 3 on the user-grouped
+       stream, where the three dedup maps, first occurrences included, are
+       passed to every step).
+
+    Each run is held to ``check_run`` (10x the untrained Recall@20 among
+    them), runs K1 never (the history rows go through K2) and, for runs
+    1-3, lands within RECALL_BAND of config0's Recall@20; self-attention's
+    ``attn_q`` moves. Then: run 4 with the dedup against two runs without
+    it (``Engine.run_epochs_with_eval`` over the CLI's schedule): Recall@20
+    within twice the spread of the two, or DEDUP_BAND, whichever is
+    larger; replayed against eager (``check_replayed_against_eager``,
+    two epochs) at config0 self-attention and accl_user_s, and bit-equal
+    on clicks that repeat no id for both kinds
+    (``testing.replayed_equals_eager``); the device traces of replayed and
+    eager steps of runs 1 and 3 (``bench_large.profile_steps``: K2 multi
+    once a step, K1 never, K3 and S1 as on the mean path)."""
+    import torch
+
+    from heat_tpu_torch import bench_large
+    from heat_tpu_torch.config import load_config
+    from heat_tpu_torch.data.synthetic import synthetic_click_dataset
+    from heat_tpu_torch.testing import distinct_id_dataset, replayed_equals_eager
+    from heat_tpu_torch.train.engine import Engine
+
+    out = {"runs": {}, "traces": {}}
+    args = ["--config", CONFIG0, "--synthetic", SYNTHETIC, "--device", "cuda"]
+    eval_tiles = 3 * -(-NUM_USERS // EVAL_TILE)
+    f32 = {"gather_rows_multi": 1, "scatter_add_rows": 1,
+           "scatter_set_rows": 1, "window_extract": eval_tiles}
+    bf16 = {"gather_rows_multi_bf16": 1, "scatter_add_update_bf16": 1,
+            "scatter_set_rows_bf16": 1, "window_extract": eval_tiles}
+    # K2's single entry: one launch a chunk of users, one refresh an epoch.
+    pool_reads = 5 * -(-NUM_USERS // attn_pool_chunk(MAX_HIS))
+    runs = (
+        ("config0 self_attention", CONFIG0_SELF,
+         ["--export-embeddings", str(EXPORT_SELF)], f32),
+        ("config0 self_attention --fused-epochs 5", CONFIG0_SELF,
+         ["--fused-epochs", "5"], f32),
+        ("accl_user_s", ACCL_USER, [], {**bf16, "gather_rows_bf16": pool_reads}),
+        ("accl_self_s", ACCL_SELF, [], bf16),
+        ("accl_self_grouped_s", ACCL_SELF_GROUPED, [], bf16),
+    )
+    EXPORT_SELF.parent.mkdir(parents=True, exist_ok=True)
+    for name, sets, flags, least in runs:
+        torch.cuda.empty_cache()
+        reset()
+        with AttentionWatch() as watch:
+            record = cli.main(args + [x for kv in sets for x in ("--set", kv)]
+                              + flags)
+        launches = read()
+        check_run(name, record, launches, least)
+        if launches["history_mean_gather"]:
+            raise AssertionError(
+                f"{name}: K1 ran, but the attention steps and pools read "
+                f"their history rows through K2: {launches}")
+        if name == "accl_user_s" and launches["gather_rows_bf16"] != pool_reads:
+            raise AssertionError(
+                f"{name}: K2 read {launches['gather_rows_bf16']} chunks of "
+                f"history rows for the pools, not {pool_reads}")
+        grouped = name == "accl_self_grouped_s"
+        if grouped and not all(d is not None and len(d) == 3
+                               for d in watch.dedups):
+            raise AssertionError(f"{name}: a step ran without the three dedup maps")
+        if not grouped and any(d is not None for d in watch.dedups):
+            raise AssertionError(f"{name}: a shuffled stream took the dedup maps")
+        recall = record["final_metrics"]["Recall(k=20)"]
+        gap = recall - config0_recall
+        entry = {"epoch_times": record["epoch_times"], "recall": recall,
+                 "ndcg50": record["final_metrics"]["NDCG(k=50)"],
+                 "gap_to_config0": gap, "final_eval_s": record["final_eval_s"],
+                 "launches": launches,
+                 "captures": watch.engines[0]._epoch_fns[True].captures}
+        if "self" in name:
+            entry["attn_q_move"] = watch.query_move()
+            if not entry["attn_q_move"] > 0:
+                raise AssertionError(f"{name}: attn_q did not move")
+        print(f"{name}: Recall@20 {recall:.6f} vs config0 {config0_recall:.6f} "
+              f"(gap {gap:+.6f}, band {RECALL_BAND}"
+              f"{', not held: see the dedup comparison' if grouped else ''}); "
+              f"captures {entry['captures']}; attn_q moved by "
+              f"{entry.get('attn_q_move')}; dedup maps in "
+              f"{sum(d is not None for d in watch.dedups)} of "
+              f"{len(watch.dedups)} epochs")
+        if not grouped and not abs(gap) <= RECALL_BAND:
+            raise AssertionError(f"{name}: Recall@20 gap {gap} to config0")
+        out["runs"][name] = entry
+        del watch, record
+    torch.cuda.empty_cache()
+
+    train, test = synthetic_click_dataset(num_users=NUM_USERS, num_items=NUM_ITEMS,
+                                          max_his=MAX_HIS, seed=2022)
+    grouped = overrides_of(ACCL_SELF_GROUPED)
+
+    def schedule(dedup: bool) -> float:
+        cfg = load_config(CONFIG0, **grouped)[0]
+        engine = Engine(cfg, train, test, device=dev)
+        if not dedup:
+            engine._history_dedup = lambda pairs, users: None
+        engine.run_epochs_with_eval(cfg.epochs, cfg.eval_interval)
+        recall = engine.evaluate()["Recall(k=20)"]
+        maps = engine._dedup_cache
+        if dedup != bool(maps and maps[2] is not None):
+            raise AssertionError(f"dedup {dedup}: the maps were {maps}")
+        del engine
+        torch.cuda.empty_cache()
+        return recall
+
+    with_maps, without, again = schedule(True), schedule(False), schedule(False)
+    bound = max(2 * abs(without - again), DEDUP_BAND)
+    out["dedup"] = {"with_maps": with_maps, "without": [without, again],
+                    "bound": bound}
+    print(f"accl_self_grouped_s, dedup vs none: Recall@20 {with_maps:.6f} vs "
+          f"{without:.6f} and {again:.6f} (bound {bound:.6f})")
+    if not abs(with_maps - without) <= bound:
+        raise AssertionError(
+            f"the grouped stream with the dedup maps reached Recall@20 "
+            f"{with_maps}, without {without} (bound {bound})")
+
+    distinct = distinct_id_dataset(DISTINCT_CLICKS, DISTINCT_ITEMS, MAX_HIS)
+    for what, sets in (("config0 self_attention", CONFIG0_SELF),
+                       ("accl_user_s", ACCL_USER)):
+        overrides = overrides_of(sets)
+
+        def make(overrides=overrides):
+            return Engine(load_config(CONFIG0, **overrides)[0], train, device=dev)
+
+        out[f"replay {what}"] = check_replayed_against_eager(what, make, 2, True, dev)
+        small = {**overrides, **DISTINCT_SETS}
+        if small.get("neg_sampler") == 1:
+            small.update(DISTINCT_TILE_SETS)
+        torch.cuda.empty_cache()
+        exact = replayed_equals_eager(
+            lambda small=small: Engine(load_config(CONFIG0, **small)[0],
+                                       distinct, device=dev), 2)
+        print(f"replayed vs eager, {what} on {DISTINCT_CLICKS} clicks that "
+              f"repeat no id ({json.dumps(small)}): bit-equal after each of "
+              f"{exact['epochs']} epochs, {exact['steps']} steps, "
+              f"{exact['captures']} capture(s)")
+        out[f"replay {what}"]["bit_equal"] = exact
+    del distinct
+
+    for what, sets in (("config0 self_attention", CONFIG0_SELF),
+                       ("accl_self_s", ACCL_SELF)):
+        torch.cuda.empty_cache()
+        engine = Engine(load_config(CONFIG0, **overrides_of(sets))[0], train,
+                        device=dev)
+        st = engine.state
+        held = sum(t.numel() * t.element_size() for t in (
+            st.user_emb, st.item_emb, st.w0, engine.pairs, engine.his_items,
+            engine.his_masks))
+        profile = bench_large.profile_steps(engine, PROFILE_STEPS, top=40)
+        trace = check_trace(what, profile, ("K2_multi", "K3", "S1"))
+        if trace["K1"] or trace["K2_multi"] != 1 or trace["K3"] != 2 or trace["S1"] != 1:
+            raise AssertionError(f"{what}: port kernels a step {trace}")
+        out["traces"][what] = {"port_kernels_per_step": trace, "held_bytes": held}
+        for form in ("eager", "replayed"):
+            f = profile[form]
+            out["traces"][what][form] = {
+                key: f[key] for key in (
+                    "wall_ms_per_step", "device_ms_per_step", "idle_share",
+                    "device_launches_per_step", "step_peak_device_bytes",
+                    "device_ms_per_step_by_kernel")}
+            out["traces"][what][form]["step_peak_over_held"] = (
+                f["step_peak_device_bytes"] / held)
+        out["traces"][what]["replayed"]["graph_pool_bytes"] = (
+            profile["replayed"]["graph_pool_bytes"])
+        del engine, st
+    del train, test
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_pooling(dev, traces, entries) -> dict:
+    """What item 12 asks to measure before a fused gather-softmax-pool
+    kernel is written: the plain PyTorch pooling (logits, softmax, weighted
+    sum; forward and backward with respect to the query) at the attention
+    steps' shapes, replayed 100 times from one CUDA graph (``graph_ms``),
+    beside K2's multi-table launch at the same step's shape (``_attn``) and
+    the replayed step's device time (``check_attention``'s trace), and its
+    device time by kernel (``torch.profiler``, 10 calls); then the whole
+    user-attention pools refresh of accl_user_s (every user's history rows
+    by K2 a chunk, pooled in plain torch) beside K1's one-launch mean
+    pools."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from heat_tpu_torch.models.aggregator import pool_history, user_pools_impl
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for what, dtype, multi in (
+            ("config0 self_attention", torch.float32, "gather_rows_multi"),
+            ("accl_self_s", torch.bfloat16, "gather_rows_multi_bf16")):
+        rows = (0.05 * torch.randn(BATCH, MAX_HIS, DIM, generator=g,
+                                   device=dev)).to(dtype)
+        lens = torch.randint(0, MAX_HIS + 1, (BATCH,), generator=g, device=dev,
+                             dtype=torch.int32)
+        q = (0.01 * torch.randn(DIM, generator=g, device=dev)).requires_grad_()
+        cot = torch.randn(BATCH, DIM, generator=g, device=dev).to(dtype)
+
+        def fwd_bwd():
+            pooled = pool_history(rows, lens, attn_q=q.to(dtype),
+                                  kind="self_attention")
+            torch.autograd.grad(pooled, q, cot)
+
+        def fwd():
+            with torch.no_grad():
+                pool_history(rows, lens, attn_q=q.to(dtype), kind="self_attention")
+
+        fwd_bwd()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fwd_bwd()
+            torch.cuda.synchronize()
+        by_kernel = {
+            e.key[:70]: e.self_device_time_total / 1e3 / 10
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0}
+        ms = graph_ms(fwd_bwd)
+        step = traces[what]["replayed"]["device_ms_per_step"]
+        k2 = entries[multi]["graph_ms_attn"]
+        out[what] = {"pool_fwd_bwd_graph_ms": ms, "pool_fwd_graph_ms": graph_ms(fwd),
+                     "k2_multi_attn_graph_ms": k2, "step_device_ms": step,
+                     "pool_share_of_step": ms / step, "k2_share_of_step": k2 / step,
+                     "pool_by_kernel_ms": by_kernel}
+        print(f"pooling, {what}: forward + backward {ms:.4f} ms (graph), "
+              f"K2 multi at the step's reads {k2:.4f} ms, the replayed step "
+              f"{step:.4f} ms of device time: pooling {ms / step:.3f}, K2 "
+              f"{k2 / step:.3f} of it")
+        del rows, lens, q, cot
+    items16 = (0.05 * torch.randn(NUM_ITEMS, DIM, generator=g, device=dev)).bfloat16()
+    users16 = (0.05 * torch.randn(NUM_USERS, DIM, generator=g, device=dev)).bfloat16()
+    his = torch.randint(0, NUM_ITEMS, (NUM_USERS, MAX_HIS), generator=g,
+                        device=dev, dtype=torch.int32)
+    lens = torch.randint(0, MAX_HIS + 1, (NUM_USERS,), generator=g, device=dev,
+                         dtype=torch.int32)
+    buf = torch.empty_like(users16)
+    refresh = median_ms(lambda: user_pools_impl(
+        items16, his, lens, user_emb=users16, aggregator="user_attention",
+        out=buf))
+    out["accl_user_s pools"] = {
+        "refresh_ms": refresh, "chunk_users": attn_pool_chunk(MAX_HIS),
+        "k1_mean_pools_graph_ms": entries["history_mean_gather_bf16"]["graph_ms_pools"]}
+    print(f"pooling, accl_user_s: the pools of {NUM_USERS} users "
+          f"{refresh:.4f} ms a refresh (median of {RUNS}), chunks of "
+          f"{attn_pool_chunk(MAX_HIS)} users; K1's mean pools "
+          f"{entries['history_mean_gather_bf16']['graph_ms_pools']:.4f} ms")
+    return out
+
+
+def check_serving_attention(dev, final_recall: float) -> dict:
+    """The exported config0 self-attention model (``attn_q`` in the file)
+    served on the card: requests of 1, 256 and 8192 users with and without
+    ``aggregate_users`` held tie-aware against ``recommend_all`` with the
+    same flag (the aggregated requests pool their users' history rows read
+    by K2; ``recommend_all`` pools the whole table in chunks), the Recall@20
+    of every user's requested top-20 against the run's final eval (within
+    1e-5), and 64 cold users against a plain f64 oracle of the
+    self-attention pooling."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.config import load_config
+    from heat_tpu_torch.data.synthetic import synthetic_click_dataset
+    from heat_tpu_torch.evaluation.metrics import evaluate_metrics
+    from heat_tpu_torch.export import load_embeddings
+    from heat_tpu_torch.models.state import state_from_numpy
+    from heat_tpu_torch.serving import Recommender
+
+    cfg, _ = load_config(CONFIG0, **overrides_of(CONFIG0_SELF))
+    train, test = synthetic_click_dataset(
+        num_users=NUM_USERS, num_items=NUM_ITEMS, max_his=cfg.max_his,
+        seed=cfg.seed)
+    emb = load_embeddings(str(EXPORT_SELF))
+    if "attn_q" not in emb:
+        raise AssertionError("the self-attention export holds no attn_q")
+    state = state_from_numpy(emb["user_emb"], emb["item_emb"], emb["w0"],
+                             lr=cfg.l_r, step=0, device=dev,
+                             attn_q=emb["attn_q"])
+    rec = Recommender(state, cfg, seen_pairs=train.pairs,
+                      his_items=train.his_items, his_masks=train.masks)
+    k, out = REQUEST_K, {}
+    rng = np.random.default_rng(4)
+    for agg in (False, True):
+        every = rec.recommend_all(k + 1, aggregate_users=agg)
+        users = rec._user_embeddings(agg)
+        tag = "agg_" if agg else ""
+        for b, reps in ((1, 20), (256, 20), (REQUEST_B, 5)):
+            uids = rng.integers(0, NUM_USERS, b)
+            got = rec.recommend(uids, k + 1, aggregate_users=agg)
+            same_topk(got, every[uids],
+                      lambda ids: _score_rows(users, state.item_emb, uids, ids),
+                      k, f"self-attention request B={b}, aggregate_users={agg}, "
+                      f"vs recommend_all")
+            out[f"serve_{tag}b{b}_ms"] = time_request(
+                lambda: rec.recommend(uids, k, aggregate_users=agg), reps)
+        del every, users
+    top = np.concatenate([
+        rec.recommend(np.arange(lo, min(lo + REQUEST_B, NUM_USERS)), k)
+        for lo in range(0, NUM_USERS, REQUEST_B)])
+    recall = evaluate_metrics(["Recall(k=20)"], top, test.user_items)["Recall(k=20)"]
+    if abs(recall - final_recall) > 1e-5:
+        raise AssertionError(
+            f"served Recall@20 {recall} vs the run's final eval {final_recall}")
+    out["served_recall20"] = recall
+
+    hist = [train.his_items[u, : train.masks[u]].tolist() for u in range(64)]
+    got = rec.recommend_cold(hist, k + 1)
+    item = state.item_emb.double()
+    it = item / item.norm(dim=1, keepdim=True).clamp(min=1e-12)
+    q = state.attn_q.double()
+    cold = []
+    for h in hist:
+        rows = item[torch.as_tensor(h, device=dev, dtype=torch.long)]
+        a = torch.softmax(rows @ q * DIM ** -0.5, 0)
+        u = (1.0 - cfg.gamma) * ((a @ rows) @ state.w0.double())
+        cold.append(u / u.norm().clamp(min=1e-12))
+    cold_u = torch.stack(cold)
+    sims = cold_u @ it.T
+    for r, h in enumerate(hist):
+        sims[r, torch.as_tensor(h, device=dev, dtype=torch.long)] = -math.inf
+    want = torch.topk(sims, k + 1, dim=1).indices.cpu().numpy()
+    same_topk(got, want, lambda ids: _score_rows(cold_u, it, np.arange(64), ids),
+              k, "self-attention recommend_cold vs a plain f64 oracle")
+    out["cold_b64_ms"] = time_request(lambda: rec.recommend_cold(hist, k), 20)
+    return out
+
+
+def check_huge_attention(dev, reset, read) -> dict:
+    """``bench_large --aggregator user_attention`` at its 16M x 6M bf16
+    geometry in dedup mode: a warm-up epoch and one timed epoch; the pools
+    of 16,000,000 users pooled with their own rows as queries, chunk by
+    chunk through K2 (no K1), finite losses, and the peak device memory at
+    most MEM_RATIO of the state, data and pools held."""
+    import torch
+
+    from heat_tpu_torch import bench_large
+
+    torch.cuda.empty_cache()
+    reset()
+    t0 = time.perf_counter()
+    record = bench_large.run(["--update-mode", "dedup", "--aggregator",
+                              "user_attention", "--reps", "1"])
+    wall = time.perf_counter() - t0
+    launches = read()
+    held = record["state_bytes"] + record["data_bytes"] + record["pools_bytes"]
+    peak = record["peak_device_bytes"]
+    chunks = 2 * -(-BIG_USERS // attn_pool_chunk(BIG_HIS))  # two refreshes
+    print(f"bench_large dedup, user attention: epoch {record['value']} s; "
+          f"losses {record['losses']}; {wall:.1f} s in all; launches "
+          f"{launches}; peak device memory {peak / 1e9:.3f} GB against "
+          f"{held / 1e9:.3f} GB held ({peak / held:.3f}x)")
+    if record["aggregator"] != "user_attention" or not all(
+            math.isfinite(x) for x in record["losses"]):
+        raise AssertionError(f"bench_large user attention: {record}")
+    if launches["history_mean_gather"] or launches["gather_rows_bf16"] != chunks:
+        raise AssertionError(
+            f"bench_large user attention: the pools took K1 "
+            f"{launches['history_mean_gather']} times and K2 "
+            f"{launches['gather_rows_bf16']} times, not 0 and {chunks}")
+    if peak > MEM_RATIO * held:
+        raise AssertionError(
+            f"bench_large user attention: peak device memory {peak} B above "
+            f"{MEM_RATIO} x {held} B held")
+    record.update(launches=launches, wall_s=wall, peak_over_held=peak / held)
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -2490,6 +2986,8 @@ def main() -> int:
     replay = check_replay(dev)
     subepochs = check_subepochs(dev, cli, reset, read, final["Recall(k=20)"],
                                 check_run)
+    attention = check_attention(dev, cli, reset, read, final["Recall(k=20)"],
+                                check_run)
 
     reset()
     serving = check_serving(dev, final["Recall(k=20)"])
@@ -2508,10 +3006,22 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched by bf16 serving")
     print(f"serving, bf16 tables: {json.dumps(serving16)}")
     print(f"serving launches, bf16 tables: {serving16_launches}")
+    reset()
+    serving_attn = check_serving_attention(
+        dev, attention["runs"]["config0 self_attention"]["recall"])
+    serving_attn_launches = read()
+    for name in ("gather_rows", "window_extract"):
+        if serving_attn_launches[name] < 1:
+            raise AssertionError(f"{name} was not launched by self-attention serving")
+    if serving_attn_launches["history_mean_gather"]:
+        raise AssertionError("self-attention serving launched K1")
+    print(f"serving, self-attention: {json.dumps(serving_attn)}")
+    print(f"serving launches, self-attention: {serving_attn_launches}")
 
     huge_f32 = check_huge_f32(dev, reset, read)
     huge = check_huge_training(reset, read)
     huge_sub = check_huge_subepochs(dev)
+    huge_attn = check_huge_attention(dev, reset, read)
     print(f"16M x 6M dedup epoch: 2 sub-epochs {huge_sub['epoch_s']:.4f} s "
           f"against {huge['dedup']['value']} s unpartitioned (bench_large, "
           f"this call)")
@@ -2571,6 +3081,15 @@ def main() -> int:
     forms["replay"] = replay
     forms["subepochs"] = {**subepochs, "huge_16m_6m": huge_sub}
     print(json.dumps({"eager_vs_replayed": forms}))
+    pooling = time_pooling(dev, attention["traces"], {k["name"]: k for k in kernels})
+    huge_attn_keys = ("value", "epoch_times_s", "losses", "peak_device_bytes",
+                      "state_bytes", "data_bytes", "pools_bytes",
+                      "peak_over_held", "captures", "launches", "wall_s")
+    print(json.dumps({"attention": {
+        **attention, "pooling": pooling, "serving": serving_attn,
+        "huge_16m_6m_user_attention": {k: huge_attn[k] for k in huge_attn_keys},
+        "headline_epoch_s": head["epoch_times"],
+        "config0_epoch_s": record["epoch_times"]}}))
     print(f"card for the line above: {card}")
     step = check_huge_step(dev)
     if min(step["launches"][name] for name in

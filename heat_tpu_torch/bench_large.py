@@ -69,6 +69,7 @@ from heat_tpu_torch.train import scatter
 from heat_tpu_torch.train.engine import Engine
 
 H100_HBM_GBPS = 3350.0  # NVIDIA H100 SXM data sheet, 3.35 TB/s
+PROFILE_MARGIN_S = 0.01  # host pause at each edge of the traced window
 
 REDUCED = [
     "(N, 64) rows in place of emb_pad=128 lane padding (TPU only, not ported)",
@@ -114,7 +115,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--aggregator", type=str, default="mean",
         choices=("mean", "user_attention"),
-        help="history pooling; the attention kinds are not ported (item 12)",
+        help="history pooling: the mean (K1), or user attention over the "
+        "per-epoch pools (the history rows read by K2, pooled with the user "
+        "rows as queries). self_attention needs his_refresh=step, not this "
+        "harness's cached-pools shape",
     )
     p.add_argument("--tile", type=int, default=0,
                    help="tile sampler size; <= 0 derives (tile, refresh) "
@@ -235,6 +239,8 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
             user_means=user_means,
             uniq_users=dedup[0] if dedup else None,
             uniq_inverse=dedup[1] if dedup else None,
+            uniq_first=(dedup[2] if dedup and engine.cfg.aggregator != "mean"
+                        else None),
             neg_candidates=pool[0], neg_candidates_size=pool[1],
             first=first, count=count,
         )
@@ -256,8 +262,16 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
                 wait=0, warmup=1, active=1, repeat=1)) as prof:
             run(fn, steps, 1)
             prof.step()
+            # The traced window is cut by host time, the kernels are stamped
+            # by the device's: a replayed step's first kernels start a few
+            # microseconds after the window opens, and one was once counted
+            # out of it (one K2 multi launch of 50 replayed 16M x 6M direct
+            # steps on an H100). The idle device waits out the skew on
+            # either side.
+            time.sleep(PROFILE_MARGIN_S)
             wrappers = wrapper_launches()
             profiled_wall_ms = run(fn, steps + 1)
+            time.sleep(PROFILE_MARGIN_S)
             prof.step()
         wrappers = {fam: n - wrappers[fam]
                     for fam, n in wrapper_launches().items()}
@@ -400,6 +414,7 @@ def run(argv=None) -> dict:
         "refresh_interval": engine.cfg.refresh_interval,
         "param_dtype": engine.cfg.param_dtype,
         "his_refresh": engine.cfg.his_refresh,
+        "aggregator": engine.cfg.aggregator,
         "losses": [round(l, 4) for l in losses],
         "hbm_gb_modeled": round(hbm_gb, 2),
         "hbm_gbps": round(hbm_gb / epoch_s, 1) if on_card else None,

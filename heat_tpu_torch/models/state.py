@@ -5,10 +5,12 @@ not ``nn.Parameter``s: they are updated by a manual, duplicate-safe sparse
 row update (``train/scatter.py``), and autograd runs only over the rows a
 step gathers and ``w0`` (``train/train_step.py``).
 
-Initialization: user/item embeddings and ``w0`` ~ N(0, INIT_STD^2), drawn
-in f32 from an explicit ``torch.Generator``; the tables are then cast to
-``cfg.param_dtype`` (``w0`` and the optimizer slots stay f32). The accum
-mode's gradient rows and the optimizer slots start at zero.
+Initialization: user/item embeddings, ``w0`` and, under
+``aggregator: self_attention``, the attention query ``attn_q`` ~
+N(0, INIT_STD^2), drawn in f32 from an explicit ``torch.Generator`` in that
+order; the tables are then cast to ``cfg.param_dtype`` (``w0``, ``attn_q``
+and the optimizer slots stay f32). The accum mode's gradient rows and the
+optimizer slots start at zero.
 ``state_from_numpy`` / ``state_to_numpy`` carry the state across from and
 to the JAX package (or any numpy source), which is how the parity tests
 start both packages from one state. numpy has no bfloat16 of its own, so a
@@ -60,8 +62,11 @@ class TrainState:
         shaped and typed like their tables, present only in
         sgd_mode="accum"; None otherwise.
       opt_slots: optimizer moment tables for cfg.optimizer "adagrad" or
-        "adam", a dict keyed "{user,item,w0}_{m,v}" ("_m" for Adam only),
-        each f32 and shaped like its parameter; None for SGD.
+        "adam", a dict keyed "{user,item,w0,attn_q}_{m,v}" ("_m" for Adam
+        only, "attn_q_*" only with ``attn_q``), each f32 and shaped like
+        its parameter; None for SGD.
+      attn_q: (d,) f32 learned attention query, present only under
+        cfg.aggregator "self_attention"; None otherwise.
     """
 
     user_emb: torch.Tensor
@@ -72,15 +77,16 @@ class TrainState:
     user_gacc: Optional[torch.Tensor] = None
     item_gacc: Optional[torch.Tensor] = None
     opt_slots: Optional[dict] = None
+    attn_q: Optional[torch.Tensor] = None
 
 
 def init_train_state(
     cfg: CFConfig, generator: torch.Generator, device
 ) -> TrainState:
-    """Normal(0, INIT_STD) tables and w0, drawn in f32 on ``device`` from
-    ``generator`` (which must live on that device), the tables cast to
-    ``cfg.param_dtype``; zero gradient rows (accum, the tables' type) and
-    f32 optimizer slots (adagrad, adam)."""
+    """Normal(0, INIT_STD) tables, w0 and (self_attention) attn_q, drawn
+    in f32 on ``device`` from ``generator`` (which must live on that
+    device), the tables cast to ``cfg.param_dtype``; zero gradient rows
+    (accum, the tables' type) and f32 optimizer slots (adagrad, adam)."""
     d = cfg.emb_dim
     dtype = torch_dtype(cfg.param_dtype)
 
@@ -95,6 +101,8 @@ def init_train_state(
         "item": normal(cfg.num_items, d, dtype=dtype),
         "w0": normal(d, d),
     }
+    if cfg.aggregator == "self_attention":
+        params["attn_q"] = normal(d)
     opt_slots = None
     if cfg.optimizer in ("adagrad", "adam"):
         kinds = ("v", "m") if cfg.optimizer == "adam" else ("v",)
@@ -113,6 +121,7 @@ def init_train_state(
         user_gacc=torch.zeros_like(params["user"]) if accum else None,
         item_gacc=torch.zeros_like(params["item"]) if accum else None,
         opt_slots=opt_slots,
+        attn_q=params.get("attn_q"),
     )
 
 
@@ -128,14 +137,15 @@ def zero_grad_accumulators(state: TrainState) -> TrainState:
 def state_from_numpy(
     user_emb, item_emb, w0, *, lr: float, step: int, device,
     user_gacc=None, item_gacc=None, opt_slots: Optional[dict] = None,
-    param_dtype: torch.dtype = torch.float32,
+    param_dtype: torch.dtype = torch.float32, attn_q=None,
 ) -> TrainState:
     """A TrainState on ``device`` from array-likes (for example the JAX
     TrainState's arrays through ``np.asarray``). Copies the data.
     ``opt_slots`` maps slot names to array-likes. Every array crosses as
     f32 (exact for an ``ml_dtypes`` bfloat16 source); the tables and the
     gradient rows are then cast to ``param_dtype``, which is exact again
-    when the source held that type. ``w0`` and the slots stay f32."""
+    when the source held that type. ``w0``, ``attn_q`` and the slots stay
+    f32."""
 
     def f32(x, dtype=torch.float32):
         if x is None:
@@ -154,12 +164,13 @@ def state_from_numpy(
             None if opt_slots is None
             else {k: f32(v) for k, v in opt_slots.items()}
         ),
+        attn_q=f32(attn_q),
     )
 
 
 def state_to_numpy(state: TrainState) -> dict:
     """The state's arrays on the host: user_emb, item_emb, w0, lr, step,
-    and user_gacc / item_gacc / opt_slots (a dict of arrays) where
+    and user_gacc / item_gacc / opt_slots (a dict of arrays) / attn_q where
     present. bf16 tensors come out as f32 (exact): numpy has no bfloat16."""
 
     def host(t):

@@ -4,8 +4,11 @@ Counterpart of ``heat_tpu/serving.py``: load exported embeddings (or take
 a live engine's state), optionally apply behaviour aggregation to the user
 rows, and serve batched top-k item recommendations with already-seen items
 masked, on the state's device. The tables are f32 or bf16; scores are
-always f32. A request's user rows come through kernel K2, aggregated histories through K1, and every selection through the
-two-phase exact top-k (``evaluation.evaluator.masked_topk``, kernel K4).
+always f32. A request's user rows come through kernel K2, aggregated
+histories through K1 (the mean) or through K2's history rows pooled in
+plain torch (self- and user-attention, ``models/aggregator.py``
+``pool_history``), and every selection through the two-phase exact top-k
+(``evaluation.evaluator.masked_topk``, kernel K4).
 
 A request takes one of three routes, fixed when the ``Recommender`` is
 built:
@@ -42,7 +45,7 @@ from heat_tpu_torch.evaluation.evaluator import (
 from heat_tpu_torch.models.aggregator import (
     aggregate_history,
     history_mean_fused,
-    require_mean_aggregator,
+    pool_history,
 )
 from heat_tpu_torch.models.state import TrainState
 from heat_tpu_torch.ops.cuda.gather import gather_rows
@@ -114,7 +117,8 @@ class Recommender:
       state: trained TrainState (``engine.state``, or
         ``state_from_numpy`` of ``export.load_embeddings``); the tables'
         device is where requests run.
-      cfg: the training config (gamma, aggregator).
+      cfg: the training config (gamma, aggregator; under self_attention
+        the state carries ``attn_q``).
       seen_pairs: (N, 2) user-item interactions to exclude from results
         (typically the training clicks), or None.
       his_items / his_masks: (U, H) user histories and (U,) lengths;
@@ -220,7 +224,7 @@ class Recommender:
         unpadded state, and by default its train pairs as the seen pairs
         and its histories. The engine's steps update its tables in place,
         so the tables and ``w0`` are copied here: further training does
-        not change what this Recommender serves. (The JAX package also
+        not change what this Recommender serves (``attn_q`` too). (The JAX package also
         gathers multi-host table shards here; that waits for the port's
         multi-device slice, ROADMAP item 15.)"""
         if seen_pairs is None:
@@ -234,6 +238,7 @@ class Recommender:
             w0=live.w0.clone(),
             lr=live.lr.clone(),
             step=live.step.clone(),
+            attn_q=None if live.attn_q is None else live.attn_q.clone(),
         )
         return cls(
             snapshot,
@@ -247,16 +252,21 @@ class Recommender:
     def _require_history(self) -> None:
         if self._his_dev is None or self._masks_dev is None:
             raise ValueError("aggregate_users requires history arrays")
-        require_mean_aggregator(self.cfg.aggregator)
 
     def _user_embeddings(self, aggregate_users: bool) -> torch.Tensor:
+        """The user table, or every user freshly aggregated over the pools
+        of the whole table (``compute_user_pools``: under self-attention
+        with bf16 tables that raises ``TypeError``, as the JAX package
+        does, the f32 query pooling in f32)."""
         user_emb = self.state.user_emb
         if not aggregate_users:
             return user_emb
         self._require_history()
         pooled = compute_user_pools(
             self.state.item_emb, self._his_dev, self._masks_dev,
-            aggregator=self.cfg.aggregator,
+            user_emb=(user_emb if self.cfg.aggregator == "user_attention"
+                      else None),
+            attn_q=self.state.attn_q, aggregator=self.cfg.aggregator,
         )
         return aggregate_history(user_emb, pooled, self.state.w0, self.cfg.gamma)
 
@@ -269,16 +279,29 @@ class Recommender:
 
     def _user_rows(self, uids: torch.Tensor, aggregate_users: bool) -> torch.Tensor:
         """(B, d) embeddings of the requested users only (kernel K2). With
-        ``aggregate_users`` their histories are pooled by kernel K1, the
-        numerics of the whole-table path (``compute_user_pools``), so a
-        request's ranking matches ``recommend_all``'s."""
+        ``aggregate_users`` their histories are pooled with the numerics of
+        the whole-table path (``compute_user_pools``), so a request's
+        ranking matches ``recommend_all``'s: the mean by kernel K1; the
+        attention kinds over their (B, H) history rows read by K2, with the
+        f32 ``attn_q`` as it is (bf16 rows then pool in f32, as in the JAX
+        package) or the requested user rows as queries."""
         u = gather_rows(self.state.user_emb, uids)
         if not aggregate_users:
             return u
         self._require_history()
-        pooled = history_mean_fused(
-            self.state.item_emb, self._his_dev, self._masks_dev, rows=uids
-        )
+        item_emb = self.state.item_emb
+        if self.cfg.aggregator == "mean":
+            pooled = history_mean_fused(
+                item_emb, self._his_dev, self._masks_dev, rows=uids
+            )
+        else:
+            ids = self._his_dev.index_select(0, uids)
+            rows = gather_rows(item_emb, ids.view(-1)).view(
+                *ids.shape, item_emb.shape[1])
+            pooled = pool_history(
+                rows, self._masks_dev.index_select(0, uids), u=u,
+                attn_q=self.state.attn_q, kind=self.cfg.aggregator,
+            )
         return aggregate_history(u, pooled, self.state.w0, self.cfg.gamma)
 
     def recommend(
@@ -380,14 +403,17 @@ class Recommender:
         """(len(histories), k) top item ids for users without a trained row.
 
         The user vector is the aggregation without its ``gamma * u`` term,
-        ``u = (1 - gamma) * mean(history rows) @ w0`` (the mean through
-        kernel K1), scored by cosine against the item table. The given
-        history is masked out (finfo(f32).min) when ``exclude_history``.
+        ``u = (1 - gamma) * pool(history rows) @ w0``, scored by cosine
+        against the item table. The pool follows ``cfg.aggregator``: the
+        mean through kernel K1; self-attention with ``attn_q`` cast to the
+        table's type; user-attention with the history mean as its query,
+        there being no user row to attend with (the JAX package's rule);
+        the attention kinds over history rows read by K2. The given history
+        is masked out (finfo(f32).min) when ``exclude_history``.
         """
         n = len(histories)
         if n == 0:
             return np.zeros((0, k), np.int32)
-        require_mean_aggregator(self.cfg.aggregator)
         item_emb = self.state.item_emb
         num_items = int(item_emb.shape[0])
         h = max(1, max(len(hist) for hist in histories))
@@ -402,14 +428,23 @@ class Recommender:
             ids[i, : len(hist)] = hist
             lens[i] = len(hist)
         device = item_emb.device
-        pooled = history_mean_fused(
-            item_emb,
-            torch.as_tensor(ids, device=device),
-            torch.as_tensor(lens, device=device),
-        )
+        ids_dev = torch.as_tensor(ids, device=device)
+        lens_dev = torch.as_tensor(lens, device=device)
+        compute = item_emb.dtype
+        pooled = None  # the mean, and user-attention's query
+        if self.cfg.aggregator != "self_attention":
+            pooled = history_mean_fused(item_emb, ids_dev, lens_dev)
+        if self.cfg.aggregator != "mean":
+            rows = gather_rows(item_emb, ids_dev.view(-1)).view(
+                n, h, item_emb.shape[1])
+            attn_q = self.state.attn_q
+            pooled = pool_history(
+                rows, lens_dev, u=pooled,
+                attn_q=None if attn_q is None else attn_q.to(compute),
+                kind=self.cfg.aggregator,
+            )
         # In the item table's type, with f32 norms and f32 scores, as the
         # JAX package computes them (a bf16 table serves in bf16).
-        compute = item_emb.dtype
         u = (1.0 - self.cfg.gamma) * (pooled @ self.state.w0.to(compute))
         u = u / torch.linalg.vector_norm(
             u.float(), dim=1, keepdim=True

@@ -15,17 +15,20 @@ SHARE = 0.995  # least share of elements within rtol / atol
 
 def is_gradient_array(name: str) -> bool:
     """Arrays that hold gradients (the accum mode's rows, the optimizer
-    slots) rather than parameters."""
+    slots, ``attn_q_m`` and ``attn_q_v`` among them) rather than
+    parameters (the tables, ``w0``, ``attn_q``)."""
     return name.endswith(("gacc", "_m", "_v"))
 
 
 def assert_state_array_close(
     got, want, name: str, *, lr: float, clip_val: float,
-    rtol: float = 1e-5, atol: float = 1e-7,
+    rtol: float = 1e-5, atol: float = 1e-7, cap: float | None = None,
 ) -> float:
     """Raise AssertionError unless at least SHARE of the elements of ``got``
     are within ``atol + rtol * |want|`` and none is off by more than a cap:
-    1e-4 * lr for tables and ``w0``, 1e-3 * clip_val for gradient arrays.
+    1e-4 * lr for tables, ``w0`` and ``attn_q``, 1e-3 * clip_val for
+    gradient arrays (:func:`is_gradient_array`); ``cap`` replaces the
+    former where a caller states another.
 
     Why a share and a cap: the per-occurrence gradients reach ~1e2 and
     cancel, and Adagrad and Adam divide a combined gradient by its own
@@ -39,7 +42,10 @@ def assert_state_array_close(
     if diff.size == 0:
         return 0.0
     within = float((diff <= atol + rtol * np.abs(want)).mean())
-    cap = 1e-3 * clip_val if is_gradient_array(name) else 1e-4 * lr
+    if is_gradient_array(name):
+        cap = 1e-3 * clip_val
+    elif cap is None:
+        cap = 1e-4 * lr
     worst = float(diff.max())
     if within < SHARE or not worst <= cap:  # a NaN fails the cap
         raise AssertionError(
@@ -169,8 +175,9 @@ def replayed_equals_eager(make_engine, epochs: int) -> dict:
     the capture's eager warm-up), every step's draws and loss recorded
     (``StepRecorder``). After every epoch (its shuffle and, under
     ``his_refresh: subepoch``, its pool refresh come before its first
-    step), both tables, ``w0``, ``step``, ``lr``, the sampler's
-    ``iterations`` and tile and the epoch loss are taken. Raises unless
+    step), both tables, ``w0``, ``attn_q`` (self-attention), ``step``,
+    ``lr``, the sampler's ``iterations`` and tile and the epoch loss are
+    taken. Raises unless
     every step's item ids (positives, and the negatives or the tile) are
     distinct; unless the two eager runs agree bit for bit (otherwise
     something else in the step is not deterministic, and equality proves
@@ -196,7 +203,8 @@ def replayed_equals_eager(make_engine, epochs: int) -> dict:
                 st, ss = engine.state, engine.sampler_state
                 taken.append([loss] + [t.clone() for t in (
                     st.user_emb, st.item_emb, st.w0, st.step, st.lr,
-                    ss.iterations) + ((ss.tile,) if tiled else ())])
+                    ss.iterations) + ((ss.tile,) if tiled else ())
+                    + (() if st.attn_q is None else (st.attn_q,))])
         runs[name] = (rec.records(), taken, int(rec.count), engine)
     (draws, taken, steps, engine) = runs["eager"]
     if steps != int(engine.state.step) or (
@@ -226,7 +234,7 @@ def replayed_equals_eager(make_engine, epochs: int) -> dict:
         for e, (a, b) in enumerate(zip(taken, o_taken)):
             if not same(a, b):
                 names = ["loss", "user_emb", "item_emb", "w0", "step", "lr",
-                         "iterations", "tile"]
+                         "iterations"] + ["tile"] * tiled + ["attn_q"]
                 off = [n for n, x, y in zip(names, a, b) if not (
                     (x == y) if isinstance(x, float) else torch.equal(x, y))]
                 raise AssertionError(

@@ -49,13 +49,16 @@ unpartitioned epoch: buckets are drawn anew every epoch, so maps cached
 per stream would never be read twice.
 
 Per epoch, before the first step: under ``his_refresh: subepoch`` the
-(U, d) pooled-history table is computed from the live item table (kernel
-K1, one launch into one buffer of the table's type) and every step reads
-its rows; under ``his_refresh: step`` with a fixed batch stream
-(``shuffle_mode`` "none" or "once") whose batches repeat users,
-``_history_dedup`` gives each step the distinct users of its batch, so
-that K1 pools once per distinct user. The maps are computed on the host
-once per stream and cached.
+(U, d) pooled-history table is computed from the live tables into one
+buffer of the item table's type (the mean: kernel K1, one launch; the
+attention kinds: chunks of history rows read by K2 and pooled with the
+live query, ``attn_q`` or the user rows) and every step reads its rows;
+under ``his_refresh: step`` with a fixed batch stream (``shuffle_mode``
+"none" or "once") whose batches repeat users, ``_history_dedup`` gives
+each step the distinct users of its batch, so that the history is pooled
+once per distinct user (the mean by K1; the attention kinds read the
+distinct users' history rows and pool them inside the loss). The maps are
+computed on the host once per stream and cached.
 
 Configurations outside the ported slices raise ``NotImplementedError``
 naming the ROADMAP item that will add them; nothing falls back silently.
@@ -111,7 +114,6 @@ def check_slice(cfg: CFConfig) -> None:
     """Raise NotImplementedError for any setting this port does not run
     yet, naming where ROADMAP.md ("Modules still to port") places it."""
     off_slice = [
-        (cfg.aggregator != "mean", f"aggregator: {cfg.aggregator}", "item 12"),
         (bool(cfg.emb_pad), "emb_pad (TPU lane padding)", "the do-not-port list"),
     ]
     for bad, what, where in off_slice:
@@ -303,22 +305,31 @@ class Engine:
         return self._shuffle_or_pack(pairs, num_batches, batch)
 
     def _history_dedup(self, pairs, users) -> Optional[tuple]:
-        """Per-batch (uniq_users (nb, Bu), uniq_inverse (nb, B)) int32 maps
-        for the train step's history-gather dedup, or None.
+        """Per-batch (uniq_users (nb, Bu), uniq_inverse (nb, B), uniq_first
+        (nb, Bu)) int32 maps for the train step's history-gather dedup, or
+        None. ``uniq_first`` is each distinct user's first occurrence in
+        its batch, from which the user-attention query is read.
 
         It applies when the pooled history is recomputed per step from the
-        live table (``his_refresh: step``) and the batch stream is fixed
-        across epochs (``shuffle_mode`` "none" or "once": a user-grouped
-        file order is where repeats are massive), and only if no batch has
-        more than 0.7 x batch distinct users: on a shuffled stream the
-        dedup would only add a (B,) gather. Bu is the largest distinct
-        count rounded up to 8; short batches pad by repeating their first
-        user. Computed on the host with ``np.unique`` (one download of the
-        stream) and cached for the ``pairs`` object (held, so that its
-        address cannot pass to other pairs) and the stream's shape, so a
-        fixed stream pays once."""
+        live table (``his_refresh: step``, any aggregator) and the batch
+        stream is fixed across epochs (``shuffle_mode`` "none" or "once": a
+        user-grouped file order is where repeats are massive), and only if
+        no batch has more than 0.7 x batch distinct users: on a shuffled
+        stream the dedup would only add a (B,) gather. Not under
+        ``user_attention`` with ``update_mode: direct`` (the JAX engine's
+        gate): the dedup concentrates the query's gradient on the first
+        occurrence's row, and direct mode clips each occurrence apart, so
+        where the clip binds it would clip otherwise. Bu is the largest
+        distinct count rounded up to 8; short batches pad by repeating
+        their first user and its first occurrence. Computed on the host
+        with ``np.unique`` (one download of the stream) and cached for the
+        ``pairs`` object (held, so that its address cannot pass to other
+        pairs) and the stream's shape, so a fixed stream pays once."""
         cfg = self.cfg
-        if cfg.his_refresh != "step" or cfg.shuffle_mode not in ("none", "once"):
+        if (cfg.his_refresh != "step"
+                or cfg.shuffle_mode not in ("none", "once")
+                or (cfg.aggregator == "user_attention"
+                    and cfg.update_mode == "direct")):
             return None
         cached = self._dedup_cache
         if (cached is not None and cached[0] is pairs
@@ -326,34 +337,41 @@ class Engine:
             return cached[2]
         users_np = users.cpu().numpy()
         nb, batch = users_np.shape
-        uniqs, invs, max_u = [], [], 1
+        uniqs, firsts, invs, max_u = [], [], [], 1
         for b in range(nb):
-            uu, inv = np.unique(users_np[b], return_inverse=True)
+            uu, first, inv = np.unique(
+                users_np[b], return_index=True, return_inverse=True)
             uniqs.append(uu)
+            firsts.append(first)
             invs.append(inv)
             max_u = max(max_u, len(uu))
         out = None
         if max_u <= 0.7 * batch:  # worth the extra (B,) means gather
             bu = -(-max_u // 8) * 8
             uu_arr = np.zeros((nb, bu), np.int32)
-            for b, uu in enumerate(uniqs):
-                uu_arr[b, : len(uu)] = uu
-                uu_arr[b, len(uu):] = uu[0] if len(uu) else 0
-            out = (
-                torch.as_tensor(uu_arr, device=self.device),
-                torch.as_tensor(
-                    np.stack(invs).astype(np.int32), device=self.device
-                ),
-            )
+            uf_arr = np.zeros((nb, bu), np.int32)
+            for b, (uu, uf) in enumerate(zip(uniqs, firsts)):
+                n = len(uu)
+                uu_arr[b, :n], uf_arr[b, :n] = uu, uf
+                uu_arr[b, n:] = uu[0] if n else 0
+                uf_arr[b, n:] = uf[0] if n else 0
+            out = tuple(
+                torch.as_tensor(a, device=self.device) for a in (
+                    uu_arr, np.stack(invs).astype(np.int32), uf_arr))
         self._dedup_cache = (pairs, tuple(users.shape), out)
         return out
 
     def _pooled_history(self, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(U, d) pooled history of every user from the live item table,
-        in the table's type (written into ``out`` when given)."""
+        """(U, d) pooled history of every user from the live tables under
+        the configured aggregator (the query of the attention kinds: the
+        live ``attn_q``, or the live user rows), in the item table's type
+        (written into ``out`` when given)."""
+        st = self.state
         return compute_user_pools(
-            self.state.item_emb, self.his_items, self.his_masks,
-            aggregator=self.cfg.aggregator, out=out,
+            st.item_emb, self.his_items, self.his_masks,
+            user_emb=(st.user_emb if self.cfg.aggregator == "user_attention"
+                      else None),
+            attn_q=st.attn_q, aggregator=self.cfg.aggregator, out=out,
         )
 
     def _pools_buffer(self) -> torch.Tensor:
@@ -400,6 +418,9 @@ class Engine:
             user_means=user_means,
             uniq_users=dedup[0] if dedup else None,
             uniq_inverse=dedup[1] if dedup else None,
+            # The first occurrences feed only the attention kinds' dedup.
+            uniq_first=(dedup[2] if dedup and self.cfg.aggregator != "mean"
+                        else None),
             neg_candidates=neg_pool[0],
             neg_candidates_size=neg_pool[1],
             count=count,
@@ -691,8 +712,8 @@ class Engine:
         metric library, on the engine's device.
 
         aggregate_users: score with freshly aggregated user embeddings
-        (gamma * u + (1 - gamma) * mean(history) @ w0, the pools through
-        kernel K1) instead of the raw user table. With the default False,
+        (gamma * u + (1 - gamma) * pool(history) @ w0, the pools of
+        :meth:`_pooled_history`) instead of the raw user table. With the default False,
         scoring uses the raw table, whose rows were already aggregated
         during training by the write-back.
 

@@ -1,8 +1,7 @@
-"""One training step: gather -> history mean -> score -> loss -> grad ->
-duplicate-safe row update.
+"""One training step: gather -> history pooling -> score -> loss -> grad
+-> duplicate-safe row update.
 
-Counterpart of the mean-aggregator branches of
-``heat_tpu/train/train_step.py`` ``train_step``:
+Counterpart of ``heat_tpu/train/train_step.py`` ``train_step``:
 
 1. under a sub-epoch's negative pool (``neg_candidates``), remap the tile
    on the tile path, the draws otherwise, through it (``pool[id % size]``;
@@ -12,16 +11,22 @@ Counterpart of the mean-aggregator branches of
    with the tile sampler in batch mode the T rows of the tile, once, and
    the draws enter only as per-(sample, slot) multiplicities; otherwise the
    (B, K) sampled rows; under ``his_refresh: subepoch`` the same launch
-   reads the cached pool rows ``user_means[users]``;
-2. the pooled history of each sample's user, outside autograd (history
-   rows never receive a gradient): those pool rows; with the engine's
-   dedup maps the masked mean once per distinct user (kernel K1, which
-   reads the (Bu,) users' histories out of the whole history table itself)
-   read back per sample (K2); else the masked mean per sample (K1 over the
-   (B,) users);
+   reads the cached pool rows ``user_means[users]``; under the attention
+   aggregators with ``his_refresh: step`` it reads the (B, H) history rows
+   (the (Bu, H) rows of the distinct users with the dedup maps);
+2. the pooled history of each sample's user (history rows never receive a
+   gradient): those pool rows; for the mean, outside autograd, with the
+   engine's dedup maps the masked mean once per distinct user (kernel K1,
+   which reads the (Bu,) users' histories out of the whole history table
+   itself) read back per sample (K2), else the masked mean per sample (K1
+   over the (B,) users); for self- and user-attention, inside the loss
+   (``models/aggregator.py`` ``pool_history``), so that the query, a leaf
+   of ``attn_q`` or the user row itself, gets its gradient; with the dedup
+   maps once per distinct user, the user-attention query sliced from the
+   user's first occurrence (``uniq_first``), then read back per sample;
 3. aggregation, cosine (or dot) scores and the loss, differentiated by
-   autograd with respect to the gathered rows and ``w0`` only (leaf
-   tensors made from the gathered rows, never the whole tables); the
+   autograd with respect to the gathered rows, ``w0`` and ``attn_q`` only
+   (leaf tensors made from the gathered rows, never the whole tables); the
    tile path scores with one (B, d) x (d, T) product, and its (T, d)
    gradient holds one row per tile slot;
 4. under ``sgd_mode: accum``, the stale accumulated user rows' term of the
@@ -35,8 +40,8 @@ Counterpart of the mean-aggregator branches of
    the item update covers B + T rows on the tile path, B * (1 + K)
    otherwise; the gradients stay in the compute type, and the updates
    widen them where they first read them;
-6. ``w0`` by SGD, or by Adagrad/Adam gated on the batch holding real
-   samples.
+6. ``w0`` and ``attn_q`` by SGD, or by Adagrad/Adam gated on the batch
+   holding real samples.
 
 Padding entries carry weight 0: their losses and gradients vanish and
 their ids are redirected to the drop sentinel (the table size), so neither
@@ -45,15 +50,15 @@ the write-back nor the update touches a real row through them. The
 not an optimizer step.
 
 With bf16 tables or compute the step rounds where the JAX step does: at
-the casts of the gathered rows, at the end of K1, at the aggregation's
-product and its three elementwise operations, at the casts of the
-gradients back to the rows' type, and at every table write. Scores and
-losses are f32.
+the casts of the gathered rows, at the end of K1, at each operation of the
+attention pooling's forward, at the aggregation's product and its three
+elementwise operations, at the casts of the gradients back to the rows'
+type, and at every table write. Scores and losses are f32.
 
 The step reads the tables once at batch start. It updates every tensor of
 the state in place (the tables, the gradient rows, the table slots, ``w0``,
-its slots and ``step``; the sampler's ``iterations`` and ``tile`` in
-``sample_negatives``) and returns the same TrainState and SamplerState
+``attn_q``, their slots and ``step``; the sampler's ``iterations`` and
+``tile`` in ``sample_negatives``) and returns the same TrainState and SamplerState
 objects; nothing in it waits for the device or copies from the host. So
 one step can be captured into a CUDA graph and replayed against the same
 addresses: :func:`make_epoch_fn` runs an epoch of such replays.
@@ -69,6 +74,7 @@ from heat_tpu_torch.config import CFConfig
 from heat_tpu_torch.models.aggregator import (
     aggregate_history,
     history_mean_fused,
+    pool_history,
 )
 from heat_tpu_torch.models.state import TrainState, torch_dtype
 from heat_tpu_torch.ops.cuda.gather import gather_rows, gather_rows_multi
@@ -103,6 +109,7 @@ def train_step(
     uniq_inverse: Optional[torch.Tensor] = None,
     neg_candidates: Optional[torch.Tensor] = None,
     neg_candidates_size: Optional[torch.Tensor] = None,
+    uniq_first: Optional[torch.Tensor] = None,
 ) -> tuple[TrainState, SamplerState, torch.Tensor]:
     """One minibatch step. Returns (state', sampler_state', loss_sum) with
     loss_sum a 0-d tensor on the step's device.
@@ -127,6 +134,12 @@ def train_step(
       batch-start tables, so repeated users have identical means: pooling
       once per distinct user is an exact rewrite. The engine computes the
       maps per fixed batch stream (``Engine._history_dedup``).
+    uniq_first: (Bu,) int32 index of each distinct user's first occurrence
+      in the batch, required with the dedup maps under "user_attention":
+      the per-user query is sliced from that occurrence of the
+      differentiable user rows (repeated users read identical batch-start
+      rows), so the query's gradient reaches the user update unchanged.
+      Unused by the other aggregators.
     """
     users, pos, weight = batch
     real = weight.sum().to(torch.int32)
@@ -173,25 +186,60 @@ def train_step(
         segments.append((item_emb, negs.reshape(-1)))
     if user_means is not None:
         segments.append((user_means, users))
-    u_rows, p_rows, n_rows, *pool_rows = gather_rows_multi(segments, compute)
+    # The attention kinds pool inside the loss over the (B, H, d) history
+    # rows (per distinct user with the dedup maps), one more segment of the
+    # launch; they take no gradient.
+    attention = cfg.aggregator != "mean" and user_means is None
+    if attention:
+        if (uniq_users is not None and cfg.aggregator == "user_attention"
+                and uniq_first is None):
+            raise ValueError(
+                "user_attention history dedup requires uniq_first (the "
+                "per-user query is sliced from the first occurrence of the "
+                "differentiable user rows)")
+        his_users = users if uniq_users is None else uniq_users
+        segments.append(
+            (item_emb, his_items.index_select(0, his_users).view(-1)))
+    u_rows, p_rows, n_rows, *extra_rows = gather_rows_multi(segments, compute)
     if not tiled:
         n_rows = n_rows.view(b, k, d)
-    with torch.no_grad():
-        if user_means is not None:
-            means = pool_rows[0]
-        elif uniq_users is not None:
-            means_u = history_mean_fused(
-                item_emb, his_items, his_masks, compute, rows=uniq_users
-            )
-            means = gather_rows(means_u, uniq_inverse)
-        else:
-            means = history_mean_fused(
-                item_emb, his_items, his_masks, compute, rows=users
-            )
+    if user_means is not None:
+        means = extra_rows[0]
+    elif attention:
+        his_embs = extra_rows[0].view(his_users.shape[0], -1, d)
+        his_mask = his_masks.index_select(0, his_users)
+    else:
+        with torch.no_grad():
+            if uniq_users is not None:
+                means_u = history_mean_fused(
+                    item_emb, his_items, his_masks, compute, rows=uniq_users
+                )
+                means = gather_rows(means_u, uniq_inverse)
+            else:
+                means = history_mean_fused(
+                    item_emb, his_items, his_masks, compute, rows=users
+                )
 
     u_l, p_l, n_l, w0_l = (
         t.detach().requires_grad_() for t in (u_rows, p_rows, n_rows, w0)
     )
+    leaves = [u_l, p_l, n_l, w0_l]
+    if attention:
+        q = None
+        if cfg.aggregator == "self_attention":
+            # The f32 query, cast to the compute type inside the loss.
+            q_l = state.attn_q.detach().requires_grad_()
+            leaves.append(q_l)
+            q = q_l.to(compute)
+        if uniq_users is None:
+            means = pool_history(his_embs, his_mask, u=u_l, attn_q=q,
+                                 kind=cfg.aggregator)
+        else:
+            u_first = (u_l.index_select(0, uniq_first)
+                       if cfg.aggregator == "user_attention" else None)
+            means = pool_history(his_embs, his_mask, u=u_first, attn_q=q,
+                                 kind=cfg.aggregator
+                                 ).index_select(0, uniq_inverse)
     u_agg = aggregate_history(u_l, means, w0_l, cfg.gamma)
     if tiled:
         s_up, S = tile_scores(u_agg, p_l, n_l, similarity=cfg.similarity)
@@ -202,7 +250,8 @@ def train_step(
     loss_sum = (losses * weight).sum()
     # The row gradients stay in the compute type: the updates widen them
     # where they first read them (bf16 to f32 is exact).
-    g_u, g_p, g_n, g_w0 = torch.autograd.grad(loss_sum, (u_l, p_l, n_l, w0_l))
+    g_u, g_p, g_n, g_w0, *g_q = torch.autograd.grad(loss_sum, leaves)
+    means = means.detach()
 
     if state.user_gacc is not None:
         # Accum mode: the reference's aggregator backward works on the
@@ -281,23 +330,29 @@ def train_step(
             v=opt_slots["item_v"], **opt,
         )
 
-    # w0: B / aggr_minibatch reference updates collapsed into one.
+    # w0 (and attn_q): B / aggr_minibatch reference updates collapsed into
+    # one.
+    dense = [("w0", w0, g_w0)]
+    if g_q:
+        dense.append(("attn_q", state.attn_q, g_q[0]))
     if cfg.optimizer == "sgd":
-        w0.sub_(state.lr * g_w0 / cfg.aggr_minibatch)
+        for _, param, g in dense:
+            param.sub_(state.lr * g / cfg.aggr_minibatch)
     else:
         # Dense moment updates are not no-ops at zero gradient (Adam
         # decays its moments, Adagrad divides by sqrt(v)), so an
-        # all-padding batch must leave w0 and its slots untouched.
+        # all-padding batch must leave w0, attn_q and their slots untouched.
         has_real = real > 0
-        w0_new, slots_new = dense_opt_update(
-            w0, g_w0 / cfg.aggr_minibatch, opt_slots, "w0", **moments
-        )
-        for key in ("w0_m", "w0_v"):
-            if key in slots_new:
-                opt_slots[key].copy_(
-                    torch.where(has_real, slots_new[key], opt_slots[key])
-                )
-        w0.copy_(torch.where(has_real, w0_new, w0))
+        for name, param, g in dense:
+            new, slots_new = dense_opt_update(
+                param, g / cfg.aggr_minibatch, opt_slots, name, **moments
+            )
+            for key in (name + "_m", name + "_v"):
+                if key in slots_new:
+                    opt_slots[key].copy_(
+                        torch.where(has_real, slots_new[key], opt_slots[key])
+                    )
+            param.copy_(torch.where(has_real, new, param))
     return state, sampler_state, loss_sum.detach()
 
 
@@ -332,9 +387,10 @@ class EpochFn:
 
     ``fn(state, sampler_state, generator, users, pos, weight, his_items,
     his_masks, user_means=None, uniq_users=None, uniq_inverse=None,
-    neg_candidates=None, neg_candidates_size=None, first=0, count=None)``
-    runs steps ``first`` to ``first + count - 1`` of the stream (users, pos,
-    weight: (nb, B); the dedup maps (nb, Bu) and (nb, B); the negative pool
+    neg_candidates=None, neg_candidates_size=None, uniq_first=None, first=0,
+    count=None)`` runs steps ``first`` to ``first + count - 1`` of the stream
+    (users, pos, weight: (nb, B); the dedup maps (nb, Bu), (nb, B) and
+    (nb, Bu); the negative pool
     and its 0-d size as :func:`train_step` takes them), the rest of the
     stream when ``count`` is None, and returns
     ``(state, sampler_state, loss_sum)``: the state and the sampler state
@@ -347,9 +403,9 @@ class EpochFn:
     (``index_select`` on a device step index) -> ``train_step`` -> the loss
     into a device accumulator -> index + 1. The graph reads every input at
     the address it was captured at, so it is keyed on the address, type and
-    shape of each tensor it reads (the state's, the sampler's, the stream
-    buffers, the pools, the dedup maps, the negative pool and its size, and
-    the histories) and captured again when one of them changes, for
+    shape of each tensor it reads (the state's, ``attn_q`` and its slots
+    included, the sampler's, the stream buffers, the pools, the dedup maps,
+    the negative pool and its size, and the histories) and captured again when one of them changes, for
     example when a caller assigns a new state or the pools come back at
     another address; new values written into the same tensors (each
     sub-epoch's stream and negative pool) are replayed over. It holds no reference
@@ -396,8 +452,8 @@ class EpochFn:
         """The captured body: one step on batch ``index``, its loss into the
         accumulator, index + 1."""
         (state, sampler_state, generator, users, pos, weight, his_items,
-         his_masks, user_means, uniq_users, uniq_inverse, neg_candidates,
-         neg_candidates_size) = self._inputs
+         his_masks, user_means, uniq_users, uniq_inverse, uniq_first,
+         neg_candidates, neg_candidates_size) = self._inputs
         i = self._index
 
         def row(t):
@@ -407,7 +463,8 @@ class EpochFn:
             state, sampler_state, generator,
             Batch(row(users), row(pos), row(weight)), his_items, his_masks,
             self.cfg, user_means=user_means, uniq_users=row(uniq_users),
-            uniq_inverse=row(uniq_inverse), neg_candidates=neg_candidates,
+            uniq_inverse=row(uniq_inverse), uniq_first=row(uniq_first),
+            neg_candidates=neg_candidates,
             neg_candidates_size=neg_candidates_size,
         )
         self._loss += loss
@@ -446,6 +503,7 @@ class EpochFn:
         uniq_inverse: Optional[torch.Tensor] = None,
         neg_candidates: Optional[torch.Tensor] = None,
         neg_candidates_size: Optional[torch.Tensor] = None,
+        uniq_first: Optional[torch.Tensor] = None,
         *,
         first: int = 0,
         count: Optional[int] = None,
@@ -466,6 +524,7 @@ class EpochFn:
                     self.cfg, user_means=user_means,
                     uniq_users=None if uniq_users is None else uniq_users[i],
                     uniq_inverse=None if uniq_inverse is None else uniq_inverse[i],
+                    uniq_first=None if uniq_first is None else uniq_first[i],
                     neg_candidates=neg_candidates,
                     neg_candidates_size=neg_candidates_size,
                 )
@@ -488,19 +547,19 @@ class EpochFn:
         slots = [] if state.opt_slots is None else [
             state.opt_slots[k] for k in sorted(state.opt_slots)]
         key = (generator, self.cfg) + _key((
-            state.user_emb, state.item_emb, state.w0, state.lr, state.step,
-            state.user_gacc, state.item_gacc, *slots, sampler_state.iterations,
-            sampler_state.tile, users, pos, weight, his_items, his_masks,
-            user_means, uniq_users, uniq_inverse, neg_candidates,
-            neg_candidates_size,
+            state.user_emb, state.item_emb, state.w0, state.attn_q, state.lr,
+            state.step, state.user_gacc, state.item_gacc, *slots,
+            sampler_state.iterations, sampler_state.tile, users, pos, weight,
+            his_items, his_masks, user_means, uniq_users, uniq_inverse,
+            uniq_first, neg_candidates, neg_candidates_size,
         ))
         replays = count
         if key != self._key:
             self._release()
             self._inputs = (state, sampler_state, generator, users, pos,
                             weight, his_items, his_masks, user_means,
-                            uniq_users, uniq_inverse, neg_candidates,
-                            neg_candidates_size)
+                            uniq_users, uniq_inverse, uniq_first,
+                            neg_candidates, neg_candidates_size)
             try:
                 self._capture(generator, _capture_stream(device))
             finally:

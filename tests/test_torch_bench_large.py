@@ -91,11 +91,23 @@ def test_profile_on_the_cpu(monkeypatch):
         bench_large.run(TINY + ["--profile", "4"])
 
 
+@pytest.mark.parametrize("flags", [
+    ["--tile", "128", "--aggregator", "user_attention"],
+    ["--aggregator", "user_attention"],
+])
+def test_user_attention_flag_is_accepted(flags):
+    """``--aggregator user_attention`` (ROADMAP item 12, as the JAX script
+    takes it): the pools pooled with the user rows as queries, finite
+    falling losses, the aggregator in the record."""
+    record = bench_large.run(TINY + flags)
+    assert record["aggregator"] == "user_attention"
+    assert np.isfinite(record["losses"]).all()
+    assert record["losses"][-1] < record["losses"][0]
+
+
 @pytest.mark.parametrize("flags,item", [
-    # --tile and --refresh work; what stays refused stays so beside them.
-    (["--tile", "128", "--aggregator", "user_attention"], "item 12"),
+    # --tile, --refresh and --aggregator work; emb_pad stays refused.
     (["--refresh", "4096", "--emb-pad", "128"], "do-not-port"),
-    (["--aggregator", "user_attention"], "item 12"),
     (["--emb-pad", "128"], "do-not-port"),
 ])
 def test_unported_flags_are_refused(flags, item):

@@ -324,17 +324,33 @@ def test_subepoch_settings_are_accepted(override):
     assert int(eng.sampler_state.iterations) == train.train_size
 
 
+@pytest.mark.parametrize("override", [
+    {"his_refresh": "subepoch", "aggregator": "user_attention"},
+    {"aggregator": "self_attention"},
+    {"aggregator": "user_attention"},
+    {"param_dtype": "bfloat16", "aggregator": "self_attention"},
+], ids=[f"override{i}" for i in (1, 2, 3, 7)])
+def test_attention_settings_are_accepted(override):
+    """The attention aggregators are ported (ROADMAP item 12): the settings
+    that were refused as item 12 train a finite epoch that visits every
+    pair once, and self-attention's query moves."""
+    train, test = tsynthetic(20, 40, max_his=4, seed=1)
+    eng = TEngine(CFConfig(max_his=4, **override), train, test, device="cpu")
+    q0 = None if eng.state.attn_q is None else eng.state.attn_q.clone()
+    assert np.isfinite(eng.train_one_epoch())
+    assert int(eng.sampler_state.iterations) == train.train_size
+    assert (q0 is None) == (override["aggregator"] == "user_attention")
+    if q0 is not None:
+        assert not torch.equal(eng.state.attn_q, q0)
+
+
 @pytest.mark.parametrize("override,where", [
-    # The tile sampler, cached pools, bf16, visit orders and sub-epochs are
-    # ported; beside each, a setting that is still refused stays refused.
-    ({"his_refresh": "subepoch", "aggregator": "user_attention"}, "item 12"),
-    ({"aggregator": "self_attention"}, "item 12"),
-    ({"aggregator": "user_attention"}, "item 12"),
+    # The tile sampler, cached pools, bf16, visit orders, sub-epochs and the
+    # attention aggregators are ported; emb_pad stays refused beside them.
     ({"compute_dtype": "bfloat16", "emb_pad": 128}, "do-not-port"),
-    ({"param_dtype": "bfloat16", "aggregator": "self_attention"}, "item 12"),
     ({"emb_pad": 128}, "do-not-port"),
     ({"visit_order": "item", "emb_pad": 256}, "do-not-port"),
-], ids=[f"override{i}" for i in (1, 2, 3, 4, 7, 8, 9)])
+], ids=[f"override{i}" for i in (4, 8, 9)])
 def test_off_slice_settings_are_refused(override, where):
     train, test = tsynthetic(20, 40, max_his=4, seed=1)
     cfg = CFConfig(max_his=4, **override)

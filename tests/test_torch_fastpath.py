@@ -678,10 +678,13 @@ def test_history_dedup_maps_equal_jax_on_a_user_grouped_stream():
     want = je._history_dedup(je.pairs, jusers)
     got = te._history_dedup(te.pairs, tusers)
     assert want is not None and got is not None
-    uu, inv = got
-    assert uu.dtype == inv.dtype == torch.int32 and uu.shape[1] % 8 == 0
-    np.testing.assert_array_equal(uu.numpy(), np.asarray(want[0]))
-    np.testing.assert_array_equal(inv.numpy(), np.asarray(want[1]))
+    uu, inv, first = got
+    assert uu.dtype == inv.dtype == first.dtype == torch.int32
+    assert uu.shape[1] % 8 == 0 and first.shape == uu.shape
+    for got_map, want_map in zip(got, want):  # uniq, inverse, first
+        np.testing.assert_array_equal(got_map.numpy(), np.asarray(want_map))
+    # Each distinct user's first occurrence holds that user.
+    assert torch.equal(torch.gather(tusers, 1, first.long()), uu)
     # The maps reproduce the stream, and the stream is downloaded once.
     assert torch.equal(torch.gather(uu, 1, inv.long()), tusers)
     assert te._history_dedup(te.pairs, tusers) is got

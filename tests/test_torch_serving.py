@@ -251,7 +251,9 @@ def test_tiled_evaluator_widens_to_the_item_table(model):
 
 def test_user_pools_match_jax(model):
     """Chunks of 7 users leave a partial last chunk. Summation orders
-    differ (chunked einsum vs a masked sum): rtol 1e-5, atol 1e-6."""
+    differ (chunked einsum vs a masked sum): rtol 1e-5, atol 1e-6. The
+    attention kinds, with the model's user rows (user attention) or a
+    seeded query (self attention), are held to the same tolerance."""
     args = (model["item"], model["his"], model["lens"])
     want = np.asarray(jagg.user_pools_impl(*map(jnp.asarray, args), chunk=7))
     got = tagg.user_pools_impl(*map(torch.from_numpy, args), chunk=7)
@@ -262,9 +264,16 @@ def test_user_pools_match_jax(model):
         np.asarray(jagg.pool_history(embs, model["lens"])),
         rtol=1e-5, atol=1e-6,
     )
+    query = np.random.default_rng(3).normal(size=16).astype(np.float32)
     for kind in ("self_attention", "user_attention"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tagg.user_pools_impl(*map(torch.from_numpy, args), aggregator=kind)
+        want = np.asarray(jagg.user_pools_impl(
+            *map(jnp.asarray, args), user_emb=jnp.asarray(model["user"]),
+            attn_q=jnp.asarray(query), aggregator=kind, chunk=7))
+        got = tagg.user_pools_impl(
+            *map(torch.from_numpy, args), user_emb=torch.from_numpy(model["user"]),
+            attn_q=torch.from_numpy(query), aggregator=kind, chunk=7)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6,
+                                   err_msg=kind)
 
 
 # --- Recommender ----------------------------------------------------------

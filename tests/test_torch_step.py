@@ -151,8 +151,8 @@ def test_apply_row_updates_with_writeback_matches_jax():
 
 
 def torch_state_of(jstate, device="cpu"):
-    """The port's copy of a JAX TrainState, gradient rows and slots
-    included."""
+    """The port's copy of a JAX TrainState, gradient rows, slots and
+    ``attn_q`` included."""
     def arr(x):
         return None if x is None else np.asarray(x)
 
@@ -163,6 +163,7 @@ def torch_state_of(jstate, device="cpu"):
         opt_slots=None if jstate.opt_slots is None else {
             k: np.asarray(v) for k, v in jstate.opt_slots.items()
         },
+        attn_q=arr(jstate.attn_q),
     )
 
 
