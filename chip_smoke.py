@@ -156,6 +156,27 @@ self-attention export served (``check_serving_attention``); in phase 7
 (``check_huge_attention``, peak at most MEM_RATIO); and, before the
 kernels' line, the plain pooling's time against K2's and the replayed
 step's (``time_pooling``) on a line ``{"attention": ...}``;
+The run's lifecycle (ROADMAP items 8, 14, 17) adds, in phase 4 right
+after the headline run, the full-scale gate (``check_gate``): this data's
+pair counts and SHA-256 against ``PARITY_TORCH.json``, the JAX package's
+record of the same schedule on the CPU (``scripts/torch_parity_gate.py``),
+config0's Recall@20 and NDCG@50 within 0.0003 of its values, the
+headline's within 0.0015; in the replay phase, the host's seconds to save
+and restore a checkpoint of the 16M x 6M bf16 state; after the attention
+phases, resume bit for bit on the distinct clicks, in config0's and the
+default shape's configurations, into a fresh engine and into the engine
+that captured (``check_resume_distinct``); config0 and the default shape
+through the CLI, 3 epochs then resumed to 5 with ``--checkpoint-dir``,
+against three uninterrupted runs (``check_resume_cli``: draws, ``step``,
+``iterations`` and the generators exact, tables, ``w0`` and step losses
+within twice the spread pooled over the runs' pairs, each epoch loss its
+steps' sum); ``--profile-dir`` (the trace of a replayed epoch names
+the port's kernels, ``check_profile_dir``); ``--breakdown`` (the phases'
+sum against the run's wall, and the cost of the phase timer's syncs,
+``check_breakdown``); the native parser and hit matrix on the full data,
+against numpy and timed, the native path required (``check_native``); and
+a ``{"lifecycle": ...}`` line before the kernels' line.
+
 9. the kernels' JSON line (each instance with its launches on its own main
    path: f32 on config0, bf16 on the headline run, K2's single entry on
    serving, S2 on its script), the
@@ -166,6 +187,7 @@ Fails without a CUDA device, and outside a checkout of the repository.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
@@ -2141,7 +2163,12 @@ def check_replay(dev) -> dict:
 
     out["dedup_16m_6m"] = check_replayed_against_eager(
         "16M x 6M bf16 dedup", make_big, 1, False, dev)
-    del dataset
+    # The host's cost of a checkpoint of this state (item 14).
+    engine = make_big()
+    out["dedup_16m_6m"]["checkpoint"] = time_checkpoint(engine, "ckpt_16m_6m")
+    print(f"checkpoint at 16M x 6M bf16: "
+          f"{json.dumps(out['dedup_16m_6m']['checkpoint'])}")
+    del engine, dataset
     torch.cuda.empty_cache()
     return out
 
@@ -2814,6 +2841,523 @@ def check_huge_attention(dev, reset, read) -> dict:
     return record
 
 
+# The run's lifecycle (ROADMAP items 8, 14, 17): the full-scale gate, the
+# checkpoint resume, the trace, the phase breakdown and the native helpers.
+LIFECYCLE = EXPORT.parent / "lifecycle"  # checkpoints, traces, the click file
+PHASE_SUM_BAND = 0.05  # the breakdown's phases against the run's wall
+SYNC_COST = 0.01  # the phase timer's syncs: at most this share of an epoch
+SYNC_PAIRS = 12  # epochs with and without the syncs, alternated
+RESUME_AT = 3  # the resumed runs stop after this many epochs, then go to 5
+
+
+class _Tee:
+    """Standard output to the terminal and into a buffer."""
+
+    def __init__(self, out):
+        import io
+
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(cli, argv) -> tuple[dict, str]:
+    """``cli.main(argv)``, printing as it does; returns its record and what
+    it printed."""
+    import contextlib
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        record = cli.main(argv)
+    return record, tee.buf.getvalue()
+
+
+def fresh_dir(name: str) -> Path:
+    import shutil
+
+    path = LIFECYCLE / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def check_gate(final: dict, head_final: dict):
+    """The full-scale gate (ROADMAP item 8) against the JAX package's record
+    ``PARITY_TORCH.json`` (``scripts/torch_parity_gate.py``): the data this
+    script trains on (the CLI's ``--synthetic`` data, regenerated here with
+    the port's copy of the generator) has the record's pair counts and
+    SHA-256 checksums; config0's final Recall@20 and NDCG@50 lie within
+    ``parity.CONFIG0_BAND`` (the paper's 0.0003) of the JAX run's, the
+    headline's within ``parity.HEADLINE_BAND`` (RECALL_BAND's 0.0015: the
+    streams of negatives differ between the packages, so a band, not a
+    trajectory). Returns the gaps and the data (train, test)."""
+    from heat_tpu_torch import parity
+    from heat_tpu_torch.data.synthetic import synthetic_click_dataset
+
+    record = parity.load_parity()
+    want = {"num_users": NUM_USERS, "num_items": NUM_ITEMS,
+            "max_his": MAX_HIS, "seed": 2022}
+    if record["synthetic"] != want:
+        raise AssertionError(f"the gate's record was made at "
+                             f"{record['synthetic']}, this script trains {want}")
+    if record["runs"]["headline"]["overrides"] != HEADLINE:
+        raise AssertionError(
+            f"the gate's headline ran {record['runs']['headline']['overrides']}"
+            f", this script's headline is {HEADLINE}")
+    train, test = synthetic_click_dataset(**want)
+    out = {"jax_version": record["jax_version"],
+           "data": parity.check_data(record, train, test),
+           "config0": parity.gate(record, "config0", final, parity.CONFIG0_BAND),
+           "headline": parity.gate(record, "headline", head_final,
+                                   parity.HEADLINE_BAND)}
+    for run in ("config0", "headline"):
+        print(f"gate, {run} against the JAX package (jax "
+              f"{record['jax_version']}, CPU): {json.dumps(out[run])}")
+    return out, (train, test)
+
+
+def _snapshot(engine) -> dict:
+    """Clones of everything a resume must give back: the state's tensors,
+    the sampler's, the generator's state and the numpy generator's."""
+    import dataclasses
+
+    st, ss = engine.state, engine.sampler_state
+    out = {}
+    for f in dataclasses.fields(st):
+        value = getattr(st, f.name)
+        if isinstance(value, dict):
+            out.update({f"{f.name}.{k}": v.clone() for k, v in value.items()})
+        elif value is not None:
+            out[f.name] = value.clone()
+    out["iterations"] = ss.iterations.clone()
+    if ss.tile is not None:
+        out["tile"] = ss.tile.clone()
+    out["generator"] = engine.generator.get_state()
+    out["np_rng"] = engine._np_rng.bit_generator.state
+    return out
+
+
+def _same(a: dict, b: dict, what: str) -> None:
+    import torch
+
+    for key in a:
+        equal = (a[key] == b[key]) if key == "np_rng" else torch.equal(a[key], b[key])
+        if not equal:
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def check_resume_distinct(dev) -> dict:
+    """A resumed run on the card, bit for bit, where the step is
+    deterministic (48 clicks that repeat no id, config0's and the default
+    shape's configurations): two replayed epochs with a checkpoint after
+    the first, against a fresh engine restored from it that replays the
+    second (its first epoch after the restore, capture included); and the
+    first engine restored from the same checkpoint after its captures,
+    which drops them, replaying the second epoch again. Losses, every state
+    tensor, the sampler's and both generators' states are equal."""
+    import torch
+
+    from heat_tpu_torch.checkpoint import CheckpointManager
+    from heat_tpu_torch.config import load_config
+    from heat_tpu_torch.testing import distinct_id_dataset
+    from heat_tpu_torch.train.engine import Engine
+
+    distinct = distinct_id_dataset(DISTINCT_CLICKS, DISTINCT_ITEMS, MAX_HIS)
+    out = {}
+    for what, sets in (("config0", []), ("default shape", DEFAULT_SHAPE)):
+        small = {**overrides_of(sets), **DISTINCT_SETS}
+        if small.get("neg_sampler") == 1:
+            small.update(DISTINCT_TILE_SETS)
+
+        def make(small=small):
+            return Engine(load_config(CONFIG0, **small)[0], distinct, device=dev)
+
+        mgr = CheckpointManager(str(fresh_dir(f"distinct_{len(sets)}")))
+        full = make()
+        full.train_one_epoch()
+        mgr.save(full)
+        loss_full = full.train_one_epoch()
+        want = _snapshot(full)
+        resumed = make()
+        if mgr.restore_latest(resumed) != 1:
+            raise AssertionError(f"{what}: the checkpoint of epoch 1 is not the newest")
+        loss_resumed = resumed.train_one_epoch()
+        _same(want, _snapshot(resumed), f"{what} on distinct clicks, resumed")
+        captures_before = full._epoch_fns[True].captures
+        mgr.restore_latest(full)
+        if full._epoch_fns:
+            raise AssertionError(f"{what}: a restore kept the captures")
+        loss_again = full.train_one_epoch()
+        _same(want, _snapshot(full), f"{what} on distinct clicks, restored "
+              f"after its captures")
+        if not loss_full == loss_resumed == loss_again:
+            raise AssertionError(
+                f"{what}: losses {loss_full} / {loss_resumed} / {loss_again}")
+        captures = resumed._epoch_fns[True].captures
+        print(f"resume on {DISTINCT_CLICKS} clicks that repeat no id, {what}: "
+              f"bit-equal (fresh engine: {captures} capture; the same engine "
+              f"after {captures_before} capture(s), restored: "
+              f"{full._epoch_fns[True].captures} new)")
+        out[what] = {"loss": loss_full, "captures_resumed": captures}
+        del full, resumed
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_resume_cli(dev, cli, args) -> dict:
+    """Checkpoint and resume through the CLI at full width, config0 and the
+    default shape: three uninterrupted 5-epoch runs with
+    ``--checkpoint-dir`` (the spread) and a run of RESUME_AT epochs resumed
+    to 5 with the same directory, each step's draws fingerprinted and its
+    loss recorded (``StepRecorder``). The draws, ``step``, ``iterations``,
+    the tile and both generators' final states equal the first
+    uninterrupted run's exactly. The tables, ``w0`` (the final checkpoints)
+    and the step losses lie within twice the spread by root mean square
+    (``check_replayed_against_eager``'s measure: K3's atomics add in no
+    fixed order), equal where that spread is 0: the spread pools the three
+    pairs of uninterrupted runs, the resumed run's difference its three
+    pairs with them (how far two runs drift apart is itself a random
+    amount, and one pair on each side reads it badly). Each run's epoch
+    losses are its own steps' loss sums over the training pairs, to within
+    f32 summation (the resumed epochs count each step once); they are
+    reported beside their spread, not bounded by it: five numbers, each the
+    mean of some 232 step losses, say nothing the step losses do not and
+    are the noisiest reading of them."""
+    import torch
+
+    from heat_tpu_torch.testing import StepRecorder
+    from heat_tpu_torch.train.engine import Engine
+
+    uninterrupted = ("whole", "again", "again2")
+    out = {}
+    for what, sets in (("config0", []), ("default shape", DEFAULT_SHAPE)):
+        flags = [x for kv in sets for x in ("--set", kv)]
+        subs = 2 if "num_subepochs=2" in sets else 1
+        tile = TILE if "neg_sampler=1" in sets else 0
+        runs = {}
+        plan = [(name, [[]]) for name in uninterrupted] + [
+            ("resumed", [["--epochs", str(RESUME_AT)], []])]
+        for name, legs in plan:
+            ck = fresh_dir(f"cli_{len(sets)}_{name}")
+            prints, step_losses, losses, seconds, epochs = [], [], [], [], []
+            sizes = []
+            for i, leg in enumerate(legs):
+                rec = StepRecorder(5 * (-(-1895148 // BATCH) + subs - 1),
+                                   BATCH, NUM_NEGS, tile, dev, False)
+                epoch, ends = Engine._epoch, []
+
+                def counted(self, capture, epoch=epoch, rec=rec, ends=ends):
+                    # The steps recorded so far, read in stream order.
+                    loss_sum = epoch(self, capture)
+                    ends.append(rec.count.clone())
+                    sizes.append(self.cfg.train_size)
+                    return loss_sum
+
+                Engine._epoch = counted
+                try:
+                    with rec:
+                        record, text = run_cli(cli, args + flags + leg
+                                               + ["--checkpoint-dir", str(ck)])
+                finally:
+                    Engine._epoch = epoch
+                resumed_line = f"resumed from epoch {RESUME_AT}"
+                if (resumed_line in text.splitlines()) != (i == 1):
+                    raise AssertionError(f"{what} {name}: leg {i} printed "
+                                         f"{text.splitlines()[:2]}")
+                n = int(rec.count)
+                fp, sl = rec.records()
+                prints.append(fp[:n])
+                step_losses.append(sl[:n])
+                ends = [0] + [int(e) for e in ends]
+                if ends[-1] != n:
+                    raise AssertionError(f"{what} {name}: leg {i} counted "
+                                         f"{n} steps, its epochs {ends}")
+                epochs += [sl[lo:hi].double() for lo, hi in zip(ends, ends[1:])]
+                losses += record["losses"]
+                seconds += record["epoch_times"]
+            ckpt = torch.load(ck / "ckpt_5.pt", weights_only=True,
+                              map_location=dev)
+            check_epoch_sums(f"{what} {name}", losses, epochs, sizes)
+            runs[name] = {"prints": torch.cat(prints),
+                          "step_losses": torch.cat(step_losses),
+                          "epoch_losses": torch.tensor(losses, dtype=torch.float64),
+                          "ckpt": ckpt, "recall": record["final_metrics"]["Recall(k=20)"],
+                          "epoch_s": seconds}
+        whole = runs["whole"]
+        for name in ("again", "again2", "resumed"):
+            run = runs[name]
+            if not torch.equal(run["prints"], whole["prints"]):
+                raise AssertionError(f"{what} {name}: the draws differ "
+                                     f"({run['prints'].shape[0]} steps against "
+                                     f"{whole['prints'].shape[0]})")
+            a, b = whole["ckpt"], run["ckpt"]
+            exact = {"step": (a["state"]["step"], b["state"]["step"]),
+                     "iterations": (a["sampler"]["iterations"],
+                                    b["sampler"]["iterations"]),
+                     "generator": (a["generator"]["state"], b["generator"]["state"])}
+            if a["sampler"]["tile"] is not None:
+                exact["tile"] = (a["sampler"]["tile"], b["sampler"]["tile"])
+            for key, (x, y) in exact.items():
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{what} {name}: {key} differs")
+            if a["np_rng"] != b["np_rng"] or not a["epoch"] == b["epoch"] == 5:
+                raise AssertionError(f"{what} {name}: numpy generator or epoch")
+        res = {"steps": int(whole["prints"].shape[0]),
+               "recall": {k: r["recall"] for k, r in runs.items()},
+               "epoch_losses_by_run": {k: r["epoch_losses"].tolist()
+                                       for k, r in runs.items()},
+               "epoch_s": {k: r["epoch_s"] for k, r in runs.items()}}
+        for key in ("user_emb", "item_emb", "w0", "step_losses", "epoch_losses"):
+            def value(name, key=key):
+                run = runs[name]
+                return run[key] if key.endswith("losses") else run["ckpt"]["state"][key]
+
+            spread, spread_max = pooled_rms_diff(
+                [(value(x), value(y)) for x, y in
+                 itertools.combinations(uninterrupted, 2)])
+            diff, diff_max = pooled_rms_diff(
+                [(value("resumed"), value(x)) for x in uninterrupted])
+            res[key] = {"spread_rms": spread, "resumed_rms": diff,
+                        "spread_max": spread_max, "resumed_max": diff_max}
+            if key != "epoch_losses" and diff > 2 * spread:
+                raise AssertionError(
+                    f"{what}: the resumed {key} is off the uninterrupted runs' "
+                    f"by {diff} (rms over three pairs), more than twice their "
+                    f"spread {spread}")
+        print(f"resume through the CLI, {what}: {RESUME_AT} epochs then 5 "
+              f"against 5: draws equal over {res['steps']} steps, step, "
+              f"iterations and generators equal; {json.dumps(res)}")
+        out[what] = res
+    torch.cuda.empty_cache()
+    return out
+
+
+def pooled_rms_diff(pairs) -> tuple[float, float]:
+    """(root-mean-square, max) of a - b over the elements of all pairs
+    (``rms_diff`` pooled, each pair of the same size)."""
+    diffs = [rms_diff(a, b) for a, b in pairs]
+    return (math.sqrt(sum(r * r for r, _ in diffs) / len(diffs)),
+            max(m for _, m in diffs))
+
+
+def check_epoch_sums(what, losses, epochs, sizes) -> None:
+    """Each epoch loss the CLI printed is its steps' f32 loss sums added in
+    f32 over the epoch's training pairs (``sizes``): within the bound of f32
+    summation, n + 2 units of 2**-24 of the sum of the n step losses (and
+    the sub-epochs' partial sums) from their exact f64 sum."""
+    if not len(epochs) == len(sizes) == len(losses):
+        raise AssertionError(f"{what}: {len(losses)} epoch losses, "
+                             f"{len(epochs)} epochs of steps")
+    for e, (loss, steps, train_size) in enumerate(zip(losses, epochs, sizes)):
+        exact = float(steps.sum())
+        bound = (steps.numel() + 2) * 2.0 ** -24 * float(steps.abs().sum())
+        if not steps.numel() or abs(loss * train_size - exact) > bound:
+            raise AssertionError(
+                f"{what}: epoch {e} loss {loss} is not its {steps.numel()} "
+                f"steps' sum {exact} over {train_size} (bound {bound})")
+
+
+def check_profile_dir(cli, args) -> dict:
+    """``--profile-dir`` on config0 over two epochs: one trace file of the
+    second epoch, whose device events name the port's kernels (replayed
+    steps: the graph's kernels) at least once a step for K1, K2 multi and
+    S1, twice for K3."""
+    from collections import Counter
+
+    from heat_tpu_torch import bench_large
+
+    out_dir = fresh_dir("trace")
+    t0 = time.perf_counter()
+    record = cli.main(args + ["--epochs", "2", "--profile-dir", str(out_dir)])
+    wall = time.perf_counter() - t0
+    traces = sorted(out_dir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--profile-dir wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    port = Counter(f for f in map(bench_large.kernel_family, kernels) if f)
+    steps = -(-1895148 // BATCH)
+    want = {"K1": steps, "K2_multi": steps, "K3": 2 * steps, "S1": steps}
+    short = {k: port[k] for k, n in want.items() if port[k] < n}
+    if short:
+        raise AssertionError(
+            f"the trace of a replayed config0 epoch holds too few of the "
+            f"port's kernels: {short} (want {want}; {dict(port)})")
+    res = {"trace_bytes": traces[0].stat().st_size, "kernel_events": len(kernels),
+           "port_kernels": dict(port), "epoch_s": record["epoch_times"],
+           "run_s": wall}
+    print(f"--profile-dir: {json.dumps(res)}")
+    return res
+
+
+def check_breakdown(dev, cli, args, train, test) -> dict:
+    """``--breakdown`` on config0's run: the phases ``data``, ``f_b`` and
+    ``eval``, their sum within PHASE_SUM_BAND of the run's wall (its
+    epochs' and evaluations' seconds, as the CLI times them). Then, one
+    engine each of config0 and the default shape, after the capture,
+    SYNC_PAIRS pairs of replayed epochs with the phases' syncs and without
+    (``Engine.sync_phases``), alternated: the syncs' cost is the fastest
+    epoch with them over the fastest without, less 1 (the host's noise only
+    adds time, and the fastest of SYNC_PAIRS epochs is the least noisy
+    reading; the median of the pairs' differences is reported beside it),
+    at most SYNC_COST."""
+    import torch
+
+    from heat_tpu_torch.config import load_config
+    from heat_tpu_torch.train.engine import Engine
+
+    record, text = run_cli(cli, args + ["--breakdown"])
+    lines = text.splitlines()
+    at = next(i for i, ln in enumerate(lines) if ln.startswith("total: "))
+    phases = {}
+    for ln in lines[at + 1:]:
+        name, _, rest = ln.strip().partition(": ")
+        if name not in ("data", "f_b", "eval"):
+            break
+        phases[name] = float(rest.split("s")[0])
+    wall = (sum(record["epoch_times"]) + sum(e["seconds"] for e in record["evals"])
+            + record["final_eval_s"])
+    total = sum(phases.values())
+    if set(phases) != {"data", "f_b", "eval"} or not (
+            abs(total - wall) <= PHASE_SUM_BAND * wall):
+        raise AssertionError(f"--breakdown: phases {phases} (sum {total} s) "
+                             f"against the run's {wall} s")
+    out = {"phases_s": phases, "phases_sum_s": total, "run_wall_s": wall}
+    for what, sets in (("config0", []), ("default shape", DEFAULT_SHAPE)):
+        engine = Engine(load_config(CONFIG0, **overrides_of(sets))[0], train,
+                        test, device=dev)
+        engine.train_one_epoch()  # the capture
+        pairs = []
+        for i in range(SYNC_PAIRS):
+            times = {}
+            for sync in ((True, False) if i % 2 == 0 else (False, True)):
+                engine.sync_phases = sync
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                engine.train_one_epoch()
+                times[sync] = time.perf_counter() - t0
+            pairs.append(times)
+        with_s, without_s = ([p[k] for p in pairs] for k in (True, False))
+        cost = min(with_s) / min(without_s) - 1.0
+        out[what] = {"with_syncs_s": with_s, "without_s": without_s,
+                     "cost": cost, "median_paired_cost": statistics.median(
+                         (p[True] - p[False]) / p[False] for p in pairs)}
+        if not cost <= SYNC_COST:
+            raise AssertionError(
+                f"{what}: the phase timer's syncs cost {cost:.4f} of an epoch "
+                f"(fastest of {SYNC_PAIRS} against fastest of {SYNC_PAIRS}), "
+                f"more than {SYNC_COST}")
+        del engine
+    print(f"--breakdown: {json.dumps(out)}")
+    return out
+
+
+def time_checkpoint(engine, name: str) -> dict:
+    """The host's seconds to save ``engine``'s checkpoint and to restore it
+    into the same engine, with the file's bytes; not measured (and said so)
+    where the disk holds less than twice the state."""
+    import shutil
+
+    import torch
+
+    from heat_tpu_torch.checkpoint import CheckpointManager
+
+    d = fresh_dir(name)
+    d.mkdir()
+    st = engine.state
+    held = sum(t.numel() * t.element_size() for t in (
+        st.user_emb, st.item_emb, st.w0))
+    free = shutil.disk_usage(d).free
+    if free < 2 * held:
+        return {"not_measured": f"{free} bytes free for a {held}-byte state"}
+    before = float(st.user_emb[:4096].float().sum())
+    mgr = CheckpointManager(str(d))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(engine)
+    save_s = time.perf_counter() - t0
+    size = sum(p.stat().st_size for p in d.iterdir())
+    st.user_emb[:4096].zero_()
+    t0 = time.perf_counter()
+    mgr.restore_latest(engine)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if float(st.user_emb[:4096].float().sum()) != before:
+        raise AssertionError(f"{name}: the restored table differs")
+    shutil.rmtree(d)
+    return {"save_s": save_s, "restore_s": restore_s, "file_bytes": size,
+            "state_bytes": held}
+
+
+def check_native(train, test) -> dict:
+    """The native host helpers on the card's machine: built from the
+    repository's sources into build/ (timed apart when this call builds
+    them, ``build_s``), the click parser on the full
+    synthetic train split written as a text file (under build/) and the hit
+    matrix of a (52,643, 50) ranking against the test split, each equal to
+    its numpy path and timed beside it; ``ClickDataset.from_file`` must take
+    the native path (``native.PATHS``), not the fallback."""
+    import numpy as np
+
+    from heat_tpu_torch import native
+    from heat_tpu_torch.data.datasets import ClickDataset, _parse_lines_numpy
+    from heat_tpu_torch.evaluation import metrics
+
+    path = fresh_dir("clicks_train.txt")
+    with open(path, "w") as f:
+        for u, items in enumerate(train.user_items):
+            f.write(" ".join(map(str, [u, *items.tolist()])) + "\n")
+    built = not native._SO.exists()
+    t0 = time.perf_counter()
+    native._lib()  # builds here when build/ holds no library yet
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = native.parse_click_file(str(path))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = _parse_lines_numpy(str(path), " ")
+    numpy_s = time.perf_counter() - t0
+    if len(got) != len(want) or not all(
+            np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("the native parser differs from the numpy parser")
+    ds = ClickDataset.from_file(str(path), max_his=MAX_HIS, seed=2022)
+    if native.PATHS.get("parse_click_file") != "native":
+        raise AssertionError(f"from_file took the numpy path: {native.BUILD_ERROR}")
+    if not np.array_equal(ds.pairs, train.pairs):
+        raise AssertionError("from_file's pairs differ from the data written")
+    top = np.random.default_rng(0).integers(
+        0, NUM_ITEMS, (NUM_USERS, 50)).astype(np.int32)
+    t0 = time.perf_counter()
+    hits = metrics._hits_matrix(top, test.user_items)
+    hits_native_s = time.perf_counter() - t0
+    if native.PATHS.get("hits_matrix") != "native":
+        raise AssertionError(f"the hit matrix took the numpy path: {native.BUILD_ERROR}")
+    kernel = native.hits_matrix
+    native.hits_matrix = None  # the fallback, for its time
+    try:
+        t0 = time.perf_counter()
+        plain = metrics._hits_matrix(top, test.user_items)
+        hits_numpy_s = time.perf_counter() - t0
+    finally:
+        native.hits_matrix = kernel
+    if not np.array_equal(hits, plain):
+        raise AssertionError("the native hit matrix differs from numpy's")
+    out = {"build_s": build_s if built else None,
+           "file_bytes": path.stat().st_size, "users": len(got),
+           "pairs": int(ds.pairs.shape[0]), "parse_native_s": native_s,
+           "parse_numpy_s": numpy_s, "hits_native_s": hits_native_s,
+           "hits_numpy_s": hits_numpy_s, "hits": int(hits.sum()),
+           "library": str(native._SO.relative_to(Path(__file__).resolve().parent))}
+    print(f"native helpers: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2982,12 +3526,23 @@ def main() -> int:
             f"headline Recall@20 {head_final['Recall(k=20)']} is not within "
             f"{RECALL_BAND} of config0's {final['Recall(k=20)']}"
         )
+    gate, (gate_train, gate_test) = check_gate(final, head_final)
 
     replay = check_replay(dev)
     subepochs = check_subepochs(dev, cli, reset, read, final["Recall(k=20)"],
                                 check_run)
     attention = check_attention(dev, cli, reset, read, final["Recall(k=20)"],
                                 check_run)
+    lifecycle = {
+        "gate": gate,
+        "resume_distinct": check_resume_distinct(dev),
+        "resume_cli": check_resume_cli(dev, cli, args),
+        "profile_dir": check_profile_dir(cli, args),
+        "breakdown": check_breakdown(dev, cli, args, gate_train, gate_test),
+        "native": check_native(gate_train, gate_test),
+        "checkpoint_16m_6m": replay["dedup_16m_6m"]["checkpoint"],
+    }
+    del gate_train, gate_test
 
     reset()
     serving = check_serving(dev, final["Recall(k=20)"])
@@ -3090,6 +3645,8 @@ def main() -> int:
         "huge_16m_6m_user_attention": {k: huge_attn[k] for k in huge_attn_keys},
         "headline_epoch_s": head["epoch_times"],
         "config0_epoch_s": record["epoch_times"]}}))
+    print(f"card for the line above: {card}")
+    print(json.dumps({"lifecycle": lifecycle}))
     print(f"card for the line above: {card}")
     step = check_huge_step(dev)
     if min(step["launches"][name] for name in

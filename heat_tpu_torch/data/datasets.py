@@ -2,8 +2,9 @@
 
 A copy of ``heat_tpu/data/datasets.py`` (that package cannot be imported
 without jax, see ``heat_tpu/__init__.py``), kept verbatim apart from its
-imports and one cut: only the pure-Python parser is carried over; the
-native OpenMP parser of ``heat_tpu/native`` is not ported yet.
+imports: the native OpenMP parser is the port's copy,
+``heat_tpu_torch.native``, and ``from_file`` records the path it took in
+``heat_tpu_torch.native.PATHS``.
 
 TPU-native counterpart of the reference data frontend (cf/datasets.py:14-216):
 
@@ -34,6 +35,8 @@ import os
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from heat_tpu_torch import native
 
 
 def _parse_lines_numpy(path: str, separator: str = " ") -> List[np.ndarray]:
@@ -167,10 +170,20 @@ class ClickDataset:
         separator: str = " ",
         num_items: Optional[int] = None,
         seed: Optional[int] = None,
+        use_native: bool = True,
     ) -> "ClickDataset":
-        """Parse a click text file (pure-Python parser) into a packed
-        dataset."""
-        user_items = _parse_lines_numpy(path, separator)
+        """Parse a click text file (native OpenMP fast path with a pure-
+        Python fallback) into a packed dataset."""
+        user_items: Optional[List[np.ndarray]] = None
+        if use_native:
+            try:
+                user_items = native.parse_click_file(path, separator)
+                native.PATHS["parse_click_file"] = "native"
+            except Exception:
+                user_items = None  # toolchain missing: python fallback
+        if user_items is None:
+            user_items = _parse_lines_numpy(path, separator)
+            native.PATHS["parse_click_file"] = "numpy"
         return cls.from_user_items(
             user_items, max_his, num_items=num_items, seed=seed
         )

@@ -1,9 +1,9 @@
 """Ranking-quality metrics.
 
 The host formulas below are a copy of ``heat_tpu/evaluation/metrics.py``
-(that package cannot be imported without jax), verbatim apart from the
-native hits kernel, which is not ported (``evaluate_sim_matrix``, the
-dense host oracle, included). ``evaluate_metrics_device`` is
+(that package cannot be imported without jax), verbatim apart from their
+imports (``evaluate_sim_matrix``, the dense host oracle, included); the
+native hits kernel is the port's copy, ``heat_tpu_torch.native``. ``evaluate_metrics_device`` is
 the torch counterpart of the JAX on-device metrics: the same formulas on
 the engine's device, so only len(metrics) scalars reach the host.
 
@@ -33,6 +33,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from heat_tpu_torch import native
 
 _METRIC_RE = re.compile(r"^(\w+)\(k=(\d+)\)$")
 
@@ -118,9 +120,18 @@ _METRIC_FNS: dict[str, Callable] = {
 def _hits_matrix(
     top_k_items: np.ndarray, true_items: Sequence[Sequence[int]]
 ) -> np.ndarray:
-    """(U, k) 0/1 membership of each ranked item in the user's true set
-    (numpy per-user searchsorted; the native kernel of heat_tpu/native is
-    not ported)."""
+    """(U, k) 0/1 membership of each ranked item in the user's true set.
+
+    Uses the native OpenMP kernel (heat_tpu_torch/native/metrics_kernels.cc)
+    when available; numpy per-user searchsorted is the fallback/oracle. The
+    path taken is recorded in ``heat_tpu_torch.native.PATHS``."""
+    try:
+        hits = native.hits_matrix(np.asarray(top_k_items), true_items)
+        native.PATHS["hits_matrix"] = "native"
+        return hits
+    except Exception:
+        pass
+    native.PATHS["hits_matrix"] = "numpy"
     u, k = top_k_items.shape
     hits = np.zeros((u, k), np.float64)
     for row, true in enumerate(true_items):

@@ -27,6 +27,17 @@ running past the next evaluation; ``--fused-run`` runs the whole schedule,
 its evaluations included, through ``Engine.run_epochs_with_eval``. Both
 print the same lines with per-epoch times that are chunk (or run)
 averages.
+
+The run's lifecycle, as in the JAX CLI: ``--checkpoint-dir DIR`` resumes
+from the newest checkpoint there (printing ``resumed from epoch N``) and
+saves one after every chunk, once at the end of ``--fused-run``
+(``heat_tpu_torch.checkpoint``); ``--log-file PATH`` appends the
+``epoch``, ``eval`` and ``final_eval`` events as JSON lines
+(``utils/logging.py``); ``--profile-dir DIR`` writes a ``torch.profiler``
+trace of the run's second epoch, run alone (``utils/profiling.py``; not
+with ``--fused-run``); ``--breakdown`` prints the engine's host-phase
+breakdown (``data``, ``f_b``, ``eval``) at the end; ``--no-data-cache``
+parses the click files without the ``.npz`` sidecar cache.
 """
 
 from __future__ import annotations
@@ -39,11 +50,14 @@ import time
 import torch
 import yaml
 
+from heat_tpu_torch.checkpoint import CheckpointManager
 from heat_tpu_torch.config import load_config
 from heat_tpu_torch.data.datasets import load_with_cache
 from heat_tpu_torch.data.synthetic import synthetic_click_dataset
 from heat_tpu_torch.export import export_embeddings
 from heat_tpu_torch.train.engine import Engine
+from heat_tpu_torch.utils.logging import MetricsLogger
+from heat_tpu_torch.utils.profiling import trace
 
 
 def _sync(engine: Engine) -> None:
@@ -78,12 +92,44 @@ def main(argv=None) -> dict:
         help="torch device to train and evaluate on (default: cuda)",
     )
     parser.add_argument(
+        "--checkpoint-dir",
+        type=str,
+        default=None,
+        help="resume from the newest checkpoint in this directory, and save "
+        "one after every chunk of epochs",
+    )
+    parser.add_argument(
+        "--log-file",
+        type=str,
+        default=None,
+        help="append JSONL training/eval events (loss, lr, epoch time, "
+        "metrics)",
+    )
+    parser.add_argument(
+        "--profile-dir",
+        type=str,
+        default=None,
+        help="write a torch.profiler trace of the run's second epoch into "
+        "this dir (a Chrome trace, for TensorBoard or Perfetto)",
+    )
+    parser.add_argument(
         "--export-embeddings",
         type=str,
         default=None,
         metavar="PATH",
         help="after the run, write the trained tables and w0 to PATH as a "
         "portable f32 .npz (heat_tpu_torch.export)",
+    )
+    parser.add_argument(
+        "--breakdown",
+        action="store_true",
+        help="print the host-phase performance breakdown at the end "
+        "(the reference Engine::performance_breakdown)",
+    )
+    parser.add_argument(
+        "--no-data-cache",
+        action="store_true",
+        help="disable the .npz sidecar cache of parsed click files",
     )
     parser.add_argument(
         "--fused-epochs",
@@ -99,7 +145,8 @@ def main(argv=None) -> dict:
         action="store_true",
         help="run the whole schedule, its periodic evaluations included, "
         "through Engine.run_epochs_with_eval; per-epoch times become the "
-        "run's average (evaluations included)",
+        "run's average (evaluations included). Incompatible with "
+        "--profile-dir; checkpoints are written once at the end",
     )
     parser.add_argument(
         "--set",
@@ -111,6 +158,8 @@ def main(argv=None) -> dict:
         "e.g. --set learning_rate=0.005",
     )
     args = parser.parse_args(argv)
+    if args.fused_run and args.profile_dir:
+        parser.error("--fused-run is incompatible with --profile-dir")
 
     overrides = {}
     for item in args.overrides:
@@ -142,7 +191,7 @@ def main(argv=None) -> dict:
             )
         train_data = load_with_cache(
             train_path, max_his=cfg.max_his, separator=ds_cfg.separator,
-            seed=cfg.seed,
+            seed=cfg.seed, cache=not args.no_data_cache,
         )
         test_data = load_with_cache(
             test_path,
@@ -150,13 +199,27 @@ def main(argv=None) -> dict:
             separator=ds_cfg.separator,
             num_items=train_data.num_items,
             seed=cfg.seed,
+            cache=not args.no_data_cache,
         )
 
     engine = Engine(cfg, train_data, test_data, device=args.device)
+    ckpt = None
+    if args.checkpoint_dir:
+        ckpt = CheckpointManager(args.checkpoint_dir)
+        if ckpt.restore_latest(engine) is not None:
+            print(f"resumed from epoch {engine.epoch}")
+    mlog = MetricsLogger(args.log_file)
+    # Trace the second epoch of this run, so that the first absorbs the
+    # capture (the first, capture included, for a one-epoch run).
+    profile_epoch = None
+    if args.profile_dir:
+        profile_epoch = min(engine.epoch + 1, cfg.epochs - 1)
     record = {"losses": [], "epoch_times": [], "evals": []}
 
     def report(epoch: int, loss: float, dt: float) -> None:
         print(f"epoch: {epoch}; loss: {loss:.6f}; epoch_time: {dt:.3f}s")
+        mlog.log("epoch", epoch=epoch, loss=loss,
+                 lr=float(engine.state.lr), epoch_time_s=dt)
         record["losses"].append(loss)
         record["epoch_times"].append(dt)
 
@@ -168,6 +231,7 @@ def main(argv=None) -> dict:
             "[Metrics] "
             + " - ".join(f"{k}: {v:.6f}" for k, v in metrics.items())
         )
+        mlog.log("eval", epoch=epoch, **metrics)
 
     if args.fused_run:
         _sync(engine)
@@ -183,20 +247,31 @@ def main(argv=None) -> dict:
                 if ev["epoch"] == start + i:  # timed inside the run's average
                     report_eval(ev["epoch"], {k: v for k, v in ev.items()
                                               if k != "epoch"}, None)
+        if ckpt is not None:
+            ckpt.save(engine)
     fused = max(1, args.fused_epochs)
     while engine.epoch < cfg.epochs:
         start = engine.epoch
-        # A chunk ends at the end of training and at the next epoch after
-        # which the reference evaluates (e % eval_interval == 0, e > 0):
-        # it may run through that epoch but not past it.
+        # A chunk ends at the end of training, at the next epoch after
+        # which the reference evaluates (e % eval_interval == 0, e > 0),
+        # which it may run through but not past, and at the traced epoch,
+        # which runs alone.
         next_eval = -(-max(start, 1) // cfg.eval_interval) * cfg.eval_interval
         n = min(fused, cfg.epochs - start, next_eval - start + 1)
+        if profile_epoch is not None and start <= profile_epoch < start + n:
+            n = 1 if start == profile_epoch else profile_epoch - start
         _sync(engine)
         t0 = time.perf_counter()
-        losses = engine.train_epochs(n)  # reads the losses: waits for the device
+        if n == 1 and start == profile_epoch:
+            with trace(args.profile_dir):
+                losses = engine.train_epochs(1)
+        else:
+            losses = engine.train_epochs(n)  # reads the losses: waits
         dt = (time.perf_counter() - t0) / n
         for i, loss in enumerate(losses):
             report(start + i, loss, dt)
+        if ckpt is not None:
+            ckpt.save(engine)
         epoch = engine.epoch - 1
         if epoch > 0 and epoch % cfg.eval_interval == 0:
             t0 = time.perf_counter()
@@ -207,6 +282,8 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     metrics = engine.evaluate()
     record["final_eval_s"] = time.perf_counter() - t0
+    mlog.log("final_eval", epoch=cfg.epochs, **metrics)
+    mlog.close()
     record["final_metrics"] = metrics
     record["steps"] = int(engine.state.step)
     if args.export_embeddings:
@@ -214,6 +291,8 @@ def main(argv=None) -> dict:
             engine.unpadded_state(), args.export_embeddings, cfg=cfg
         )
         print(f"exported embeddings to {args.export_embeddings}")
+    if args.breakdown:
+        print(engine.performance_breakdown())
     print(json.dumps({"final_metrics": metrics}))
     return record
 

@@ -60,6 +60,18 @@ once per distinct user (the mean by K1; the attention kinds read the
 distinct users' history rows and pool them inside the loss). The maps are
 computed on the host once per stream and cached.
 
+The host-visible phases (``Engine.timer``, ``performance_breakdown``, the
+JAX engine's): ``data`` (the shuffle and packing, the dedup maps; under
+sub-epochs the partition and the grouping), ``f_b`` (the pool refresh and
+the steps; under sub-epochs every sub-epoch's shuffle, pool refresh and
+steps, as in the JAX engine's one program an epoch) and ``eval``. On the
+card each ends with one device sync, so it holds its device work; nothing
+syncs between the replays inside one. A checkpoint
+(``heat_tpu_torch.checkpoint``) restores into the engine's own tensors and
+drops its captures (``drop_captures``); under ``shuffle_mode: once`` the
+generator's state before the stream's draw is kept (``_once_state``), so
+that a restored engine draws the same stream (``redraw_once_stream``).
+
 Configurations outside the ported slices raise ``NotImplementedError``
 naming the ROADMAP item that will add them; nothing falls back silently.
 
@@ -72,7 +84,8 @@ take).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -103,6 +116,7 @@ from heat_tpu_torch.train.optimizer import scheduled_lr
 from heat_tpu_torch.train.run import reference_schedule
 from heat_tpu_torch.train.samplers import derive_tile_params, init_sampler_state
 from heat_tpu_torch.train.train_step import make_epoch_fn
+from heat_tpu_torch.utils.profiling import PhaseTimer, performance_breakdown
 
 
 # Chunked whole-table pooling; the implementation lives next to the pooling
@@ -230,6 +244,56 @@ class Engine:
         self._item_clicks = None
         self._bucket_bufs = None
         self._neg_pool = None
+        # The generator's state before the "once" stream was drawn: what a
+        # checkpoint keeps to draw the same stream again.
+        self._once_state = None
+        # Host-visible phase accumulation (the reference's time_map /
+        # performance_breakdown, engine.cpp:22-65, at engine granularity):
+        # "data" (shuffle, packing, partition), "f_b" (the steps), "eval".
+        # On the card each phase ends with one device sync, so that it
+        # holds its device work; sync_phases = False leaves the syncs out
+        # (the phases then time only the host's launches), which is how
+        # their cost is measured.
+        self.timer = PhaseTimer()
+        self.sync_phases = True
+
+    @contextlib.contextmanager
+    def _phase(self, name: str) -> Iterator[None]:
+        """A phase of :attr:`timer`, ended by a device sync on the card."""
+        with self.timer.phase(name):
+            yield
+            if self.sync_phases and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    def performance_breakdown(self) -> str:
+        """Percentage tree over host-visible phases (engine.cpp:22-65)."""
+        return performance_breakdown(self.timer)
+
+    def drop_captures(self) -> None:
+        """Release the captured step graphs and what is derived from the
+        draws (the cached "once" stream, the dedup maps): the next epoch
+        captures again and draws its stream from the engine's generator as
+        it then stands. A checkpoint restore calls it."""
+        for fn in self._epoch_fns.values():
+            fn._release()
+        self._epoch_fns = {}
+        self._batch_cache = None
+        self._dedup_cache = None
+
+    def _once_cached(self) -> bool:
+        """Whether the buffers hold the fixed stream of ``shuffle_mode:
+        once`` over the epoch's pairs (never under sub-epochs, whose
+        buckets are drawn anew every epoch)."""
+        cached = self._batch_cache
+        return (cached is not None and cached[0] is self.pairs
+                and self.cfg.num_subepochs <= 1)
+
+    def redraw_once_stream(self) -> None:
+        """Draw the "once" stream from the generator as it stands and cache
+        it (a checkpoint restore sets the generator to the state the
+        stream was first drawn from)."""
+        self._batch_cache = None
+        self._make_batches(self.pairs)
 
     # ------------------------------------------------------------------
     def unpadded_state(self) -> TrainState:
@@ -288,6 +352,8 @@ class Engine:
         if mode == "none":
             idx = torch.arange(n, dtype=torch.int32, device=self.device)
         else:
+            if mode == "once":
+                self._once_state = self.generator.get_state()
             idx = torch.randperm(
                 n, generator=self.generator, device=self.device,
                 dtype=torch.int32,
@@ -433,12 +499,14 @@ class Engine:
         The history dedup applies only to an unpartitioned epoch."""
         if int(pairs.shape[0]) == 0:
             return torch.zeros((), dtype=torch.float32, device=self.device)
-        users, _, _ = self._make_batches(pairs)
-        dedup = None
-        if self.cfg.num_subepochs <= 1:
-            dedup = self._history_dedup(pairs, users)
-        return self._steps(capture, users.shape[0], dedup,
-                           (neg_candidates, None))
+        with self._phase("data"):
+            users, _, _ = self._make_batches(pairs)
+            dedup = None
+            if self.cfg.num_subepochs <= 1:
+                dedup = self._history_dedup(pairs, users)
+        with self._phase("f_b"):
+            return self._steps(capture, users.shape[0], dedup,
+                               (neg_candidates, None))
 
     # ------------------------------------------------------------------
     def _partition(self):
@@ -474,20 +542,22 @@ class Engine:
         and under ``subepoch_neg_scope: complement`` the permutation
         without the partition as the negative pool."""
         cfg = self.cfg
-        perm, bounds = self._partition()
-        part_of = np.empty(cfg.num_items, np.int64)
-        for s in range(cfg.num_subepochs):
-            part_of[perm[bounds[s]: bounds[s + 1]]] = s
-        pair_part = part_of[self._pairs_np[:, 1]]
+        with self._phase("data"):
+            perm, bounds = self._partition()
+            part_of = np.empty(cfg.num_items, np.int64)
+            for s in range(cfg.num_subepochs):
+                part_of[perm[bounds[s]: bounds[s + 1]]] = s
+            pair_part = part_of[self._pairs_np[:, 1]]
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for s in range(cfg.num_subepochs):
-            bucket = torch.as_tensor(self._pairs_np[pair_part == s],
-                                     device=self.device)
-            pool = None
-            if cfg.subepoch_neg_scope == "complement":
-                pool = torch.as_tensor(np.concatenate(
-                    [perm[: bounds[s]], perm[bounds[s + 1]:]]
-                ).astype(np.int32), device=self.device)
+            with self._phase("data"):
+                bucket = torch.as_tensor(self._pairs_np[pair_part == s],
+                                         device=self.device)
+                pool = None
+                if cfg.subepoch_neg_scope == "complement":
+                    pool = torch.as_tensor(np.concatenate(
+                        [perm[: bounds[s]], perm[bounds[s + 1]:]]
+                    ).astype(np.int32), device=self.device)
             total = total + self._run_pairs(bucket, capture, pool)
             if cfg.sgd_mode == SGD_MODE_ACCUM:
                 zero_grad_accumulators(self.state)
@@ -495,10 +565,11 @@ class Engine:
 
     def _bucketed_streams(self):
         """The sub-epochs of one epoch bucketed on the device (the JAX
-        package's ``make_subepoch_epoch_impl`` steps 1-4): yields
-        ``(count, neg_pool)`` for each non-empty sub-epoch in order, once
-        its batch stream is in the stream buffers and, under "complement",
-        its pool in the negative pool buffers.
+        package's ``make_subepoch_epoch_impl`` steps 1-4): the partition
+        and the grouping run at the call, which returns an iterator that
+        yields ``(count, neg_pool)`` for each non-empty sub-epoch in order,
+        once it has written its batch stream into the stream buffers and,
+        under "complement", its pool into the negative pool buffers.
 
         The permutation is drawn on the host (:meth:`_partition`) and
         uploaded once into a buffer of its own; the bucket sizes are sums
@@ -526,7 +597,7 @@ class Engine:
         counts = [int(self._item_clicks[perm[bounds[s]: bounds[s + 1]]].sum())
                   for s in range(cfg.num_subepochs)]
         if not any(counts):
-            return
+            return iter(())
         batch, rows = self._subepoch_geometry(counts)
         self._stream_buffers(rows, batch)
         n_items, n_pairs = cfg.num_items, int(self.pairs.shape[0])
@@ -547,6 +618,12 @@ class Engine:
             host = host.pin_memory()
         perm_dev.copy_(host, non_blocking=True)
         self._group_by_partition(perm_dev, bounds, counts, order)
+        return self._write_buckets(perm_dev, order, bounds, counts, batch)
+
+    def _write_buckets(self, perm_dev, order, bounds, counts, batch):
+        """The generator of :meth:`_bucketed_streams`: each non-empty
+        bucket's stream and complement, written when it is asked for."""
+        n_items = self.cfg.num_items
         start = 0
         for s, n in enumerate(counts):
             if n:
@@ -602,10 +679,16 @@ class Engine:
         the one captured step over the same buffers, on the card); under
         ``sgd_mode: accum`` the gradient rows zeroed after it."""
         total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for count, pool in self._bucketed_streams():
-            total = total + self._steps(capture, count, neg_pool=pool)
-            if self.cfg.sgd_mode == SGD_MODE_ACCUM:
-                zero_grad_accumulators(self.state)
+        # The phases of the JAX engine's one-program epoch: "data" the host's
+        # permutation and the grouping, "f_b" the sub-epochs (each bucket's
+        # shuffle and pool refresh, and its steps) with no sync between them.
+        with self._phase("data"):
+            streams = self._bucketed_streams()
+        with self._phase("f_b"):
+            for count, pool in streams:
+                total = total + self._steps(capture, count, neg_pool=pool)
+                if self.cfg.sgd_mode == SGD_MODE_ACCUM:
+                    zero_grad_accumulators(self.state)
         return total
 
     def _epoch(self, capture: bool) -> torch.Tensor:
@@ -731,9 +814,11 @@ class Engine:
             user_emb = aggregate_history(
                 user_emb, self._pooled_history(), self.state.w0, self.cfg.gamma
             )
-        self._ensure_evaluator(user_tile)
-        _, top_ids = self._evaluator.topk(user_emb, self.state.item_emb, max_k)
-        return evaluate_metrics_device(metrics, top_ids, *self._truth_dev)
+        with self._phase("eval"):
+            self._ensure_evaluator(user_tile)
+            _, top_ids = self._evaluator.topk(
+                user_emb, self.state.item_emb, max_k)
+            return evaluate_metrics_device(metrics, top_ids, *self._truth_dev)
 
     def evaluate0(self) -> np.ndarray:
         """Dense user x item dot-product matrix on the host (small problems

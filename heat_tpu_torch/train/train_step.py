@@ -62,6 +62,16 @@ the state in place (the tables, the gradient rows, the table slots, ``w0``,
 objects; nothing in it waits for the device or copies from the host. So
 one step can be captured into a CUDA graph and replayed against the same
 addresses: :func:`make_epoch_fn` runs an epoch of such replays.
+
+The step's regions carry the reference's phase names as
+``torch.profiler.record_function`` labels, the names the JAX step gives its
+``jax.named_scope`` labels: ``data`` (the draws), ``read_emb`` (the row
+reads), ``read_his`` and ``aggr_f`` (the history and its pooling), ``grad``
+(the forward and backward, with ``his_mm``, ``dot`` and ``loss`` inside),
+``write_emb`` (the table updates) and ``aggr_b`` (``w0`` and ``attn_q``).
+They run in Python: a profiler trace shows them around eager steps and the
+capture's warm-up step; a replayed step runs no Python, and its trace shows
+the graph's kernels by name without them.
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from heat_tpu_torch.config import CFConfig
 from heat_tpu_torch.models.aggregator import (
@@ -142,32 +153,35 @@ def train_step(
       Unused by the other aggregators.
     """
     users, pos, weight = batch
-    real = weight.sum().to(torch.int32)
-    sample, sampler_state = sample_negatives(
-        generator, sampler_state, pos, cfg, real=real
-    )
-    negs = sample.ids
-    b, k = negs.shape
     user_emb, item_emb, w0 = state.user_emb, state.item_emb, state.w0
     d = item_emb.shape[1]
     compute = torch_dtype(cfg.compute_dtype)
-    # Whole-tile scoring is batch-mode only: accum mode treats every
-    # updated id as touched, so folding gradients onto all T tile rows
-    # would re-apply accumulated rows that got no fresh gradient. It falls
-    # back to the gathered tile[idx] rows.
-    tiled = sample.tile is not None and state.item_gacc is None
-    tile_ids = sample.tile
-    if neg_candidates is not None:
-        size = (neg_candidates.shape[0] if neg_candidates_size is None
-                else neg_candidates_size)
-        # Remapping the tile gives the ids remapping every draw would
-        # (pool[tile % size][idx] == pool[tile[idx] % size]) at T reads.
-        if tiled:
-            tile_ids = neg_candidates.index_select(
-                0, torch.remainder(tile_ids, size))
-        else:
-            negs = neg_candidates.index_select(
-                0, torch.remainder(negs, size).view(-1)).view(b, k)
+    # The record_function labels are the reference's phase names, which the
+    # JAX step gives its jax.named_scope's (utils/profiling.py).
+    with record_function("data"):
+        real = weight.sum().to(torch.int32)
+        sample, sampler_state = sample_negatives(
+            generator, sampler_state, pos, cfg, real=real
+        )
+        negs = sample.ids
+        b, k = negs.shape
+        # Whole-tile scoring is batch-mode only: accum mode treats every
+        # updated id as touched, so folding gradients onto all T tile rows
+        # would re-apply accumulated rows that got no fresh gradient. It
+        # falls back to the gathered tile[idx] rows.
+        tiled = sample.tile is not None and state.item_gacc is None
+        tile_ids = sample.tile
+        if neg_candidates is not None:
+            size = (neg_candidates.shape[0] if neg_candidates_size is None
+                    else neg_candidates_size)
+            # Remapping the tile gives the ids remapping every draw would
+            # (pool[tile % size][idx] == pool[tile[idx] % size]) at T reads.
+            if tiled:
+                tile_ids = neg_candidates.index_select(
+                    0, torch.remainder(tile_ids, size))
+            else:
+                negs = neg_candidates.index_select(
+                    0, torch.remainder(negs, size).view(-1)).view(b, k)
 
     # One launch reads every row the step needs from the batch-start tables,
     # cast to the compute type inside the kernel.
@@ -176,12 +190,14 @@ def train_step(
         segments.append((item_emb, tile_ids))  # (T, d)
         # counts[b, t]: how many of sample b's K draws hit tile slot t.
         # Exact small integers, so the order of the adds does not matter.
-        counts = torch.zeros(
-            (b, tile_ids.shape[0]), dtype=torch.float32, device=negs.device
-        ).scatter_add_(
-            1, sample.tile_idx.long(),
-            torch.ones((b, k), dtype=torch.float32, device=negs.device),
-        )
+        with record_function("read_emb"):
+            counts = torch.zeros(
+                (b, tile_ids.shape[0]), dtype=torch.float32,
+                device=negs.device,
+            ).scatter_add_(
+                1, sample.tile_idx.long(),
+                torch.ones((b, k), dtype=torch.float32, device=negs.device),
+            )
     else:
         segments.append((item_emb, negs.reshape(-1)))
     if user_means is not None:
@@ -198,9 +214,12 @@ def train_step(
                 "per-user query is sliced from the first occurrence of the "
                 "differentiable user rows)")
         his_users = users if uniq_users is None else uniq_users
-        segments.append(
-            (item_emb, his_items.index_select(0, his_users).view(-1)))
-    u_rows, p_rows, n_rows, *extra_rows = gather_rows_multi(segments, compute)
+        with record_function("read_his"):
+            segments.append(
+                (item_emb, his_items.index_select(0, his_users).view(-1)))
+    with record_function("read_emb"):
+        u_rows, p_rows, n_rows, *extra_rows = gather_rows_multi(
+            segments, compute)
     if not tiled:
         n_rows = n_rows.view(b, k, d)
     if user_means is not None:
@@ -211,56 +230,72 @@ def train_step(
     else:
         with torch.no_grad():
             if uniq_users is not None:
-                means_u = history_mean_fused(
-                    item_emb, his_items, his_masks, compute, rows=uniq_users
-                )
-                means = gather_rows(means_u, uniq_inverse)
+                with record_function("read_his"):
+                    means_u = history_mean_fused(
+                        item_emb, his_items, his_masks, compute,
+                        rows=uniq_users,
+                    )
+                with record_function("aggr_f"):
+                    means = gather_rows(means_u, uniq_inverse)
             else:
-                means = history_mean_fused(
-                    item_emb, his_items, his_masks, compute, rows=users
-                )
+                with record_function("read_his"), record_function("aggr_f"):
+                    means = history_mean_fused(
+                        item_emb, his_items, his_masks, compute, rows=users
+                    )
 
-    u_l, p_l, n_l, w0_l = (
-        t.detach().requires_grad_() for t in (u_rows, p_rows, n_rows, w0)
-    )
-    leaves = [u_l, p_l, n_l, w0_l]
-    if attention:
-        q = None
-        if cfg.aggregator == "self_attention":
-            # The f32 query, cast to the compute type inside the loss.
-            q_l = state.attn_q.detach().requires_grad_()
-            leaves.append(q_l)
-            q = q_l.to(compute)
-        if uniq_users is None:
-            means = pool_history(his_embs, his_mask, u=u_l, attn_q=q,
-                                 kind=cfg.aggregator)
-        else:
-            u_first = (u_l.index_select(0, uniq_first)
-                       if cfg.aggregator == "user_attention" else None)
-            means = pool_history(his_embs, his_mask, u=u_first, attn_q=q,
-                                 kind=cfg.aggregator
-                                 ).index_select(0, uniq_inverse)
-    u_agg = aggregate_history(u_l, means, w0_l, cfg.gamma)
-    if tiled:
-        s_up, S = tile_scores(u_agg, p_l, n_l, similarity=cfg.similarity)
-        losses = sample_losses_weighted(s_up, S, counts, cfg.num_negs, cfg)
-    else:
-        s_up, s_un = pair_scores(u_agg, p_l, n_l, similarity=cfg.similarity)
-        losses = sample_losses(s_up, s_un, cfg)
-    loss_sum = (losses * weight).sum()
-    # The row gradients stay in the compute type: the updates widen them
-    # where they first read them (bf16 to f32 is exact).
-    g_u, g_p, g_n, g_w0, *g_q = torch.autograd.grad(loss_sum, leaves)
+    with record_function("grad"):
+        u_l, p_l, n_l, w0_l = (
+            t.detach().requires_grad_() for t in (u_rows, p_rows, n_rows, w0)
+        )
+        leaves = [u_l, p_l, n_l, w0_l]
+        if attention:
+            q = None
+            if cfg.aggregator == "self_attention":
+                # The f32 query, cast to the compute type inside the loss.
+                q_l = state.attn_q.detach().requires_grad_()
+                leaves.append(q_l)
+                q = q_l.to(compute)
+            with record_function("aggr_f"):
+                if uniq_users is None:
+                    means = pool_history(his_embs, his_mask, u=u_l,
+                                         attn_q=q, kind=cfg.aggregator)
+                else:
+                    u_first = (u_l.index_select(0, uniq_first)
+                               if cfg.aggregator == "user_attention"
+                               else None)
+                    means = pool_history(his_embs, his_mask, u=u_first,
+                                         attn_q=q, kind=cfg.aggregator
+                                         ).index_select(0, uniq_inverse)
+        with record_function("his_mm"):
+            u_agg = aggregate_history(u_l, means, w0_l, cfg.gamma)
+        with record_function("dot"):
+            if tiled:
+                s_up, S = tile_scores(u_agg, p_l, n_l,
+                                      similarity=cfg.similarity)
+            else:
+                s_up, s_un = pair_scores(u_agg, p_l, n_l,
+                                         similarity=cfg.similarity)
+        with record_function("loss"):
+            if tiled:
+                losses = sample_losses_weighted(s_up, S, counts,
+                                                cfg.num_negs, cfg)
+            else:
+                losses = sample_losses(s_up, s_un, cfg)
+            loss_sum = (losses * weight).sum()
+        # The row gradients stay in the compute type: the updates widen
+        # them where they first read them (bf16 to f32 is exact).
+        g_u, g_p, g_n, g_w0, *g_q = torch.autograd.grad(loss_sum, leaves)
     means = means.detach()
 
     if state.user_gacc is not None:
         # Accum mode: the reference's aggregator backward works on the
         # persistent user-grad row, so the w0 gradient also holds the stale
         # accumulated rows' term (f32 GEMM; the engine turns TF32 off).
-        prev_acc = gather_rows(state.user_gacc, users).float()
-        g_w0 = g_w0 + (1.0 - cfg.gamma) * (
-            (means.float() * weight[:, None]).T @ prev_acc
-        )
+        with record_function("aggr_b"):
+            prev_acc = gather_rows(state.user_gacc, users).float()
+            g_w0 = g_w0 + (1.0 - cfg.gamma) * (
+                (means.float() * weight[:, None]).T @ prev_acc
+            )
 
     num_users, num_items = user_emb.shape[0], item_emb.shape[0]
     valid = weight > 0
@@ -275,84 +310,88 @@ def train_step(
     sgd = dict(lr=state.lr, clip_val=cfg.clip_val, l2=l2)
     opt_slots = state.opt_slots
 
-    # User table: the aggregated rows replace the rows, then the update.
-    # In batch mode the write-back rides the update's own scatter; accum
-    # mode writes it first (its update reads the persistent grad rows).
-    # Every update below works in place on the state's tensors.
-    if state.user_gacc is not None:
-        scatter_set_rows(user_emb, users_w, u_agg)
-        u_writeback = None
-    else:
-        u_writeback = u_agg
-    if cfg.update_mode == "direct":
-        # Config validation guarantees batch-mode SGD here.
-        apply_row_updates_direct(
-            user_emb, users_w, g_u, rows=u_agg if l2 else None,
-            writeback=u_writeback, **sgd,
-        )
-    elif cfg.optimizer == "sgd":
-        apply_row_updates(
-            user_emb, users_w, g_u, gacc=state.user_gacc, decay=cfg.gamma,
-            writeback=u_writeback, **sgd,
-        )
-    else:
-        # The slot tables are updated in place.
-        apply_row_updates_opt(
-            user_emb, users_w, g_u, m=opt_slots.get("user_m"),
-            v=opt_slots["user_v"], writeback=u_writeback, **opt,
-        )
-
-    # Item table: positives and negatives in one deduplicated update. On
-    # the tile path g_n already is the per-tile-row gradient (T, d): the
-    # update touches B + T rows, not B * (1 + K), and each slot of the tile
-    # (repeated ids included) is one occurrence. Weight-0 samples put no
-    # gradient into the tile rows, so only their positives need the
-    # sentinel.
-    if tiled:
-        neg_ids = tile_ids
-    else:
-        neg_ids = torch.where(valid[:, None], negs, num_items).reshape(-1)
-    item_ids = torch.cat([pos_w, neg_ids])
-    item_grads = torch.cat([g_p, g_n.reshape(-1, d)])
-    del g_n  # 134 MB at B = 32,768, K = 16: freed before the update's buffers
-    if cfg.update_mode == "direct":
-        item_rows = torch.cat([p_rows, n_rows.reshape(-1, d)]) if l2 else None
-        apply_row_updates_direct(
-            item_emb, item_ids, item_grads, rows=item_rows, **sgd
-        )
-    elif cfg.optimizer == "sgd":
-        apply_row_updates(
-            item_emb, item_ids, item_grads, gacc=state.item_gacc, **sgd
-        )
-    else:
-        apply_row_updates_opt(
-            item_emb, item_ids, item_grads, m=opt_slots.get("item_m"),
-            v=opt_slots["item_v"], **opt,
-        )
-
-    # w0 (and attn_q): B / aggr_minibatch reference updates collapsed into
-    # one.
-    dense = [("w0", w0, g_w0)]
-    if g_q:
-        dense.append(("attn_q", state.attn_q, g_q[0]))
-    if cfg.optimizer == "sgd":
-        for _, param, g in dense:
-            param.sub_(state.lr * g / cfg.aggr_minibatch)
-    else:
-        # Dense moment updates are not no-ops at zero gradient (Adam
-        # decays its moments, Adagrad divides by sqrt(v)), so an
-        # all-padding batch must leave w0, attn_q and their slots untouched.
-        has_real = real > 0
-        for name, param, g in dense:
-            new, slots_new = dense_opt_update(
-                param, g / cfg.aggr_minibatch, opt_slots, name, **moments
+    with record_function("write_emb"):
+        # User table: the aggregated rows replace the rows, then the update.
+        # In batch mode the write-back rides the update's own scatter; accum
+        # mode writes it first (its update reads the persistent grad rows).
+        # Every update below works in place on the state's tensors.
+        if state.user_gacc is not None:
+            scatter_set_rows(user_emb, users_w, u_agg)
+            u_writeback = None
+        else:
+            u_writeback = u_agg
+        if cfg.update_mode == "direct":
+            # Config validation guarantees batch-mode SGD here.
+            apply_row_updates_direct(
+                user_emb, users_w, g_u, rows=u_agg if l2 else None,
+                writeback=u_writeback, **sgd,
             )
-            for key in (name + "_m", name + "_v"):
-                if key in slots_new:
-                    opt_slots[key].copy_(
-                        torch.where(has_real, slots_new[key], opt_slots[key])
-                    )
-            param.copy_(torch.where(has_real, new, param))
+        elif cfg.optimizer == "sgd":
+            apply_row_updates(
+                user_emb, users_w, g_u, gacc=state.user_gacc, decay=cfg.gamma,
+                writeback=u_writeback, **sgd,
+            )
+        else:
+            # The slot tables are updated in place.
+            apply_row_updates_opt(
+                user_emb, users_w, g_u, m=opt_slots.get("user_m"),
+                v=opt_slots["user_v"], writeback=u_writeback, **opt,
+            )
+
+        # Item table: positives and negatives in one deduplicated update.
+        # On the tile path g_n already is the per-tile-row gradient (T, d):
+        # the update touches B + T rows, not B * (1 + K), and each slot of
+        # the tile (repeated ids included) is one occurrence. Weight-0 samples put no
+        # gradient into the tile rows, so only their positives need the
+        # sentinel.
+        if tiled:
+            neg_ids = tile_ids
+        else:
+            neg_ids = torch.where(valid[:, None], negs, num_items).reshape(-1)
+        item_ids = torch.cat([pos_w, neg_ids])
+        item_grads = torch.cat([g_p, g_n.reshape(-1, d)])
+        # 134 MB at B = 32,768, K = 16: freed before the update's buffers.
+        del g_n
+        if cfg.update_mode == "direct":
+            item_rows = (torch.cat([p_rows, n_rows.reshape(-1, d)])
+                         if l2 else None)
+            apply_row_updates_direct(
+                item_emb, item_ids, item_grads, rows=item_rows, **sgd
+            )
+        elif cfg.optimizer == "sgd":
+            apply_row_updates(
+                item_emb, item_ids, item_grads, gacc=state.item_gacc, **sgd
+            )
+        else:
+            apply_row_updates_opt(
+                item_emb, item_ids, item_grads, m=opt_slots.get("item_m"),
+                v=opt_slots["item_v"], **opt,
+            )
+
+    with record_function("aggr_b"):
+        # w0 (and attn_q): B / aggr_minibatch reference updates collapsed into
+        # one.
+        dense = [("w0", w0, g_w0)]
+        if g_q:
+            dense.append(("attn_q", state.attn_q, g_q[0]))
+        if cfg.optimizer == "sgd":
+            for _, param, g in dense:
+                param.sub_(state.lr * g / cfg.aggr_minibatch)
+        else:
+            # Dense moment updates are not no-ops at zero gradient (Adam
+            # decays its moments, Adagrad divides by sqrt(v)), so an
+            # all-padding batch must leave w0, attn_q and their slots
+            # untouched.
+            has_real = real > 0
+            for name, param, g in dense:
+                new, slots_new = dense_opt_update(
+                    param, g / cfg.aggr_minibatch, opt_slots, name, **moments
+                )
+                for key in (name + "_m", name + "_v"):
+                    if key in slots_new:
+                        opt_slots[key].copy_(torch.where(
+                            has_real, slots_new[key], opt_slots[key]))
+                param.copy_(torch.where(has_real, new, param))
     return state, sampler_state, loss_sum.detach()
 
 

@@ -378,7 +378,10 @@ def test_package_imports_no_jax():
         "import sys, heat_tpu_torch, heat_tpu_torch.main, "
         "heat_tpu_torch.serving, heat_tpu_torch.export, "
         "heat_tpu_torch.ops.cuda.topk, heat_tpu_torch.bench_large, "
-        "heat_tpu_torch.profile_exact_ceiling, heat_tpu_torch.train.run; "
+        "heat_tpu_torch.profile_exact_ceiling, heat_tpu_torch.train.run, "
+        "heat_tpu_torch.checkpoint, heat_tpu_torch.utils, "
+        "heat_tpu_torch.utils.logging, heat_tpu_torch.utils.profiling, "
+        "heat_tpu_torch.native, heat_tpu_torch.parity; "
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'flax', 'heat_tpu.')) or m == 'heat_tpu']; "
         "assert not bad, bad"
