@@ -177,9 +177,30 @@ sum against the run's wall, and the cost of the phase timer's syncs,
 against numpy and timed, the native path required (``check_native``); and
 a ``{"lifecycle": ...}`` line before the kernels' line.
 
+Approximate top-k (ROADMAP item 16) and the wider gate (8b) add, in
+phase 3, K4 timed over buffers that do not fit in L2 (ROTATE_BYTES of
+scores, window ids and outputs turned over launch by launch; the replay of
+one set beside it as ``graph_ms_same_buffers``); in phase 4, after
+config0's fused runs, this slice's own main path, config0 through the CLI
+with ``--eval-approx 0.95`` (``check_eval_approx_cli``: the periodic
+evaluations with ``exact=False``, the final one without it, each through
+K4 once an eval tile, the parser's refusals of ``--eval-approx 0`` and of
+``--fused-run`` with it); after the attention phases the gate's two
+configurations no other phase trains (``check_gated_runs``: the headline
+with CosineContrastiveLoss, the default shape under complement scope),
+and every gated run (GATED_RUNS: the default shape's plain CLI run,
+config0 self-attention, accl_user_s, accl_self_s and those two) against
+its JAX twin within its band; in phase 5 ``check_approx``:
+``evaluate(exact=False)`` against ``evaluate()`` on config0's export, the
+top ids and a B = 8192 request equal, the times of both calls (whole
+evaluation, the request), and at the eval tile and at B = 8192 the
+two-phase selection timed beside one ``torch.topk`` over the masked row,
+the form ``approx_max_k`` takes off a TPU, which the port does not use.
+
 9. the kernels' JSON line (each instance with its launches on its own main
    path: f32 on config0, bf16 on the headline run, K2's single entry on
-   serving, S2 on its script), the
+   serving, S2 on its script; and ``launches_eval_approx``, on the
+   ``--eval-approx`` run), the
    card's line, and last ``{"ok": true, "device": {...}}``.
 
 Fails without a CUDA device, and outside a checkout of the repository.
@@ -254,6 +275,24 @@ ACCL_SELF = [kv for kv in HEADLINE if not kv.startswith("his_refresh=")] + [
 ACCL_SELF_GROUPED = ACCL_SELF + ["shuffle_mode=none", "visit_order=user"]
 EXPORT_SELF = EXPORT.with_name("self_attention.npz")
 DEDUP_BAND = 0.0003  # dedup against no dedup: at least this, or 2x the spread
+# The full-scale gate (heat_tpu_torch.parity): every configuration this
+# script trains through the CLI at the record's schedule (5 epochs, the
+# evaluations after epochs 2 and 4, a final exact one), by the record's
+# run name, with its overrides of config0. bench.py's ccl_s row, and the
+# default shape under complement scope.
+HEADLINE_CCL = HEADLINE + ["loss=CosineContrastiveLoss"]
+COMPLEMENT = DEFAULT_SHAPE + ["subepoch_neg_scope=complement"]
+GATED_RUNS = {
+    "config0": [], "headline": HEADLINE, "default_shape": DEFAULT_SHAPE,
+    "config0_self_attention": CONFIG0_SELF, "accl_user_s": ACCL_USER,
+    "accl_self_s": ACCL_SELF, "headline_ccl": HEADLINE_CCL,
+    "complement": COMPLEMENT,
+}
+APPROX_RECALL = 0.95  # --eval-approx, and exact=False against exact
+# K4's timed launches rotate over buffers (scores, window ids, outputs) of
+# this many bytes in all, so that no launch finds its windows in the
+# H100's 50 MB L2.
+ROTATE_BYTES = 256 << 20
 
 
 def attn_pool_chunk(his: int, elem: int = 2) -> int:
@@ -1033,11 +1072,29 @@ def check_kernels(dev) -> list[dict]:
             s1ub, s2, s2b]
 
 
+def rotating(fn, sets: int):
+    """A call that runs ``fn(i)`` for i = 0, 1, ..., sets - 1 in turn and
+    keeps its result until the turn comes round again: each launch reads
+    and writes other buffers than the launch before it."""
+    turn, held = itertools.count(), [None] * sets
+
+    def call():
+        i = next(turn) % sets
+        held[i] = fn(i)
+
+    return call
+
+
 def check_window_extract(dev) -> dict:
     """K4 at the eval tile and at the B = 8192 request, against its plain
     version: the copy is exact, so the two must be bit-equal. The library
     call is ``torch.gather`` on the (R, nw, w) view over in-range window
-    ids."""
+    ids. Every timed launch (kernel, plain version and library call) turns
+    over sets of scores, window ids and outputs of ROTATE_BYTES in all, so
+    that it reads its windows from HBM, as an eval tile does after the
+    mask pass and the window maxima have streamed the whole tile through
+    L2; ``graph_ms_same_buffers`` is the replay of one set, whose windows
+    stay in L2 (what the row read before)."""
     import torch
 
     from heat_tpu_torch.ops.cuda import topk
@@ -1065,20 +1122,32 @@ def check_window_extract(dev) -> dict:
                 f"({rows}, {I_PAD}), kw {kw}"
             )
         worst(entry, got, want)
-        view = sim.view(rows, nw, 128)
-        index = widx.clamp(0, nw - 1).long()[:, :, None].expand(-1, -1, 128)
         in_range = (widx >= 0) & (widx < nw)
         flat_windows = (torch.arange(rows, device=dev)[:, None] * nw
                         + widx)[in_range]
+        # The ids, each distinct in-range (row, window) read once, every
+        # output window written.
+        nbytes = 4 * rows * kw + (_distinct(flat_windows) + rows * kw) * 128 * 4
+        same = graph_ms(lambda: topk.window_extract(sim, widx, 128))
+        sets = max(2, -(-ROTATE_BYTES // int(nbytes)))
+        sims = [sim] + [torch.randn(rows, I_PAD, generator=g, device=dev)
+                        for _ in range(sets - 1)]
+        widxs = [widx] + [torch.randint(0, nw, (rows, kw), generator=g,
+                                        device=dev, dtype=torch.int32)
+                          for _ in range(sets - 1)]
+        views = [x.view(rows, nw, 128) for x in sims]
+        indexes = [w.clamp(0, nw - 1).long()[:, :, None].expand(-1, -1, 128)
+                   for w in widxs]
         timed(entry, key,
-              lambda: topk.window_extract(sim, widx, 128),
-              lambda: topk.window_extract_ref(sim, widx, 128),
-              lambda: torch.gather(view, 1, index),
-              # The ids, each distinct in-range (row, window) read once,
-              # every output window written.
-              nbytes=4 * rows * kw
-              + (_distinct(flat_windows) + rows * kw) * 128 * 4, nops=0)
-        del sim, got, want, view, index
+              rotating(lambda i: topk.window_extract(sims[i], widxs[i], 128), sets),
+              rotating(lambda i: topk.window_extract_ref(sims[i], widxs[i], 128), sets),
+              rotating(lambda i: torch.gather(views[i], 1, indexes[i]), sets),
+              nbytes=nbytes, nops=0)
+        entry["graph_ms_same_buffers" + key] = same
+        entry["rotated_sets" + key] = sets
+        entry["rotated_bytes" + key] = sets * nbytes
+        del sim, sims, widxs, got, want, views, indexes
+        torch.cuda.empty_cache()
     return entry
 
 
@@ -2319,6 +2388,7 @@ def check_subepochs(dev, cli, reset, read, config0_recall, check_run) -> dict:
             raise AssertionError(f"{name}: Recall@20 gap {gap} to config0")
         out["runs"][name] = {
             "epoch_times": record["epoch_times"], "recall": recall,
+            "final_metrics": record["final_metrics"],
             "gap_to_config0": gap, "steps_per_subepoch": watch.counts,
             "captures": watch.captures(), "partition_s": watch.partition_s,
             "prep_s": watch.prep_s,
@@ -2539,7 +2609,7 @@ def check_attention(dev, cli, reset, read, config0_recall, check_run) -> dict:
         recall = record["final_metrics"]["Recall(k=20)"]
         gap = recall - config0_recall
         entry = {"epoch_times": record["epoch_times"], "recall": recall,
-                 "ndcg50": record["final_metrics"]["NDCG(k=50)"],
+                 "final_metrics": record["final_metrics"],
                  "gap_to_config0": gap, "final_eval_s": record["final_eval_s"],
                  "launches": launches,
                  "captures": watch.engines[0]._epoch_fns[True].captures}
@@ -2886,16 +2956,21 @@ def fresh_dir(name: str) -> Path:
     return path
 
 
-def check_gate(final: dict, head_final: dict):
-    """The full-scale gate (ROADMAP item 8) against the JAX package's record
-    ``PARITY_TORCH.json`` (``scripts/torch_parity_gate.py``): the data this
-    script trains on (the CLI's ``--synthetic`` data, regenerated here with
-    the port's copy of the generator) has the record's pair counts and
-    SHA-256 checksums; config0's final Recall@20 and NDCG@50 lie within
-    ``parity.CONFIG0_BAND`` (the paper's 0.0003) of the JAX run's, the
-    headline's within ``parity.HEADLINE_BAND`` (RECALL_BAND's 0.0015: the
-    streams of negatives differ between the packages, so a band, not a
-    trajectory). Returns the gaps and the data (train, test)."""
+def check_gate(finals: dict, data: bool = True):
+    """The full-scale gate (ROADMAP items 8, 8b) against the JAX package's
+    record ``PARITY_TORCH.json`` (``scripts/torch_parity_gate.py``):
+    ``finals`` maps runs of the record (GATED_RUNS) to the final metrics of
+    this script's CLI run of the same configuration and schedule, whose
+    overrides must be the record's; each run's Recall@20 and NDCG@50 lie
+    within its band (``parity.BANDS``: 0.0003 on the f32 runs, 0.0015 on
+    the bf16 ones, set before their first run here; 0.0005 on the
+    collapsed complement run, less than half its JAX metrics) of the JAX
+    run's. With
+    ``data``, also the data this script trains on (the CLI's
+    ``--synthetic`` data, regenerated here with the port's copy of the
+    generator) has the record's pair counts and SHA-256 checksums, and the
+    JAX package's own spread over engine seeds is printed beside the bands.
+    Returns the gaps and, with ``data``, the data (train, test)."""
     from heat_tpu_torch import parity
     from heat_tpu_torch.data.synthetic import synthetic_click_dataset
 
@@ -2905,20 +2980,246 @@ def check_gate(final: dict, head_final: dict):
     if record["synthetic"] != want:
         raise AssertionError(f"the gate's record was made at "
                              f"{record['synthetic']}, this script trains {want}")
-    if record["runs"]["headline"]["overrides"] != HEADLINE:
-        raise AssertionError(
-            f"the gate's headline ran {record['runs']['headline']['overrides']}"
-            f", this script's headline is {HEADLINE}")
-    train, test = synthetic_click_dataset(**want)
-    out = {"jax_version": record["jax_version"],
-           "data": parity.check_data(record, train, test),
-           "config0": parity.gate(record, "config0", final, parity.CONFIG0_BAND),
-           "headline": parity.gate(record, "headline", head_final,
-                                   parity.HEADLINE_BAND)}
-    for run in ("config0", "headline"):
+    out = {"jax_version": record["jax_version"]}
+    for run, final in finals.items():
+        if record["runs"][run]["overrides"] != GATED_RUNS[run]:
+            raise AssertionError(
+                f"the gate's {run} ran {record['runs'][run]['overrides']}, "
+                f"this script's {run} is {GATED_RUNS[run]}")
+        out[run] = parity.gate(record, run, final, parity.BANDS[run])
         print(f"gate, {run} against the JAX package (jax "
               f"{record['jax_version']}, CPU): {json.dumps(out[run])}")
+    if not data:
+        return out, None
+    out["jax_seed_spread"] = record["seed_spread"]
+    print(f"gate: the JAX package's spread over engine seeds "
+          f"{json.dumps(record['seed_spread'])}; bands {json.dumps(parity.BANDS)}")
+    train, test = synthetic_click_dataset(**want)
+    out["data"] = parity.check_data(record, train, test)
     return out, (train, test)
+
+
+def check_gated_runs(cli, reset, read, check_run) -> dict:
+    """The two configurations of the gate that no other phase trains,
+    through the CLI at the record's schedule: ``headline_ccl`` (the
+    headline with CosineContrastiveLoss, bench.py's ccl_s) and
+    ``complement`` (the default shape with complement-scoped negatives),
+    each held to the run checks with the headline's bf16 kernels, K1 once
+    a pool refresh (an epoch; a sub-epoch under complement). Complement
+    scope at two sub-epochs doubles each item's negative pressure and
+    collapses (Recall@20 about 0.001 in both packages, the JAX record's
+    own finding that made global scope the default), so that run is not
+    held to learning: the gate holds it to the JAX run within
+    ``parity.COLLAPSED_BAND``, which an untrained engine's metrics (a
+    fifth of the JAX run's) fail. Returns each run's record."""
+    import torch
+
+    args = ["--config", CONFIG0, "--synthetic", SYNTHETIC, "--device", "cuda"]
+    bf16 = {"gather_rows_multi_bf16": 1, "scatter_add_update_bf16": 1,
+            "scatter_set_rows_bf16": 1,
+            "window_extract": 3 * -(-NUM_USERS // EVAL_TILE)}
+    out = {}
+    for name, sets, refreshes in (("headline_ccl", HEADLINE_CCL, 5),
+                                  ("complement", COMPLEMENT, 10)):
+        torch.cuda.empty_cache()
+        reset()
+        record = cli.main(args + [x for kv in sets for x in ("--set", kv)])
+        launches = read()
+        check_run(name, record, launches,
+                  {**bf16, "history_mean_gather_bf16": refreshes},
+                  learns=name != "complement")
+        if launches["history_mean_gather_bf16"] != refreshes:
+            raise AssertionError(
+                f"{name}: K1 launched {launches['history_mean_gather_bf16']} "
+                f"times, not {refreshes}")
+        out[name] = record
+    return out
+
+
+class EvaluateWatch:
+    """Records, while installed, the keyword arguments of every
+    ``Engine.evaluate`` call."""
+
+    def __init__(self):
+        from heat_tpu_torch.train.engine import Engine
+
+        self.cls, self.orig, self.calls = Engine, Engine.evaluate, []
+
+    def __enter__(self):
+        watch, evaluate = self, self.orig
+
+        def watched(engine, *args, **kw):
+            watch.calls.append(kw)
+            return evaluate(engine, *args, **kw)
+
+        self.cls.evaluate = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.evaluate = self.orig
+
+
+def check_eval_approx_cli(cli, args, reset, read, check_run, config0) -> dict:
+    """This slice's own main path (ROADMAP item 16): config0 through the CLI
+    with ``--eval-approx APPROX_RECALL``. Its periodic evaluations call
+    ``Engine.evaluate(exact=False, recall_target=APPROX_RECALL)``, the
+    final one passes no flag, and every evaluation selects exactly, K4
+    launched once an eval tile of each (three evaluations); the two
+    periodic ``[Metrics]`` lines are printed; the run is held to the run
+    checks and its final metrics to the JAX package's config0 (the gate's
+    band) and to RECALL_BAND of this script's config0 run. Then
+    ``--eval-approx 0`` and ``--eval-approx 0.9 --fused-run`` end in the
+    parser's error (exit code 2) before anything is built."""
+    import contextlib
+    import io
+
+    tiles = 3 * -(-NUM_USERS // EVAL_TILE)  # two periodic evals + final
+    reset()
+    with EvaluateWatch() as watch:
+        record, printed = run_cli(
+            cli, args + ["--eval-approx", str(APPROX_RECALL)])
+    launches = read()
+    check_run("config0 --eval-approx", record, launches, {
+        "gather_rows_multi": 1, "history_mean_gather": 1,
+        "scatter_add_rows": 1, "scatter_set_rows": 1, "window_extract": tiles})
+    periodic = {"exact": False, "recall_target": APPROX_RECALL}
+    if watch.calls != [periodic, periodic, {}]:
+        raise AssertionError(f"config0 --eval-approx evaluated with {watch.calls}")
+    if launches["window_extract"] != tiles:
+        raise AssertionError(
+            f"config0 --eval-approx: K4 launched {launches['window_extract']} "
+            f"times, not once an eval tile of each evaluation ({tiles})")
+    lines = [ln for ln in printed.splitlines() if ln.startswith("[Metrics]")]
+    if len(lines) != 2 or [e["epoch"] for e in record["evals"]] != [2, 4]:
+        raise AssertionError(f"config0 --eval-approx: periodic evals {lines}")
+    final = record["final_metrics"]
+    gap = final["Recall(k=20)"] - config0["final_metrics"]["Recall(k=20)"]
+    if not abs(gap) <= RECALL_BAND:
+        raise AssertionError(f"config0 --eval-approx: Recall@20 gap {gap}")
+    gate, _ = check_gate({"config0": final}, data=False)
+    refused = {}
+    for flags in (["--eval-approx", "0"],
+                  ["--eval-approx", "0.9", "--fused-run"]):
+        err = io.StringIO()
+        try:
+            with contextlib.redirect_stderr(err):
+                cli.main(args + flags)
+        except SystemExit as e:
+            refused[" ".join(flags)] = (e.code, err.getvalue().splitlines()[-1])
+        else:
+            raise AssertionError(f"{flags} ran")
+        if refused[" ".join(flags)][0] != 2:
+            raise AssertionError(f"{flags}: exit code {refused[' '.join(flags)]}")
+    print(f"config0 --eval-approx {APPROX_RECALL}: evaluate calls {watch.calls}; "
+          f"K4 launches {launches['window_extract']} ({tiles} eval tiles in "
+          f"three evaluations); "
+          f"periodic evals {[(e['epoch'], e['seconds']) for e in record['evals']]} s "
+          f"against config0's {[(e['epoch'], e['seconds']) for e in config0['evals']]} s; "
+          f"Recall@20 gap to config0 {gap:+.6f}; refused: {refused}")
+    return {"evals": record["evals"], "final_eval_s": record["final_eval_s"],
+            "epoch_times": record["epoch_times"], "gate": gate["config0"],
+            "launches": launches, "refused": refused}
+
+
+def check_approx(dev) -> dict:
+    """``exact=False`` against the exact path on the card, on one trained
+    config0 state (the CLI run's export): ``Engine.evaluate`` at
+    APPROX_RECALL with every metric within 1e-6 of the exact evaluation's,
+    the (U, 51) top ids of ``TiledEvaluator.topk`` equal up to ties, and a
+    B = 8192 ``Recommender.recommend`` equal up to ties; both take the
+    same exact selection, so a difference is a fault. Then the times of
+    both calls, alternated: the whole evaluation (wall, a sync before and
+    after) and the B = 8192 request (wall). Last, at the eval tile (512
+    users) and at B = 8192, the selection alone over the scores and packed
+    mask rows (CUDA events, ``median_ms``): ``masked_topk``, the two-phase
+    top-k both calls run, against one ``torch.topk`` over the masked row,
+    the sort-and-slice ``approx_max_k`` falls back to off a TPU; the port
+    does not use the latter, it is timed to show why."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.config import load_config
+    from heat_tpu_torch.data.synthetic import synthetic_click_dataset
+    from heat_tpu_torch.evaluation.evaluator import (
+        NEG_INF,
+        masked_topk,
+        unpack_bits,
+    )
+    from heat_tpu_torch.export import load_embeddings
+    from heat_tpu_torch.models.state import state_from_numpy
+    from heat_tpu_torch.serving import Recommender
+    from heat_tpu_torch.train.engine import Engine
+
+    cfg, _ = load_config(CONFIG0)
+    train, test = synthetic_click_dataset(
+        num_users=NUM_USERS, num_items=NUM_ITEMS, max_his=cfg.max_his,
+        seed=cfg.seed)
+    emb = load_embeddings(str(EXPORT))
+    engine = Engine(cfg, train, test, device=dev)
+    engine.state = state_from_numpy(emb["user_emb"], emb["item_emb"],
+                                    emb["w0"], lr=cfg.l_r, step=0, device=dev)
+    st = engine.state
+    exact = engine.evaluate()
+    approx = engine.evaluate(exact=False, recall_target=APPROX_RECALL)
+    worst_metric = max(abs(exact[m] - approx[m]) for m in exact)
+    if not worst_metric <= 1e-6:
+        raise AssertionError(
+            f"evaluate(exact=False) {approx} against evaluate() {exact}")
+    ev, k = engine._evaluator, EVAL_K
+    _, ids = ev.topk(st.user_emb, st.item_emb, k + 1)
+    _, aids = ev.topk(st.user_emb, st.item_emb, k + 1, exact=False,
+                      recall_target=APPROX_RECALL)
+    users = np.arange(NUM_USERS)
+    strict = same_topk(aids.cpu().numpy(), ids.cpu().numpy(),
+                       lambda x: _score_rows(st.user_emb, st.item_emb, users, x),
+                       k, "TiledEvaluator.topk exact=False vs exact")
+
+    rec = Recommender(st, cfg, seen_pairs=train.pairs)
+    uids = np.random.default_rng(5).integers(0, NUM_USERS, REQUEST_B)
+    got = rec.recommend(uids, REQUEST_K + 1, exact=False,
+                        recall_target=APPROX_RECALL)
+    same_topk(got, rec.recommend(uids, REQUEST_K + 1),
+              lambda x: _score_rows(st.user_emb, st.item_emb, uids, x),
+              REQUEST_K, f"recommend B={REQUEST_B} exact=False vs exact")
+
+    forms = {"exact": {}, "approx": {"exact": False,
+                                     "recall_target": APPROX_RECALL}}
+    times = {form: {"evaluate_s": [], "request_ms": []} for form in forms}
+    for _ in range(3):
+        for form, kw in forms.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.evaluate(**kw)
+            torch.cuda.synchronize()
+            times[form]["evaluate_s"].append(time.perf_counter() - t0)
+            times[form]["request_ms"].append(time_request(
+                lambda kw=kw: rec.recommend(uids, REQUEST_K, **kw), 5))
+    out = {"metrics_max_abs_diff": worst_metric, "strict_share": strict}
+    for form in forms:
+        out[form] = {
+            "evaluate_s": statistics.median(times[form]["evaluate_s"]),
+            "evaluate_s_all": times[form]["evaluate_s"],
+            f"request_b{REQUEST_B}_ms": statistics.median(times[form]["request_ms"]),
+        }
+    item_t = rec._item_pad.float().T
+    req = torch.as_tensor(uids, device=dev)
+    for shape, users, bits in (
+            ("eval_tile", torch.arange(EVAL_TILE, device=dev), ev.mask_bits[0]),
+            (f"b{REQUEST_B}", req, rec._bits_flat.index_select(0, req))):
+        sim = st.user_emb.index_select(0, users) @ item_t
+        out[f"select_{shape}"] = {
+            "two_phase_ms": median_ms(lambda: masked_topk(sim, bits, k)),
+            "torch_topk_ms": median_ms(lambda: torch.topk(
+                sim.masked_fill(unpack_bits(bits), NEG_INF), k, dim=1)),
+        }
+        del sim
+    print(f"exact=False vs exact on the config0 export: metrics equal within "
+          f"{worst_metric:.3g}; top-{k + 1} ids equal up to ties ({strict:.4f} of "
+          f"rows strict); B={REQUEST_B} request equal up to ties; times "
+          f"{json.dumps(out)}")
+    del engine, st, rec, item_t
+    torch.cuda.empty_cache()
+    return out
 
 
 def _snapshot(engine) -> dict:
@@ -3418,18 +3719,21 @@ def main() -> int:
     def read():
         return {name: n for d in counters for name, n in d.items()}
 
-    def check_run(what, record, launches, least):
+    def check_run(what, record, launches, least, learns=True):
         """The checks every full training run is held to: five finite
         epoch losses that fall, metrics in range, every eval tile through
         K4, and each wrapper of ``least`` launched at least that often (a
         step's wrappers launch in the capture's warm-up step and record
         their launch in the capture; the replays call none, so the
         replayed steps' kernels are counted from device traces:
-        ``check_trace``)."""
+        ``check_trace``). A run that does not learn (``learns=False``:
+        complement scope, which collapses in the JAX package too) is not
+        held to falling losses and to ten times the untrained Recall@20;
+        the gate holds it to its JAX run instead."""
         losses = record["losses"]
         if len(losses) != 5 or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{what}: expected 5 finite epoch losses, got {losses}")
-        if not losses[4] < losses[0]:
+        if learns and not losses[4] < losses[0]:
             raise AssertionError(f"{what}: loss did not fall: {losses}")
         for name, n in least.items():
             if launches[name] < n:
@@ -3440,7 +3744,7 @@ def main() -> int:
         final = record["final_metrics"]
         if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in final.values()):
             raise AssertionError(f"{what}: metrics out of range: {final}")
-        if not final["Recall(k=20)"] >= 10 * untrained["Recall(k=20)"]:
+        if learns and not final["Recall(k=20)"] >= 10 * untrained["Recall(k=20)"]:
             raise AssertionError(
                 f"{what}: Recall(k=20) {final['Recall(k=20)']} < 10 x untrained "
                 f"{untrained['Recall(k=20)']}"
@@ -3486,6 +3790,8 @@ def main() -> int:
         if not abs(gap) <= RECALL_BAND:
             raise AssertionError(f"config0 {flags}: Recall@20 gap {gap}")
         cli_runs[flags[0].lstrip("-")] = fused
+    eval_approx = check_eval_approx_cli(cli, args, reset, read, check_run, record)
+    approx_launches = eval_approx["launches"]
 
     # The headline configuration at full width: tile sampler with
     # whole-tile scoring, cached pools, bf16 tables and compute, direct.
@@ -3526,15 +3832,30 @@ def main() -> int:
             f"headline Recall@20 {head_final['Recall(k=20)']} is not within "
             f"{RECALL_BAND} of config0's {final['Recall(k=20)']}"
         )
-    gate, (gate_train, gate_test) = check_gate(final, head_final)
+    gate, (gate_train, gate_test) = check_gate(
+        {"config0": final, "headline": head_final})
 
     replay = check_replay(dev)
     subepochs = check_subepochs(dev, cli, reset, read, final["Recall(k=20)"],
                                 check_run)
     attention = check_attention(dev, cli, reset, read, final["Recall(k=20)"],
                                 check_run)
+    gated = check_gated_runs(cli, reset, read, check_run)
+    gate.update(check_gate({
+        "default_shape": subepochs["runs"]["default shape"]["final_metrics"],
+        "config0_self_attention":
+            attention["runs"]["config0 self_attention"]["final_metrics"],
+        "accl_user_s": attention["runs"]["accl_user_s"]["final_metrics"],
+        "accl_self_s": attention["runs"]["accl_self_s"]["final_metrics"],
+        "headline_ccl": gated["headline_ccl"]["final_metrics"],
+        "complement": gated["complement"]["final_metrics"],
+    }, data=False)[0])
     lifecycle = {
         "gate": gate,
+        "eval_approx": eval_approx,
+        "gated_runs": {name: {key: r[key] for key in (
+            "losses", "epoch_times", "final_eval_s", "final_metrics")}
+            for name, r in gated.items()},
         "resume_distinct": check_resume_distinct(dev),
         "resume_cli": check_resume_cli(dev, cli, args),
         "profile_dir": check_profile_dir(cli, args),
@@ -3551,6 +3872,7 @@ def main() -> int:
     for name in ("gather_rows", "history_mean_gather", "window_extract"):
         if serving_launches[name] < 1:
             raise AssertionError(f"{name} was not launched by serving")
+    serving["approx"] = check_approx(dev)
     print(f"serving: {json.dumps(serving)}")
     print(f"serving launches: {serving_launches}")
     reset()
@@ -3707,6 +4029,7 @@ def main() -> int:
             k["launches"] = launches[name] - launches.get(name + "_bf16", 0)
         if k["launches"] < 1:
             raise AssertionError(f"{name} was not launched on its main path")
+        k["launches_eval_approx"] = approx_launches[name]
         k["launches_serving"] = serving_launches[name]
         k["launches_serving_bf16"] = serving16_launches[name]
         for mode in HUGE_ENGINE_RUNS:

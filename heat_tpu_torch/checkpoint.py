@@ -53,9 +53,10 @@ _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 class CheckpointManager:
     """Saves and restores an ``Engine``'s training state, one file an
-    epoch, keeping the newest ``max_to_keep``."""
+    epoch, keeping the newest ``max_to_keep`` (every one when None, as
+    Orbax keeps them)."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: Optional[int] = 3):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         os.makedirs(self.directory, exist_ok=True)
@@ -92,8 +93,9 @@ class CheckpointManager:
         tmp = os.path.join(self.directory, f".{os.path.basename(path)}.tmp")
         torch.save(payload, tmp)
         os.replace(tmp, path)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+        if self.max_to_keep is not None:  # None keeps every checkpoint
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self._path(old))
 
     def restore_latest(self, engine) -> Optional[int]:
         """Restore the newest checkpoint into the engine; returns its epoch,

@@ -30,7 +30,6 @@ TPU-native counterpart of the reference data frontend (cf/datasets.py:14-216):
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
 from typing import List, Optional, Sequence
 
@@ -113,7 +112,9 @@ class ClickDataset:
         if gaps:
             # Reference parity: cf/datasets.py:95-99 warns when user ids
             # are not contiguous (absent ids get empty rows here).
-            logging.getLogger("heat_tpu_torch").warning(
+            from heat_tpu_torch.utils.logging import get_logger
+
+            get_logger().warning(
                 "user id space is not contiguous: %d of %d ids have no "
                 "interactions (empty history rows)", gaps, num_users,
             )

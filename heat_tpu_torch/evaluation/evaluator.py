@@ -40,26 +40,15 @@ _TOPK_2PHASE_MIN_ITEMS = 4 * 1024
 MASK_BITS_MAX_BYTES = 1 << 30
 
 
-def require_exact(exact: bool) -> None:
-    """Raise for ``exact=False``: the JAX package's ``approx_max_k`` has no
-    torch counterpart, and an exact result is never passed off as an
-    approximate one or the other way round."""
-    if not exact:
-        raise NotImplementedError(
-            "approximate top-k (exact=False, the JAX package's "
-            "approx_max_k) has no torch counterpart (ROADMAP.md, modules "
-            "still to port, item 16)"
-        )
-
-
 def masked_topk(
     sim: torch.Tensor,
     bits: torch.Tensor | None,
     k: int,
     *,
     exact: bool = True,
+    recall_target: float = 0.95,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Packed-bitmask masking + exact top-k selection, shared by the tiled
+    """Packed-bitmask masking + top-k selection, shared by the tiled
     evaluator and serving's request path.
 
     bits: (B, W) int32 packed mask (set bits score NEG_INF; ``sim`` must be
@@ -67,10 +56,13 @@ def masked_topk(
     exact top-k from ``_TOPK_2PHASE_MIN_ITEMS`` columns up, ``torch.topk``
     below. Returns (scores, ids), both (B, k), ids int64, descending.
 
-    ``exact=False`` (the JAX package's ``approx_max_k``) has no torch
-    counterpart and raises.
+    ``exact=False`` is the JAX package's ``approx_max_k`` at
+    ``recall_target``, which approximates only on a TPU and elsewhere
+    sorts and slices, an exact selection whatever the target: here the
+    same selection as ``exact=True``, the target checked as
+    ``approx_max_k`` checks it (:func:`check_recall_target`).
     """
-    require_exact(exact)
+    check_recall_target(exact, recall_target)
     if bits is not None:
         if sim.shape[1] != bits.shape[1] * 32:
             raise ValueError(
@@ -81,6 +73,13 @@ def masked_topk(
     if sim.shape[1] >= _TOPK_2PHASE_MIN_ITEMS:
         return exact_topk_2phase(sim, k)
     return torch.topk(sim, k, dim=1)
+
+
+def check_recall_target(exact: bool, recall_target: float) -> None:
+    """Raise ValueError where ``approx_max_k`` refuses its target: with
+    ``exact=False``, a ``recall_target`` outside (0, 1] (NaN included)."""
+    if not exact and not 0.0 < recall_target <= 1.0:
+        raise ValueError(f"recall_target must be in (0, 1], got {recall_target}")
 
 
 def exact_topk_2phase(
@@ -307,12 +306,12 @@ class TiledEvaluator:
         *,
         exact: bool = True,
         return_scores: bool = False,
+        recall_target: float = 0.95,
     ) -> tuple[torch.Tensor | None, torch.Tensor]:
         """Ranked top-k per user, train items masked: (scores, ids), each
         (num_users, k), ids int32; scores is None unless
-        ``return_scores``. Stays on the tables' device. ``exact=False``
-        raises ``NotImplementedError``."""
-        require_exact(exact)
+        ``return_scores``. Stays on the tables' device. ``exact`` and
+        ``recall_target`` select as :func:`masked_topk` does."""
         num_items = int(item_emb.shape[0])
         if self.mask_bits is not None:
             if num_items != self._mask_items:
@@ -345,7 +344,8 @@ class TiledEvaluator:
                 if num_items < pad_items:
                     # Zero-embedding pad items score 0; hard-mask the tail.
                     sim[:, num_items:] = NEG_INF
-            s, i = masked_topk(sim, bits, k)
+            s, i = masked_topk(sim, bits, k, exact=exact,
+                               recall_target=recall_target)
             scores.append(s)
             ids.append(i)
         ids = torch.cat(ids).to(torch.int32)
@@ -360,6 +360,7 @@ def topk_scores(
     train_pairs: np.ndarray | None = None,
     user_tile: int = 512,
     exact: bool = True,
+    recall_target: float = 0.95,
 ) -> tuple[np.ndarray, np.ndarray]:
     """One-shot wrapper over TiledEvaluator (the item count is inferred
     from the pairs and widened to the table). Returns (scores (U, k) f32,
@@ -370,7 +371,8 @@ def topk_scores(
         user_tile=user_tile,
         device=user_emb.device,
     )
-    scores, ids = ev.topk(user_emb, item_emb, k, exact=exact, return_scores=True)
+    scores, ids = ev.topk(user_emb, item_emb, k, exact=exact,
+                          return_scores=True, recall_target=recall_target)
     return scores.cpu().numpy(), ids.cpu().numpy()
 
 

@@ -38,6 +38,13 @@ trace of the run's second epoch, run alone (``utils/profiling.py``; not
 with ``--fused-run``); ``--breakdown`` prints the engine's host-phase
 breakdown (``data``, ``f_b``, ``eval``) at the end; ``--no-data-cache``
 parses the click files without the ``.npz`` sidecar cache.
+
+``--eval-approx RECALL`` (in (0, 1]) ranks the periodic evaluations with
+``exact=False`` at that recall target, as the JAX CLI does; the final
+evaluation passes no flag. The JAX package's ``approx_max_k`` approximates
+only on a TPU and elsewhere sorts and slices, so every evaluation here
+selects exactly, through the two-phase top-k (``evaluation/evaluator.py``
+``masked_topk``). Not with ``--fused-run``.
 """
 
 from __future__ import annotations
@@ -146,7 +153,18 @@ def main(argv=None) -> dict:
         help="run the whole schedule, its periodic evaluations included, "
         "through Engine.run_epochs_with_eval; per-epoch times become the "
         "run's average (evaluations included). Incompatible with "
-        "--profile-dir; checkpoints are written once at the end",
+        "--profile-dir and --eval-approx; checkpoints are written once at "
+        "the end",
+    )
+    parser.add_argument(
+        "--eval-approx",
+        type=float,
+        default=None,
+        metavar="RECALL",
+        help="rank the periodic (mid-training) evaluations with exact=False "
+        "at this recall target, in (0, 1]; the selection stays exact, as "
+        "the JAX package's approx_max_k selects off a TPU. The final "
+        "evaluation is exact",
     )
     parser.add_argument(
         "--set",
@@ -158,8 +176,11 @@ def main(argv=None) -> dict:
         "e.g. --set learning_rate=0.005",
     )
     args = parser.parse_args(argv)
-    if args.fused_run and args.profile_dir:
-        parser.error("--fused-run is incompatible with --profile-dir")
+    if args.eval_approx is not None and not 0.0 < args.eval_approx <= 1.0:
+        parser.error(f"--eval-approx must be in (0, 1], got {args.eval_approx}")
+    if args.fused_run and (args.profile_dir or args.eval_approx is not None):
+        parser.error(
+            "--fused-run is incompatible with --profile-dir and --eval-approx")
 
     overrides = {}
     for item in args.overrides:
@@ -275,7 +296,11 @@ def main(argv=None) -> dict:
         epoch = engine.epoch - 1
         if epoch > 0 and epoch % cfg.eval_interval == 0:
             t0 = time.perf_counter()
-            metrics = engine.evaluate()
+            if args.eval_approx is not None:
+                metrics = engine.evaluate(
+                    exact=False, recall_target=args.eval_approx)
+            else:
+                metrics = engine.evaluate()
             report_eval(epoch, metrics, time.perf_counter() - t0)
 
     _sync(engine)

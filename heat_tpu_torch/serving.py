@@ -8,7 +8,9 @@ always f32. A request's user rows come through kernel K2, aggregated
 histories through K1 (the mean) or through K2's history rows pooled in
 plain torch (self- and user-attention, ``models/aggregator.py``
 ``pool_history``), and every selection through the two-phase exact top-k
-(``evaluation.evaluator.masked_topk``, kernel K4).
+(``evaluation.evaluator.masked_topk``, kernel K4). ``exact=False`` selects
+the same way: the JAX package's ``approx_max_k`` is an exact selection off
+a TPU.
 
 A request takes one of three routes, fixed when the ``Recommender`` is
 built:
@@ -22,9 +24,7 @@ built:
   users, and the seen items are dropped on the host. Exact: at most cap of
   the retrieved ids can be seen.
 
-Ids come back as numpy int32 arrays. Selection is exact only;
-``exact=False`` raises (the JAX package's ``approx_max_k`` has no torch
-counterpart).
+Ids come back as numpy int32 arrays.
 """
 
 from __future__ import annotations
@@ -38,14 +38,15 @@ from heat_tpu_torch.config import CFConfig
 from heat_tpu_torch.evaluation.evaluator import (
     NEG_INF,
     TiledEvaluator,
+    check_recall_target,
     masked_topk,
     pad_bits_words,
-    require_exact,
 )
 from heat_tpu_torch.models.aggregator import (
     aggregate_history,
     history_mean_fused,
     pool_history,
+    scalar_in,
 )
 from heat_tpu_torch.models.state import TrainState
 from heat_tpu_torch.ops.cuda.gather import gather_rows
@@ -310,6 +311,7 @@ class Recommender:
         k: int,
         aggregate_users: bool = False,
         exact: bool = True,
+        recall_target: float = 0.95,
     ) -> np.ndarray:
         """(len(user_ids), k) top item ids for the requested users.
 
@@ -318,9 +320,11 @@ class Recommender:
         buckets (at least 8). A table without a packed seen-mask on the
         one-shot route, a request covering most of the users, and a
         retrieve depth above 4096 rank the whole table instead.
-        ``exact=False`` raises ``NotImplementedError`` on every route.
+        ``exact=False`` checks ``recall_target`` on the three routes, where
+        the JAX package's ``approx_max_k`` checks it, and selects exactly as
+        ``approx_max_k`` does off a TPU; the whole-table fallbacks ignore
+        the target, as the JAX package's do.
         """
-        require_exact(exact)
         uids_np = np.asarray(user_ids, np.int64)
         if uids_np.size == 0:
             return np.zeros((0, k), np.int32)
@@ -352,6 +356,7 @@ class Recommender:
                 # A requested user has thousands of seen items: rank the
                 # whole table (correct, slower).
                 return self.recommend_all(k, aggregate_users)[uids_np]
+        check_recall_target(exact, recall_target)
         uids = torch.as_tensor(
             uids_np.astype(np.int32), device=self.state.user_emb.device
         )
@@ -445,7 +450,9 @@ class Recommender:
             )
         # In the item table's type, with f32 norms and f32 scores, as the
         # JAX package computes them (a bf16 table serves in bf16).
-        u = (1.0 - self.cfg.gamma) * (pooled @ self.state.w0.to(compute))
+        # JAX rounds the Python scalar to the operand's type first.
+        u = scalar_in(1.0 - self.cfg.gamma, compute) * (
+            pooled @ self.state.w0.to(compute))
         u = u / torch.linalg.vector_norm(
             u.float(), dim=1, keepdim=True
         ).clamp(min=1e-12).to(compute)

@@ -99,7 +99,6 @@ from heat_tpu_torch.data.datasets import ClickDataset
 from heat_tpu_torch.evaluation.evaluator import (
     TiledEvaluator,
     full_sim_matrix,
-    require_exact,
 )
 from heat_tpu_torch.evaluation.metrics import (
     evaluate_metrics_device,
@@ -791,8 +790,8 @@ class Engine:
         exact: bool = True,
         recall_target: float = 0.99,
     ) -> dict[str, float]:
-        """Exact tiled top-k over all items (train items masked) and the
-        metric library, on the engine's device.
+        """Tiled top-k over all items (train items masked) and the metric
+        library, on the engine's device.
 
         aggregate_users: score with freshly aggregated user embeddings
         (gamma * u + (1 - gamma) * pool(history) @ w0, the pools of
@@ -800,11 +799,10 @@ class Engine:
         scoring uses the raw table, whose rows were already aggregated
         during training by the write-back.
 
-        exact=False (the JAX package's ``approx_max_k`` at
-        ``recall_target``) has no torch counterpart and raises
-        ``NotImplementedError``.
+        exact=False checks ``recall_target`` as the JAX package's
+        ``approx_max_k`` does and, as that selects off a TPU, selects
+        exactly (``evaluator.masked_topk``).
         """
-        require_exact(exact)
         if self.test_data is None:
             raise ValueError("no test_data provided")
         metrics = list(metrics if metrics is not None else self.cfg.metrics)
@@ -817,7 +815,8 @@ class Engine:
         with self._phase("eval"):
             self._ensure_evaluator(user_tile)
             _, top_ids = self._evaluator.topk(
-                user_emb, self.state.item_emb, max_k)
+                user_emb, self.state.item_emb, max_k, exact=exact,
+                recall_target=recall_target)
             return evaluate_metrics_device(metrics, top_ids, *self._truth_dev)
 
     def evaluate0(self) -> np.ndarray:

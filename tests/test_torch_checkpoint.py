@@ -97,18 +97,23 @@ def test_resume_equals_the_uninterrupted_run(tmp_path, override):
 
 
 def test_max_to_keep_and_an_empty_directory(tmp_path):
+    """The newest ``max_to_keep`` checkpoints stay; None keeps them all, as
+    Orbax's ``max_to_keep=None`` does under the JAX package's manager."""
     engine = _engine({})
-    mgr = CheckpointManager(str(tmp_path / "new" / "dir"), max_to_keep=3)
-    assert mgr.latest_step() is None
-    assert mgr.restore_latest(engine) is None and engine.epoch == 0
-    for epoch in range(1, 6):
-        engine.epoch = epoch
-        mgr.save(engine)
-    assert mgr.all_steps() == [3, 4, 5]
-    assert sorted(p.name for p in (tmp_path / "new" / "dir").iterdir()) == [
-        "ckpt_3.pt", "ckpt_4.pt", "ckpt_5.pt"]
-    engine.epoch = 0
-    assert mgr.restore_latest(engine) == 5 and engine.epoch == 5
+    for max_to_keep, kept in ((3, [3, 4, 5]), (None, [1, 2, 3, 4, 5])):
+        where = tmp_path / f"keep_{max_to_keep}" / "dir"
+        mgr = CheckpointManager(str(where), max_to_keep=max_to_keep)
+        assert mgr.latest_step() is None
+        engine.epoch = 0
+        assert mgr.restore_latest(engine) is None and engine.epoch == 0
+        for epoch in range(1, 6):
+            engine.epoch = epoch
+            mgr.save(engine)
+        assert mgr.all_steps() == kept
+        assert sorted(p.name for p in where.iterdir()) == [
+            f"ckpt_{e}.pt" for e in kept]
+        engine.epoch = 0
+        assert mgr.restore_latest(engine) == 5 and engine.epoch == 5
 
 
 def test_restore_refuses_another_device_types_generator(tmp_path):

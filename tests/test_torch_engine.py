@@ -202,14 +202,6 @@ def test_evaluate_with_aggregated_users_matches_jax(dtype):
         assert set(tids[row, :k].tolist()) == set(np.asarray(jids)[row, :k].tolist())
 
 
-def test_evaluate_refuses_approximate_selection():
-    _, te = _engines()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        te.evaluate(exact=False)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        te.evaluate(aggregate_users=True, exact=False, recall_target=0.95)
-
-
 def test_copied_sim_matrix_oracle_matches_the_original():
     """``evaluate_sim_matrix`` and ``full_sim_matrix`` are copies of the
     JAX package's: the same metrics from the same dense matrix."""

@@ -69,6 +69,28 @@ def test_copied_logging_and_profiling_match_the_originals(tmp_path):
             == jprofiling.performance_breakdown(timers[0]))
 
 
+def test_a_dataset_warning_reaches_the_ports_formatted_handler(monkeypatch):
+    """The copy of ``data/datasets.py`` warns about a non-contiguous user id
+    space through ``utils.logging.get_logger()``, as the original warns
+    through the JAX package's: the formatted stderr handler is attached
+    and prints the warning."""
+    import io
+    import sys
+
+    from heat_tpu_torch.data.datasets import ClickDataset
+
+    logger = logging.getLogger("heat_tpu_torch")
+    monkeypatch.setattr(logger, "handlers", [])
+    monkeypatch.setattr(logger, "level", logging.NOTSET)
+    err = io.StringIO()
+    monkeypatch.setattr(sys, "stderr", err)
+    ClickDataset.from_user_items([[1, 2], [], [0]], max_his=2)
+    (handler,) = logger.handlers
+    assert handler.formatter._fmt == tlogging._FORMAT
+    assert (" heat_tpu_torch WARNING user id space is not contiguous: 1 of 3 "
+            "ids have no interactions") in err.getvalue()
+
+
 def _events(path):
     with open(path) as f:
         return [json.loads(line) for line in f]
