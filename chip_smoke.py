@@ -196,6 +196,26 @@ top ids and a B = 8192 request equal, the times of both calls (whole
 evaluation, the request), and at the eval tile and at B = 8192 the
 two-phase selection timed beside one ``torch.topk`` over the masked row,
 the form ``approx_max_k`` takes off a TPU, which the port does not use.
+Since then the rows under their HBM bound (K3's and S1's update entries
+and S1 at the huge path's shapes, S2 bf16) are timed over rotated sets of
+ids and rows (``timed_rotated``), as K4 is.
+
+The mesh (ROADMAP item 15a) adds, after phase 8, on the one card (ranks
+share it through gloo, so no time here is a multi-card speed): K2 multi,
+K1 and K3 at a (2, 2) rank's shard shapes with other shards' ids among
+them, against their plain versions (``check_mesh_kernels``); (a) the CLI
+on a (4, 1) mesh under ``torch.distributed.run`` on MESH_SYNTHETIC (one
+user more than the AmazonBooks geometry), gated within 0.0003 of the JAX
+package's (4, 1) run and of the port's single-rank run of the same data,
+its export served, rank 0's launches a step and an evaluation and its
+collectives a step (``check_mesh_cli``); (b) the Engine API on (2, 2):
+step losses, tables and ``w0`` against ORACLE_RUNS single-rank runs on the same
+global batches and draws within twice their pooled spread, replicas
+bit-equal, the sharded top-k against ``TiledEvaluator.topk`` tie aware,
+the checkpoint resumed on one rank and on (4, 1) (``check_mesh_engine``);
+(c) ``make_mesh(1, 1)`` through NCCL against ORACLE_RUNS mesh-less engines
+(``check_mesh_nccl``); and a ``{"mesh": ...}`` line of each phase's wall,
+collectives a step and idle share.
 
 9. the kernels' JSON line (each instance with its launches on its own main
    path: f32 on config0, bf16 on the headline run, K2's single entry on
@@ -287,6 +307,7 @@ GATED_RUNS = {
     "config0_self_attention": CONFIG0_SELF, "accl_user_s": ACCL_USER,
     "accl_self_s": ACCL_SELF, "headline_ccl": HEADLINE_CCL,
     "complement": COMPLEMENT,
+    "config0_mesh41": [],  # config0 on a (4, 1) mesh: check_mesh_cli
 }
 APPROX_RECALL = 0.95  # --eval-approx, and exact=False against exact
 # K4's timed launches rotate over buffers (scores, window ids, outputs) of
@@ -717,12 +738,14 @@ def check_scatter_add(entry, key, table, ids, deltas) -> None:
 
 
 def check_add_update(entry, key, table, ids, grads, lr, clip_val, l2=0.0,
-                     rows=None, *, clip_first) -> None:
+                     rows=None, *, clip_first, rotate=False) -> None:
     """K3's update entry at one shape against its plain version: the
     increments are bit-equal (f32 arithmetic without contraction, one
     rounding), so on unique ids the tables are too, and over repeats they
     are held as K3 is. Timed beside the unfused sequence it replaced: the
-    elementwise PyTorch launches, then the plain scatter-add entry."""
+    elementwise PyTorch launches, then the plain scatter-add entry;
+    ``rotate``: over rotated sets of ids and gradient rows
+    (:func:`timed_rotated`)."""
     import torch
 
     from heat_tpu_torch.models.aggregator import scalar_in
@@ -747,7 +770,7 @@ def check_add_update(entry, key, table, ids, grads, lr, clip_val, l2=0.0,
     worst(entry, got, want)
     del got, want
 
-    def unfused():
+    def unfused(ids=ids, grads=grads):
         if clip_first:
             g = torch.clamp(grads.float(), -clip_val, clip_val)
             if l2:
@@ -764,22 +787,32 @@ def check_add_update(entry, key, table, ids, grads, lr, clip_val, l2=0.0,
     keep = (ids >= 0) & (ids < n)
     m = ids.shape[0]
     src = grads.element_size() + (rows.element_size() if rows is not None else 0)
+    # Ids, gradient rows and forward rows in; each touched row read and
+    # written once; clip, l2, lr: about 4 operations an element.
+    nbytes = (4 * m + m * d * src
+              + 2 * _distinct(ids[keep]) * d * table.element_size())
+    nops = 4 * int(keep.sum()) * d
+    if rotate:
+        timed_rotated(
+            entry, key,
+            lambda i, sets: (shifted(ids, n, i, sets), grads.roll(i, 0)),
+            lambda i_, g_: scatter.scatter_add_update(table, i_, g_, **kw),
+            lambda i_, g_: scatter.scatter_add_update_ref(table, i_, g_, **kw),
+            unfused, nbytes=nbytes, nops=nops)
+        return
     timed(entry, key,
           lambda: scatter.scatter_add_update(table, ids, grads, **kw),
           lambda: scatter.scatter_add_update_ref(table, ids, grads, **kw),
-          unfused,
-          # Ids, gradient rows and forward rows in; each touched row read
-          # and written once; clip, l2, lr: about 4 operations an element.
-          nbytes=4 * m + m * d * src
-          + 2 * _distinct(ids[keep]) * d * table.element_size(),
-          nops=4 * int(keep.sum()) * d)
+          unfused, nbytes=nbytes, nops=nops)
 
 
 def check_set_update(entry, key, table, ids, base, summed, lr, clip_val,
-                     l2=0.0) -> None:
+                     l2=0.0, rotate=False) -> None:
     """S1's update entry at one shape: bit-equal to its plain version on
     the whole table. Timed beside the unfused sequence it replaced (clamp,
-    product, subtraction, cast, then the plain scatter-set entry)."""
+    product, subtraction, cast, then the plain scatter-set entry);
+    ``rotate``: over rotated sets of ids, base and summed rows
+    (:func:`timed_rotated`)."""
     import torch
 
     from heat_tpu_torch.ops.cuda import scatter
@@ -797,7 +830,7 @@ def check_set_update(entry, key, table, ids, base, summed, lr, clip_val,
     worst(entry, got, want)
     del got, want
 
-    def unfused():
+    def unfused(ids=ids, base=base, summed=summed):
         b = base.float()
         g = summed + l2 * b * (ids < n).float()[:, None] if l2 else summed
         g = torch.clamp(g, -clip_val, clip_val)
@@ -805,20 +838,31 @@ def check_set_update(entry, key, table, ids, base, summed, lr, clip_val,
 
     keep = (ids >= 0) & (ids < n)
     m = ids.shape[0]
+    # Ids, base and summed rows in; each row in range written once.
+    nbytes = (4 * m + m * d * (base.element_size() + 4)
+              + int(keep.sum()) * d * table.element_size())
+    nops = 4 * int(keep.sum()) * d
+    if rotate:
+        timed_rotated(
+            entry, key,
+            lambda i, sets: (shifted(ids, n, i, sets), base.roll(i, 0),
+                             summed.roll(i, 0)),
+            lambda i_, b_, s_: scatter.scatter_set_update(table, i_, b_, s_, **kw),
+            lambda i_, b_, s_: scatter.scatter_set_update_ref(
+                table, i_, b_, s_, **kw),
+            unfused, nbytes=nbytes, nops=nops)
+        return
     timed(entry, key,
           lambda: scatter.scatter_set_update(table, ids, base, summed, **kw),
           lambda: scatter.scatter_set_update_ref(table, ids, base, summed, **kw),
-          unfused,
-          # Ids, base and summed rows in; each row in range written once.
-          nbytes=4 * m + m * d * (base.element_size() + 4)
-          + int(keep.sum()) * d * table.element_size(),
-          nops=4 * int(keep.sum()) * d)
+          unfused, nbytes=nbytes, nops=nops)
 
 
-def check_scatter_set_at(entry, key, table, ids, rows) -> None:
+def check_scatter_set_at(entry, key, table, ids, rows, rotate=False) -> None:
     """S1 at one shape: it moves bits, so bit-equal to its plain version
     on the whole table. The library call is ``index_copy_`` over the ids
-    in range, filtered beforehand."""
+    in range, filtered beforehand. ``rotate``: timed over rotated sets of
+    ids and rows (:func:`timed_rotated`)."""
     import torch
 
     from heat_tpu_torch.ops.cuda import scatter
@@ -837,19 +881,33 @@ def check_scatter_set_at(entry, key, table, ids, rows) -> None:
     keep = (ids >= 0) & (ids < n)
     long_ids, kept = ids[keep].long(), rows[keep]
     m = ids.shape[0]
+    nbytes = (4 * m + m * d * table.element_size()
+              + int(keep.sum()) * d * table.element_size())
+    if rotate:
+        def inputs(i, sets):
+            i_, r_ = shifted(ids, n, i, sets), rows.roll(i, 0)
+            k_ = (i_ >= 0) & (i_ < n)
+            return i_, r_, i_[k_].long(), r_[k_]
+
+        timed_rotated(
+            entry, key, inputs,
+            lambda i_, r_, li, kr: scatter.scatter_set_rows(table, i_, r_),
+            lambda i_, r_, li, kr: scatter.scatter_set_rows_ref(table, i_, r_),
+            lambda i_, r_, li, kr: table.index_copy_(0, li, kr),
+            nbytes=nbytes, nops=0)
+        return
     timed(entry, key,
           lambda: scatter.scatter_set_rows(table, ids, rows),
           lambda: scatter.scatter_set_rows_ref(table, ids, rows),
           lambda: table.index_copy_(0, long_ids, kept),
-          nbytes=4 * m + m * d * table.element_size()
-          + int(keep.sum()) * d * table.element_size(),
-          nops=0)
+          nbytes=nbytes, nops=0)
 
 
-def check_gather_blocks_at(entry, key, table, ids, r) -> None:
+def check_gather_blocks_at(entry, key, table, ids, r, rotate=False) -> None:
     """S2 at one shape: a copy, so bit-equal to its plain version, which
     is the library call too (``index_select`` on the (N / r, r * d)
-    view)."""
+    view). ``rotate``: timed over sets of table copies and ids
+    (:func:`timed_rotated`): the table itself fits in L2."""
     import torch
 
     from heat_tpu_torch.ops.cuda import gather
@@ -866,13 +924,26 @@ def check_gather_blocks_at(entry, key, table, ids, r) -> None:
     n, d = table.shape
     view, long_ids = table.view(n // r, r * d), ids.long()
     m = ids.shape[0]
+    # The ids, each distinct block read once, every block written.
+    nbytes = 4 * m + (_distinct(ids) + m) * r * d * table.element_size()
+    if rotate:
+        def inputs(i, sets):
+            t_ = table if i == 0 else table.roll(i, 0)
+            i_ = shifted(ids, n // r, i, sets)
+            return t_, i_, t_.view(n // r, r * d), i_.long()
+
+        timed_rotated(
+            entry, key, inputs,
+            lambda t_, i_, v_, li: gather.gather_blocks(t_, i_, r),
+            lambda t_, i_, v_, li: gather.gather_blocks_ref(t_, i_, r),
+            lambda t_, i_, v_, li: v_.index_select(0, li),
+            nbytes=nbytes, nops=0)
+        return
     timed(entry, key,
           lambda: gather.gather_blocks(table, ids, r),
           lambda: gather.gather_blocks_ref(table, ids, r),
           lambda: view.index_select(0, long_ids),
-          # The ids, each distinct block read once, every block written.
-          nbytes=4 * m + (_distinct(ids) + m) * r * d * table.element_size(),
-          nops=0)
+          nbytes=nbytes, nops=0)
 
 
 def check_kernels(dev) -> list[dict]:
@@ -1067,7 +1138,7 @@ def check_kernels(dev) -> list[dict]:
     for r, key in ((4, ""), (1, "_r1"), (16, "_r16")):
         check_gather_blocks_at(s2, key, wide, ids(S2_ROWS // r, n // r), r)
         check_gather_blocks_at(s2b, key, wide.bfloat16(),
-                               ids(S2_ROWS // r, n // r), r)
+                               ids(S2_ROWS // r, n // r), r, rotate=key == "")
     return [k2, k2b, k2m, k2mb, k1, k1b, k3, k3b, k3u, k3ub, k4, s1, s1b, s1u,
             s1ub, s2, s2b]
 
@@ -1083,6 +1154,37 @@ def rotating(fn, sets: int):
         held[i] = fn(i)
 
     return call
+
+
+def shifted(ids, n: int, i: int, sets: int):
+    """Set ``i`` of ``sets`` of ``ids``: the ids in [0, n) moved by i * n /
+    sets rows modulo n (distinct ids stay distinct, sorted ids sorted but
+    at one wrap), the others (sentinels) kept."""
+    import torch
+
+    inside = (ids >= 0) & (ids < n)
+    moved = (ids.long() + i * (n // sets)) % n
+    return torch.where(inside, moved, ids.long()).to(ids.dtype)
+
+
+def timed_rotated(entry: dict, key: str, inputs, call, ref, lib,
+                  nbytes: float, nops: float) -> None:
+    """:func:`timed` with every launch turning over sets of its inputs,
+    ROTATE_BYTES of traffic in all (``inputs(i, sets)``: the arguments of
+    set i, set 0 the checked ones), so that a launch reads and writes HBM
+    and not what the launch before left in the 50 MB L2, as a step's
+    launch finds it. ``graph_ms_same_buffers`` keeps the replay of one set
+    (the time the row gave before)."""
+    sets = max(2, -(-ROTATE_BYTES // int(nbytes)))
+    args = [inputs(i, sets) for i in range(sets)]
+    same = graph_ms(lambda: call(*args[0]))
+    timed(entry, key, rotating(lambda i: call(*args[i]), sets),
+          rotating(lambda i: ref(*args[i]), sets),
+          None if lib is None else rotating(lambda i: lib(*args[i]), sets),
+          nbytes=nbytes, nops=nops)
+    entry["graph_ms_same_buffers" + key] = same
+    entry["rotated_sets" + key] = sets
+    entry["rotated_bytes" + key] = sets * nbytes
 
 
 def check_window_extract(dev) -> dict:
@@ -1169,7 +1271,7 @@ def check_scatter_set(dev) -> dict:
         ids = ids.to(torch.int32)
         ids[-(m // 8):] = n
         rows = torch.randn(m, DIM, generator=g, device=dev)
-        check_scatter_set_at(entry, key, table, ids, rows)
+        check_scatter_set_at(entry, key, table, ids, rows, rotate=key == "")
         del table
     return entry
 
@@ -1230,10 +1332,10 @@ def check_path_shapes(dev, entries: dict) -> None:
     m = BIG_BATCH + BIG_TILE
     check_add_update(entries["scatter_add_update"], "", items,
                      sorted_reps(BIG_ITEMS, m), sums(m), lr, 1.0,
-                     clip_first=False)
+                     clip_first=False, rotate=True)
     check_set_update(entries["scatter_set_update"], "", users,
                      sorted_reps(BIG_USERS, BIG_BATCH), sums(BIG_BATCH),
-                     sums(BIG_BATCH), lr, 1.0)
+                     sums(BIG_BATCH), lr, 1.0, rotate=True)
     del users, items
 
     # S1: the config0 step's user write-back, 8,192 unsorted ids into
@@ -1292,10 +1394,12 @@ def check_path_shapes(dev, entries: dict) -> None:
     check_scatter_set_at(entries["scatter_set_rows_bf16"], "_big", users16,
                          rep_ids, small(BIG_BATCH))
     check_set_update(entries["scatter_set_update_bf16"], "", users16, rep_ids,
-                     sums(BIG_BATCH).bfloat16(), sums(BIG_BATCH), lr, 1.0)
+                     sums(BIG_BATCH).bfloat16(), sums(BIG_BATCH), lr, 1.0,
+                     rotate=True)
     check_add_update(entries["scatter_add_update_bf16"], "_big_items", items16,
                      sorted_reps(BIG_ITEMS, BIG_BATCH + BIG_TILE),
-                     sums(BIG_BATCH + BIG_TILE), lr, 1.0, clip_first=False)
+                     sums(BIG_BATCH + BIG_TILE), lr, 1.0, clip_first=False,
+                     rotate=True)
     # K3: direct mode's per-occurrence adds, 32,768 into the 16M table and
     # 32,768 + 128 into the 6M table, repeats and about 1% sentinels.
     k3 = entries["scatter_add_rows_bf16"]
@@ -3659,6 +3763,452 @@ def check_native(train, test) -> dict:
     return out
 
 
+# --- The mesh (ROADMAP item 15a) -------------------------------------------
+# One card: the ranks of a mesh share it through gloo (NCCL refuses two
+# ranks on one device), so these phases prove the sharded arithmetic, the
+# kernels under out-of-shard ids and the NCCL path at a world of one; none
+# of their times is a multi-card speed.
+MESH_SYNTHETIC = (52644, 91599)  # one user more: the data axis divides it
+MESH_RUN = "config0_mesh41"  # PARITY_TORCH.json: the JAX package on (4, 1)
+EXPORT_MESH = EXPORT.with_name("config0_mesh41.npz")
+MESH_TRACE = EXPORT.parent / "mesh_trace"
+MESH_TIMEOUT = 480  # s, a launcher's or a spawned job's ranks
+SPREAD_RULE = 2.0  # check_resume_cli's: at most twice the pooled rms spread
+# Single-rank runs a mesh phase pools its spread over: with three, the
+# (2, 2) run's ratio read 0.91 to 1.71 from call to call (a spread of three
+# pairs is a noisy yardstick), so five (ten pairs).
+ORACLE_RUNS = 5
+MESH_STEPS = 2 * (-(-1895184 // BATCH) + 1)  # a bound on two epochs' steps
+
+
+def mesh_support():
+    """The mesh's test support (``tests/torch_mesh_support.py``: the rank
+    programs, the single-rank oracles), imported by the name the spawned
+    ranks import it by."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_mesh_support
+
+    return torch_mesh_support
+
+
+def mesh_data():
+    """config0's model config and the (train, test) planted clusters of
+    MESH_SYNTHETIC."""
+    from heat_tpu_torch.config import load_config
+    from heat_tpu_torch.data.synthetic import synthetic_click_dataset
+
+    cfg, _ = load_config(CONFIG0)
+    kw = dict(num_users=MESH_SYNTHETIC[0], num_items=MESH_SYNTHETIC[1],
+              max_his=cfg.max_his, seed=cfg.seed)
+    return cfg, kw, synthetic_click_dataset(**kw)
+
+
+def trace_busy(trace_dir: Path) -> dict:
+    """Rank 0's device activity and collectives in the CLI's profile of
+    its second epoch (``torch_mesh_support.trace_summary``). The other
+    ranks' work on the shared card is not in rank 0's trace."""
+    path = max(trace_dir.glob("*.pt.trace.json"), key=lambda p: p.stat().st_mtime)
+    return mesh_support().trace_summary(path)
+
+
+def held_to_spread(what, got, oracles) -> dict:
+    """``check_resume_cli``'s rule against K3's atomics: ``got`` (a tensor
+    of step losses or a table) lies within SPREAD_RULE times the rms spread
+    pooled over the pairs of ``oracles`` (ORACLE_RUNS single-rank runs on
+    the same batches and draws), its own distance pooled over its pairs
+    with them."""
+    import torch
+
+    got = torch.as_tensor(got)
+    oracles = [torch.as_tensor(o) for o in oracles]
+    spread, spread_max = pooled_rms_diff(list(itertools.combinations(oracles, 2)))
+    diff, diff_max = pooled_rms_diff([(got, o) for o in oracles])
+    out = {"spread_rms": spread, "rms": diff, "spread_max": spread_max,
+           "max": diff_max, "ratio": diff / spread if spread else None}
+    if not diff <= SPREAD_RULE * spread:
+        raise AssertionError(
+            f"{what}: {diff} (rms over its pairs) from the single-rank runs, "
+            f"more than {SPREAD_RULE} x their spread {spread}")
+    return out
+
+
+def check_mesh_launches(launches: dict, steps: int, evals: int) -> None:
+    """Rank 0's launches in the (4, 1) CLI run: every step one K2 multi
+    (user and item rows), one K1 (its users' means), two K3 (user and item
+    accumulators) and one S1 (the write-back); every evaluation K4 on each
+    512-user chunk of its users; no bf16 instance."""
+    chunks = -(-MESH_SYNTHETIC[0] // 4 // EVAL_TILE)
+    least = {"gather_rows_multi": steps, "history_mean_gather": steps,
+             "scatter_add_rows": 2 * steps, "scatter_set_rows": steps,
+             "window_extract": evals * chunks}
+    for name, n in least.items():
+        if launches[name] < n:
+            raise AssertionError(f"(4, 1) CLI: rank 0 launched {name} "
+                                 f"{launches[name]} times, expected >= {n}")
+    if any(n for name, n in launches.items() if name.endswith("_bf16")):
+        raise AssertionError(f"(4, 1) CLI launched a bf16 kernel: {launches}")
+
+
+def check_mesh_cli(dev, cli) -> dict:
+    """(a) The CLI on a (4, 1) mesh: four ranks on the card through gloo,
+    launched by ``torch.distributed.run``, config0's schedule on
+    MESH_SYNTHETIC with the export, rank 0's kernel launches
+    (``--kernel-launches``) and its trace of the second epoch (its device
+    time and collectives).
+    Recall@20 and NDCG@50 within 0.0003 of the JAX package's (4, 1) run
+    (PARITY_TORCH.json ``config0_mesh41``, whose data checksums must be
+    this data's) and of the port's single-rank run of the same data in
+    this call; the export served, its Recall@20 the run's within 1e-5."""
+    import re
+    import shutil
+
+    import numpy as np
+
+    from heat_tpu_torch import parity
+    from heat_tpu_torch.evaluation.metrics import evaluate_metrics
+    from heat_tpu_torch.export import load_embeddings
+    from heat_tpu_torch.models.state import state_from_numpy
+    from heat_tpu_torch.serving import Recommender
+
+    cfg, _, (train, test) = mesh_data()
+    record = parity.load_parity()
+    data = parity.check_run_data(record, MESH_RUN, train, test)
+    root = Path(__file__).resolve().parent
+    shutil.rmtree(MESH_TRACE, ignore_errors=True)
+    argv = ["--config", CONFIG0, "--synthetic",
+            ",".join(map(str, MESH_SYNTHETIC)), "--device", dev.type]
+    env = dict(__import__("os").environ)
+    env["PYTHONPATH"] = str(root) + ":" + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "heat_tpu_torch.main", *argv,
+         "--export-embeddings", str(EXPORT_MESH), "--kernel-launches",
+         "--profile-dir", str(MESH_TRACE)],
+        capture_output=True, text=True, timeout=MESH_TIMEOUT, cwd=root, env=env)
+    wall = time.perf_counter() - t0
+    text = proc.stdout
+    if proc.returncode:
+        raise AssertionError(f"the (4, 1) CLI exited {proc.returncode}:\n"
+                             f"{text[-3000:]}\n{proc.stderr[-3000:]}")
+    if "torch.distributed backend: gloo (4 ranks" not in text:
+        raise AssertionError(f"the (4, 1) CLI did not print gloo: {text[:500]}")
+    epochs = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
+        r"^epoch: \d+; loss: (\S+); epoch_time: (\S+)s$", text, re.M)]
+    losses = [loss for loss, _ in epochs]
+    report = json.loads([ln for ln in text.splitlines()
+                         if ln.startswith('{"kernel_launches"')][-1])
+    final = json.loads([ln for ln in text.splitlines()
+                        if ln.startswith('{"final_metrics"')][-1])["final_metrics"]
+    if len(losses) != 5 or not all(map(math.isfinite, losses)) or not losses[4] < losses[0]:
+        raise AssertionError(f"(4, 1) CLI: epoch losses {losses}")
+    steps, evals, launches = (report["steps"], report["evaluations"],
+                              report["kernel_launches"])
+    traced = trace_busy(MESH_TRACE)
+    if not traced["collective_calls"]:
+        raise AssertionError("(4, 1) CLI: no collective in rank 0's trace")
+    check_mesh_launches(launches, steps, evals)
+    gate_jax = parity.gate(record, MESH_RUN, final, parity.BANDS[MESH_RUN])
+    single = cli.main(argv)
+    gaps = {m: final[m] - single["final_metrics"][m] for m in parity.GATED_METRICS}
+    if not all(abs(g) <= parity.BANDS[MESH_RUN] for g in gaps.values()):
+        raise AssertionError(f"(4, 1) CLI against one rank: gaps {gaps}")
+    emb = load_embeddings(str(EXPORT_MESH))
+    state = state_from_numpy(emb["user_emb"], emb["item_emb"], emb["w0"],
+                             lr=cfg.l_r, step=0, device=dev)
+    rec = Recommender(state, cfg, seen_pairs=train.pairs)
+    top = np.concatenate([
+        rec.recommend(np.arange(lo, min(lo + REQUEST_B, MESH_SYNTHETIC[0])), 20)
+        for lo in range(0, MESH_SYNTHETIC[0], REQUEST_B)])
+    served = evaluate_metrics(["Recall(k=20)"], top, test.user_items)["Recall(k=20)"]
+    if abs(served - final["Recall(k=20)"]) > 1e-5:
+        raise AssertionError(f"(4, 1) export served Recall@20 {served} vs the "
+                             f"run's {final['Recall(k=20)']}")
+    del rec, state
+    out = {"wall_s": wall, "losses": losses,
+           "epoch_s": [t for _, t in epochs], "final_metrics": final,
+           "gate_jax": gate_jax, "gaps_single_rank": gaps,
+           "single_rank_epoch_s": single["epoch_times"],
+           "served_recall20": served, "steps_rank0": steps,
+           "evaluations": evals, "launches_rank0": launches,
+           "launches_per_step": {k: launches[k] / steps for k in (
+               "gather_rows_multi", "history_mean_gather", "scatter_add_rows",
+               "scatter_set_rows")},
+           "window_extract_per_eval": launches["window_extract"] / evals,
+           # The traced epoch is one of len(losses) equal ones.
+           "collective_ms_per_step": (1e3 * traced["collective_s"]
+                                      / (steps / len(losses))),
+           "trace_epoch1_rank0": traced, **data}
+    print(f"mesh (a), the CLI on (4, 1) through gloo: {json.dumps(out)}")
+    return out
+
+
+def check_mesh_kernels(dev, entries: dict) -> None:
+    """Every kernel phase (b) launches, at a (2, 2) rank's shapes (its
+    26,322 user rows, its 45,824 item rows), against its plain version:
+
+    * K2 multi, K1 and K3 with ids of the other item shard among them
+      (negative or past the shard once rebased): K2 bit-equal (an id
+      outside the shard reads zeros), K1 held by :func:`hold_history_mean`
+      (the other shard's items left out of the sum, the whole length the
+      divisor), K3 by :func:`hold_scatter_add` (ids outside the shard
+      dropped);
+    * K2 and S1 as the step keeps user replicas equal: the model group's
+      first rank reads its half batch's 4,096 user rows, weight-0 slots at
+      the out-of-range id 26,322, and the others write them; both
+      bit-equal (repeated ids carry equal rows, as on the path);
+    * K4 on a 512-user eval tile of the second item shard, 45,824 columns
+      whose last 49 are pad items (masked to finfo.min, as their set bits
+      mask them), at the windows phase 1 selects, the last window (pad
+      and real items) and out-of-range window ids among them: bit-equal.
+
+    Not timed: the library yardsticks would index out of range."""
+    import torch
+
+    from heat_tpu_torch.evaluation.evaluator import NEG_INF
+    from heat_tpu_torch.ops.cuda import gather, scatter, topk
+    from heat_tpu_torch.parallel.mesh import sharded_item_rows
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    u_rows = MESH_SYNTHETIC[0] // 2
+    i_rows = sharded_item_rows(MESH_SYNTHETIC[1], 2) // 2
+    lo = i_rows  # model index 1: its ids rebased by i_rows
+
+    def local_ids(m):
+        return torch.randint(0, MESH_SYNTHETIC[1], (m,), generator=g,
+                             device=dev, dtype=torch.int32) - lo
+
+    users = torch.randn(u_rows, DIM, generator=g, device=dev)
+    items = torch.randn(i_rows, DIM, generator=g, device=dev)
+    b = BATCH // 2
+    uids = torch.randint(0, u_rows, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+    item_ids = local_ids(b * (1 + NUM_NEGS))
+    segments = [(users, uids), (items, item_ids)]
+    got = gather.gather_rows_multi(segments, torch.float32)
+    want = gather.gather_rows_multi_ref(segments, torch.float32)
+    torch.cuda.synchronize()
+    for k, (x, y) in enumerate(zip(got, want)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"K2 multi at a shard: segment {k} differs")
+        worst(entries["gather_rows_multi"], x, y)
+    outside = (item_ids < 0) | (item_ids >= i_rows)
+    if not bool((got[1][outside] == 0).all()) or not bool(outside.any()):
+        raise AssertionError("K2 multi at a shard: other shards' rows not zero")
+    his = local_ids(u_rows * MAX_HIS).reshape(u_rows, MAX_HIS)
+    lens = torch.randint(0, MAX_HIS + 1, (u_rows,), generator=g, device=dev,
+                         dtype=torch.int32)
+    got = gather.history_mean_gather(items, his, lens, rows=uids)
+    torch.cuda.synchronize()
+    hold_history_mean(got, items, his, lens, None, uids)
+    worst(entries["history_mean_gather"], got,
+          gather.history_mean_gather_ref(items, his, lens, rows=uids))
+    deltas = torch.randn(item_ids.shape[0], DIM, generator=g, device=dev)
+    acc = torch.zeros(i_rows, DIM, device=dev)
+    got = scatter.scatter_add_rows(acc.clone(), item_ids, deltas)
+    want = scatter.scatter_add_rows_ref(acc.clone(), item_ids, deltas)
+    torch.cuda.synchronize()
+    hold_scatter_add("K3 at a shard", acc, item_ids, deltas,
+                     {"kernel": got, "plain version": want})
+    worst(entries["scatter_add_rows"], got, want)
+    # The user replicas' broadcast: the weight-0 tail of a short shard
+    # carries the out-of-range id u_rows.
+    users_w = torch.where(torch.arange(b, device=dev) < b - b // 8, uids,
+                          u_rows).to(torch.int32)
+    rows = gather.gather_rows(users, users_w)
+    want = gather.gather_rows_ref(users, users_w)
+    torch.cuda.synchronize()
+    if not torch.equal(rows, want):
+        raise AssertionError("K2 at a shard's user rows differs from its "
+                             "plain version")
+    worst(entries["gather_rows"], rows, want)
+    table = torch.randn(u_rows, DIM, generator=g, device=dev)
+    got = scatter.scatter_set_rows(table.clone(), users_w, rows)
+    want = scatter.scatter_set_rows_ref(table.clone(), users_w, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("S1 at a shard's user rows differs from its "
+                             "plain version")
+    worst(entries["scatter_set_rows"], got, want)
+    # K4 on the second item shard's eval tile.
+    real = MESH_SYNTHETIC[1] - lo
+    nw = i_rows // 128
+    sim = torch.randn(EVAL_TILE, i_rows, generator=g, device=dev)
+    sim[:, real:] = NEG_INF
+    widx = torch.topk(sim.view(EVAL_TILE, nw, 128).amax(2), EVAL_K + 1,
+                      dim=1).indices.to(torch.int32)
+    widx[:, -1] = nw - 1
+    widx[0, :2] = torch.tensor([-1, nw], dtype=torch.int32)
+    got = topk.window_extract(sim, widx, 128)
+    want = topk.window_extract_ref(sim, widx, 128)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"K4 at a shard's ({EVAL_TILE}, {i_rows}) eval tile differs from "
+            f"its plain version")
+    worst(entries["window_extract"], got, want)
+    print(f"kernels at a (2, 2) rank's shapes (users ({u_rows}, {DIM}), "
+          f"items ({i_rows}, {DIM}), {b} ids, a ({EVAL_TILE}, {i_rows}) eval "
+          f"tile with {i_rows - real} pad columns), max_abs_err so far: "
+          + json.dumps({name: entries[name]["max_abs_err"] for name in (
+              "gather_rows_multi", "history_mean_gather", "scatter_add_rows",
+              "gather_rows", "scatter_set_rows", "window_extract")}))
+    del users, items, his, got, want, acc, table, rows, sim
+    torch.cuda.empty_cache()
+
+
+def check_mesh_engine(dev) -> dict:
+    """(b) The Engine API on a (2, 2) mesh, four ranks on the card through
+    gloo (``torch_mesh_support.spawn_ranks``), MESH_SYNTHETIC, config0,
+    two epochs and an evaluation, a checkpoint after the first epoch:
+
+    * step losses, tables and ``w0`` against ORACLE_RUNS single-rank runs
+      on the same global batches and draws (``Engine._shard_stream(2)``)
+      that pool the history means as the two model shards do
+      (``torch_mesh_support.PartialMeans``: the one summation order the
+      mesh changes by design), by :func:`held_to_spread`;
+    * user replicas bit-equal across each model group, item replicas
+      across each data group, ``w0`` everywhere (SHA-256, all-gathered);
+    * ``sharded_topk`` against ``TiledEvaluator.topk`` over the gathered
+      tables, tie aware, and the metrics within 1e-6 of that ranking's;
+    * the checkpoint resumed on one rank (two data shards' stream) against
+      the single-rank runs' second epochs, and on (4, 1) against
+      ORACLE_RUNS single-rank runs laid out as four data shards resumed from the
+      same file, each by the same rule."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.evaluation.evaluator import TiledEvaluator
+    from heat_tpu_torch.evaluation.metrics import evaluate_metrics
+
+    mc = mesh_support()
+    cfg, data_kw, (train, test) = mesh_data()
+    cfg_kw = dataclasses.asdict(cfg)
+    ck = fresh_dir("mesh_ckpt")
+    t0 = time.perf_counter()
+    ranks = mc.spawn_ranks(
+        mc.rank_train, 4, (2, 2), data_kw, cfg_kw, 2, dev.type, device=dev.type,
+        timeout=MESH_TIMEOUT, save_dir=str(ck), save_after=1,
+        all_states=False, step_losses=MESH_STEPS,
+        profile_last=str(LIFECYCLE / "mesh_22_last_epoch.pt.trace.json"),
+        topk=50)
+    wall = time.perf_counter() - t0
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError(f"(2, 2): backends {[r['backend'] for r in ranks]}")
+    mc.check_replicas([r["replicas"] for r in ranks])
+    for r in ranks[1:]:
+        if not np.array_equal(r["step_losses"], ranks[0]["step_losses"]):
+            raise AssertionError("(2, 2): the ranks report other step losses")
+    oracles = [mc.train_oracle(2, data_kw, cfg_kw, 2, dev.type,
+                               data=(train, test), step_losses=MESH_STEPS,
+                               n_model=2)
+               for _ in range(ORACLE_RUNS)]
+    head = ranks[0]
+    last = head["last_epoch_profile"]
+    if not last["collective_calls"]:
+        raise AssertionError("(2, 2): no collective in rank 0's last epoch")
+    out = {"wall_s": wall, "losses": head["losses"],
+           "oracle_losses": [o["losses"] for o in oracles],
+           "steps": head["steps"], "train_s": head["train_s"],
+           "eval_s": head["eval_s"], "metrics": head["metrics"],
+           "collective_ms_per_step": 1e3 * last["collective_s"] / last["steps"],
+           "last_epoch_rank0": last,
+           "launches_rank0": head["launches"]}
+    out["held"] = {
+        "step_losses": held_to_spread(
+            "(2, 2) step losses", head["step_losses"],
+            [o["step_losses"] for o in oracles])}
+    for name in ("user_emb", "item_emb", "w0"):
+        out["held"][name] = held_to_spread(
+            f"(2, 2) {name}", head["state"][name],
+            [o["state"][name] for o in oracles])
+    # The sharded top-k against one evaluator over the gathered tables.
+    st = head["state"]
+    user = torch.as_tensor(st["user_emb"], device=dev)
+    item = torch.as_tensor(st["item_emb"], device=dev)
+    got = np.concatenate([r["topk"] for r in ranks if r["replicas"]["index"][1] == 0])
+    ev = TiledEvaluator(train.pairs, MESH_SYNTHETIC[0],
+                        num_items=MESH_SYNTHETIC[1], device=dev)
+    _, want = ev.topk(user, item, 51)
+    want = want.cpu().numpy()
+    sure = same_topk(got[:, :51], want,
+                     lambda ids: _score_rows(user, item, np.arange(got.shape[0]), ids),
+                     50, "(2, 2) sharded_topk vs TiledEvaluator.topk")
+    ranked = evaluate_metrics(list(head["metrics"]), want[:, :50], test.user_items)
+    for m, v in ranked.items():
+        if abs(head["metrics"][m] - v) > 1e-6:
+            raise AssertionError(f"(2, 2) {m}: {head['metrics'][m]} vs {v}")
+    out["topk_rows_with_a_strict_kth"] = sure
+    del user, item, ev
+    # The checkpoint on one rank, and on (4, 1). Both epochs of a stream
+    # take as many steps.
+    steps1 = len(oracles[0]["step_losses"]) // 2
+    one = mc.train_oracle(2, data_kw, cfg_kw, 1, dev.type, data=(train, test),
+                          restore_dir=str(ck), step_losses=MESH_STEPS,
+                          evaluate=False, n_model=2)
+    if one["restored"] != 1:
+        raise AssertionError(f"(2, 2) checkpoint restored at {one['restored']}")
+    out["held"]["resumed_one_rank"] = held_to_spread(
+        "(2, 2) checkpoint resumed on one rank", one["step_losses"],
+        [o["step_losses"][steps1:] for o in oracles])
+    t0 = time.perf_counter()
+    run41 = mc.spawn_ranks(
+        mc.rank_train, 4, (4, 1), data_kw, cfg_kw, 1, dev.type, device=dev.type,
+        timeout=MESH_TIMEOUT, restore_dir=str(ck), evaluate=False,
+        all_states=False, step_losses=MESH_STEPS)
+    out["resume_41_wall_s"] = time.perf_counter() - t0
+    mc.check_replicas([r["replicas"] for r in run41])
+    four = [mc.train_oracle(4, data_kw, cfg_kw, 1, dev.type, data=(train, test),
+                            restore_dir=str(ck), step_losses=MESH_STEPS,
+                            evaluate=False) for _ in range(ORACLE_RUNS)]
+    out["held"]["resumed_41"] = held_to_spread(
+        "(2, 2) checkpoint resumed on (4, 1)", run41[0]["step_losses"],
+        [o["step_losses"] for o in four])
+    out["resumed_losses"] = {"one_rank": one["losses"],
+                             "mesh_41": run41[0]["losses"],
+                             "one_rank_4_shards": [o["losses"] for o in four]}
+    print(f"mesh (b), the Engine API on (2, 2) through gloo: {json.dumps(out)}")
+    return out
+
+
+def check_mesh_nccl(dev) -> dict:
+    """(c) NCCL at a world of one: ``Engine(mesh=make_mesh(1, 1))`` on the
+    card in a process of its own (the backend must be nccl), one epoch
+    and an evaluation, against ORACLE_RUNS mesh-less engines in the same process
+    by :func:`held_to_spread` (step losses, tables); the metrics beside
+    theirs."""
+    mc = mesh_support()
+    cfg, data_kw, _ = mesh_data()
+    t0 = time.perf_counter()
+    (res,) = mc.spawn_ranks(mc.rank_world_of_one, 1, data_kw,
+                            __import__("dataclasses").asdict(cfg), dev.type,
+                            MESH_STEPS, ORACLE_RUNS, device=dev.type,
+                            timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if res["backend"] != "nccl":
+        raise AssertionError(f"(1, 1) on the card: backend {res['backend']}")
+    mesh, plain = res["mesh"], res["plain"]
+    out = {"wall_s": wall, "backend": res["backend"],
+           "losses": mesh["losses"], "plain_losses": [p["losses"] for p in plain],
+           "metrics": mesh["metrics"], "epoch_s": mesh["epoch_s"],
+           "plain_epoch_s": [p["epoch_s"] for p in plain],
+           "held": {"step_losses": held_to_spread(
+               "(1, 1) NCCL step losses", mesh["step_losses"],
+               [p["step_losses"] for p in plain])}}
+    for name in ("user_emb", "item_emb"):
+        out["held"][name] = held_to_spread(
+            f"(1, 1) NCCL {name}", mesh["state"][name],
+            [p["state"][name] for p in plain])
+    out["metric_gaps"] = {m: max(abs(p["metrics"][m] - v) for p in plain)
+                          for m, v in mesh["metrics"].items()}
+    print(f"mesh (c), NCCL at a world of one: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3995,6 +4545,24 @@ def main() -> int:
             f"{ceiling_launches['gather_blocks_bf16']} of them in bf16"
         )
 
+    # The mesh (ROADMAP item 15a): (a) the CLI on (4, 1), (b) the Engine
+    # API on (2, 2) and its checkpoint on one rank and (4, 1), (c) NCCL at
+    # a world of one; and every kernel of (b) at a rank's shard shapes.
+    entries = {k["name"]: k for k in kernels}
+    check_mesh_kernels(dev, entries)
+    mesh = {"a": check_mesh_cli(dev, cli), "b": check_mesh_engine(dev),
+            "c": check_mesh_nccl(dev)}
+    print(json.dumps({"mesh": {
+        "(a) wall_s, collective ms a step, rank 0's traced idle share": [
+            mesh["a"]["wall_s"], mesh["a"]["collective_ms_per_step"],
+            mesh["a"]["trace_epoch1_rank0"]["idle_share"]],
+        "(b) wall_s, collective ms a step, rank 0's last epoch idle share": [
+            mesh["b"]["wall_s"], mesh["b"]["collective_ms_per_step"],
+            mesh["b"]["last_epoch_rank0"]["idle_share"]],
+        "(c) wall_s, backend": [mesh["c"]["wall_s"], mesh["c"]["backend"]]}}))
+    print(f"card for the line above (ranks sharing one card; no multi-card "
+          f"speed): {card}")
+
     # Each instance's launches on its own main path: the f32 instances on
     # config0 (K4 too), the bf16 instances on the headline run, S2 on its
     # measuring entry point; the update entries' f32 instances on the f32
@@ -4030,6 +4598,8 @@ def main() -> int:
         if k["launches"] < 1:
             raise AssertionError(f"{name} was not launched on its main path")
         k["launches_eval_approx"] = approx_launches[name]
+        k["launches_mesh_41_rank0"] = mesh["a"]["launches_rank0"][name]
+        k["launches_mesh_22_rank0"] = mesh["b"]["launches_rank0"][name]
         k["launches_serving"] = serving_launches[name]
         k["launches_serving_bf16"] = serving16_launches[name]
         for mode in HUGE_ENGINE_RUNS:

@@ -29,6 +29,15 @@ their addresses, and drops the engine's captured CUDA graphs: a graph
 captured before the restore is never replayed against the restored
 generator. The CLI restores before the first epoch, before any capture.
 
+On a mesh a checkpoint holds the global state, in the same format: the
+save gathers every rank's shard (``Engine.unpadded_state``), the mesh's
+first rank writes the file, and every rank waits until it is in place;
+the restore reads the global arrays on every rank and keeps the rank's
+shard (``parallel.mesh.shard_train_state``). The engine's generator is
+the same on every rank of a mesh. So a checkpoint moves between meshes,
+and between a mesh and one rank, as the JAX package's Orbax checkpoints
+do.
+
 A CUDA generator's state does not load into a CPU generator (nor the
 reverse): a checkpoint moved to another device type carries the
 parameters, the optimizer and the sampler, not the same draws, and
@@ -46,6 +55,9 @@ import re
 from typing import Optional
 
 import torch
+
+from heat_tpu_torch.models.state import TrainState
+from heat_tpu_torch.parallel.mesh import shard_train_state
 
 FORMAT = 1
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
@@ -74,8 +86,10 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, engine) -> None:
-        """Save the engine's state keyed by its epoch counter."""
-        st = engine.state
+        """Save the engine's state keyed by its epoch counter (on a mesh,
+        every rank calls it; the first writes)."""
+        mesh = engine.mesh
+        st = engine.unpadded_state()
         once = engine._once_state if engine._once_cached() else None
         payload = {
             "format": FORMAT,
@@ -89,13 +103,16 @@ class CheckpointManager:
             "np_rng": engine._np_rng.bit_generator.state,
             "once": once,
         }
-        path = self._path(engine.epoch)
-        tmp = os.path.join(self.directory, f".{os.path.basename(path)}.tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        if self.max_to_keep is not None:  # None keeps every checkpoint
-            for old in self.all_steps()[:-self.max_to_keep]:
-                os.remove(self._path(old))
+        if mesh is None or mesh.rank == 0:
+            path = self._path(engine.epoch)
+            tmp = os.path.join(self.directory, f".{os.path.basename(path)}.tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            if self.max_to_keep is not None:  # None keeps every checkpoint
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    os.remove(self._path(old))
+        if mesh is not None:
+            mesh.barrier()
 
     def restore_latest(self, engine) -> Optional[int]:
         """Restore the newest checkpoint into the engine; returns its epoch,
@@ -114,8 +131,14 @@ class CheckpointManager:
                 f"{self._path(step)} holds a {saved_dev} generator state, "
                 f"which a {engine.device.type} generator cannot take: the "
                 f"draws would differ")
+        saved_state = payload["state"]
+        if engine.mesh is not None:
+            # The file holds the global state: keep this rank's shard.
+            shard = shard_train_state(TrainState(**saved_state), engine.shards)
+            saved_state = {f.name: getattr(shard, f.name)
+                           for f in dataclasses.fields(shard)}
         # Every field is checked before any is written.
-        pairs = (_pairs(engine.state, payload["state"], "state")
+        pairs = (_pairs(engine.state, saved_state, "state")
                  + _pairs(engine.sampler_state, payload["sampler"], "sampler"))
         for mine, theirs in pairs:
             mine.copy_(theirs)

@@ -376,6 +376,82 @@ def topk_scores(
     return scores.cpu().numpy(), ids.cpu().numpy()
 
 
+def sharded_topk_supported(mesh, num_items: int, k: int, num_users: int) -> bool:
+    """Whether :func:`sharded_topk` covers the geometry: the data axis
+    divides the users, and ``k`` is at most the items of a shard and the
+    real items."""
+    from heat_tpu_torch.parallel.mesh import sharded_item_rows
+
+    n_data, n_model = mesh.shape
+    i_loc = sharded_item_rows(num_items, n_model) // n_model
+    return num_users % n_data == 0 and k <= i_loc and k <= num_items
+
+
+def sharded_topk(
+    mesh,
+    user_emb: torch.Tensor,
+    item_emb: torch.Tensor,
+    bits: torch.Tensor,
+    k: int,
+    *,
+    exact: bool = True,
+    recall_target: float = 0.95,
+    user_chunk: int = 1024,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over a mesh without gathering a table (the JAX package's
+    ``sharded_topk``). On each rank:
+
+    1. score the rank's user rows against its item rows (the f32 GEMM,
+       ``user_chunk`` users at a time),
+    2. mask with the rank's slice of the packed train mask,
+    3. select the shard's top k (:func:`masked_topk`: the two-phase exact
+       top-k, kernel K4, from a row of ``_TOPK_2PHASE_MIN_ITEMS`` items up)
+       and make the ids global (``+ model_index * I_loc``),
+    4. all-gather the k candidates over the model group (k * n_model a
+       user, the only item traffic) and merge exactly: a stable descending
+       sort, so that equal scores keep the lower model shard and rank
+       first, the tie rule of ``lax.top_k`` in the JAX merge.
+
+    Args:
+      mesh: the ``parallel.mesh.Mesh``.
+      user_emb: (U_loc, d) the rank's user rows.
+      item_emb: (I_loc, d) the rank's item rows, I_loc =
+        ``parallel.mesh.sharded_item_rows / n_model`` (pad rows zero;
+        their bits set in ``bits``, so that they never rank).
+      bits: (U_loc, I_loc / 32) int32, the rank's users' train mask over
+        its items (pad bits set).
+      k: ranks to return (at most I_loc).
+
+    Returns:
+      (scores, ids): (U_loc, k) each, descending, the same on every rank
+      of a model group; ids int32 global item ids.
+    """
+    u_rows, i_loc = user_emb.shape[0], item_emb.shape[0]
+    if bits.shape != (u_rows, i_loc // 32):
+        raise ValueError(
+            f"sharded_topk: bits {tuple(bits.shape)} for {u_rows} users and "
+            f"{i_loc} items")
+    offset = mesh.model_index * i_loc
+    item_t = item_emb.float().T
+    user = user_emb.float()
+    scores, ids = [], []
+    for lo in range(0, u_rows, user_chunk):
+        hi = min(lo + user_chunk, u_rows)
+        sim = torch.matmul(user[lo:hi], item_t)
+        s, i = masked_topk(sim, bits[lo:hi], k, exact=exact,
+                           recall_target=recall_target)
+        scores.append(s)
+        ids.append(i.to(torch.int32) + offset)
+    s = torch.cat(scores) if scores else user.new_zeros((0, k))
+    i = (torch.cat(ids) if ids
+         else torch.zeros((0, k), dtype=torch.int32, device=user.device))
+    s_all = torch.cat(mesh.all_gather(s, "model"), dim=1)
+    i_all = torch.cat(mesh.all_gather(i, "model"), dim=1)
+    s_top, sel = torch.sort(s_all, dim=1, descending=True, stable=True)
+    sel = sel[:, :k]
+    return s_top[:, :k], torch.gather(i_all, 1, sel)
+
+
 def full_sim_matrix(user_emb: torch.Tensor, item_emb: torch.Tensor) -> np.ndarray:
     """The reference ``evaluate0`` API (engine.cpp:388-400): the dense
     user x item dot-product matrix, an f32 product (TF32 off) brought to

@@ -229,13 +229,32 @@ def evaluate_metrics_device(
     truth: torch.Tensor,
     truth_len: torch.Tensor,
 ) -> dict[str, float]:
-    """Metrics averaged over users with at least one test item, computed
-    on the tensors' device; only len(metrics) scalars reach the host.
+    """Metrics averaged over users with at least one test item: the sums
+    of :func:`device_metric_sums`, computed on the tensors' device (only
+    len(metrics) + 1 scalars reach the host), over the count of users.
 
     Args:
       top_k_items: (U, >=max_k) ranked ids (train items masked).
       truth / truth_len: :func:`pad_truth` outputs as tensors.
     """
+    sums = device_metric_sums(metrics, top_k_items, truth, truth_len)
+    denom = max(sums[-1], np.float32(1.0))
+    return {m: float(v / denom) for m, v in zip(metrics, sums[:-1])}
+
+
+def device_metric_sums(
+    metrics: Sequence[str],
+    top_k_items: torch.Tensor,
+    truth: torch.Tensor,
+    truth_len: torch.Tensor,
+    mesh=None,
+) -> np.ndarray:
+    """Per-metric sums over the users with at least one test item, and the
+    count of those users last: the form of :func:`evaluate_metrics_device`
+    that adds up across ranks. With a ``mesh`` (the rank's users' rows in,
+    ``parallel.mesh.Mesh``) the sums are summed over its data group, so
+    every rank holds the global sums; the averages are ``sums[:-1] /
+    sums[-1]``."""
     parsed = [parse_metric(m) for m in metrics]
     max_k = max(k for _, k in parsed)
     if top_k_items.shape[1] < max_k:
@@ -246,17 +265,13 @@ def evaluate_metrics_device(
     hits = (top[:, :, None] == truth[:, None, :]).any(2).float()
     num_true = truth_len.float()
     valid = num_true > 0
-    denom = torch.clamp(valid.float().sum(), min=1.0)
-    vals = torch.stack(
-        [
-            torch.where(
-                valid, _device_metric_values(n, k, hits, num_true), 0.0
-            ).sum()
-            / denom
-            for n, k in parsed
-        ]
-    ).cpu()
-    return {m: float(v) for m, v in zip(metrics, vals)}
+    sums = torch.stack(
+        [torch.where(valid, _device_metric_values(n, k, hits, num_true),
+                     0.0).sum() for n, k in parsed]
+        + [valid.float().sum()])
+    if mesh is not None:
+        mesh.all_reduce(sums, "data")
+    return sums.cpu().numpy()
 
 
 def evaluate_sim_matrix(

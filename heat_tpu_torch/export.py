@@ -6,6 +6,10 @@ numpy arrays with the same keys as the JAX package writes (``user_emb``,
 config ``meta_gamma`` and ``meta_similarity``), so either package, or any
 numpy consumer, reads the other's files. ``state_from_numpy`` of the
 loaded arrays gives a serving state back.
+
+On a mesh the tables are gathered first (``Engine.unpadded_state()``, as
+the JAX package's export gathers its shards), the mesh's first rank
+writes the file, and every rank returns the manifest.
 """
 
 from __future__ import annotations
@@ -13,16 +17,19 @@ from __future__ import annotations
 import numpy as np
 
 
-def export_embeddings(state, path: str, cfg=None) -> dict:
+def export_embeddings(state, path: str, cfg=None, mesh=None) -> dict:
     """Write the user/item tables and w0 (and attn_q, where present) of
     ``state`` to a compressed ``.npz`` as f32. Returns the dict written.
 
     Args:
-      state: a TrainState (``engine.unpadded_state()``).
+      state: a TrainState (``engine.unpadded_state()``: on a mesh, the
+        global state gathered from the ranks).
       path: output ``.npz`` path.
       cfg: optional CFConfig; records gamma and the similarity so that a
         consumer can reproduce scoring
         (``score = cos(gamma*u + (1-gamma)*pool@w0, i)``).
+      mesh: the engine's mesh, or None: rank 0 of the mesh writes the
+        file, and every rank returns once it is written.
     """
 
     def host(x):
@@ -43,7 +50,10 @@ def export_embeddings(state, path: str, cfg=None) -> dict:
         out["meta_similarity"] = np.asarray(
             0 if cfg.similarity == "cosine" else 1, np.int32
         )
-    np.savez_compressed(path, **out)
+    if mesh is None or mesh.rank == 0:
+        np.savez_compressed(path, **out)
+    if mesh is not None:
+        mesh.barrier()
     return out
 
 

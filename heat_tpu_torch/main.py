@@ -37,7 +37,24 @@ saves one after every chunk, once at the end of ``--fused-run``
 trace of the run's second epoch, run alone (``utils/profiling.py``; not
 with ``--fused-run``); ``--breakdown`` prints the engine's host-phase
 breakdown (``data``, ``f_b``, ``eval``) at the end; ``--no-data-cache``
-parses the click files without the ``.npz`` sidecar cache.
+parses the click files without the ``.npz`` sidecar cache;
+``--kernel-launches`` prints the run's kernel launches, steps and
+evaluations as one JSON line before the final metrics.
+
+Under a launcher the CLI runs on a mesh of ranks (ROADMAP item 15a), as
+the JAX CLI does across processes: ``python -m torch.distributed.run
+--standalone --nproc-per-node N -m heat_tpu_torch.main ...`` (add
+``--device cpu`` to run on the CPU through gloo). Every rank starts
+``torch.distributed`` from the launcher's environment
+(``parallel.distributed.initialize``: NCCL when each rank has a card of
+its own, gloo when ranks share one or run on the CPU), loads the data and
+keeps its user range (``shard_by_user_range``, global ids for training),
+synthetic data included: the JAX CLI shards only file data, and given the
+whole synthetic data in every process it fails at its first evaluation.
+The engine gets ``global_mesh()``, an (N, 1) mesh; rank 0 prints and
+logs, and writes the export and the checkpoints, which hold the global
+tables. On a mesh the epochs run one by one (``--fused-epochs`` above 1
+and ``--fused-run`` raise, ROADMAP item 15b).
 
 ``--eval-approx RECALL`` (in (0, 1]) ranks the periodic evaluations with
 ``exact=False`` at that recall target, as the JAX CLI does; the final
@@ -50,6 +67,7 @@ selects exactly, through the two-phase top-k (``evaluation/evaluator.py``
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -59,9 +77,10 @@ import yaml
 
 from heat_tpu_torch.checkpoint import CheckpointManager
 from heat_tpu_torch.config import load_config
-from heat_tpu_torch.data.datasets import load_with_cache
+from heat_tpu_torch.data.datasets import load_with_cache, shard_by_user_range
 from heat_tpu_torch.data.synthetic import synthetic_click_dataset
 from heat_tpu_torch.export import export_embeddings
+from heat_tpu_torch.parallel import distributed
 from heat_tpu_torch.train.engine import Engine
 from heat_tpu_torch.utils.logging import MetricsLogger
 from heat_tpu_torch.utils.profiling import trace
@@ -70,6 +89,13 @@ from heat_tpu_torch.utils.profiling import trace
 def _sync(engine: Engine) -> None:
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
+
+
+def _launches() -> dict:
+    """The kernel wrappers' launch counts so far (``ops.cuda``)."""
+    from heat_tpu_torch.ops.cuda import gather, scatter, topk
+
+    return {**gather.LAUNCHES, **scatter.LAUNCHES, **topk.LAUNCHES}
 
 
 def main(argv=None) -> dict:
@@ -167,6 +193,13 @@ def main(argv=None) -> dict:
         "evaluation is exact",
     )
     parser.add_argument(
+        "--kernel-launches",
+        action="store_true",
+        help="print, before the final metrics, one JSON line of the run's "
+        "kernel launches by wrapper (rank 0's on a mesh), its steps and "
+        "evaluations",
+    )
+    parser.add_argument(
         "--set",
         dest="overrides",
         action="append",
@@ -191,6 +224,15 @@ def main(argv=None) -> dict:
     cfg, ds_cfg = load_config(args.config, **overrides)
     if args.epochs is not None:
         cfg.epochs = args.epochs
+
+    # Under a launcher: one rank of a mesh (the JAX CLI's processes).
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        distributed.initialize(device=args.device)
+    nproc, rank = distributed.process_shard_index()
+    if nproc > 1 and (args.fused_run or args.fused_epochs > 1):
+        raise NotImplementedError(
+            "--fused-epochs and --fused-run on a mesh are not ported to "
+            "heat_tpu_torch (ROADMAP.md, modules still to port, item 15b)")
 
     if args.synthetic:
         num_users, num_items = (int(x) for x in args.synthetic.split(","))
@@ -222,14 +264,26 @@ def main(argv=None) -> dict:
             seed=cfg.seed,
             cache=not args.no_data_cache,
         )
+    mesh = None
+    if nproc > 1:
+        # Global ids: the shards feed one user table split over "data".
+        train_data = shard_by_user_range(train_data, nproc, rank, rebase=False)
+        test_data = shard_by_user_range(test_data, nproc, rank)
+        mesh = distributed.global_mesh(device=args.device)
+    lead = rank == 0
 
-    engine = Engine(cfg, train_data, test_data, device=args.device)
+    def say(*a) -> None:
+        if lead:
+            print(*a, flush=True)
+
+    engine = Engine(cfg, train_data, test_data, device=args.device, mesh=mesh)
+    launches_before = _launches() if args.kernel_launches else None
     ckpt = None
     if args.checkpoint_dir:
         ckpt = CheckpointManager(args.checkpoint_dir)
         if ckpt.restore_latest(engine) is not None:
-            print(f"resumed from epoch {engine.epoch}")
-    mlog = MetricsLogger(args.log_file)
+            say(f"resumed from epoch {engine.epoch}")
+    mlog = MetricsLogger(args.log_file if lead else None)
     # Trace the second epoch of this run, so that the first absorbs the
     # capture (the first, capture included, for a one-epoch run).
     profile_epoch = None
@@ -238,7 +292,7 @@ def main(argv=None) -> dict:
     record = {"losses": [], "epoch_times": [], "evals": []}
 
     def report(epoch: int, loss: float, dt: float) -> None:
-        print(f"epoch: {epoch}; loss: {loss:.6f}; epoch_time: {dt:.3f}s")
+        say(f"epoch: {epoch}; loss: {loss:.6f}; epoch_time: {dt:.3f}s")
         mlog.log("epoch", epoch=epoch, loss=loss,
                  lr=float(engine.state.lr), epoch_time_s=dt)
         record["losses"].append(loss)
@@ -248,10 +302,8 @@ def main(argv=None) -> dict:
         record["evals"].append(
             {"epoch": epoch, "seconds": seconds, "metrics": metrics}
         )
-        print(
-            "[Metrics] "
-            + " - ".join(f"{k}: {v:.6f}" for k, v in metrics.items())
-        )
+        say("[Metrics] "
+            + " - ".join(f"{k}: {v:.6f}" for k, v in metrics.items()))
         mlog.log("eval", epoch=epoch, **metrics)
 
     if args.fused_run:
@@ -283,11 +335,14 @@ def main(argv=None) -> dict:
             n = 1 if start == profile_epoch else profile_epoch - start
         _sync(engine)
         t0 = time.perf_counter()
+        # A mesh runs its epochs one by one (n is 1 there).
+        run = ((lambda k: [engine.train_one_epoch()]) if mesh is not None
+               else engine.train_epochs)
         if n == 1 and start == profile_epoch:
-            with trace(args.profile_dir):
-                losses = engine.train_epochs(1)
+            with trace(args.profile_dir) if lead else contextlib.nullcontext():
+                losses = run(1)
         else:
-            losses = engine.train_epochs(n)  # reads the losses: waits
+            losses = run(n)  # reads the losses: waits
         dt = (time.perf_counter() - t0) / n
         for i, loss in enumerate(losses):
             report(start + i, loss, dt)
@@ -313,12 +368,21 @@ def main(argv=None) -> dict:
     record["steps"] = int(engine.state.step)
     if args.export_embeddings:
         export_embeddings(
-            engine.unpadded_state(), args.export_embeddings, cfg=cfg
+            engine.unpadded_state(), args.export_embeddings, cfg=cfg,
+            mesh=mesh,
         )
-        print(f"exported embeddings to {args.export_embeddings}")
+        say(f"exported embeddings to {args.export_embeddings}")
     if args.breakdown:
-        print(engine.performance_breakdown())
-    print(json.dumps({"final_metrics": metrics}))
+        say(engine.performance_breakdown())
+    if launches_before is not None:
+        report_k = {
+            "kernel_launches": {k: n - launches_before[k]
+                                for k, n in _launches().items()},
+            "steps": record["steps"],
+            "evaluations": len(record["evals"]) + 1,
+        }
+        say(json.dumps(report_k))
+    say(json.dumps({"final_metrics": metrics}))
     return record
 
 

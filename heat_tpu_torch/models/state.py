@@ -137,7 +137,7 @@ def zero_grad_accumulators(state: TrainState) -> TrainState:
 def state_from_numpy(
     user_emb, item_emb, w0, *, lr: float, step: int, device,
     user_gacc=None, item_gacc=None, opt_slots: Optional[dict] = None,
-    param_dtype: torch.dtype = torch.float32, attn_q=None,
+    param_dtype: torch.dtype = torch.float32, attn_q=None, shards=None,
 ) -> TrainState:
     """A TrainState on ``device`` from array-likes (for example the JAX
     TrainState's arrays through ``np.asarray``). Copies the data.
@@ -145,14 +145,17 @@ def state_from_numpy(
     f32 (exact for an ``ml_dtypes`` bfloat16 source); the tables and the
     gradient rows are then cast to ``param_dtype``, which is exact again
     when the source held that type. ``w0``, ``attn_q`` and the slots stay
-    f32."""
+    f32. ``shards`` (a rank's ``parallel.mesh.TableShards``, the
+    ``Engine.shards`` of a mesh engine): the arrays are the global state,
+    and the rank's shard of it is returned
+    (``parallel.mesh.shard_train_state``)."""
 
     def f32(x, dtype=torch.float32):
         if x is None:
             return None
         return torch.tensor(np.asarray(x, np.float32), device=device).to(dtype)
 
-    return TrainState(
+    state = TrainState(
         user_emb=f32(user_emb, param_dtype),
         item_emb=f32(item_emb, param_dtype),
         w0=f32(w0),
@@ -166,12 +169,24 @@ def state_from_numpy(
         ),
         attn_q=f32(attn_q),
     )
+    if shards is not None:
+        from heat_tpu_torch.parallel.mesh import shard_train_state
+
+        state = shard_train_state(state, shards)
+    return state
 
 
-def state_to_numpy(state: TrainState) -> dict:
+def state_to_numpy(state: TrainState, shards=None) -> dict:
     """The state's arrays on the host: user_emb, item_emb, w0, lr, step,
     and user_gacc / item_gacc / opt_slots (a dict of arrays) / attn_q where
-    present. bf16 tensors come out as f32 (exact): numpy has no bfloat16."""
+    present. bf16 tensors come out as f32 (exact): numpy has no bfloat16.
+    With ``shards`` (a mesh engine's ``Engine.shards``), ``state`` is the
+    rank's shard and the global arrays are returned (gathered from every
+    rank: collective, every rank calls it)."""
+    if shards is not None:
+        from heat_tpu_torch.parallel.mesh import gather_train_state
+
+        state = gather_train_state(state, shards)
 
     def host(t):
         t = t.detach().cpu()

@@ -53,17 +53,30 @@ _GATHER_BLOCKS = symbols("gather_blocks")
 _HISTORY_MEAN = symbols("history_mean")
 
 
+def _inside(ids: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ids clamped into [0, n), whether each id was inside) as int64: the
+    kernels' contract reads no id outside the table."""
+    idx = ids.long()
+    inside = (idx >= 0) & (idx < n)
+    return idx.clamp(0, max(n - 1, 0)), inside
+
+
 def gather_rows_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`gather_rows`: out[j] = table[ids[j]]."""
-    return table.index_select(0, ids.long())
+    """Plain version of :func:`gather_rows`: out[j] = table[ids[j]], and
+    zeros for an id outside [0, N) (the kernel's contract)."""
+    n = table.shape[0]
+    if n == 0:
+        return table.new_zeros((ids.shape[0], table.shape[1]))
+    idx, inside = _inside(ids, n)
+    return table.index_select(0, idx).masked_fill_(~inside[:, None], 0)
 
 
 def gather_rows_multi_ref(
     segments: Sequence[tuple[torch.Tensor, torch.Tensor]],
     out_dtype: torch.dtype | None = None,
 ) -> list[torch.Tensor]:
-    """Plain version of :func:`gather_rows_multi`: one ``index_select`` and
-    one cast per (table, ids) pair."""
+    """Plain version of :func:`gather_rows_multi`: one
+    :func:`gather_rows_ref` and one cast per (table, ids) pair."""
     return [
         gather_rows_ref(table, ids).to(table.dtype if out_dtype is None else out_dtype)
         for table, ids in segments
@@ -81,7 +94,8 @@ def history_mean_gather_ref(
     row outside the history table gets length 0). Then it materializes the
     (B, H, d) gather cast to ``out_dtype``, masks positions h >= lens[b],
     sums in f32, divides once by max(lens, 1) and rounds once to
-    ``out_dtype``; empty histories give 0.
+    ``out_dtype``; empty histories give 0. An id outside the table is
+    left out of the sum, which still divides by the whole length.
     """
     out_dtype = table.dtype if out_dtype is None else out_dtype
     if rows is not None:
@@ -95,7 +109,9 @@ def history_mean_gather_ref(
         his_ids = his_ids.index_select(0, idx)
         lens = torch.where(inside, lens.index_select(0, idx), 0)
     b, h = his_ids.shape
-    gathered = table.index_select(0, his_ids.reshape(-1).long())
+    # An id outside the table is left out of the sum (the kernel's
+    # contract); the mean still divides by the whole length.
+    gathered = gather_rows_ref(table, his_ids.reshape(-1))
     gathered = gathered.reshape(b, h, table.shape[1])
     valid = torch.arange(h, device=lens.device)[None, :] < lens[:, None]
     total = (gathered.to(out_dtype).float() * valid[:, :, None]).sum(1)
@@ -107,9 +123,9 @@ def gather_blocks_ref(
     table: torch.Tensor, block_ids: torch.Tensor, r: int
 ) -> torch.Tensor:
     """Plain version of :func:`gather_blocks`: ``index_select`` on the
-    (N / r, r * d) view of the table."""
+    (N / r, r * d) view of the table, zeros for a block id outside it."""
     n, d = table.shape
-    blocks = table.view(n // r, r * d).index_select(0, block_ids.long())
+    blocks = gather_rows_ref(table.view(n // r, r * d), block_ids)
     return blocks.view(-1, d)
 
 
@@ -171,6 +187,7 @@ _SegmentArray = ctypes.c_int64 * (MAX_SEGMENTS * _SEGMENT_FIELDS)
 def gather_rows_multi(
     segments: Sequence[tuple[torch.Tensor, torch.Tensor]],
     out_dtype: torch.dtype | None = None,
+    outs: Sequence[torch.Tensor | None] | None = None,
 ) -> list[torch.Tensor]:
     """The row gathers of up to ``MAX_SEGMENTS`` (table, ids) pairs in one
     launch: ``out[i][j] = table_i[ids_i[j]]`` cast to ``out_dtype``.
@@ -180,8 +197,10 @@ def gather_rows_multi(
     is f32, bf16 or None for each table's own type; the cast happens inside
     the kernel (bf16 to f32 exact, f32 to bf16 round to nearest even), so
     every output is bit-equal to ``gather_rows(table, ids).to(out_dtype)``.
-    An id outside [0, N_i) writes zeros. Returns the new (M_i, d_i) tensors
-    in the order of ``segments``.
+    An id outside [0, N_i) writes zeros. ``outs``: optional tensors to
+    write into, one a segment (None for a new one), each a contiguous
+    (M_i, d_i) tensor of the output type on the device. Returns the
+    (M_i, d_i) outputs in the order of ``segments``.
     """
     name = "gather_rows_multi"
     segments = list(segments)
@@ -201,14 +220,28 @@ def gather_rows_multi(
         on_card = _check(name, table, ids)
         if ids.dim() != 1:
             raise ValueError(f"{name}: ids must be 1-D")
+    given = [None] * len(segments) if outs is None else list(outs)
+    if len(given) != len(segments):
+        raise ValueError(f"{name}: {len(given)} outs for {len(segments)} segments")
+    for (table, ids), out in zip(segments, given):
+        if out is None:
+            continue
+        dtype = table.dtype if out_dtype is None else out_dtype
+        if (out.device != device or out.dtype != dtype or not out.is_contiguous()
+                or out.shape != (ids.shape[0], table.shape[1])):
+            raise ValueError(
+                f"{name}: an out must be a contiguous ({ids.shape[0]}, "
+                f"{table.shape[1]}) {dtype} tensor on {device}")
     if not on_card:
-        return gather_rows_multi_ref(segments, out_dtype)
+        return [res if out is None else out.copy_(res) for res, out in
+                zip(gather_rows_multi_ref(segments, out_dtype), given)]
     outs, fields, any_bf16 = [], [], False
-    for table, ids in segments:
+    for (table, ids), out in zip(segments, given):
         n, d = table.shape
         m = ids.shape[0]
         dtype = table.dtype if out_dtype is None else out_dtype
-        out = torch.empty((m, d), dtype=dtype, device=device)
+        if out is None:
+            out = torch.empty((m, d), dtype=dtype, device=device)
         outs.append(out)
         bf16 = table.dtype == torch.bfloat16
         any_bf16 |= bf16

@@ -9,8 +9,10 @@ again at two other engine seeds, whose spread it records beside the bands
 (:func:`seed_spread`). The card's half (``chip_smoke.py``) generates the
 same data with ``heat_tpu_torch.data.synthetic`` (a verbatim copy of the
 JAX package's generator), checks its checksum against the file, and holds
-its own final metrics to the recorded ones with :func:`gate`. This module
-reads the file; it needs no JAX.
+its own final metrics to the recorded ones with :func:`gate`. The run on
+a (4, 1) mesh (``config0_mesh41``, on 52,644 users: the JAX engine needs
+the data axis to divide them) records its own geometry and checksums
+(:func:`check_run_data`). This module reads the file; it needs no JAX.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ BANDS = {
     "accl_self_s": HEADLINE_BAND,
     "headline_ccl": HEADLINE_BAND,
     "complement": COLLAPSED_BAND,
+    "config0_mesh41": CONFIG0_BAND,
 }
 
 
@@ -83,6 +86,14 @@ def check_data(record: dict, train, test) -> dict:
         raise AssertionError(
             f"the data differs from the gate's record: {got} against {want}")
     return got
+
+
+def check_run_data(record: dict, run: str, train, test) -> dict:
+    """:func:`check_data` against the data of one run: a run on a mesh
+    (``config0_mesh41``) records its own geometry and checksums beside
+    its metrics; the other runs share the record's."""
+    entry = record["runs"][run]
+    return check_data(entry if "sha256" in entry else record, train, test)
 
 
 def seed_spread(record: dict) -> dict:

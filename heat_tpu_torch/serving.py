@@ -221,17 +221,34 @@ class Recommender:
         his_masks=None,
         user_tile: int = 512,
     ) -> "Recommender":
-        """Serve from a live single-process engine: a snapshot of its
-        unpadded state, and by default its train pairs as the seen pairs
-        and its histories. The engine's steps update its tables in place,
-        so the tables and ``w0`` are copied here: further training does
-        not change what this Recommender serves (``attn_q`` too). (The JAX package also
-        gathers multi-host table shards here; that waits for the port's
-        multi-device slice, ROADMAP item 15.)"""
+        """Serve from a live engine: a snapshot of its unpadded state, and
+        by default its train pairs as the seen pairs and its histories. The
+        engine's steps update its tables in place, so the tables and ``w0``
+        are copied here: further training does not change what this
+        Recommender serves (``attn_q`` too).
+
+        On a mesh (collective: every rank calls it) the tables are
+        gathered from the ranks' shards, as the JAX package's
+        ``_gathered`` does, and so are the ranks' train pairs and
+        histories (the JAX package serves a process's own pairs and no
+        histories there): every rank serves the whole model on its own
+        device."""
+        mesh = engine.mesh
         if seen_pairs is None:
             seen_pairs = np.asarray(engine.train_data.pairs)
+            if mesh is not None:
+                seen_pairs = np.concatenate(
+                    mesh.all_gather_object(seen_pairs, "data"))
         if his_items is None:
             his_items, his_masks = engine.his_items, engine.his_masks
+            if mesh is not None:
+                # The engine keeps its histories' ids local to its item
+                # shard; the data's are global.
+                his_items, his_masks = (
+                    torch.cat(mesh.all_gather(torch.as_tensor(
+                        np.asarray(a, np.int32), device=engine.device), "data"))
+                    for a in (engine.train_data.his_items,
+                              engine.train_data.masks))
         live = engine.unpadded_state()
         snapshot = TrainState(
             user_emb=live.user_emb.clone(),

@@ -95,12 +95,17 @@ from heat_tpu_torch.config import (
     NEG_SAMPLER_TILE,
     SGD_MODE_ACCUM,
 )
-from heat_tpu_torch.data.datasets import ClickDataset
+from heat_tpu_torch.data.datasets import ClickDataset, user_range_bounds
 from heat_tpu_torch.evaluation.evaluator import (
     TiledEvaluator,
     full_sim_matrix,
+    pack_train_bits,
+    sharded_topk,
+    sharded_topk_supported,
 )
 from heat_tpu_torch.evaluation.metrics import (
+    device_metric_sums,
+    evaluate_metrics,
     evaluate_metrics_device,
     pad_truth,
     parse_metric,
@@ -111,6 +116,12 @@ from heat_tpu_torch.models.state import (
     init_train_state,
     zero_grad_accumulators,
 )
+from heat_tpu_torch.parallel.mesh import (
+    gather_train_state,
+    shard_train_state,
+    table_shards,
+)
+from heat_tpu_torch.train import scatter
 from heat_tpu_torch.train.optimizer import scheduled_lr
 from heat_tpu_torch.train.run import reference_schedule
 from heat_tpu_torch.train.samplers import derive_tile_params, init_sampler_state
@@ -137,6 +148,37 @@ def check_slice(cfg: CFConfig) -> None:
             )
 
 
+def check_mesh_slice(cfg: CFConfig) -> None:
+    """Raise NotImplementedError for any setting the mesh path does not run
+    yet: ROADMAP item 15a is config0's path (uniform negatives, the
+    history mean every step, batch-mode SGD with the combined-row clip,
+    f32); the rest is item 15b."""
+    off_mesh = [
+        (cfg.neg_sampler == NEG_SAMPLER_TILE, "the tile sampler"),
+        (cfg.his_refresh != "step", "cached history pools (his_refresh: subepoch)"),
+        ("bfloat16" in (cfg.param_dtype, cfg.compute_dtype), "bf16 tables"),
+        (cfg.update_mode == "direct", "update_mode: direct"),
+        (cfg.shuffle_mode != "epoch",
+         "the history dedup of a fixed stream (shuffle_mode none / once)"),
+        (cfg.num_subepochs > 1, "sub-epochs"),
+        (cfg.aggregator != "mean", "attention aggregators"),
+        (cfg.optimizer != "sgd", "Adagrad / Adam slots"),
+        (cfg.sgd_mode == SGD_MODE_ACCUM, "sgd_mode: accum"),
+    ]
+    for bad, what in off_mesh:
+        if bad:
+            raise NotImplementedError(
+                f"{what} on a mesh is not ported to heat_tpu_torch "
+                "(ROADMAP.md, modules still to port, item 15b)")
+
+
+def _refuse_on_mesh(what: str):
+    raise NotImplementedError(
+        f"{what} on a mesh is not ported to heat_tpu_torch: the mesh's "
+        "steps run eagerly, epoch by epoch (ROADMAP.md, modules still to "
+        "port, item 15b)")
+
+
 def set_f32_matmul_precision() -> None:
     """Keep every f32 product on the card full f32 (no TF32), and check
     that the settings took: ranking and scores depend on it."""
@@ -161,8 +203,25 @@ class Engine:
       test_data: held-out clicks for ranking metrics (optional).
       seed: seeds the engine's generator (cfg.seed when None), which draws
         the initial state, the epoch shuffles and the negatives.
-      device: "cuda" (the default; fails without a card) or "cpu".
-      mesh: multi-device layouts are not ported; anything but None raises.
+      device: "cuda" (the default; fails without a card) or "cpu"; on a
+        mesh the mesh's device, of this type.
+      mesh: a ``parallel.mesh.Mesh`` of ranks (ROADMAP item 15a), or None.
+        On a mesh every rank builds its own engine from its own data, as
+        the JAX package's processes do: ``train_data`` is the rank's
+        ``shard_by_user_range(train, n_data, d, rebase=False)`` (global
+        ids), ``test_data`` its ``shard_by_user_range(test, n_data, d)``.
+
+    On a mesh (``parallel.mesh``): every rank draws the mesh-less global
+    initial state from the engine's generator and keeps its shard
+    (``shard_train_state``): user rows by data index, item rows (padded
+    to ``sharded_item_rows``) by model index, the rest replicated. The
+    engine's generator stays in step on every rank: each epoch every rank
+    draws the permutation of every data shard's pairs in turn and keeps
+    its own, and every step draws the global batch's negatives
+    (``train_step.train_step_sharded``). ``cfg.train_size`` is the
+    global count. The steps run eagerly (no CUDA graph: gloo cannot be
+    captured), and settings outside item 15a raise NotImplementedError
+    naming item 15b (``check_mesh_slice``).
     """
 
     def __init__(
@@ -174,15 +233,18 @@ class Engine:
         device="cuda",
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes are not ported to heat_tpu_torch (ROADMAP.md, "
-                "modules still to port, item 15)"
-            )
         cfg.num_users = train_data.num_users
         cfg.num_items = train_data.num_items
         cfg.train_size = train_data.train_size
         check_slice(cfg)
+        self.mesh = mesh
+        self.shards = None
+        if mesh is not None:
+            check_mesh_slice(cfg)
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(
+                    f"device {device!r} is not the mesh's {mesh.device}")
+            device = mesh.device
         if cfg.neg_sampler == NEG_SAMPLER_TILE and cfg.tile_size <= 0:
             # "auto": the paper's Alg. 1 tile tuning (derive_tile_params).
             cfg.tile_size, cfg.refresh_interval = derive_tile_params(cfg)
@@ -198,16 +260,35 @@ class Engine:
         self.test_data = test_data
         self.epoch = 0
 
+        pairs = np.asarray(train_data.pairs, np.int32)
+        # Data shards of the batch stream (_sharded_batches): n_data on a
+        # mesh; a mesh-less engine lays it out so only in _shard_stream.
+        self._stream_shards = 1 if mesh is None else mesh.shape[0]
+        if mesh is not None:
+            self.shards = sh = table_shards(mesh, cfg.num_users, cfg.num_items)
+            self._check_shard_data(train_data, pairs)
+            counts = mesh.all_gather(torch.tensor(
+                [pairs.shape[0]], device=self.device), "data")
+            self._shard_counts = [int(c) for c in torch.cat(counts).cpu()]
+            cfg.train_size = sum(self._shard_counts)
+            if max(sh.user_rows, sh.item_rows) > scatter.DENSE_ROWS_THRESHOLD:
+                raise NotImplementedError(
+                    "the sort-dedup update (a shard above "
+                    f"{scatter.DENSE_ROWS_THRESHOLD} rows) on a mesh is not "
+                    "ported to heat_tpu_torch (ROADMAP.md, modules still to "
+                    "port, item 15b)")
+
         seed = cfg.seed if seed is None else seed
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.state: TrainState = init_train_state(
             cfg, self.generator, self.device
         )
+        if mesh is not None:
+            self.state = shard_train_state(self.state, self.shards)
         self.sampler_state = init_sampler_state(
             cfg, self.device, self.generator
         )
-        pairs = np.asarray(train_data.pairs, np.int32)
         if cfg.visit_order != "file" and pairs.shape[0] > 0:
             # Stable pre-sort of the visit stream, on the host before the
             # one upload: "user" groups the clicks by user on any input
@@ -217,18 +298,23 @@ class Engine:
             pairs = pairs[np.argsort(pairs[:, col], kind="stable")]
         self._pairs_np = pairs  # the host's copy: sub-epoch bucket sizes
         self.pairs = torch.as_tensor(pairs, device=self.device)
-        self.his_items = torch.as_tensor(
-            np.asarray(train_data.his_items, np.int32), device=self.device
-        )
+        his = np.asarray(train_data.his_items, np.int32)
+        if mesh is not None:
+            # Item ids as rows of this rank's item shard: ids of other
+            # shards fall outside it, and K1 leaves them out of its sums.
+            his = his - np.int32(self.shards.item_lo)
+        self.his_items = torch.as_tensor(his, device=self.device)
         self.his_masks = torch.as_tensor(
             np.asarray(train_data.masks, np.int32), device=self.device
         )
         self._evaluator = None  # lazy TiledEvaluator (mask tensors cached)
+        self._mp_eval_cache = None  # the mesh's (bits, truth, truth_len)
         self._batch_cache = None  # (pairs, geometry, stream) of "once"
         self._dedup_cache = None  # (pairs, stream shape, maps) of _history_dedup
         # Each step one replay of a captured CUDA graph (on the card), or
-        # the eager steps (the CPU; the oracle the tests compare with).
-        self._capture = self.device.type == "cuda"
+        # the eager steps (the CPU, a mesh; the oracle the tests compare
+        # with).
+        self._capture = self.device.type == "cuda" and mesh is None
         self._epoch_fns = {}  # capture: make_epoch_fn(cfg, capture)
         self._stream = None  # (users, pos, weight) grow-only (rows, B) buffers
         self._pools = None  # the (U, d) pools buffer of his_refresh: subepoch
@@ -255,6 +341,41 @@ class Engine:
         # their cost is measured.
         self.timer = PhaseTimer()
         self.sync_phases = True
+
+    def _check_shard_data(self, train_data: ClickDataset, pairs) -> None:
+        """A mesh rank's data must be its user range with global ids
+        (``shard_by_user_range(..., rebase=False)``)."""
+        sh = self.shards
+        rows = np.shape(train_data.his_items)[0]
+        inside = ((pairs[:, 0] >= sh.user_lo)
+                  & (pairs[:, 0] < sh.user_lo + sh.user_rows)).all()
+        if rows != sh.user_rows or not inside:
+            raise ValueError(
+                "on a mesh train_data must be this rank's "
+                "shard_by_user_range(train, n_data, data_index, "
+                f"rebase=False): users [{sh.user_lo}, "
+                f"{sh.user_lo + sh.user_rows}), got {rows} history rows")
+
+    def _shard_stream(self, n_data: int) -> None:
+        """Lay this mesh-less engine's batch stream out as a mesh of
+        ``n_data`` data shards lays out its own (:meth:`_sharded_batches`):
+        the engine then steps that mesh's global batches with its draws,
+        the single-rank oracle the mesh's tests compare with. Call it
+        before the first epoch."""
+        if self.mesh is not None:
+            raise ValueError("a mesh lays out its own batch stream")
+        check_mesh_slice(self.cfg)  # the oracle of the mesh's slice only
+        bounds = [user_range_bounds(self.cfg.num_users, n_data, s)
+                  for s in range(n_data)]
+        self._stream_shards = n_data
+        self._shard_user_lo = [lo for lo, _ in bounds]
+        # Each shard's pairs, in the visit order (a mesh rank's own).
+        shard_of = np.searchsorted(np.asarray([hi for _, hi in bounds]),
+                                   self._pairs_np[:, 0], side="right")
+        self._shard_pairs = [self.pairs[torch.as_tensor(
+            np.flatnonzero(shard_of == s), device=self.device)]
+            for s in range(n_data)]
+        self._shard_counts = [int(p.shape[0]) for p in self._shard_pairs]
 
     @contextlib.contextmanager
     def _phase(self, name: str) -> Iterator[None]:
@@ -296,10 +417,13 @@ class Engine:
 
     # ------------------------------------------------------------------
     def unpadded_state(self) -> TrainState:
-        """The train state for serving and export. The JAX engine slices
-        mesh-divisibility padding rows off here; this engine pads nothing,
-        so its state is returned as it is."""
-        return self.state
+        """The train state for serving and export. Without a mesh it is the
+        engine's state; on a mesh it is the global state gathered from
+        every rank's shard, the item padding cut off (collective: every
+        rank calls it)."""
+        if self.mesh is None:
+            return self.state
+        return gather_train_state(self.state, self.shards)
 
     # ------------------------------------------------------------------
     def _stream_buffers(self, num_batches: int, batch: int):
@@ -364,10 +488,73 @@ class Engine:
         return out
 
     def _make_batches(self, pairs: torch.Tensor):
+        if self._stream_shards > 1:
+            return self._sharded_batches(pairs)
         n = int(pairs.shape[0])
         batch = min(self.cfg.batch_size, max(1, n))
         num_batches = -(-n // batch)
         return self._shuffle_or_pack(pairs, num_batches, batch)
+
+    def _sharded_batches(self, pairs: torch.Tensor):
+        """(users, pos, weight) of a stream laid out over S data shards
+        (the mesh's ``n_data``, or :meth:`_shard_stream`'s; the JAX
+        engine's ``_local_batches``): each shard shuffles its own pairs and
+        gives ``lb`` = ceil(B / S) rows of every batch (no more than the largest shard holds), the
+        count of batches is the most any shard needs, and shorter shards pad
+        with weight-0 rows (an empty shard with its first user and item 0).
+        Every rank draws the permutation of every shard in turn from the
+        engine's generator (``arange`` under "none"), so that the generator
+        stays in step on every rank and a rank with all the pairs draws
+        what the mesh draws. On a mesh the stream is the rank's (nb, lb)
+        block; without one it is the global (nb, S * lb) stream, shard s in
+        columns [s * lb, (s + 1) * lb). "once" keeps its stream as
+        :meth:`_shuffle_or_pack` does."""
+        cfg, counts = self.cfg, self._shard_counts
+        s_count = self._stream_shards
+        lb = min(-(-cfg.batch_size // s_count), max(1, max(counts)))
+        nb = max(-(-max(1, c) // lb) for c in counts)
+        mode = cfg.shuffle_mode
+        cached = self._batch_cache
+        if (mode == "once" and cached is not None and cached[0] is pairs
+                and cached[1] == (nb, lb)):
+            return cached[2]
+        if mode == "once":
+            self._once_state = self.generator.get_state()
+        perms = [
+            torch.arange(c, dtype=torch.int32, device=self.device)
+            if mode == "none" else torch.randperm(
+                c, generator=self.generator, device=self.device,
+                dtype=torch.int32)
+            for c in counts]
+        if self.mesh is not None:
+            d = self.mesh.data_index
+            blocks = [(d, pairs, perms[d], self.shards.user_lo)]
+            width = lb
+        else:
+            blocks = [(s, self._shard_pairs[s], perms[s], self._shard_user_lo[s])
+                      for s in range(s_count)]
+            width = lb * s_count
+        self._batch_cache = None
+        out = tuple(t[:nb] for t in self._stream_buffers(nb, width))
+        for s, shard_pairs, idx, user_lo in blocks:
+            col = slice(0, lb) if self.mesh is not None else slice(s * lb, (s + 1) * lb)
+            users, pos, weight = (t[:, col] for t in out)
+            n = int(idx.shape[0])
+            if n == 0:
+                users.fill_(user_lo)
+                pos.fill_(0)
+                weight.fill_(0.0)
+                continue
+            idx = idx.repeat(-(-nb * lb // n))[: nb * lb]
+            users.copy_(shard_pairs[idx.long(), 0].view(nb, lb))
+            pos.copy_(shard_pairs[idx.long(), 1].view(nb, lb))
+            w = torch.zeros(nb * lb, dtype=torch.float32, device=self.device)
+            w[:n] = 1.0
+            weight.copy_(w.view(nb, lb))
+        if mode == "once":
+            self._batch_cache = (pairs, (nb, lb), out)
+            self._dedup_cache = None
+        return out
 
     def _history_dedup(self, pairs, users) -> Optional[tuple]:
         """Per-batch (uniq_users (nb, Bu), uniq_inverse (nb, B), uniq_first
@@ -430,8 +617,13 @@ class Engine:
         """(U, d) pooled history of every user from the live tables under
         the configured aggregator (the query of the attention kinds: the
         live ``attn_q``, or the live user rows), in the item table's type
-        (written into ``out`` when given)."""
+        (written into ``out`` when given). On a mesh: the rank's users'
+        means over its item shard, summed over the model group."""
         st = self.state
+        if self.mesh is not None:
+            pools = compute_user_pools(st.item_emb, self.his_items,
+                                       self.his_masks, out=out)
+            return self.mesh.all_reduce(pools, "model")
         return compute_user_pools(
             st.item_emb, self.his_items, self.his_masks,
             user_emb=(st.user_emb if self.cfg.aggregator == "user_attention"
@@ -455,7 +647,8 @@ class Engine:
     def _epoch_fn(self, capture: bool):
         fn = self._epoch_fns.get(capture)
         if fn is None:
-            fn = self._epoch_fns[capture] = make_epoch_fn(self.cfg, capture)
+            fn = self._epoch_fns[capture] = make_epoch_fn(
+                self.cfg, capture, self.shards)
         return fn
 
     def _steps(self, capture: bool, count: int, dedup=None,
@@ -496,9 +689,11 @@ class Engine:
         """One pair set (the epoch's pairs, or a sub-epoch's bucket): its
         batch stream, then its steps; an empty set runs and draws nothing.
         The history dedup applies only to an unpartitioned epoch."""
-        if int(pairs.shape[0]) == 0:
+        if int(pairs.shape[0]) == 0 and self._stream_shards == 1:
             return torch.zeros((), dtype=torch.float32, device=self.device)
         with self._phase("data"):
+            # A sharded stream steps even where this shard is empty: the
+            # other shards' batches (and a mesh's collectives) need it.
             users, _, _ = self._make_batches(pairs)
             dedup = None
             if self.cfg.num_subepochs <= 1:
@@ -711,10 +906,13 @@ class Engine:
         return loss_sum
 
     def train_one_epoch(self) -> float:
-        """Run one epoch; returns the mean per-sample loss."""
+        """Run one epoch; returns the mean per-sample loss (on a mesh, of
+        the whole mesh's samples)."""
         return float(self._epoch(self._capture)) / max(1, self.cfg.train_size)
 
     def _train_epochs(self, n: int, capture: bool) -> list[float]:
+        if self.mesh is not None:
+            _refuse_on_mesh("train_epochs / run_epochs_with_eval")
         if n <= 0:
             return []
         sums = torch.stack([self._epoch(capture) for _ in range(n)]).cpu()
@@ -807,6 +1005,11 @@ class Engine:
             raise ValueError("no test_data provided")
         metrics = list(metrics if metrics is not None else self.cfg.metrics)
         max_k = max(parse_metric(m)[1] for m in metrics)
+        if self.mesh is not None:
+            with self._phase("eval"):
+                return self._evaluate_multiprocess(
+                    metrics, max_k, user_tile, aggregate_users, exact=exact,
+                    recall_target=recall_target)
         user_emb = self.state.user_emb
         if aggregate_users:
             user_emb = aggregate_history(
@@ -819,7 +1022,89 @@ class Engine:
                 recall_target=recall_target)
             return evaluate_metrics_device(metrics, top_ids, *self._truth_dev)
 
+    def _mp_eval_tensors(self):
+        """The mesh's evaluation tensors, built once: the packed train mask
+        of the rank's users over its item shard (rows of the rank's users,
+        the shard's words; the pad items' bits set) and the padded truth
+        of its users."""
+        if self._mp_eval_cache is not None:
+            return self._mp_eval_cache
+        sh = self.shards
+        pairs = self._pairs_np - np.asarray([sh.user_lo, sh.item_lo], np.int32)
+        pairs = pairs[(pairs[:, 1] >= 0) & (pairs[:, 1] < sh.item_rows)]
+        real = min(max(self.cfg.num_items - sh.item_lo, 0), sh.item_rows)
+        bits = pack_train_bits(pairs, sh.user_rows, real, pad_items=sh.item_rows)
+        truth, truth_len = pad_truth(self.test_data.user_items)
+        rows = sh.user_rows
+        if truth.shape[0] < rows:  # trailing users without test rows
+            truth = np.concatenate(
+                [truth, np.full((rows - truth.shape[0], truth.shape[1]), -1,
+                                np.int32)])
+            truth_len = np.concatenate(
+                [truth_len, np.zeros(rows - truth_len.shape[0], np.int32)])
+        self._mp_eval_cache = tuple(
+            torch.as_tensor(a, device=self.device)
+            for a in (bits.view(np.int32), truth[:rows], truth_len[:rows]))
+        return self._mp_eval_cache
+
+    def _evaluate_multiprocess(
+        self,
+        metrics: Sequence[str],
+        max_k: int,
+        user_tile: int,
+        aggregate_users: bool = False,
+        exact: bool = True,
+        recall_target: float = 0.99,
+    ) -> dict[str, float]:
+        """The mesh's evaluation (the JAX engine's): every rank ranks its
+        users against its item shard, the candidates are merged over the
+        model group (``evaluator.sharded_topk``) and the metric sums over
+        the data group (``metrics.device_metric_sums``); only
+        len(metrics) + 1 numbers reach the host. The all-gather fallback
+        takes the geometries ``sharded_topk`` cannot cover."""
+        cfg = self.cfg
+        user_arr = self.state.user_emb
+        if aggregate_users:
+            user_arr = aggregate_history(
+                user_arr, self._pooled_history(), self.state.w0, cfg.gamma)
+        if not sharded_topk_supported(self.mesh, cfg.num_items, max_k,
+                                      cfg.num_users):
+            return self._evaluate_multiprocess_allgather(
+                metrics, max_k, user_tile, user_arr)
+        bits, truth, truth_len = self._mp_eval_tensors()
+        # The live item shard: the table is kept at the padded width (the
+        # JAX engine pads it before each evaluation).
+        _, top_ids = sharded_topk(
+            self.mesh, user_arr, self.state.item_emb, bits, max_k,
+            exact=exact, recall_target=recall_target, user_chunk=user_tile)
+        sums = device_metric_sums(metrics, top_ids, truth, truth_len,
+                                  mesh=self.mesh)
+        denom = max(float(sums[-1]), 1.0)
+        return {m: float(sums[i]) / denom for i, m in enumerate(metrics)}
+
+    def _evaluate_multiprocess_allgather(
+        self, metrics: Sequence[str], max_k: int, user_tile: int, user_arr,
+    ) -> dict[str, float]:
+        """The fallback for a ``k`` above the items of a shard: the item
+        table gathered over the model group, the rank's users ranked
+        against all of it, the metric sums summed over the data group."""
+        sh = self.shards
+        items = torch.cat(self.mesh.all_gather(self.state.item_emb, "model"))
+        pairs = self._pairs_np - np.asarray([sh.user_lo, 0], np.int32)
+        ev = TiledEvaluator(pairs, sh.user_rows, user_tile=user_tile,
+                            num_items=self.cfg.num_items, device=self.device)
+        _, top_ids = ev.topk(user_arr, items[: self.cfg.num_items], max_k)
+        local = evaluate_metrics(metrics, top_ids.cpu().numpy(),
+                                 self.test_data.user_items)
+        count = sum(1 for t in self.test_data.user_items if len(t))
+        sums = torch.tensor([local[m] * count for m in metrics] + [count],
+                            dtype=torch.float64, device=self.device)
+        totals = self.mesh.all_reduce(sums, "data").cpu().numpy()
+        denom = max(totals[-1], 1.0)
+        return {m: float(totals[i] / denom) for i, m in enumerate(metrics)}
+
     def evaluate0(self) -> np.ndarray:
         """Dense user x item dot-product matrix on the host (small problems
         and parity tests only)."""
-        return full_sim_matrix(self.state.user_emb, self.state.item_emb)
+        st = self.unpadded_state()
+        return full_sim_matrix(st.user_emb, st.item_emb)

@@ -106,19 +106,27 @@ def init_sampler_state(
     )
 
 
-def _uniform_negatives(
+def uniform_negatives(
     generator: torch.Generator,
     batch: int,
     num_negs: int,
     num_items: int,
     pos_ids: torch.Tensor,
     ignore_pos: bool,
+    rows: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
+    """(batch, num_negs) uniform draws; under ``ignore_pos`` the slots that
+    hit their sample's positive are drawn again. ``rows=(lo, hi)`` draws
+    for the whole batch and keeps its rows [lo, hi), whose positives
+    ``pos_ids`` holds: the rows a rank of a mesh keeps of the global
+    batch's draws."""
+    lo, hi = (0, batch) if rows is None else rows
+
     def draw():
         return torch.randint(
             0, num_items, (batch, num_negs), generator=generator,
             device=pos_ids.device, dtype=torch.int32,
-        )
+        )[lo:hi]
 
     negs = draw()
     if ignore_pos:
@@ -202,7 +210,7 @@ def sample_negatives(
             generator, state, batch, cfg.num_negs, cfg.num_items,
             cfg.tile_size, cfg.refresh_interval, real=real,
         )
-    negs = _uniform_negatives(
+    negs = uniform_negatives(
         generator, batch, cfg.num_negs, cfg.num_items, pos_ids, cfg.ignore_pos
     )
     state.iterations.add_(batch if real is None else real.to(torch.int32))

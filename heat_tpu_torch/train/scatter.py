@@ -251,6 +251,49 @@ def _apply_row_updates_dense(table, ids, grads, *, lr, clip_val, gacc, decay, l2
     return table, gacc
 
 
+def apply_row_updates_reduced(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    grads: torch.Tensor,
+    *,
+    lr: torch.Tensor,
+    clip_val: float,
+    l2: float,
+    reduce,
+    extra: torch.Tensor,
+) -> torch.Tensor:
+    """Batch-mode SGD of one shard of a table whose rows take gradients
+    from every rank of a group (the item table on a mesh): the dense path
+    with one collective in it, in place.
+
+    The rank's gradient rows go into a shard-sized f32 accumulator (K3;
+    ids outside the shard are out of range and dropped), under l2 the
+    touched-row counts after it (K3 again), and ``extra`` (a flat f32
+    tensor of other sums the group reduces, such as ``w0``'s gradient)
+    after those, all in one buffer; ``reduce(buf)`` sums the buffer in
+    place over the group, so every replica then holds the combined row
+    gradient of the whole batch; the clip, the l2 term and ``-lr`` follow
+    as in the dense path, on equal inputs on every replica. Returns the
+    reduced ``extra``."""
+    n, d = table.shape
+    e = extra.numel()
+    size = n * d + (n if l2 else 0) + e
+    buf = torch.zeros(size, dtype=torch.float32, device=table.device)
+    acc = buf[: n * d].view(n, d)
+    scatter_add_rows(acc, ids, grads.float().contiguous())
+    if l2:
+        touched = buf[n * d: n * d + n].view(n, 1)
+        ones = torch.ones((ids.shape[0], 1), dtype=torch.float32,
+                          device=ids.device)
+        scatter_add_rows(touched, ids, ones)
+    buf[size - e:].copy_(extra.reshape(-1))
+    reduce(buf)
+    if l2:
+        acc += l2 * table.float() * touched.clamp_(max=1.0)
+    table.sub_((lr * acc.clamp_(-clip_val, clip_val)).to(table.dtype))
+    return buf[size - e:]
+
+
 def _apply_row_updates_opt_dense(
     table, ids, grads, *, lr, clip_val, step, m, v, beta1, beta2, eps, l2
 ):

@@ -76,7 +76,7 @@ the graph's kernels by name without them.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
@@ -88,17 +88,30 @@ from heat_tpu_torch.models.aggregator import (
     pool_history,
 )
 from heat_tpu_torch.models.state import TrainState, torch_dtype
-from heat_tpu_torch.ops.cuda.gather import gather_rows, gather_rows_multi
+from heat_tpu_torch.ops.cuda.gather import (
+    gather_rows,
+    gather_rows_multi,
+    history_mean_gather,
+)
 from heat_tpu_torch.ops.cuda.scatter import scatter_set_rows
 from heat_tpu_torch.ops.losses import sample_losses, sample_losses_weighted
 from heat_tpu_torch.ops.similarity import pair_scores, tile_scores
-from heat_tpu_torch.train.samplers import SamplerState, sample_negatives
+from heat_tpu_torch.train.samplers import (
+    SamplerState,
+    sample_negatives,
+    uniform_negatives,
+)
 from heat_tpu_torch.train.scatter import (
     apply_row_updates,
     apply_row_updates_direct,
     apply_row_updates_opt,
+    apply_row_updates_reduced,
     dense_opt_update,
 )
+
+
+if TYPE_CHECKING:
+    from heat_tpu_torch.parallel.mesh import TableShards
 
 
 class Batch(NamedTuple):
@@ -121,9 +134,14 @@ def train_step(
     neg_candidates: Optional[torch.Tensor] = None,
     neg_candidates_size: Optional[torch.Tensor] = None,
     uniq_first: Optional[torch.Tensor] = None,
+    shards: Optional["TableShards"] = None,
 ) -> tuple[TrainState, SamplerState, torch.Tensor]:
     """One minibatch step. Returns (state', sampler_state', loss_sum) with
     loss_sum a 0-d tensor on the step's device.
+
+    shards: the rank's table layout on a mesh (``parallel.mesh``): the
+      step then runs :func:`train_step_sharded` on the rank's rows of the
+      batch, and ``loss_sum`` is the whole batch's.
 
     neg_candidates: optional (C,) int32 item-id pool the negatives are
       drawn from (a sub-epoch's partition complement, the reference's
@@ -152,6 +170,9 @@ def train_step(
       rows), so the query's gradient reaches the user update unchanged.
       Unused by the other aggregators.
     """
+    if shards is not None:
+        return train_step_sharded(state, sampler_state, generator, batch,
+                                  his_items, his_masks, cfg, shards)
     users, pos, weight = batch
     user_emb, item_emb, w0 = state.user_emb, state.item_emb, state.w0
     d = item_emb.shape[1]
@@ -395,6 +416,124 @@ def train_step(
     return state, sampler_state, loss_sum.detach()
 
 
+def train_step_sharded(
+    state: TrainState,
+    sampler_state: SamplerState,
+    generator: torch.Generator,
+    batch: Batch,
+    his_items: torch.Tensor,
+    his_masks: torch.Tensor,
+    cfg: CFConfig,
+    shards: "TableShards",
+) -> tuple[TrainState, SamplerState, torch.Tensor]:
+    """One step on a ("data", "model") mesh: the counterpart of the JAX
+    step under GSPMD, with its collectives written out. The slice of
+    ROADMAP item 15a: uniform negatives, the history mean recomputed every
+    step, the mean aggregator, batch-mode SGD with the combined-row clip
+    over dense accumulators, f32 (the engine refuses the rest).
+
+    ``batch`` holds this rank's rows of the global batch (data index d
+    holds rows ``[d * b, (d + 1) * b)``, b = its width); user and item ids
+    are global. ``state`` is the rank's shard (``parallel.mesh``: its user
+    rows, its rows of the padded item table, replicated ``w0``);
+    ``his_items`` holds its users' histories with item ids already made
+    local to its item rows (ids of other shards fall outside them), and
+    ``his_masks`` their lengths.
+
+    1. The negatives of the whole global batch are drawn from the engine's
+       generator, which every rank holds in step, and the rank keeps its
+       rows: the draws are those of one rank stepping the global batch.
+    2. One K2 launch reads the user rows (local) and the positives' and
+       negatives' rows of the rank's item shard (ids rebased to it; ids of
+       other shards read zeros); K1 pools the users' histories over the
+       shard, leaving other shards' items out of the sum and dividing by
+       the whole length: a partial mean. Item rows and means sit in one
+       buffer, summed over the model group by one ``all_reduce``: whole
+       rows (one nonzero term each, exact) and whole means (summed in
+       another order than on one rank).
+    3. Forward and backward as :func:`train_step` (its mean path).
+    4. The user rows: the write-back and the dense update (S1, K3) on the
+       rank's users. The model group's ranks compute them from equal
+       inputs, but K3 adds repeated rows in no fixed order, so replicas
+       would drift: the group's first rank then reads the batch's rows
+       (K2) and ``broadcast``s them, and the others write them (S1), so
+       that user replicas stay bit-equal by construction.
+    5. The item rows: :func:`scatter.apply_row_updates_reduced`, whose one
+       ``all_reduce`` over the data group also sums ``w0``'s gradient, the
+       loss and the count of real samples; every replica then updates from
+       equal sums.
+    6. ``w0`` by SGD on the summed gradient; ``step`` and the sampler's
+       ``iterations`` advance by the global count.
+    """
+    mesh = shards.mesh
+    users, pos, weight = batch
+    user_emb, item_emb, w0 = state.user_emb, state.item_emb, state.w0
+    b, d, k = users.shape[0], item_emb.shape[1], cfg.num_negs
+    f32 = torch.float32
+    with record_function("data"):
+        lo = mesh.data_index * b
+        negs = uniform_negatives(
+            generator, b * mesh.shape[0], k, cfg.num_items, pos,
+            cfg.ignore_pos, rows=(lo, lo + b))
+    u_loc = users - shards.user_lo
+    item_ids = torch.cat([pos, negs.view(-1)]) - shards.item_lo
+    # [positive rows | negative rows | means]: summed in one collective.
+    buf = torch.empty((b * (k + 2), d), dtype=f32, device=item_emb.device)
+    with record_function("read_emb"):
+        u_rows, _ = gather_rows_multi(
+            [(user_emb, u_loc), (item_emb, item_ids)], f32,
+            outs=[None, buf[: b * (k + 1)]])
+    with record_function("read_his"), record_function("aggr_f"):
+        history_mean_gather(item_emb, his_items, his_masks, f32, rows=u_loc,
+                            out=buf[b * (k + 1):])
+    mesh.all_reduce(buf, "model")
+    p_rows = buf[:b]
+    n_rows = buf[b: b * (k + 1)].view(b, k, d)
+    means = buf[b * (k + 1):]
+
+    with record_function("grad"):
+        u_l, p_l, n_l, w0_l = (
+            t.detach().requires_grad_() for t in (u_rows, p_rows, n_rows, w0)
+        )
+        with record_function("his_mm"):
+            u_agg = aggregate_history(u_l, means, w0_l, cfg.gamma)
+        with record_function("dot"):
+            s_up, s_un = pair_scores(u_agg, p_l, n_l,
+                                     similarity=cfg.similarity)
+        with record_function("loss"):
+            loss_sum = (sample_losses(s_up, s_un, cfg) * weight).sum()
+        g_u, g_p, g_n, g_w0 = torch.autograd.grad(loss_sum, [u_l, p_l, n_l, w0_l])
+
+    valid = weight > 0
+    n_users, n_items = user_emb.shape[0], item_emb.shape[0]
+    users_w = torch.where(valid, u_loc, n_users)
+    # item_ids is [positives (b) | negatives (b, k) row-major].
+    item_valid = torch.cat([valid, valid[:, None].expand(b, k).reshape(-1)])
+    item_w = torch.where(item_valid, item_ids, n_items)
+    l2 = cfg.l2 if cfg.l2_enabled else 0.0
+    sgd = dict(lr=state.lr, clip_val=cfg.clip_val, l2=l2)
+    with record_function("write_emb"):
+        apply_row_updates(user_emb, users_w, g_u, writeback=u_agg.detach(), **sgd)
+        if mesh.shape[1] > 1:
+            rows = (gather_rows(user_emb, users_w) if mesh.model_index == 0
+                    else torch.empty((b, d), dtype=user_emb.dtype,
+                                     device=user_emb.device))
+            mesh.broadcast(rows, "model", 0)
+            if mesh.model_index != 0:
+                scatter_set_rows(user_emb, users_w, rows)
+        extra = torch.cat([g_w0.reshape(-1), loss_sum.detach().reshape(1),
+                           weight.sum().reshape(1)])
+        extra = apply_row_updates_reduced(
+            item_emb, item_w, torch.cat([g_p, g_n.reshape(-1, d)]),
+            reduce=lambda t: mesh.all_reduce(t, "data"), extra=extra, **sgd)
+    with record_function("aggr_b"):
+        real = extra[d * d + 1].to(torch.int32)
+        w0.sub_(state.lr * extra[: d * d].view(d, d) / cfg.aggr_minibatch)
+        state.step.add_((real > 0).to(state.step.dtype))
+        sampler_state.iterations.add_(real)
+    return state, sampler_state, extra[d * d].clone()
+
+
 _CAPTURE_STREAMS: dict = {}  # device index: the side stream of every capture
 
 
@@ -436,8 +575,9 @@ class EpochFn:
     passed, advanced in place, and a new 0-d f32 tensor, the steps' loss sum,
     on the step's device. Nothing waits for the device.
 
-    ``capture=False`` runs the steps one by one: the CPU, and the eager
-    oracle on the card. ``capture=True`` (CUDA tensors only) runs each step
+    ``capture=False`` runs the steps one by one: the CPU, the eager
+    oracle on the card, and the steps on a mesh (``shards``, each step
+    :func:`train_step_sharded`). ``capture=True`` (CUDA tensors only) runs each step
     as one replay of a CUDA graph of: batch ``index`` of the stream buffers
     (``index_select`` on a device step index) -> ``train_step`` -> the loss
     into a device accumulator -> index + 1. The graph reads every input at
@@ -468,9 +608,14 @@ class EpochFn:
     there is no fallback to the eager steps.
     """
 
-    def __init__(self, cfg, capture: bool):
+    def __init__(self, cfg, capture: bool, shards=None):
+        if capture and shards is not None:
+            raise NotImplementedError(
+                "a captured step on a mesh (NCCL inside the CUDA graph) is "
+                "not ported (ROADMAP.md, item 15b)")
         self.cfg = cfg
         self.capture = capture
+        self.shards = shards
         self.captures = 0
         self._graph = None
         self._key = None
@@ -566,6 +711,7 @@ class EpochFn:
                     uniq_first=None if uniq_first is None else uniq_first[i],
                     neg_candidates=neg_candidates,
                     neg_candidates_size=neg_candidates_size,
+                    shards=self.shards,
                 )
                 loss_sum += loss
             return state, sampler_state, loss_sum
@@ -610,7 +756,8 @@ class EpochFn:
         return state, sampler_state, self._loss.clone()
 
 
-def make_epoch_fn(cfg: CFConfig, capture: bool) -> EpochFn:
+def make_epoch_fn(cfg: CFConfig, capture: bool, shards=None) -> EpochFn:
     """The epoch function of ``cfg`` (see :class:`EpochFn`): one CUDA
-    graph replay a step when ``capture``, the eager steps otherwise."""
-    return EpochFn(cfg, capture)
+    graph replay a step when ``capture``, the eager steps otherwise; on a
+    mesh (``shards``, the rank's table layout) the eager sharded steps."""
+    return EpochFn(cfg, capture, shards)

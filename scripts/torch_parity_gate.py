@@ -6,8 +6,11 @@ on the synthetic 52,643 x 91,599 planted-cluster data (data seed = the
 config's seed, 2022), in config0 and in every configuration the port's
 ``chip_smoke.py`` trains (``RUNS``: the JAX ``bench.py`` headline, the
 reference's default shape, config0 with self-attention, bench.py's ACCL
-and CCL rows, complement scope), and config0 again at two other engine
-seeds (``SEED_RUNS``: the JAX package's own spread), and writes
+and CCL rows, complement scope), config0 again at two other engine
+seeds (``SEED_RUNS``: the JAX package's own spread), and config0 on a
+(4, 1) mesh of four JAX processes (``MESH_RUNS``: on 52,644 x 91,599, one
+user more, since the JAX engine needs the data axis to divide the users;
+that run records its own geometry and checksums), and writes
 ``PARITY_TORCH.json`` at the root of the repository: the JAX version, the
 geometry, the train and test pair counts with a SHA-256 of each (int32,
 row-major), each run's overrides, band (``heat_tpu_torch.parity.BANDS``),
@@ -17,6 +20,14 @@ checks that its own data has the same checksums and holds its final
 metrics to the recorded ones (``heat_tpu_torch.parity``).
 
     JAX_PLATFORMS=cpu python scripts/torch_parity_gate.py [--runs config0,headline] [--torch]
+
+A mesh run starts one worker process a rank (this script with
+``--mesh-worker``): each initializes ``jax.distributed`` over localhost
+with one CPU device, takes its ``shard_by_user_range`` of the synthetic
+data (train with global ids, test rebased) and runs ``heat_tpu.main`` on
+it; the JAX CLI itself shards only file data (``heat_tpu/main.py``
+l.150-186), and given the whole synthetic data in every process it fails
+at its first evaluation.
 
 ``--runs`` picks the runs (each is merged into an existing file, so they
 can be made one at a time; ``--out`` writes another file). ``--torch``
@@ -64,6 +75,10 @@ RUNS = {
 # (``Engine(seed=)``) on the same data (whose seed stays the config's).
 SEED_RUNS = {"config0_seed2023": ("config0", 2023),
              "config0_seed2024": ("config0", 2024)}
+# Runs on a mesh of JAX processes: (n_data, n_model) and the synthetic
+# geometry (users, items). Each is also a RUNS entry (its overrides).
+MESH_RUNS = {"config0_mesh41": ((4, 1), (52644, 91599))}
+RUNS["config0_mesh41"] = []
 
 
 class _Tee(io.TextIOBase):
@@ -78,9 +93,9 @@ class _Tee(io.TextIOBase):
         return self.buf.write(s)
 
 
-def _argv(overrides) -> list[str]:
+def _argv(overrides, synthetic=SYNTHETIC) -> list[str]:
     argv = ["--config", os.path.join(ROOT, CONFIG0),
-            "--synthetic", ",".join(map(str, SYNTHETIC))]
+            "--synthetic", ",".join(map(str, synthetic))]
     for kv in overrides:
         argv += ["--set", kv]
     return argv
@@ -109,6 +124,69 @@ def run_jax(overrides, engine_seed=None) -> dict:
             "seconds": seconds}
 
 
+def mesh_worker(rank: int, world: int, port: int, name: str) -> None:
+    """One rank of a mesh run: ``jax.distributed`` over localhost with one
+    CPU device, then the JAX CLI on this rank's user shard of the
+    synthetic data (the CLI shards only file data). Rank 0's output holds
+    the run's final metrics."""
+    from unittest import mock
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
+                               num_processes=world, process_id=rank)
+    from heat_tpu import main as jax_main
+    from heat_tpu.data.datasets import shard_by_user_range
+    from heat_tpu.data.synthetic import synthetic_click_dataset
+
+    def sharded(**kw):
+        train, test = synthetic_click_dataset(**kw)
+        return (shard_by_user_range(train, world, rank, rebase=False),
+                shard_by_user_range(test, world, rank))
+
+    (n_data, n_model), synthetic = MESH_RUNS[name]
+    if (n_data * n_model, n_model) != (world, 1):
+        raise SystemExit(f"{name}: the JAX CLI's mesh is (processes, 1)")
+    with mock.patch.object(jax_main, "synthetic_click_dataset", sharded):
+        jax_main.main(_argv(RUNS[name], synthetic))
+    jax.distributed.shutdown()
+
+
+def run_jax_mesh(name: str) -> dict:
+    """A mesh run: one worker process a rank; rank 0's final metrics and
+    the run's seconds."""
+    import socket
+    import subprocess
+
+    (n_data, n_model), _ = MESH_RUNS[name]
+    world = n_data * n_model
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=1",
+               HEAT_TPU_NO_COMPILATION_CACHE="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+         f"{rank},{world},{port}", "--runs", name],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for rank in range(world)]
+    outs = [p.communicate()[0] for p in procs]
+    seconds = time.perf_counter() - t0
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise SystemExit(f"{name}: rank {rank} exited {p.returncode}:\n{out}")
+    print(outs[0], flush=True)
+    finals = [json.loads([ln for ln in out.splitlines()
+                          if ln.startswith('{"final_metrics"')][-1])
+              for out in outs]
+    if any(f != finals[0] for f in finals):
+        raise SystemExit(f"{name}: the ranks' final metrics differ: {finals}")
+    return {"final_metrics": finals[0]["final_metrics"], "seconds": seconds}
+
+
 def run_torch_cpu(overrides) -> dict:
     """The port's CLI on the CPU on the same data."""
     from heat_tpu_torch import main as torch_main
@@ -128,8 +206,14 @@ def main(argv=None) -> None:
     parser.add_argument("--out", default=os.path.join(ROOT, "PARITY_TORCH.json"))
     parser.add_argument("--torch", action="store_true",
                         help="also run the port's CLI on the CPU")
+    parser.add_argument("--mesh-worker", default=None, metavar="RANK,WORLD,PORT",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     names = [n for n in args.runs.split(",") if n]
+    if args.mesh_worker:
+        rank, world, port = map(int, args.mesh_worker.split(","))
+        mesh_worker(rank, world, port, names[0])
+        return
     unknown = sorted(set(names) - set(RUNS) - set(SEED_RUNS))
     if unknown:
         parser.error(f"unknown runs {unknown}")
@@ -181,6 +265,16 @@ def main(argv=None) -> None:
 
     for name in names:
         print(f"== JAX {name}", flush=True)
+        if name in MESH_RUNS:
+            (n_data, n_model), (users, items) = MESH_RUNS[name]
+            geom = dict(geometry, num_users=users, num_items=items)
+            record["runs"][name] = {
+                "overrides": RUNS[name], "mesh": [n_data, n_model],
+                "synthetic": geom,
+                **data_fingerprint(*synthetic_click_dataset(**geom)),
+                **run_jax_mesh(name)}
+            write()
+            continue
         if name in SEED_RUNS:
             run, seed = SEED_RUNS[name]
             record["runs"][name] = {"overrides": RUNS[run], "repeats": run,

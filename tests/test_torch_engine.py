@@ -9,6 +9,7 @@ refused, and the package imports no JAX.
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 
@@ -351,10 +352,14 @@ def test_off_slice_settings_are_refused(override, where):
     assert where in str(err.value)
 
 
-def test_mesh_is_refused():
+def test_mesh_refuses_item_15b_settings():
+    """Meshes run since item 15a; the settings outside it are refused by
+    name before the mesh is touched (tests/test_torch_mesh.py holds every
+    one on a real mesh)."""
     train, test = tsynthetic(20, 40, max_his=4, seed=1)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TEngine(CFConfig(max_his=4), train, test, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="item 15b"):
+        TEngine(CFConfig(max_his=4, update_mode="direct"), train, test,
+                device="cpu", mesh=object())
 
 
 def test_cuda_device_fails_without_cuda():
@@ -373,7 +378,12 @@ def test_package_imports_no_jax():
         "heat_tpu_torch.profile_exact_ceiling, heat_tpu_torch.train.run, "
         "heat_tpu_torch.checkpoint, heat_tpu_torch.utils, "
         "heat_tpu_torch.utils.logging, heat_tpu_torch.utils.profiling, "
-        "heat_tpu_torch.native, heat_tpu_torch.parity; "
+        "heat_tpu_torch.native, heat_tpu_torch.parity, "
+        "heat_tpu_torch.parallel, heat_tpu_torch.parallel.mesh, "
+        "heat_tpu_torch.parallel.distributed, heat_tpu_torch.multihost_demo; "
+        # The mesh's test support, which chip_smoke.py imports too.
+        f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r}); "
+        "import torch_mesh_support; "
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'flax', 'heat_tpu.')) or m == 'heat_tpu']; "
         "assert not bad, bad"

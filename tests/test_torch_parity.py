@@ -101,8 +101,9 @@ def test_the_runs_overrides_are_bench_rows(record, run):
 
 
 def test_the_bands_were_set_before_the_card(record):
-    """The paper's 0.0003 on every f32 run, 0.0015 on every bf16 run, as
-    written before the runs were first compared on the card; the collapsed
+    """The paper's 0.0003 on every f32 run (config0 on a (4, 1) mesh too),
+    0.0015 on every bf16 run, as written before the runs were first
+    compared on the card; the collapsed
     complement run later tightened to 0.0005, less than half of each of
     its JAX metrics, so that a run that kept half of them (an untrained
     engine keeps a fifth) fails the gate."""
@@ -115,12 +116,39 @@ def test_the_bands_were_set_before_the_card(record):
             continue
         assert band == (parity.HEADLINE_BAND if bf16 else parity.CONFIG0_BAND), name
     assert sorted(n for n, b in parity.BANDS.items() if b == parity.CONFIG0_BAND) == [
-        "config0", "config0_self_attention"]
+        "config0", "config0_mesh41", "config0_self_attention"]
     want = record["runs"]["complement"]["final_metrics"]
     assert all(parity.COLLAPSED_BAND < 0.5 * want[m] for m in parity.GATED_METRICS)
     with pytest.raises(AssertionError, match="beyond"):
         parity.gate(record, "complement", {m: 0.5 * v for m, v in want.items()},
                     parity.BANDS["complement"])
+
+
+def test_the_mesh_run_records_its_own_data(record):
+    """config0 on a (4, 1) mesh of JAX processes, on one user more than the
+    other runs (the JAX engine needs the data axis to divide the users):
+    the run carries its geometry and checksums, and ``check_run_data``
+    reads them there, the record's elsewhere."""
+    gate = _module("scripts/torch_parity_gate.py", "torch_parity_gate")
+    run = record["runs"]["config0_mesh41"]
+    (n_data, n_model), (users, items) = gate.MESH_RUNS["config0_mesh41"]
+    assert run["mesh"] == [n_data, n_model] == [4, 1]
+    assert run["synthetic"] == dict(record["synthetic"], num_users=users,
+                                    num_items=items) and users % n_data == 0
+    assert run["sha256"] != record["sha256"] and run["train_pairs"] > 0
+
+    class Data:
+        def __init__(self, pairs):
+            self.pairs = pairs
+
+    pairs = np.zeros((3, 2), np.int32)
+    fake = {"runs": {"a": {**parity.data_fingerprint(Data(pairs), Data(pairs))},
+                     "b": {}},
+            **parity.data_fingerprint(Data(pairs[:2]), Data(pairs[:2]))}
+    assert parity.check_run_data(fake, "a", Data(pairs), Data(pairs))
+    assert parity.check_run_data(fake, "b", Data(pairs[:2]), Data(pairs[:2]))
+    with pytest.raises(AssertionError, match="differs"):
+        parity.check_run_data(fake, "a", Data(pairs[:2]), Data(pairs[:2]))
 
 
 def test_the_seed_spread_entry(record):
