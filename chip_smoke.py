@@ -308,6 +308,8 @@ GATED_RUNS = {
     "accl_self_s": ACCL_SELF, "headline_ccl": HEADLINE_CCL,
     "complement": COMPLEMENT,
     "config0_mesh41": [],  # config0 on a (4, 1) mesh: check_mesh_cli
+    # The headline and the default shape on a (4, 1) mesh: check_mesh_cli_fast
+    "headline_mesh41": HEADLINE, "default_shape_mesh41": DEFAULT_SHAPE,
 }
 APPROX_RECALL = 0.95  # --eval-approx, and exact=False against exact
 # K4's timed launches rotate over buffers (scores, window ids, outputs) of
@@ -4049,6 +4051,7 @@ def check_mesh_kernels(dev, entries: dict) -> None:
             f"K4 at a shard's ({EVAL_TILE}, {i_rows}) eval tile differs from "
             f"its plain version")
     worst(entries["window_extract"], got, want)
+    check_mesh_kernels_bf16(dev, entries, users, items, uids, lo, his, lens)
     print(f"kernels at a (2, 2) rank's shapes (users ({u_rows}, {DIM}), "
           f"items ({i_rows}, {DIM}), {b} ids, a ({EVAL_TILE}, {i_rows}) eval "
           f"tile with {i_rows - real} pad columns), max_abs_err so far: "
@@ -4057,6 +4060,265 @@ def check_mesh_kernels(dev, entries: dict) -> None:
               "gather_rows", "scatter_set_rows", "window_extract")}))
     del users, items, his, got, want, acc, table, rows, sim
     torch.cuda.empty_cache()
+
+
+def check_mesh_kernels_bf16(dev, entries, users, items, uids, lo, his, lens):
+    """The bf16 instances the fast path launches on a mesh, at a (2, 2)
+    rank's shapes (``users``, ``items``: its f32 shards, taken as bf16),
+    each against its plain version, with ids of the other item shard (and
+    the sentinel) among them:
+
+    * K2 multi, bf16 tables into f32 rows (the step's all-reduce buffer):
+      its users, its half batch's positives and the 512-slot tile, rebased
+      to the shard: bit-equal, other shards' rows zero;
+    * K1's all-pools entry writing f32 (the partial pools a model group
+      sums), held by :func:`hold_history_mean`;
+    * K3's update entry (``direct``: clip first) on the item shard, over
+      every data rank's positives and the tile, repeats included, held as
+      K3 is over repeats (:func:`hold_scatter_add`);
+    * K2 (single) and S1 as the data group's first rank keeps the item
+      replicas equal: it reads the touched rows, the others write them:
+      both bit-equal."""
+    import torch
+
+    from heat_tpu_torch.ops.cuda import gather, scatter
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    i_rows = items.shape[0]
+    users16, items16 = users.bfloat16(), items.bfloat16()
+    b = BATCH // 2
+    ids = torch.cat([
+        torch.randint(0, MESH_SYNTHETIC[1], (2 * b + TILE,), generator=g,
+                      device=dev, dtype=torch.int32) - lo,
+        torch.tensor([i_rows], dtype=torch.int32, device=dev)])
+    ids[:64] = ids[64:128]  # popular positives repeat
+    segments = [(users16, uids), (items16, ids)]
+    got = gather.gather_rows_multi(segments, torch.float32)
+    want = gather.gather_rows_multi_ref(segments, torch.float32)
+    torch.cuda.synchronize()
+    outside = (ids < 0) | (ids >= i_rows)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)) or not bool(
+            (got[1][outside] == 0).all()):
+        raise AssertionError("K2 multi bf16 at a shard differs from its plain "
+                             "version or reads other shards' rows")
+    for x, y in zip(got, want):
+        worst(entries["gather_rows_multi_bf16"], x, y)
+    got = gather.history_mean_gather(items16, his, lens, torch.float32)
+    torch.cuda.synchronize()
+    hold_history_mean(got, items16, his, lens, torch.float32)
+    worst(entries["history_mean_gather_bf16"], got,
+          gather.history_mean_gather_ref(items16, his, lens, torch.float32))
+    grads = torch.randn(ids.shape[0], DIM, generator=g, device=dev).bfloat16()
+    lr = torch.tensor([0.01], device=dev)
+    kw = dict(lr=lr, clip_val=1.0, clip_first=True)
+    got = scatter.scatter_add_update(items16.clone(), ids, grads, **kw)
+    want = scatter.scatter_add_update_ref(items16.clone(), ids, grads, **kw)
+    each = torch.arange(ids.shape[0], device=dev, dtype=torch.int32)
+    inc = scatter.scatter_add_update_ref(
+        torch.zeros(ids.shape[0], DIM, dtype=torch.bfloat16, device=dev),
+        each, grads, **kw)
+    torch.cuda.synchronize()
+    hold_scatter_add("K3 update bf16 at a shard", items16, ids, inc,
+                     {"kernel": got, "plain version": want})
+    worst(entries["scatter_add_update_bf16"], got, want)
+    rows = gather.gather_rows(got, ids)
+    rows_ref = gather.gather_rows_ref(got, ids)
+    after = scatter.scatter_set_rows(items16.clone(), ids, rows)
+    after_ref = scatter.scatter_set_rows_ref(items16.clone(), ids, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(rows, rows_ref) or not torch.equal(after, after_ref):
+        raise AssertionError("K2 / S1 bf16 at a shard's item rows differ from "
+                             "their plain versions")
+    if not torch.equal(after[ids[~outside].long()], got[ids[~outside].long()]):
+        raise AssertionError("S1 bf16 did not make the touched rows the first "
+                             "replica's")
+    worst(entries["gather_rows_bf16"], rows, rows_ref)
+    worst(entries["scatter_set_rows_bf16"], after, after_ref)
+    print("bf16 kernels at a (2, 2) rank's shapes, max_abs_err so far: "
+          + json.dumps({name: entries[name]["max_abs_err"] for name in (
+              "gather_rows_multi_bf16", "history_mean_gather_bf16",
+              "scatter_add_update_bf16", "gather_rows_bf16",
+              "scatter_set_rows_bf16")}))
+
+
+# The fast path on a mesh (ROADMAP item 15b, points 1 and 2): the CLI runs
+# gated to the JAX package's (4, 1) runs, and the Engine runs on (2, 2).
+MESH_FAST_RUNS = {"headline_mesh41": (HEADLINE, 1),
+                  "default_shape_mesh41": (DEFAULT_SHAPE, 2)}  # sets, K1 an epoch
+MESH_ENGINE_RUNS = {
+    "headline": (HEADLINE, 1),
+    "default_shape_complement": (COMPLEMENT, 2),
+    # config0's step (no pools): its kernels a step are reported, not held.
+    "config0_none_user": (["shuffle_mode=none", "visit_order=user"], 0),
+}
+
+
+def check_step_kernels(what, port, sub_epochs, shape) -> dict:
+    """Rank 0's kernels in one traced epoch of the headline's step on a
+    ``shape`` mesh (``trace_summary``'s ``port_kernels``), a step's: one K2
+    multi (user, positive, tile and pool rows), two K3 update entries (the
+    user rows; the item rows, which the data group's first rank applies),
+    one S1 (the user write-back), one K2 for each replica broadcast it
+    sends (the touched item rows over "data", the batch's user rows over
+    "model"); K1 once a sub-epoch (the pools). A rank of model index > 0
+    runs one more S1 (the user rows it is sent), a rank of data index > 0
+    one S1 (the item rows) and no item K3; rank 0 is neither."""
+    steps = port["K2_multi"]
+    want = {"K2_multi": steps, "K3": 2 * steps, "S1": steps,
+            "K2": steps * ((shape[0] > 1) + (shape[1] > 1)),
+            "K1": sub_epochs, "K4": 0}
+    if steps < 1 or any(port[f] != n for f, n in want.items()):
+        raise AssertionError(f"{what}: rank 0's traced epoch ran {port} of the "
+                             f"port's kernels, expected {want}")
+    return {f: n / steps for f, n in port.items()}
+
+
+def check_mesh_cli_fast(dev, run) -> dict:
+    """(d) and (e): the CLI on a (4, 1) mesh, four ranks on the card through
+    gloo, launched by ``torch.distributed.run``: config0's schedule on
+    MESH_SYNTHETIC with the headline's (or the default shape's) overrides,
+    rank 0's kernel launches and its trace of the second epoch (its device
+    time, collectives and the port's kernels a step,
+    :func:`check_step_kernels`). Recall@20 and NDCG@50 within 0.0015 of the
+    JAX package's (4, 1) run of the same name (PARITY_TORCH.json, whose
+    data checksums must be this data's). Every launch of the step's kernels
+    is of its bf16 instance."""
+    import re
+    import shutil
+
+    from heat_tpu_torch import parity
+
+    sets, sub_epochs = MESH_FAST_RUNS[run]
+    _, _, (train, test) = mesh_data()
+    record = parity.load_parity()
+    data = parity.check_run_data(record, run, train, test)
+    del train, test
+    root = Path(__file__).resolve().parent
+    trace_dir = MESH_TRACE.with_name(f"mesh_trace_{run}")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    argv = ["--config", CONFIG0, "--synthetic",
+            ",".join(map(str, MESH_SYNTHETIC)), "--device", dev.type]
+    argv += [x for kv in sets for x in ("--set", kv)]
+    env = dict(__import__("os").environ)
+    env["PYTHONPATH"] = str(root) + ":" + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "heat_tpu_torch.main", *argv,
+         "--kernel-launches", "--profile-dir", str(trace_dir)],
+        capture_output=True, text=True, timeout=MESH_TIMEOUT, cwd=root, env=env)
+    wall = time.perf_counter() - t0
+    text = proc.stdout
+    if proc.returncode:
+        raise AssertionError(f"the (4, 1) CLI ({run}) exited {proc.returncode}:"
+                             f"\n{text[-3000:]}\n{proc.stderr[-3000:]}")
+    epochs = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
+        r"^epoch: \d+; loss: (\S+); epoch_time: (\S+)s$", text, re.M)]
+    losses = [loss for loss, _ in epochs]
+    report = json.loads([ln for ln in text.splitlines()
+                         if ln.startswith('{"kernel_launches"')][-1])
+    final = json.loads([ln for ln in text.splitlines()
+                        if ln.startswith('{"final_metrics"')][-1])["final_metrics"]
+    if len(losses) != 5 or not all(map(math.isfinite, losses)) or not losses[4] < losses[0]:
+        raise AssertionError(f"(4, 1) CLI ({run}): epoch losses {losses}")
+    steps, evals, launches = (report["steps"], report["evaluations"],
+                              report["kernel_launches"])
+    chunks = -(-MESH_SYNTHETIC[0] // 4 // EVAL_TILE)
+    want = {"gather_rows_multi_bf16": steps, "scatter_add_update_bf16": 2 * steps,
+            "scatter_set_rows_bf16": steps, "gather_rows_bf16": steps,
+            "history_mean_gather_bf16": 5 * sub_epochs,
+            "window_extract": evals * chunks}
+    for name, n in want.items():
+        if launches[name] != n and not (name == "window_extract"
+                                        and launches[name] > n):
+            raise AssertionError(f"(4, 1) CLI ({run}): rank 0 launched {name} "
+                                 f"{launches[name]} times, expected {n}")
+    for name in ("gather_rows_multi", "scatter_add_update", "scatter_set_rows",
+                 "history_mean_gather"):
+        if launches[name] != launches[name + "_bf16"]:
+            raise AssertionError(f"(4, 1) CLI ({run}) launched an f32 {name}: "
+                                 f"{launches}")
+    if launches["scatter_add_rows"]:
+        raise AssertionError(f"(4, 1) CLI ({run}): the plain K3 ran: {launches}")
+    traced = trace_busy(trace_dir)
+    if not traced["collective_calls"]:
+        raise AssertionError(f"(4, 1) CLI ({run}): no collective in rank 0's trace")
+    per_step = check_step_kernels(f"(4, 1) CLI ({run})", traced["port_kernels"],
+                                  sub_epochs, (4, 1))
+    gate_jax = parity.gate(record, run, final, parity.BANDS[run])
+    out = {"wall_s": wall, "losses": losses, "epoch_s": [t for _, t in epochs],
+           "final_metrics": final, "gate_jax": gate_jax, "steps_rank0": steps,
+           "evaluations": evals, "launches_rank0": launches,
+           "port_kernels_per_step_rank0": per_step,
+           "collective_ms_per_step": (1e3 * traced["collective_s"]
+                                      / traced["port_kernels"]["K2_multi"]),
+           "trace_epoch1_rank0": traced, **data}
+    print(f"mesh ({'d' if run.startswith('headline') else 'e'}), the CLI on "
+          f"(4, 1) through gloo, {run}: {json.dumps(out)}")
+    return out
+
+
+def check_mesh_engine_fast(dev) -> dict:
+    """(f) The Engine API on a (2, 2) mesh, four ranks on the card through
+    gloo, MESH_SYNTHETIC, one epoch of each of MESH_ENGINE_RUNS (the
+    headline; the default shape in complement scope; config0 with the
+    fixed stream of ``shuffle_mode: none, visit_order: user``, whose
+    history dedup must be in use): step losses, tables and ``w0`` against
+    ORACLE_RUNS single-rank runs on the same global batches and draws
+    (``Engine._shard_stream(2)``, pooling as two model shards do) by
+    :func:`held_to_spread`; replicas bit-equal (SHA-256); the ranks'
+    generators equal; rank 0's kernels a step from its trace."""
+    import dataclasses
+
+    import numpy as np
+
+    mc = mesh_support()
+    cfg, data_kw, (train, test) = mesh_data()
+    LIFECYCLE.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for name, (sets, sub_epochs) in MESH_ENGINE_RUNS.items():
+        cfg_kw = dict(dataclasses.asdict(cfg), **overrides_of(sets))
+        t0 = time.perf_counter()
+        ranks = mc.spawn_ranks(
+            mc.rank_train, 4, (2, 2), data_kw, cfg_kw, 1, dev.type,
+            device=dev.type, timeout=MESH_TIMEOUT, evaluate=False,
+            all_states=False, step_losses=MESH_STEPS,
+            profile_last=str(LIFECYCLE / f"mesh_22_{name}.pt.trace.json"))
+        wall = time.perf_counter() - t0
+        mc.check_replicas([r["replicas"] for r in ranks])
+        if len({json.dumps(r["generators"]) for r in ranks}) != 1:
+            raise AssertionError(f"(2, 2) {name}: the ranks' generators differ")
+        for r in ranks[1:]:
+            if not np.array_equal(r["step_losses"], ranks[0]["step_losses"]):
+                raise AssertionError(f"(2, 2) {name}: the ranks report other "
+                                     "step losses")
+        if name == "config0_none_user" and not all(
+                r["dedup_engaged"] for r in ranks):
+            raise AssertionError("(2, 2) config0_none_user: the dedup is idle")
+        oracles = [mc.train_oracle(2, data_kw, cfg_kw, 1, dev.type,
+                                   data=(train, test), step_losses=MESH_STEPS,
+                                   n_model=2, evaluate=False)
+                   for _ in range(ORACLE_RUNS)]
+        head = ranks[0]
+        last = head["last_epoch_profile"]
+        held = {"step_losses": held_to_spread(
+            f"(2, 2) {name} step losses", head["step_losses"],
+            [o["step_losses"] for o in oracles])}
+        for key in ("user_emb", "item_emb", "w0"):
+            held[key] = held_to_spread(f"(2, 2) {name} {key}", head["state"][key],
+                                       [o["state"][key] for o in oracles])
+        per_step = (check_step_kernels(f"(2, 2) {name}", last["port_kernels"],
+                                       sub_epochs, (2, 2)) if sub_epochs else
+                    {f: n / last["steps"] for f, n in last["port_kernels"].items()})
+        out[name] = {"wall_s": wall, "losses": head["losses"],
+                     "oracle_losses": [o["losses"] for o in oracles],
+                     "steps": head["steps"], "train_s": head["train_s"],
+                     "collective_ms_per_step": 1e3 * last["collective_s"] / last["steps"],
+                     "last_epoch_rank0": last, "launches_rank0": head["launches"],
+                     "port_kernels_per_step_rank0": per_step, "held": held}
+        print(f"mesh (f), the Engine API on (2, 2) through gloo, {name}: "
+              f"{json.dumps(out[name])}")
+    return out
 
 
 def check_mesh_engine(dev) -> dict:
@@ -4552,6 +4814,13 @@ def main() -> int:
     check_mesh_kernels(dev, entries)
     mesh = {"a": check_mesh_cli(dev, cli), "b": check_mesh_engine(dev),
             "c": check_mesh_nccl(dev)}
+    # ROADMAP item 15b, points 1 and 2: (d) the headline and (e) the default
+    # shape through the CLI on (4, 1), (f) three Engine runs on (2, 2).
+    mesh["d"] = check_mesh_cli_fast(dev, "headline_mesh41")
+    mesh["e"] = check_mesh_cli_fast(dev, "default_shape_mesh41")
+    mesh["f"] = check_mesh_engine_fast(dev)
+    gate.update(check_gate({run: mesh[x]["final_metrics"] for x, run in (
+        ("d", "headline_mesh41"), ("e", "default_shape_mesh41"))}, data=False)[0])
     print(json.dumps({"mesh": {
         "(a) wall_s, collective ms a step, rank 0's traced idle share": [
             mesh["a"]["wall_s"], mesh["a"]["collective_ms_per_step"],
@@ -4559,7 +4828,19 @@ def main() -> int:
         "(b) wall_s, collective ms a step, rank 0's last epoch idle share": [
             mesh["b"]["wall_s"], mesh["b"]["collective_ms_per_step"],
             mesh["b"]["last_epoch_rank0"]["idle_share"]],
-        "(c) wall_s, backend": [mesh["c"]["wall_s"], mesh["c"]["backend"]]}}))
+        "(c) wall_s, backend": [mesh["c"]["wall_s"], mesh["c"]["backend"]],
+        **{f"({x}) wall_s, epoch_s, collective ms a step, rank 0's traced "
+           f"idle share, gate gaps": [
+               mesh[x]["wall_s"], mesh[x]["epoch_s"],
+               mesh[x]["collective_ms_per_step"],
+               mesh[x]["trace_epoch1_rank0"]["idle_share"],
+               mesh[x]["gate_jax"]["gap"]] for x in ("d", "e")},
+        **{f"(f) {name} wall_s, train_s, collective ms a step, rank 0's idle "
+           f"share, ratios to the spread": [
+               r["wall_s"], r["train_s"], r["collective_ms_per_step"],
+               r["last_epoch_rank0"]["idle_share"],
+               {k: h["ratio"] for k, h in r["held"].items()}]
+           for name, r in mesh["f"].items()}}}))
     print(f"card for the line above (ranks sharing one card; no multi-card "
           f"speed): {card}")
 
@@ -4600,6 +4881,10 @@ def main() -> int:
         k["launches_eval_approx"] = approx_launches[name]
         k["launches_mesh_41_rank0"] = mesh["a"]["launches_rank0"][name]
         k["launches_mesh_22_rank0"] = mesh["b"]["launches_rank0"][name]
+        k["launches_mesh_headline_41_rank0"] = mesh["d"]["launches_rank0"][name]
+        k["launches_mesh_default_shape_41_rank0"] = mesh["e"]["launches_rank0"][name]
+        for run, r in mesh["f"].items():
+            k[f"launches_mesh_22_{run}_rank0"] = r["launches_rank0"][name]
         k["launches_serving"] = serving_launches[name]
         k["launches_serving_bf16"] = serving16_launches[name]
         for mode in HUGE_ENGINE_RUNS:

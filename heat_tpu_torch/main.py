@@ -54,7 +54,12 @@ whole synthetic data in every process it fails at its first evaluation.
 The engine gets ``global_mesh()``, an (N, 1) mesh; rank 0 prints and
 logs, and writes the export and the checkpoints, which hold the global
 tables. On a mesh the epochs run one by one (``--fused-epochs`` above 1
-and ``--fused-run`` raise, ROADMAP item 15b).
+and ``--fused-run`` raise, ROADMAP item 15b, point 6). The mesh runs
+config0's path and the fast path: the JAX ``bench.py`` headline (``--set
+neg_sampler=1 --set tile_size=512 --set refresh_interval=8192 --set
+his_refresh=subepoch --set param_dtype=bfloat16 --set
+compute_dtype=bfloat16 --set update_mode=direct``) and the reference's
+default shape (the headline and ``--set num_subepochs=2``).
 
 ``--eval-approx RECALL`` (in (0, 1]) ranks the periodic evaluations with
 ``exact=False`` at that recall target, as the JAX CLI does; the final
@@ -232,7 +237,8 @@ def main(argv=None) -> dict:
     if nproc > 1 and (args.fused_run or args.fused_epochs > 1):
         raise NotImplementedError(
             "--fused-epochs and --fused-run on a mesh are not ported to "
-            "heat_tpu_torch (ROADMAP.md, modules still to port, item 15b)")
+            "heat_tpu_torch (ROADMAP.md, modules still to port, item 15b, "
+            "point 6)")
 
     if args.synthetic:
         num_users, num_items = (int(x) for x in args.synthetic.split(","))

@@ -184,9 +184,11 @@ def user_pools_impl(
       aggregator: "mean", "self_attention" or "user_attention".
       chunk: users a chunk (None: POOL_CHUNK_BYTES of rows); the mean uses
         it only on the CPU.
-      out: optional contiguous (U, d) tensor of the table's type on its
-        device, written and returned (the engine refreshes one buffer every
-        epoch, whose address its captured step reads); a new one when None.
+      out: optional contiguous (U, d) tensor of the table's type (or, for
+        the mean, f32: the rows summed in f32 and not rounded to the
+        table's type) on its device, written and returned (the engine
+        refreshes one buffer every epoch, whose address its captured step
+        reads); a new one when None.
     """
     if aggregator not in ("mean", "self_attention", "user_attention"):
         raise ValueError(f"unknown aggregator {aggregator!r}")
@@ -196,13 +198,16 @@ def user_pools_impl(
         )
     u, h = his_items.shape
     d = item_emb.shape[1]
+    # The mean may be written in f32 (a mesh sums partial means so).
+    types = (item_emb.dtype, torch.float32) if aggregator == "mean" else (
+        item_emb.dtype,)
     if out is None:
         out = torch.empty((u, d), dtype=item_emb.dtype, device=item_emb.device)
-    elif (out.shape != (u, d) or out.dtype != item_emb.dtype
+    elif (out.shape != (u, d) or out.dtype not in types
           or out.device != item_emb.device or not out.is_contiguous()):
         raise ValueError(
             f"out must be a contiguous ({u}, {d}) "
-            f"{item_emb.dtype} tensor on {item_emb.device}, got "
+            f"{' or '.join(map(str, types))} tensor on {item_emb.device}, got "
             f"{tuple(out.shape)} {out.dtype} on {out.device}"
         )
     if aggregator == "mean" and out.is_cuda:
@@ -226,7 +231,8 @@ def user_pools_impl(
         for lo in range(0, u, chunk):
             ids, lens = his_items[lo : lo + chunk], his_masks[lo : lo + chunk]
             if aggregator == "mean":
-                out[lo : lo + chunk] = history_mean_fused(item_emb, ids, lens)
+                out[lo : lo + chunk] = history_mean_fused(item_emb, ids, lens,
+                                                          out.dtype)
                 continue
             rows = gather_rows(item_emb, ids.reshape(-1)).view(-1, h, d)
             out[lo : lo + chunk] = pool_history(
@@ -237,8 +243,25 @@ def user_pools_impl(
     return out
 
 
+class _ProductF32WeightGrad(torch.autograd.Function):
+    """``means @ w0`` in the type of ``means``, whose gradient with respect
+    to the (f32) ``w0`` is the f32 product ``means^T @ g``, not rounded to
+    the type of ``means``; no gradient reaches ``means``."""
+
+    @staticmethod
+    def forward(ctx, means, w0):
+        ctx.save_for_backward(means)
+        return means @ w0.to(means.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (means,) = ctx.saved_tensors
+        return None, means.float().T @ g.float()
+
+
 def aggregate_history(
-    u: torch.Tensor, means: torch.Tensor, w0: torch.Tensor, gamma: float
+    u: torch.Tensor, means: torch.Tensor, w0: torch.Tensor, gamma: float,
+    f32_weight_grad: bool = False,
 ) -> torch.Tensor:
     """u_agg = gamma * u + (1 - gamma) * means @ w0.
 
@@ -248,8 +271,16 @@ def aggregate_history(
     sets and checks. In bf16 the product and each of the three elementwise
     operations round to bf16, as they do in the JAX package, where the two
     scalar weights are rounded to bf16 as well before they multiply.
+
+    ``f32_weight_grad``: with bf16 means, ``w0``'s gradient is the f32
+    product, not rounded to bf16 (a mesh rank's part of it is summed over
+    the data group in f32 and rounded once after the sum); the forward is
+    the same.
     """
-    f_c0 = means @ w0.to(means.dtype)
+    if f32_weight_grad and means.dtype != torch.float32:
+        f_c0 = _ProductF32WeightGrad.apply(means, w0)
+    else:
+        f_c0 = means @ w0.to(means.dtype)
     return scalar_in(gamma, u.dtype) * u + scalar_in(1.0 - gamma, f_c0.dtype) * f_c0
 
 

@@ -1,5 +1,6 @@
 """A multi-process training and evaluation run on a mesh of ranks: the
-port's counterpart of ``scripts/multihost_demo.py`` (its "base" variant).
+port's counterpart of ``scripts/multihost_demo.py`` (its "base",
+"subepoch" and "visit" variants).
 
 The JAX demo runs ``--procs`` processes of four CPU devices each on a
 ``(2 * procs, 2)`` mesh. Here every device is a rank, so the launcher
@@ -7,14 +8,28 @@ starts ``4 * procs`` rank processes on that mesh (``--device cpu``
 through gloo; on the card every rank shares it through gloo too). Every
 rank generates the demo's data (64 users x 126 items: 126 is not a
 multiple of 128 x n_model, so the evaluation takes the padded sharded
-top-k, not the all-gather fallback), keeps its user range with global ids,
-trains four epochs and evaluates: plainly, with aggregated users, and with
-``exact=False``. Each rank checks that the sharded evaluation equals the
-single-process evaluator over the gathered tables and the whole test set,
-and prints its losses and Recall@20; the launcher checks that every rank
-exits cleanly and reports the same ones.
+top-k, not the all-gather fallback) and keeps its user range with global
+ids. The variants (``--variant``):
 
-    python -m heat_tpu_torch.multihost_demo --procs 2 [--device cpu]
+* ``base``: four epochs and the evaluation: plainly, with aggregated
+  users, and with ``exact=False``. Each rank checks that the sharded
+  evaluation equals the single-process evaluator over the gathered
+  tables and the whole test set.
+* ``subepoch``: the reference's default shape (the headline's fast path:
+  tile sampler, cached pools, bf16, ``direct``; two sub-epochs) in
+  complement scope, as the JAX variant runs it, three epochs. The losses
+  fall; the engine's two generators (the numpy one draws the
+  permutations on every rank, with no broadcast) and the replicas are
+  the same on every rank, probed after the epochs through an all-gather.
+* ``visit``: ``visit_order: user`` over a scrambled copy of each data
+  shard's stream (``shuffle_mode: none``) trains exactly as an engine fed
+  that shard presorted by user in file order, three epochs, and the
+  history dedup's maps are in use.
+
+Each rank prints one line; the launcher checks that every rank exits
+cleanly and reports the same one.
+
+    python -m heat_tpu_torch.multihost_demo --procs 2 [--variant base] [--device cpu]
 
 prints ``multihost demo ok`` at the end.
 """
@@ -31,10 +46,95 @@ DEMO_DATA = dict(num_users=64, num_items=126, clicks_per_user=12, max_his=6,
                  seed=7)
 DEMO_CFG = dict(emb_dim=8, num_negs=4, max_his=6, l_r=0.05, batch_size=32,
                 seed=3, metrics=["Recall(k=20)"])
+# The reference's default shape at the demo's size, in complement scope.
+SUBEPOCH_CFG = dict(DEMO_CFG, neg_sampler=1, tile_size=32, refresh_interval=256,
+                    his_refresh="subepoch", param_dtype="bfloat16",
+                    compute_dtype="bfloat16", update_mode="direct",
+                    num_subepochs=2, subepoch_neg_scope="complement")
+VARIANTS = ("base", "subepoch", "visit")
 
 
-def worker(procs: int, rank: int, port: int, device: str) -> None:
-    """One rank: the base variant's training and its checks."""
+def _same_everywhere(value) -> None:
+    """Raise AssertionError unless every rank of the job holds ``value``."""
+    import torch.distributed as dist
+
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, value)
+    if any(v != seen[0] for v in seen):
+        raise AssertionError(f"the ranks differ: {seen}")
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    import torch
+
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
+
+
+def subepoch_variant(rank, mesh, local_train, local_test, device) -> None:
+    """The default shape in complement scope on the mesh (module docstring)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from heat_tpu_torch.config import CFConfig
+    from heat_tpu_torch.train.engine import Engine
+
+    engine = Engine(CFConfig(**SUBEPOCH_CFG), local_train, local_test,
+                    device=device, mesh=mesh)
+    losses = [engine.train_one_epoch() for _ in range(3)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    # Identical consumption on every rank leaves both generators equal.
+    _same_everywhere((engine._np_rng.integers(0, 2**31, 8).tolist(),
+                      _digest(engine.generator.get_state())))
+    st = engine.state
+    groups = ((st.user_emb, "model"), (st.item_emb, "data"), (st.w0, None))
+    for table, axis in groups:
+        group = [None] * (dist.get_world_size() if axis is None
+                          else mesh.axis_size(axis))
+        dist.all_gather_object(group, _digest(table),
+                               group=None if axis is None else mesh._groups[axis])
+        assert len(set(group)) == 1, ("replicas differ", axis, group)
+    print(f"rank {rank}: subepoch losses {[float(x) for x in losses]}",
+          flush=True)
+
+
+def visit_variant(rank, mesh, local_train, local_test, device) -> None:
+    """``visit_order: user`` against the presorted file order (module
+    docstring)."""
+    import dataclasses
+
+    import numpy as np
+
+    from heat_tpu_torch.config import CFConfig
+    from heat_tpu_torch.train.engine import Engine
+
+    # One scramble a data shard: the ranks of a model group hold one shard.
+    rng = np.random.default_rng(13 + mesh.data_index)
+    pairs = np.asarray(local_train.pairs)
+    scrambled = dataclasses.replace(local_train,
+                                    pairs=pairs[rng.permutation(len(pairs))])
+    sp = np.asarray(scrambled.pairs)
+    presorted = dataclasses.replace(
+        scrambled, pairs=sp[np.argsort(sp[:, 0], kind="stable")])
+    auto = Engine(CFConfig(**DEMO_CFG, shuffle_mode="none", visit_order="user"),
+                  scrambled, local_test, device=device, mesh=mesh)
+    got = [auto.train_one_epoch() for _ in range(3)]
+    assert auto._dedup_cache is not None and auto._dedup_cache[2] is not None, (
+        "the history dedup is idle")
+    filed = Engine(CFConfig(**DEMO_CFG, shuffle_mode="none"), presorted,
+                   local_test, device=device, mesh=mesh)
+    want = [filed.train_one_epoch() for _ in range(3)]
+    assert got == want, (got, want)
+    print(f"rank {rank}: visit losses {got} == presorted", flush=True)
+
+
+def worker(procs: int, rank: int, port: int, device: str,
+           variant: str = "base") -> None:
+    """One rank: the variant's training and its checks."""
     import numpy as np
     import torch
 
@@ -59,6 +159,11 @@ def worker(procs: int, rank: int, port: int, device: str) -> None:
     n_data, d = mesh.shape[0], mesh.data_index
     local_train = shard_by_user_range(train, n_data, d, rebase=False)
     local_test = shard_by_user_range(test, n_data, d)
+    if variant != "base":
+        run = subepoch_variant if variant == "subepoch" else visit_variant
+        run(rank, mesh, local_train, local_test, device)
+        distributed.shutdown()
+        return
     engine = Engine(CFConfig(**DEMO_CFG), local_train, local_test,
                     device=device, mesh=mesh)
     losses = [engine.train_one_epoch() for _ in range(4)]
@@ -100,13 +205,15 @@ def main(argv=None) -> int:
     parser.add_argument("--port", type=int, default=None,
                         help="the coordinator's port (a free one by default)")
     parser.add_argument("--device", default="cuda", help="cuda or cpu")
+    parser.add_argument("--variant", default="base", choices=VARIANTS,
+                        help="what the ranks run (module docstring)")
     parser.add_argument("--timeout", type=float, default=240.0,
                         help="seconds each rank may take")
     parser.add_argument("--worker", type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     port = args.port or _free_port()
     if args.worker is not None:
-        worker(args.procs, args.worker, port, args.device)
+        worker(args.procs, args.worker, port, args.device, args.variant)
         return 0
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
@@ -115,7 +222,7 @@ def main(argv=None) -> int:
         subprocess.Popen(
             [sys.executable, "-m", "heat_tpu_torch.multihost_demo",
              "--procs", str(args.procs), "--port", str(port), "--device",
-             args.device, "--worker", str(rank)],
+             args.device, "--variant", args.variant, "--worker", str(rank)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             env=env)
         for rank in range(4 * args.procs)

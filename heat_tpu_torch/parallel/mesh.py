@@ -17,7 +17,13 @@ is ``n_data x n_model`` ranks, one process a device, rank
   ``128 * n_model`` (``sharded_item_rows``: every shard's slice of the
   packed train mask is then whole words, and the evaluator's windows line
   up); the ranks that share ``m`` (its "data group") hold replicas of it;
-* ``w0``, ``attn_q``, their slots, ``lr`` and ``step`` are replicated.
+* ``w0``, ``attn_q``, their slots, ``lr`` and ``step`` are replicated, as
+  are the sampler's state (``iterations`` and the tile: every rank draws
+  them from its generator, which is in step on every rank) and a
+  sub-epoch's negative pool;
+* the pools of ``his_refresh: subepoch`` are laid out as the user rows:
+  data index ``d`` holds its users' pools (each summed over its model
+  group in f32 and rounded once to the table's type).
 
 The pad rows are never drawn (the samplers draw from the logical item
 count), never batched, score nowhere (their mask bits are set) and are cut
@@ -27,7 +33,8 @@ off by :func:`gather_train_state`.
 groups and the three collectives the training layer uses:
 ``all_reduce`` (sum), ``all_gather`` and ``broadcast``, each over one axis
 and on tensors of the rank's device; over an axis of size 1 each is a
-no-op. Their time is read from a profile: ``torch.profiler`` records each
+no-op. The gather and the broadcast move bf16 tensors as their bytes; no
+sum is taken of a bf16 tensor (the training layer sums f32 buffers). Their time is read from a profile: ``torch.profiler`` records each
 as a ``gloo:*`` or ``nccl:*`` span.
 """
 
@@ -77,6 +84,10 @@ class Mesh:
     def axis_size(self, axis: str) -> int:
         return self.shape[0] if axis == DATA_AXIS else self.shape[1]
 
+    def index(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        return self.data_index if axis == DATA_AXIS else self.model_index
+
     def _rank_at(self, axis: str, index: int) -> int:
         """The job rank at ``index`` along ``axis`` in this rank's group."""
         if axis == DATA_AXIS:
@@ -99,7 +110,7 @@ class Mesh:
             return [t]
         t = t.contiguous()
         out = [torch.empty_like(t) for _ in range(self.axis_size(axis))]
-        dist.all_gather(out, t, group=group)
+        dist.all_gather([_bits(o) for o in out], _bits(t), group=group)
         return out
 
     def all_gather_object(self, obj, axis: str) -> list:
@@ -118,7 +129,7 @@ class Mesh:
         group = self._groups[axis]
         if group is not None:
             src = self._rank_at(axis, index)
-            dist.broadcast(t, src=src, group=group)
+            dist.broadcast(_bits(t), src=src, group=group)
         return t
 
     def barrier(self) -> None:
@@ -126,6 +137,13 @@ class Mesh:
         the rank's device)."""
         if self.size > 1:
             dist.all_reduce(torch.zeros(1, device=self.device))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor as the uint8 of its bytes (a view; gloo has no 16-bit
+    integer type): what moves a bf16 table through either backend exactly,
+    whatever its support of bf16."""
+    return t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
 
 
 def make_mesh(n_data: int = 1, n_model: int = 1, device: str = "cuda") -> Mesh:

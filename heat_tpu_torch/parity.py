@@ -48,6 +48,8 @@ BANDS = {
     "headline_ccl": HEADLINE_BAND,
     "complement": COLLAPSED_BAND,
     "config0_mesh41": CONFIG0_BAND,
+    "headline_mesh41": HEADLINE_BAND,
+    "default_shape_mesh41": HEADLINE_BAND,
 }
 
 

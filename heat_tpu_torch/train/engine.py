@@ -46,7 +46,11 @@ oracle, bit-equal to the default form wherever every non-empty bucket
 holds at least ``batch_size`` pairs (both then pack at one width). An empty
 bucket runs and draws nothing. The history dedup applies only to an
 unpartitioned epoch: buckets are drawn anew every epoch, so maps cached
-per stream would never be read twice.
+per stream would never be read twice. On a stream laid out over data
+shards (a mesh, or :meth:`Engine._shard_stream`) each shard buckets its own
+pairs and every globally non-empty bucket is stepped by every rank
+(:meth:`Engine._subepochs_sharded`, the JAX engine's multiprocess form);
+``_fuse_subepochs`` has no other form there.
 
 Per epoch, before the first step: under ``his_refresh: subepoch`` the
 (U, d) pooled-history table is computed from the live tables into one
@@ -148,35 +152,32 @@ def check_slice(cfg: CFConfig) -> None:
             )
 
 
+def refuse_15b(what: str, point: int, why: str = ""):
+    """Raise NotImplementedError for ``what`` on a mesh, naming ROADMAP
+    item 15b and the point of it that will add it."""
+    raise NotImplementedError(
+        f"{what} on a mesh is not ported to heat_tpu_torch{why} (ROADMAP.md, "
+        f"modules still to port, item 15b, point {point})")
+
+
 def check_mesh_slice(cfg: CFConfig) -> None:
     """Raise NotImplementedError for any setting the mesh path does not run
-    yet: ROADMAP item 15a is config0's path (uniform negatives, the
-    history mean every step, batch-mode SGD with the combined-row clip,
-    f32); the rest is item 15b."""
+    yet. Item 15a is config0's path; 15b points 1 and 2 add the fast path
+    (the tile sampler, cached pools, bf16, ``direct``, the fixed streams
+    with their history dedup) and sub-epochs; the rest of 15b is refused
+    by its point."""
     off_mesh = [
-        (cfg.neg_sampler == NEG_SAMPLER_TILE, "the tile sampler"),
-        (cfg.his_refresh != "step", "cached history pools (his_refresh: subepoch)"),
-        ("bfloat16" in (cfg.param_dtype, cfg.compute_dtype), "bf16 tables"),
-        (cfg.update_mode == "direct", "update_mode: direct"),
-        (cfg.shuffle_mode != "epoch",
-         "the history dedup of a fixed stream (shuffle_mode none / once)"),
-        (cfg.num_subepochs > 1, "sub-epochs"),
-        (cfg.aggregator != "mean", "attention aggregators"),
-        (cfg.optimizer != "sgd", "Adagrad / Adam slots"),
-        (cfg.sgd_mode == SGD_MODE_ACCUM, "sgd_mode: accum"),
+        (cfg.aggregator != "mean", "attention aggregators", 4),
+        (cfg.optimizer != "sgd", "Adagrad / Adam slots", 3),
+        (cfg.sgd_mode == SGD_MODE_ACCUM, "sgd_mode: accum", 3),
     ]
-    for bad, what in off_mesh:
+    for bad, what, point in off_mesh:
         if bad:
-            raise NotImplementedError(
-                f"{what} on a mesh is not ported to heat_tpu_torch "
-                "(ROADMAP.md, modules still to port, item 15b)")
+            refuse_15b(what, point)
 
 
 def _refuse_on_mesh(what: str):
-    raise NotImplementedError(
-        f"{what} on a mesh is not ported to heat_tpu_torch: the mesh's "
-        "steps run eagerly, epoch by epoch (ROADMAP.md, modules still to "
-        "port, item 15b)")
+    refuse_15b(what, 6, ": the mesh's steps run eagerly, epoch by epoch")
 
 
 def set_f32_matmul_precision() -> None:
@@ -219,9 +220,13 @@ class Engine:
     draws the permutation of every data shard's pairs in turn and keeps
     its own, and every step draws the global batch's negatives
     (``train_step.train_step_sharded``). ``cfg.train_size`` is the
-    global count. The steps run eagerly (no CUDA graph: gloo cannot be
-    captured), and settings outside item 15a raise NotImplementedError
-    naming item 15b (``check_mesh_slice``).
+    global count. The mesh runs config0's path (item 15a), the fast path
+    (the tile sampler, cached pools, bf16, ``direct``, the fixed streams
+    with their history dedup) and sub-epochs (item 15b, points 1 and 2;
+    :meth:`_subepochs_sharded`). The steps run eagerly (no CUDA graph:
+    gloo cannot be captured), and the settings outside those raise
+    NotImplementedError naming item 15b and its point
+    (``check_mesh_slice``).
     """
 
     def __init__(
@@ -272,11 +277,8 @@ class Engine:
             self._shard_counts = [int(c) for c in torch.cat(counts).cpu()]
             cfg.train_size = sum(self._shard_counts)
             if max(sh.user_rows, sh.item_rows) > scatter.DENSE_ROWS_THRESHOLD:
-                raise NotImplementedError(
-                    "the sort-dedup update (a shard above "
-                    f"{scatter.DENSE_ROWS_THRESHOLD} rows) on a mesh is not "
-                    "ported to heat_tpu_torch (ROADMAP.md, modules still to "
-                    "port, item 15b)")
+                refuse_15b("the sort-dedup update (a shard above "
+                           f"{scatter.DENSE_ROWS_THRESHOLD} rows)", 5)
 
         seed = cfg.seed if seed is None else seed
         self.generator = torch.Generator(device=self.device)
@@ -327,6 +329,7 @@ class Engine:
         self._fuse_subepochs = True
         self._subep_geom = None
         self._item_clicks = None
+        self._shard_clicks = None  # {data shard: its items' click counts}
         self._bucket_bufs = None
         self._neg_pool = None
         # The generator's state before the "once" stream was drawn: what a
@@ -358,10 +361,11 @@ class Engine:
 
     def _shard_stream(self, n_data: int) -> None:
         """Lay this mesh-less engine's batch stream out as a mesh of
-        ``n_data`` data shards lays out its own (:meth:`_sharded_batches`):
-        the engine then steps that mesh's global batches with its draws,
-        the single-rank oracle the mesh's tests compare with. Call it
-        before the first epoch."""
+        ``n_data`` data shards lays out its own (:meth:`_sharded_batches`,
+        and under sub-epochs :meth:`_subepochs_sharded`): the engine then
+        steps that mesh's global batches with its draws, the single-rank
+        oracle the mesh's tests compare with. Call it before the first
+        epoch."""
         if self.mesh is not None:
             raise ValueError("a mesh lays out its own batch stream")
         check_mesh_slice(self.cfg)  # the oracle of the mesh's slice only
@@ -372,9 +376,10 @@ class Engine:
         # Each shard's pairs, in the visit order (a mesh rank's own).
         shard_of = np.searchsorted(np.asarray([hi for _, hi in bounds]),
                                    self._pairs_np[:, 0], side="right")
-        self._shard_pairs = [self.pairs[torch.as_tensor(
-            np.flatnonzero(shard_of == s), device=self.device)]
-            for s in range(n_data)]
+        self._shard_pairs_np = [self._pairs_np[shard_of == s]
+                                for s in range(n_data)]
+        self._shard_pairs = [torch.as_tensor(p, device=self.device)
+                             for p in self._shard_pairs_np]
         self._shard_counts = [int(p.shape[0]) for p in self._shard_pairs]
 
     @contextlib.contextmanager
@@ -499,19 +504,15 @@ class Engine:
         """(users, pos, weight) of a stream laid out over S data shards
         (the mesh's ``n_data``, or :meth:`_shard_stream`'s; the JAX
         engine's ``_local_batches``): each shard shuffles its own pairs and
-        gives ``lb`` = ceil(B / S) rows of every batch (no more than the largest shard holds), the
-        count of batches is the most any shard needs, and shorter shards pad
-        with weight-0 rows (an empty shard with its first user and item 0).
-        Every rank draws the permutation of every shard in turn from the
-        engine's generator (``arange`` under "none"), so that the generator
-        stays in step on every rank and a rank with all the pairs draws
-        what the mesh draws. On a mesh the stream is the rank's (nb, lb)
-        block; without one it is the global (nb, S * lb) stream, shard s in
-        columns [s * lb, (s + 1) * lb). "once" keeps its stream as
-        :meth:`_shuffle_or_pack` does."""
+        gives ``lb`` = ceil(B / S) rows of every batch (no more than the
+        largest shard holds), the count of batches is the most any shard
+        needs, and shorter shards pad with weight-0 rows
+        (:meth:`_write_shards`). On a mesh the stream is the rank's
+        (nb, lb) block; without one it is the global (nb, S * lb) stream,
+        shard s in columns [s * lb, (s + 1) * lb). "once" keeps its stream
+        as :meth:`_shuffle_or_pack` does."""
         cfg, counts = self.cfg, self._shard_counts
-        s_count = self._stream_shards
-        lb = min(-(-cfg.batch_size // s_count), max(1, max(counts)))
+        lb = min(-(-cfg.batch_size // self._stream_shards), max(1, max(counts)))
         nb = max(-(-max(1, c) // lb) for c in counts)
         mode = cfg.shuffle_mode
         cached = self._batch_cache
@@ -520,40 +521,65 @@ class Engine:
             return cached[2]
         if mode == "once":
             self._once_state = self.generator.get_state()
+        out = self._write_shards(
+            {s: (p, None, lo) for s, (p, lo) in self._held_shards(pairs).items()},
+            counts, nb, nb, lb)
+        if mode == "once":
+            self._batch_cache = (pairs, (nb, lb), out)
+            self._dedup_cache = None
+        return out
+
+    def _held_shards(self, pairs=None) -> dict:
+        """{data shard: (its pairs on the device, its first user)} of the
+        shards whose stream this engine writes: a mesh rank's own (``pairs``,
+        the epoch's), or every shard of :meth:`_shard_stream`."""
+        if self.mesh is not None:
+            return {self.mesh.data_index: (
+                self.pairs if pairs is None else pairs, self.shards.user_lo)}
+        return {s: (p, lo) for s, (p, lo) in enumerate(
+            zip(self._shard_pairs, self._shard_user_lo))}
+
+    def _write_shards(self, parts: dict, counts, rows: int, nb: int, lb: int):
+        """Write ``nb`` batches of a stream laid out over the S data shards
+        into the stream buffers (``rows`` >= ``nb`` of them, grow-only) and
+        return them. ``counts``: every shard's count of pairs in the
+        stream, which every rank knows; ``parts``: {shard: (pairs, sel,
+        first user)} of the shards this engine writes, ``sel`` the pair
+        indices of the shard's stream in visit order (None: all its pairs).
+        Every rank draws the permutation of every shard in turn from the
+        engine's generator (``arange`` under "none"), so that the generator
+        stays in step on every rank and a rank with all the pairs draws
+        what the mesh draws; each shard gives ``lb`` rows of every batch,
+        the tail padded by repeating its stream with weight 0, and an empty
+        shard pads with its first user and item 0."""
+        mode = self.cfg.shuffle_mode
         perms = [
             torch.arange(c, dtype=torch.int32, device=self.device)
             if mode == "none" else torch.randperm(
                 c, generator=self.generator, device=self.device,
                 dtype=torch.int32)
             for c in counts]
-        if self.mesh is not None:
-            d = self.mesh.data_index
-            blocks = [(d, pairs, perms[d], self.shards.user_lo)]
-            width = lb
-        else:
-            blocks = [(s, self._shard_pairs[s], perms[s], self._shard_user_lo[s])
-                      for s in range(s_count)]
-            width = lb * s_count
+        width = lb if self.mesh is not None else lb * len(counts)
         self._batch_cache = None
-        out = tuple(t[:nb] for t in self._stream_buffers(nb, width))
-        for s, shard_pairs, idx, user_lo in blocks:
+        out = tuple(t[:nb] for t in self._stream_buffers(rows, width))
+        for s, (shard_pairs, sel, user_lo) in parts.items():
             col = slice(0, lb) if self.mesh is not None else slice(s * lb, (s + 1) * lb)
             users, pos, weight = (t[:, col] for t in out)
+            idx = perms[s]
             n = int(idx.shape[0])
             if n == 0:
                 users.fill_(user_lo)
                 pos.fill_(0)
                 weight.fill_(0.0)
                 continue
-            idx = idx.repeat(-(-nb * lb // n))[: nb * lb]
-            users.copy_(shard_pairs[idx.long(), 0].view(nb, lb))
-            pos.copy_(shard_pairs[idx.long(), 1].view(nb, lb))
+            if sel is not None:
+                idx = sel.index_select(0, idx.long())
+            idx = idx.repeat(-(-nb * lb // n))[: nb * lb].long()
+            users.copy_(shard_pairs[idx, 0].view(nb, lb))
+            pos.copy_(shard_pairs[idx, 1].view(nb, lb))
             w = torch.zeros(nb * lb, dtype=torch.float32, device=self.device)
             w[:n] = 1.0
             weight.copy_(w.view(nb, lb))
-        if mode == "once":
-            self._batch_cache = (pairs, (nb, lb), out)
-            self._dedup_cache = None
         return out
 
     def _history_dedup(self, pairs, users) -> Optional[tuple]:
@@ -576,7 +602,11 @@ class Engine:
         their first user and its first occurrence. Computed on the host
         with ``np.unique`` (one download of the stream) and cached for the
         ``pairs`` object (held, so that its address cannot pass to other
-        pairs) and the stream's shape, so a fixed stream pays once."""
+        pairs) and the stream's shape, so a fixed stream pays once. On a
+        mesh the maps are of the rank's (nb, lb) block (its users are its
+        own: the dedup is exact per rank), and the go/no-go and Bu are
+        decided over the data group from every shard's largest distinct
+        count and width, so that every rank steps the same path."""
         cfg = self.cfg
         if (cfg.his_refresh != "step"
                 or cfg.shuffle_mode not in ("none", "once")
@@ -597,6 +627,14 @@ class Engine:
             firsts.append(first)
             invs.append(inv)
             max_u = max(max_u, len(uu))
+        if self.mesh is not None:
+            # Every rank of the mesh takes the same decision and width from
+            # every data shard's (max_u, batch): one that decided alone
+            # would step another path (the JAX engine's _history_dedup_mp).
+            stats = torch.stack(self.mesh.all_gather(torch.tensor(
+                [max_u, batch], dtype=torch.int64, device=self.device),
+                "data")).cpu()
+            max_u, batch = int(stats[:, 0].max()), int(stats[:, 1].min())
         out = None
         if max_u <= 0.7 * batch:  # worth the extra (B,) means gather
             bu = -(-max_u // 8) * 8
@@ -618,12 +656,24 @@ class Engine:
         the configured aggregator (the query of the attention kinds: the
         live ``attn_q``, or the live user rows), in the item table's type
         (written into ``out`` when given). On a mesh: the rank's users'
-        means over its item shard, summed over the model group."""
+        means over its item shard (K1 writing f32), summed over the model
+        group in f32 and rounded once to the table's type; on a (., 1)
+        mesh K1 writes the table's type itself."""
         st = self.state
+        if self.mesh is not None and self.mesh.shape[1] > 1:
+            # The partial means of the model shards summed in f32 and
+            # rounded once: the one rounding of a single rank's K1.
+            pools = compute_user_pools(
+                st.item_emb, self.his_items, self.his_masks,
+                out=torch.empty((self.his_items.shape[0], st.item_emb.shape[1]),
+                                dtype=torch.float32, device=self.device))
+            self.mesh.all_reduce(pools, "model")
+            if out is None:
+                return pools.to(st.item_emb.dtype)
+            return out.copy_(pools)
         if self.mesh is not None:
-            pools = compute_user_pools(st.item_emb, self.his_items,
-                                       self.his_masks, out=out)
-            return self.mesh.all_reduce(pools, "model")
+            return compute_user_pools(st.item_emb, self.his_items,
+                                      self.his_masks, out=out)
         return compute_user_pools(
             st.item_emb, self.his_items, self.his_masks,
             user_emb=(st.user_emb if self.cfg.aggregator == "user_attention"
@@ -722,7 +772,12 @@ class Engine:
         than the first epoch's largest bucket needs. They grow (a new
         capture) only when a later bucket needs more."""
         batch = min(self.cfg.batch_size, max(1, max(counts)))
-        need = max([-(-n // batch) for n in counts if n > 0] or [1])
+        return self._grown_geometry(
+            batch, max([-(-n // batch) for n in counts if n > 0] or [1]))
+
+    def _grown_geometry(self, batch: int, need: int) -> tuple[int, int]:
+        """The kept (batch, rows), made again with 1/16 more rows than
+        ``need`` when the batch changed or the rows are too few."""
         geom = self._subep_geom
         if geom is None or geom[0] != batch or geom[1] < need:
             self._subep_geom = geom = (batch, need + 1 + need // 16)
@@ -800,12 +855,7 @@ class Engine:
                 torch.empty(n_items, dtype=torch.int32, device=dev),  # perm
                 torch.empty(n_pairs, dtype=torch.int32, device=dev),  # order
             )
-            if cfg.subepoch_neg_scope == "complement":
-                c_max = n_items - int(np.diff(bounds).min())
-                self._neg_pool = (
-                    torch.empty(c_max, dtype=torch.int32, device=dev),
-                    torch.empty((), dtype=torch.int32, device=dev),
-                )
+            self._neg_pool_buffers(bounds)
         perm_dev, order = self._bucket_bufs
         host = torch.from_numpy(perm.astype(np.int32))
         if dev.type == "cuda":
@@ -814,26 +864,42 @@ class Engine:
         self._group_by_partition(perm_dev, bounds, counts, order)
         return self._write_buckets(perm_dev, order, bounds, counts, batch)
 
+    def _neg_pool_buffers(self, bounds) -> None:
+        """Under ``subepoch_neg_scope: complement``, the (C_max,) negative
+        pool buffer and its 0-d size, made once: every sub-epoch's
+        complement is written into them."""
+        if self.cfg.subepoch_neg_scope == "complement" and self._neg_pool is None:
+            c_max = self.cfg.num_items - int(np.diff(bounds).min())
+            self._neg_pool = (
+                torch.empty(c_max, dtype=torch.int32, device=self.device),
+                torch.empty((), dtype=torch.int32, device=self.device),
+            )
+
+    def _write_complement(self, perm_dev, bounds, s: int):
+        """Sub-epoch ``s``'s negative pool: under "complement" the
+        permutation without its partition, written into the pool buffers
+        (padded with its first id; the size says how much is real), else
+        (None, None)."""
+        pool = self._neg_pool
+        if pool is None:
+            return None, None
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        size = self.cfg.num_items - (hi - lo)
+        pool[0][:lo].copy_(perm_dev[:lo])
+        pool[0][lo:size].copy_(perm_dev[hi:])
+        pool[0][size:].copy_(perm_dev[:1].expand(pool[0].shape[0] - size))
+        pool[1].fill_(size)
+        return pool
+
     def _write_buckets(self, perm_dev, order, bounds, counts, batch):
         """The generator of :meth:`_bucketed_streams`: each non-empty
         bucket's stream and complement, written when it is asked for."""
-        n_items = self.cfg.num_items
         start = 0
         for s, n in enumerate(counts):
             if n:
                 count = -(-n // batch)
                 self._write_bucket(order[start: start + n], count, batch)
-                pool = (None, None)
-                if self._neg_pool is not None:
-                    pool = self._neg_pool
-                    lo, hi = int(bounds[s]), int(bounds[s + 1])
-                    size = n_items - (hi - lo)
-                    pool[0][:lo].copy_(perm_dev[:lo])
-                    pool[0][lo:size].copy_(perm_dev[hi:])
-                    pool[0][size:].copy_(perm_dev[:1].expand(
-                        pool[0].shape[0] - size))
-                    pool[1].fill_(size)
-                yield count, pool
+                yield count, self._write_complement(perm_dev, bounds, s)
             start += n
 
     def _group_by_partition(self, perm_dev, bounds, counts, order) -> None:
@@ -885,6 +951,78 @@ class Engine:
                     zero_grad_accumulators(self.state)
         return total
 
+    def _subepochs_sharded(self, capture: bool) -> torch.Tensor:
+        """The sub-epochs of one epoch on a stream laid out over data
+        shards: a mesh's ranks, or the single-rank oracle of
+        :meth:`_shard_stream` (the JAX engine's multiprocess sub-epochs,
+        ``_run_subepochs_fused`` under ``_multiprocess``).
+
+        Every rank draws the same item permutation from ``_np_rng`` (no
+        broadcast) and buckets its own pairs on the device (grouped by
+        partition, in pair order); the bucket sizes come from its items'
+        click counts, and every shard's sizes are all-gathered over the
+        data group, so that every rank knows the (S, P) table. The stream
+        geometry follows from it on every rank alike: ``lb`` = ceil(B / S)
+        rows a shard (no more than the largest shard bucket holds), and
+        the rows grow-only as :meth:`_subepoch_geometry` keeps them. Every
+        globally non-empty bucket is stepped by every rank, the most steps
+        any shard's part needs (so no global batch is all padding); a rank
+        whose part is empty pads it with weight-0 rows and draws what a
+        rank with pairs draws (:meth:`_write_shards`: every shard's
+        shuffle; then the global batch's negatives every step). A bucket
+        empty on every shard is skipped and draws nothing. The pools are
+        refreshed once a sub-epoch (:meth:`_steps`), and the complement
+        pool, a function of the permutation, is the same on every rank."""
+        cfg, dev = self.cfg, self.device
+        n_parts = cfg.num_subepochs
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        with self._phase("data"):
+            perm, bounds = self._partition()
+            held = self._held_shards()
+            if self._shard_clicks is None:
+                host = ({self.mesh.data_index: self._pairs_np}
+                        if self.mesh is not None
+                        else dict(enumerate(self._shard_pairs_np)))
+                self._shard_clicks = {
+                    s: np.bincount(p[:, 1], minlength=cfg.num_items)
+                    for s, p in host.items()}
+            local = {s: [int(c[perm[bounds[p]: bounds[p + 1]]].sum())
+                         for p in range(n_parts)]
+                     for s, c in self._shard_clicks.items()}
+            if self.mesh is not None:
+                counts = torch.stack(self.mesh.all_gather(torch.tensor(
+                    local[self.mesh.data_index], dtype=torch.int64,
+                    device=dev), "data")).tolist()
+            else:
+                counts = [local[s] for s in range(self._stream_shards)]
+            lb = min(-(-cfg.batch_size // self._stream_shards),
+                     max(1, max(max(row) for row in counts)))
+            steps = [max(-(-row[p] // lb) for row in counts)
+                     for p in range(n_parts)]
+            geom = self._grown_geometry(lb, max(max(steps), 1))
+            perm_dev = torch.as_tensor(perm.astype(np.int32), device=dev)
+            part_of = torch.empty_like(perm_dev).scatter_(
+                0, perm_dev.long(), torch.repeat_interleave(
+                    torch.arange(n_parts, dtype=torch.int32, device=dev),
+                    torch.as_tensor(np.diff(bounds), device=dev)))
+            sel = {}
+            for s, (pairs, _) in held.items():
+                pair_part = part_of.index_select(0, pairs[:, 1])
+                sel[s] = [torch.nonzero(pair_part == p).view(-1)
+                          for p in range(n_parts)]
+            self._neg_pool_buffers(bounds)
+        with self._phase("f_b"):
+            for p in range(n_parts):
+                if not steps[p]:
+                    continue
+                self._write_shards(
+                    {s: (pairs, sel[s][p], lo) for s, (pairs, lo) in held.items()},
+                    [row[p] for row in counts], geom[1], steps[p], lb)
+                total = total + self._steps(
+                    capture, steps[p],
+                    neg_pool=self._write_complement(perm_dev, bounds, p))
+        return total
+
     def _epoch(self, capture: bool) -> torch.Tensor:
         """One epoch: its learning rate, then its steps (replays of the
         captured step when ``capture``) over the whole stream, or over each
@@ -893,7 +1031,9 @@ class Engine:
         cfg = self.cfg
         lr = scheduled_lr(cfg.l_r, self.epoch, cfg.milestones, cfg.lr_gamma)
         self.state.lr.fill_(lr)  # in place: kernels read it by its address
-        if cfg.num_subepochs > 1:
+        if cfg.num_subepochs > 1 and self._stream_shards > 1:
+            loss_sum = self._subepochs_sharded(capture)
+        elif cfg.num_subepochs > 1:
             loss_sum = (self._subepochs_device(capture) if self._fuse_subepochs
                         else self._subepochs_per_bucket(capture))
         else:

@@ -215,3 +215,37 @@ def sample_negatives(
     )
     state.iterations.add_(batch if real is None else real.to(torch.int32))
     return NegSample(ids=negs), state
+
+
+def sample_negatives_rows(
+    generator: torch.Generator,
+    state: SamplerState,
+    pos_ids: torch.Tensor,
+    cfg: CFConfig,
+    batch: int,
+    rows: tuple[int, int],
+    real: torch.Tensor,
+) -> tuple[NegSample, SamplerState]:
+    """The negatives of rows ``rows = (lo, hi)`` of a global batch of
+    ``batch`` samples, whose positives ``pos_ids`` holds: what a rank of a
+    mesh keeps of the draws of one rank sampling the whole batch. Every
+    rank draws them all from its generator, which is in step on every
+    rank, so the tile, the draws and the sampler's state are the same
+    everywhere. ``real``: the global batch's count of real samples (0-d),
+    by which the counter advances, so the tile's refresh cadence is the
+    global one. Returns the rows' sample (the tile whole, ``tile_idx`` of
+    the rows) and ``state``, advanced in place."""
+    lo, hi = rows
+    if cfg.neg_sampler == NEG_SAMPLER_TILE:
+        sample, state = _tile_negatives(
+            generator, state, batch, cfg.num_negs, cfg.num_items,
+            cfg.tile_size, cfg.refresh_interval, real=real,
+        )
+        return NegSample(sample.ids[lo:hi], sample.tile,
+                         sample.tile_idx[lo:hi]), state
+    negs = uniform_negatives(
+        generator, batch, cfg.num_negs, cfg.num_items, pos_ids,
+        cfg.ignore_pos, rows=rows,
+    )
+    state.iterations.add_(real.to(torch.int32))
+    return NegSample(ids=negs), state

@@ -99,7 +99,7 @@ from heat_tpu_torch.ops.similarity import pair_scores, tile_scores
 from heat_tpu_torch.train.samplers import (
     SamplerState,
     sample_negatives,
-    uniform_negatives,
+    sample_negatives_rows,
 )
 from heat_tpu_torch.train.scatter import (
     apply_row_updates,
@@ -171,8 +171,11 @@ def train_step(
       Unused by the other aggregators.
     """
     if shards is not None:
-        return train_step_sharded(state, sampler_state, generator, batch,
-                                  his_items, his_masks, cfg, shards)
+        return train_step_sharded(
+            state, sampler_state, generator, batch, his_items, his_masks, cfg,
+            shards, user_means=user_means, uniq_users=uniq_users,
+            uniq_inverse=uniq_inverse, neg_candidates=neg_candidates,
+            neg_candidates_size=neg_candidates_size)
     users, pos, weight = batch
     user_emb, item_emb, w0 = state.user_emb, state.item_emb, state.w0
     d = item_emb.shape[1]
@@ -416,6 +419,70 @@ def train_step(
     return state, sampler_state, loss_sum.detach()
 
 
+def _replicas_equal(mesh, axis: str, table: torch.Tensor,
+                    ids: torch.Tensor) -> None:
+    """Make the rows ``table[ids]`` of every replica along ``axis`` those
+    of the group's first rank: it reads them (K2) and ``broadcast``s them,
+    and the others write them (S1). Replicas that updated from equal
+    inputs still differ where K3 added repeated rows in another order;
+    after this they are bit-equal by construction."""
+    if mesh.axis_size(axis) == 1:
+        return
+    first = mesh.index(axis) == 0
+    rows = (gather_rows(table, ids) if first else torch.empty(
+        (ids.shape[0], table.shape[1]), dtype=table.dtype, device=table.device))
+    mesh.broadcast(rows, axis, 0)
+    if not first:
+        scatter_set_rows(table, ids, rows)
+
+
+def _direct_items_sharded(mesh, item_emb, occ_ids, occ_grads, tile_ids,
+                          tile_grads, extra, compute, sgd) -> torch.Tensor:
+    """``update_mode: direct`` for a shard of the item table whose replicas
+    (its data group) take occurrences from every data rank: each
+    occurrence's gradient clipped on its own, the tile's slots on the
+    gradient summed over the whole global batch.
+
+    One f32 buffer goes through one ``all_reduce`` over the data group:
+    every data rank's occurrences (``occ_ids`` shard-local, the sentinel
+    for the dropped and the outside ones, and ``occ_grads``) at its own
+    slot, a sum of one nonzero term (exact; the ids below 2^24, as every
+    shard is, exact in f32 too), ``tile_grads`` summed over the ranks and
+    rounded once to ``compute``, and ``extra``. The group's first rank
+    then applies every occurrence (K3's update entry; l2 against the
+    rows it reads from its shard at batch start, the forward's rows) and
+    broadcasts the touched rows, which the others write (S1): K3 adds
+    repeated ids in no fixed order, and this keeps the replicas bit-equal.
+    Returns the reduced ``extra``."""
+    n_data, di = mesh.shape[0], mesh.data_index
+    m, d = occ_grads.shape
+    t = 0 if tile_ids is None else tile_ids.shape[0]
+    e = extra.numel()
+    size = n_data * m * (d + 1) + t * d + e
+    buf = torch.zeros(size, dtype=torch.float32, device=item_emb.device)
+    grads_all = buf[: n_data * m * d].view(n_data, m, d)
+    ids_all = buf[n_data * m * d: n_data * m * (d + 1)].view(n_data, m)
+    grads_all[di].copy_(occ_grads)
+    ids_all[di].copy_(occ_ids)
+    tile_all = buf[n_data * m * (d + 1): size - e].view(t, d)
+    if t:
+        tile_all.copy_(tile_grads)
+    buf[size - e:].copy_(extra.reshape(-1))
+    mesh.all_reduce(buf, "data")
+    parts = [ids_all.view(-1).to(torch.int32)]
+    grads = [grads_all.view(-1, d)]
+    if t:
+        parts.append(tile_ids)
+        grads.append(tile_all)
+    ids = torch.cat(parts)
+    if di == 0:
+        grads = torch.cat(grads).to(compute)
+        rows = gather_rows(item_emb, ids).to(compute) if sgd["l2"] else None
+        apply_row_updates_direct(item_emb, ids, grads, rows=rows, **sgd)
+    _replicas_equal(mesh, "data", item_emb, ids)
+    return buf[size - e:]
+
+
 def train_step_sharded(
     state: TrainState,
     sampler_state: SamplerState,
@@ -425,12 +492,18 @@ def train_step_sharded(
     his_masks: torch.Tensor,
     cfg: CFConfig,
     shards: "TableShards",
+    user_means: Optional[torch.Tensor] = None,
+    uniq_users: Optional[torch.Tensor] = None,
+    uniq_inverse: Optional[torch.Tensor] = None,
+    neg_candidates: Optional[torch.Tensor] = None,
+    neg_candidates_size: Optional[torch.Tensor] = None,
 ) -> tuple[TrainState, SamplerState, torch.Tensor]:
     """One step on a ("data", "model") mesh: the counterpart of the JAX
-    step under GSPMD, with its collectives written out. The slice of
-    ROADMAP item 15a: uniform negatives, the history mean recomputed every
-    step, the mean aggregator, batch-mode SGD with the combined-row clip
-    over dense accumulators, f32 (the engine refuses the rest).
+    step under GSPMD, with its collectives written out. The mean
+    aggregator, SGD in batch mode (the combined-row clip) or ``direct``
+    mode, uniform or tile negatives, the history mean every step (with the
+    dedup maps, once per distinct user) or the cached pools, f32 or bf16
+    tables and compute (the engine refuses the rest, ROADMAP item 15b).
 
     ``batch`` holds this rank's rows of the global batch (data index d
     holds rows ``[d * b, (d + 1) * b)``, b = its width); user and item ids
@@ -438,99 +511,185 @@ def train_step_sharded(
     rows, its rows of the padded item table, replicated ``w0``);
     ``his_items`` holds its users' histories with item ids already made
     local to its item rows (ids of other shards fall outside them), and
-    ``his_masks`` their lengths.
+    ``his_masks`` their lengths; ``user_means`` (his_refresh: subepoch) the
+    pools of its users, whole (summed over the model group at the
+    refresh); ``uniq_users`` / ``uniq_inverse`` the dedup maps of its rows
+    (global user ids; indices into them); ``neg_candidates`` a sub-epoch's
+    negative pool, the same on every rank.
 
-    1. The negatives of the whole global batch are drawn from the engine's
-       generator, which every rank holds in step, and the rank keeps its
-       rows: the draws are those of one rank stepping the global batch.
+    1. The global batch's count of real samples is summed over the data
+       group. The negatives of the whole global batch are drawn from the
+       engine's generator, which every rank holds in step, and the rank
+       keeps its rows (``samplers.sample_negatives_rows``): the draws of
+       one rank stepping the global batch, the tile and its refresh
+       cadence included; a negative pool remaps the tile or the draws.
     2. One K2 launch reads the user rows (local) and the positives' and
-       negatives' rows of the rank's item shard (ids rebased to it; ids of
-       other shards read zeros); K1 pools the users' histories over the
-       shard, leaving other shards' items out of the sum and dividing by
-       the whole length: a partial mean. Item rows and means sit in one
-       buffer, summed over the model group by one ``all_reduce``: whole
-       rows (one nonzero term each, exact) and whole means (summed in
-       another order than on one rank).
-    3. Forward and backward as :func:`train_step` (its mean path).
-    4. The user rows: the write-back and the dense update (S1, K3) on the
-       rank's users. The model group's ranks compute them from equal
-       inputs, but K3 adds repeated rows in no fixed order, so replicas
-       would drift: the group's first rank then reads the batch's rows
-       (K2) and ``broadcast``s them, and the others write them (S1), so
-       that user replicas stay bit-equal by construction.
-    5. The item rows: :func:`scatter.apply_row_updates_reduced`, whose one
-       ``all_reduce`` over the data group also sums ``w0``'s gradient, the
-       loss and the count of real samples; every replica then updates from
-       equal sums.
-    6. ``w0`` by SGD on the summed gradient; ``step`` and the sampler's
-       ``iterations`` advance by the global count.
+       the negatives' rows (the T tile rows, once, or the (b, K) draws) of
+       the rank's item shard (ids rebased to it; ids of other shards read
+       zeros), with the pools' rows; K1 pools the users' (or the distinct
+       users') histories over the shard, leaving other shards' items out
+       of the sum and dividing by the whole length: a partial mean. Item
+       rows and partial means sit in one f32 buffer, summed over the model
+       group by one ``all_reduce``: whole rows (one nonzero term each,
+       exact in any type) and whole means (summed in another order than on
+       one rank), each rounded once to the compute type after the sum. On
+       a (., 1) mesh K1 writes the compute type itself.
+    3. Forward and backward as :func:`train_step`: whole-tile scoring with
+       the draws' (b, T) multiplicities of the rank's rows, or the pairs.
+       The tile's (T, d) gradient holds the rank's part of each slot's
+       gradient, in f32 (the tile's rows enter the f32 scoring as f32
+       tensors of the compute type's values); each slot is one occurrence
+       whose gradient is the whole global batch's sum, so it is summed
+       over the data group before any clip binds, as the JAX step clips
+       the global sum, and rounded to the compute type once after the sum
+       (``direct``; the batch mode's f32 accumulator takes it unrounded).
+    4. The user rows: the write-back and the update (S1, K3; ``direct``:
+       K3's update entry) on the rank's users; then the model group's
+       first rank broadcasts the batch's rows and the others write them,
+       so that user replicas stay bit-equal (K3 adds repeated rows in no
+       fixed order).
+    5. The item rows: in batch mode :func:`scatter.apply_row_updates_reduced`,
+       whose one ``all_reduce`` over the data group also sums ``w0``'s
+       gradient and the loss, every replica then updating from equal sums;
+       in ``direct`` mode :func:`_direct_items_sharded`. Every sum across
+       ranks is of f32 buffers.
+    6. ``w0`` by SGD on the summed gradient (each rank's part of it in
+       f32, rounded once to the compute type after the sum, as one rank's
+       bf16 product gives it); ``step`` and the sampler's ``iterations``
+       advance by the global count.
     """
     mesh = shards.mesh
     users, pos, weight = batch
     user_emb, item_emb, w0 = state.user_emb, state.item_emb, state.w0
-    b, d, k = users.shape[0], item_emb.shape[1], cfg.num_negs
+    b, d = users.shape[0], item_emb.shape[1]
     f32 = torch.float32
+    compute = torch_dtype(cfg.compute_dtype)
+    n_items = item_emb.shape[0]
     with record_function("data"):
+        real = mesh.all_reduce(weight.sum().reshape(1), "data")[0].to(torch.int32)
         lo = mesh.data_index * b
-        negs = uniform_negatives(
-            generator, b * mesh.shape[0], k, cfg.num_items, pos,
-            cfg.ignore_pos, rows=(lo, lo + b))
+        sample, sampler_state = sample_negatives_rows(
+            generator, sampler_state, pos, cfg, b * mesh.shape[0],
+            (lo, lo + b), real)
+        tiled = sample.tile is not None
+        neg_ids = sample.tile if tiled else sample.ids.reshape(-1)
+        if neg_candidates is not None:
+            size = (neg_candidates.shape[0] if neg_candidates_size is None
+                    else neg_candidates_size)
+            neg_ids = neg_candidates.index_select(
+                0, torch.remainder(neg_ids, size))
     u_loc = users - shards.user_lo
-    item_ids = torch.cat([pos, negs.view(-1)]) - shards.item_lo
-    # [positive rows | negative rows | means]: summed in one collective.
-    buf = torch.empty((b * (k + 2), d), dtype=f32, device=item_emb.device)
+    item_loc = torch.cat([pos, neg_ids]) - shards.item_lo
+    m = item_loc.shape[0]
+    model_sum = mesh.shape[1] > 1
+    # Per-step means: of the samples, or of the distinct users (dedup).
+    his_rows = None
+    if user_means is None:
+        his_rows = u_loc if uniq_users is None else uniq_users - shards.user_lo
+    partial = his_rows is not None and model_sum
+    # [positive rows | negative or tile rows | partial means]: one sum.
+    buf = torch.empty((m + (his_rows.shape[0] if partial else 0), d),
+                      dtype=f32, device=item_emb.device)
+    segments = [(user_emb, u_loc), (item_emb, item_loc)]
+    outs = [None, buf[:m]]
+    if user_means is not None:
+        segments.append((user_means, u_loc))
+        outs.append(None)
     with record_function("read_emb"):
-        u_rows, _ = gather_rows_multi(
-            [(user_emb, u_loc), (item_emb, item_ids)], f32,
-            outs=[None, buf[: b * (k + 1)]])
-    with record_function("read_his"), record_function("aggr_f"):
-        history_mean_gather(item_emb, his_items, his_masks, f32, rows=u_loc,
-                            out=buf[b * (k + 1):])
+        rows = gather_rows_multi(segments, f32, outs=outs)
+    if his_rows is not None:
+        with record_function("read_his"), record_function("aggr_f"):
+            means = history_mean_gather(
+                item_emb, his_items, his_masks, f32 if partial else compute,
+                rows=his_rows, out=buf[m:] if partial else None)
     mesh.all_reduce(buf, "model")
-    p_rows = buf[:b]
-    n_rows = buf[b: b * (k + 1)].view(b, k, d)
-    means = buf[b * (k + 1):]
+    u_rows = rows[0].to(compute)
+    p_rows = buf[:b].to(compute)
+    n_rows = buf[b:m].to(compute)
+    if user_means is not None:
+        means = rows[2].to(compute)
+    else:
+        means = means.to(compute)
+        if uniq_users is not None:
+            with record_function("aggr_f"):
+                means = gather_rows(means, uniq_inverse)
+    if tiled:
+        # tile_scores scores in f32 whatever the rows' type: the same
+        # scores from f32 rows that hold the compute type's values, and
+        # the rank's part of the tile's gradient stays f32 (no rounding
+        # before the sum over the data group).
+        n_rows = n_rows.float()
+    else:
+        n_rows = n_rows.view(b, cfg.num_negs, d)
 
     with record_function("grad"):
         u_l, p_l, n_l, w0_l = (
             t.detach().requires_grad_() for t in (u_rows, p_rows, n_rows, w0)
         )
         with record_function("his_mm"):
-            u_agg = aggregate_history(u_l, means, w0_l, cfg.gamma)
+            u_agg = aggregate_history(u_l, means, w0_l, cfg.gamma,
+                                      f32_weight_grad=True)
         with record_function("dot"):
-            s_up, s_un = pair_scores(u_agg, p_l, n_l,
-                                     similarity=cfg.similarity)
+            if tiled:
+                s_up, s_all = tile_scores(u_agg, p_l, n_l,
+                                          similarity=cfg.similarity)
+            else:
+                s_up, s_un = pair_scores(u_agg, p_l, n_l,
+                                         similarity=cfg.similarity)
         with record_function("loss"):
-            loss_sum = (sample_losses(s_up, s_un, cfg) * weight).sum()
+            if tiled:
+                # counts[b, t]: how many of sample b's K draws hit slot t.
+                counts = torch.zeros(
+                    (b, neg_ids.shape[0]), dtype=f32, device=users.device,
+                ).scatter_add_(1, sample.tile_idx.long(), torch.ones(
+                    sample.tile_idx.shape, dtype=f32, device=users.device))
+                losses = sample_losses_weighted(s_up, s_all, counts,
+                                                cfg.num_negs, cfg)
+            else:
+                losses = sample_losses(s_up, s_un, cfg)
+            loss_sum = (losses * weight).sum()
         g_u, g_p, g_n, g_w0 = torch.autograd.grad(loss_sum, [u_l, p_l, n_l, w0_l])
 
     valid = weight > 0
-    n_users, n_items = user_emb.shape[0], item_emb.shape[0]
+    n_users = user_emb.shape[0]
     users_w = torch.where(valid, u_loc, n_users)
-    # item_ids is [positives (b) | negatives (b, k) row-major].
-    item_valid = torch.cat([valid, valid[:, None].expand(b, k).reshape(-1)])
-    item_w = torch.where(item_valid, item_ids, n_items)
+    # Shard-local item ids, the sentinel for weight-0 samples' and for
+    # other shards' rows; the tile's slots carry no sentinel (a weight-0
+    # sample puts no gradient into them).
+    inside = (item_loc >= 0) & (item_loc < n_items)
+    occ_valid = valid if tiled else torch.cat(
+        [valid, valid.repeat_interleave(cfg.num_negs)])
+    item_w = torch.where(inside, item_loc, n_items)
+    occ_w = torch.where(occ_valid, item_w[: occ_valid.shape[0]], n_items)
+    tile_w = item_w[b:] if tiled else None
     l2 = cfg.l2 if cfg.l2_enabled else 0.0
     sgd = dict(lr=state.lr, clip_val=cfg.clip_val, l2=l2)
+    u_agg = u_agg.detach()
+    extra = torch.cat([g_w0.reshape(-1), loss_sum.detach().reshape(1)])
     with record_function("write_emb"):
-        apply_row_updates(user_emb, users_w, g_u, writeback=u_agg.detach(), **sgd)
-        if mesh.shape[1] > 1:
-            rows = (gather_rows(user_emb, users_w) if mesh.model_index == 0
-                    else torch.empty((b, d), dtype=user_emb.dtype,
-                                     device=user_emb.device))
-            mesh.broadcast(rows, "model", 0)
-            if mesh.model_index != 0:
-                scatter_set_rows(user_emb, users_w, rows)
-        extra = torch.cat([g_w0.reshape(-1), loss_sum.detach().reshape(1),
-                           weight.sum().reshape(1)])
-        extra = apply_row_updates_reduced(
-            item_emb, item_w, torch.cat([g_p, g_n.reshape(-1, d)]),
-            reduce=lambda t: mesh.all_reduce(t, "data"), extra=extra, **sgd)
+        if cfg.update_mode == "direct":
+            apply_row_updates_direct(user_emb, users_w, g_u,
+                                     rows=u_agg if l2 else None,
+                                     writeback=u_agg, **sgd)
+        else:
+            apply_row_updates(user_emb, users_w, g_u, writeback=u_agg, **sgd)
+        _replicas_equal(mesh, "model", user_emb, users_w)
+        if cfg.update_mode == "direct":
+            g_occ = g_p if tiled else torch.cat([g_p, g_n.reshape(-1, d)])
+            extra = _direct_items_sharded(
+                mesh, item_emb, occ_w, g_occ, tile_w,
+                g_n if tiled else None, extra, compute, sgd)
+        else:
+            ids = occ_w if not tiled else torch.cat([occ_w, tile_w])
+            extra = apply_row_updates_reduced(
+                item_emb, ids, torch.cat([g_p, g_n.reshape(-1, d)]),
+                reduce=lambda t: mesh.all_reduce(t, "data"), extra=extra,
+                **sgd)
     with record_function("aggr_b"):
-        real = extra[d * d + 1].to(torch.int32)
-        w0.sub_(state.lr * extra[: d * d].view(d, d) / cfg.aggr_minibatch)
+        # The gradient in the compute type, as one rank's is, rounded once.
+        g_w0 = extra[: d * d].view(d, d).to(compute).float()
+        w0.sub_(state.lr * g_w0 / cfg.aggr_minibatch)
         state.step.add_((real > 0).to(state.step.dtype))
-        sampler_state.iterations.add_(real)
     return state, sampler_state, extra[d * d].clone()
 
 
@@ -612,7 +771,7 @@ class EpochFn:
         if capture and shards is not None:
             raise NotImplementedError(
                 "a captured step on a mesh (NCCL inside the CUDA graph) is "
-                "not ported (ROADMAP.md, item 15b)")
+                "not ported (ROADMAP.md, item 15b, point 6)")
         self.cfg = cfg
         self.capture = capture
         self.shards = shards

@@ -7,10 +7,11 @@ config's seed, 2022), in config0 and in every configuration the port's
 ``chip_smoke.py`` trains (``RUNS``: the JAX ``bench.py`` headline, the
 reference's default shape, config0 with self-attention, bench.py's ACCL
 and CCL rows, complement scope), config0 again at two other engine
-seeds (``SEED_RUNS``: the JAX package's own spread), and config0 on a
-(4, 1) mesh of four JAX processes (``MESH_RUNS``: on 52,644 x 91,599, one
-user more, since the JAX engine needs the data axis to divide the users;
-that run records its own geometry and checksums), and writes
+seeds (``SEED_RUNS``: the JAX package's own spread), and config0, the
+headline and the default shape on a (4, 1) mesh of four JAX processes
+(``MESH_RUNS``: on 52,644 x 91,599, one user more, since the JAX engine
+needs the data axis to divide the users; each such run records its own
+geometry and checksums), and writes
 ``PARITY_TORCH.json`` at the root of the repository: the JAX version, the
 geometry, the train and test pair counts with a SHA-256 of each (int32,
 row-major), each run's overrides, band (``heat_tpu_torch.parity.BANDS``),
@@ -77,8 +78,12 @@ SEED_RUNS = {"config0_seed2023": ("config0", 2023),
              "config0_seed2024": ("config0", 2024)}
 # Runs on a mesh of JAX processes: (n_data, n_model) and the synthetic
 # geometry (users, items). Each is also a RUNS entry (its overrides).
-MESH_RUNS = {"config0_mesh41": ((4, 1), (52644, 91599))}
+MESH_RUNS = {"config0_mesh41": ((4, 1), (52644, 91599)),
+             "headline_mesh41": ((4, 1), (52644, 91599)),
+             "default_shape_mesh41": ((4, 1), (52644, 91599))}
 RUNS["config0_mesh41"] = []
+RUNS["headline_mesh41"] = HEADLINE
+RUNS["default_shape_mesh41"] = DEFAULT_SHAPE
 
 
 class _Tee(io.TextIOBase):

@@ -353,12 +353,13 @@ def test_off_slice_settings_are_refused(override, where):
 
 
 def test_mesh_refuses_item_15b_settings():
-    """Meshes run since item 15a; the settings outside it are refused by
-    name before the mesh is touched (tests/test_torch_mesh.py holds every
+    """Meshes run since item 15a (the fast path and sub-epochs since 15b
+    points 1 and 2); the settings outside them are refused by name and
+    point before the mesh is touched (tests/test_torch_mesh.py holds every
     one on a real mesh)."""
     train, test = tsynthetic(20, 40, max_his=4, seed=1)
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        TEngine(CFConfig(max_his=4, update_mode="direct"), train, test,
+    with pytest.raises(NotImplementedError, match="item 15b, point 3"):
+        TEngine(CFConfig(max_his=4, optimizer="adam"), train, test,
                 device="cpu", mesh=object())
 
 

@@ -446,31 +446,38 @@ def test_data_axis_must_divide_users():
         table_shards(FakeMesh(), 131, 256)
 
 
+# What a mesh still refuses, by ROADMAP item 15b's point, alone and on top
+# of the fast path and sub-epochs, which it runs (15b points 1 and 2).
+TILE_BF16 = {"neg_sampler": 1, "tile_size": 16, "refresh_interval": 64,
+             "his_refresh": "subepoch", "param_dtype": "bfloat16",
+             "compute_dtype": "bfloat16"}
 REFUSED = [
-    ({"neg_sampler": 1, "tile_size": 16, "refresh_interval": 64}, "tile sampler"),
-    ({"his_refresh": "subepoch"}, "cached history pools"),
-    ({"param_dtype": "bfloat16", "compute_dtype": "bfloat16"}, "bf16"),
-    ({"update_mode": "direct"}, "direct"),
-    ({"shuffle_mode": "none"}, "history dedup"),
-    ({"shuffle_mode": "once"}, "history dedup"),
-    ({"num_subepochs": 2}, "sub-epochs"),
-    ({"aggregator": "user_attention"}, "attention"),
-    ({"optimizer": "adam"}, "Adagrad / Adam"),
-    ({"optimizer": "adagrad"}, "Adagrad / Adam"),
-    ({"sgd_mode": "accum"}, "accum"),
+    ({"aggregator": "user_attention"}, "attention", 4),
+    ({"aggregator": "self_attention"}, "attention", 4),
+    ({**TILE_BF16, "update_mode": "direct", "aggregator": "user_attention"},
+     "attention", 4),
+    ({"shuffle_mode": "none", "aggregator": "self_attention"}, "attention", 4),
+    ({"optimizer": "adam"}, "Adagrad / Adam", 3),
+    ({"optimizer": "adagrad"}, "Adagrad / Adam", 3),
+    ({**TILE_BF16, "num_subepochs": 2, "optimizer": "adagrad"},
+     "Adagrad / Adam", 3),
+    ({"sgd_mode": "accum"}, "accum", 3),
+    ({"num_subepochs": 2, "sgd_mode": "accum"}, "accum", 3),
+    ({"shuffle_mode": "once", "sgd_mode": "accum"}, "accum", 3),
 ]
 
 
-@pytest.mark.parametrize("override,what", REFUSED,
+@pytest.mark.parametrize("override,what,point", REFUSED,
                          ids=[w.replace(" ", "_") + str(i)
-                              for i, (_, w) in enumerate(REFUSED)])
-def test_mesh_refuses_item_15b(mesh11, override, what):
+                              for i, (_, w, _) in enumerate(REFUSED)])
+def test_mesh_refuses_item_15b(mesh11, override, what, point):
     train, test = synthetic_click_dataset(num_users=20, num_items=40,
                                           max_his=4, seed=1)
     with pytest.raises(NotImplementedError, match="item 15b") as err:
         Engine(CFConfig(max_his=4, **override), train, test, device="cpu",
                mesh=mesh11)
     assert what in str(err.value)
+    assert f"item 15b, point {point})" in str(err.value)
 
 
 def test_mesh_refuses_fused_epochs_and_the_sort_dedup(mesh11, monkeypatch):
@@ -480,12 +487,12 @@ def test_mesh_refuses_fused_epochs_and_the_sort_dedup(mesh11, monkeypatch):
     assert not engine._capture and engine.shards.item_rows == 128
     for call in (lambda: engine.train_epochs(2),
                  lambda: engine.run_epochs_with_eval(2, 1)):
-        with pytest.raises(NotImplementedError, match="item 15b"):
+        with pytest.raises(NotImplementedError, match="item 15b, point 6"):
             call()
     import heat_tpu_torch.train.scatter as tsc
 
     monkeypatch.setattr(tsc, "DENSE_ROWS_THRESHOLD", 64)
-    with pytest.raises(NotImplementedError, match="sort-dedup"):
+    with pytest.raises(NotImplementedError, match="sort-dedup.*point 5"):
         Engine(CFConfig(max_his=4), train, test, device="cpu", mesh=mesh11)
     monkeypatch.undo()
     with pytest.raises(ValueError, match="rebase=False"):

@@ -106,15 +106,84 @@ def spawn_ranks(target, world: int, *args, device: str = "cpu",
 
 
 def digest(t) -> str:
-    """SHA-256 of a tensor's bytes: how replicas are held bit-equal."""
-    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+    """SHA-256 of a tensor's bytes (a bf16 tensor's as int16): how
+    replicas are held bit-equal."""
+    import torch
+
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
 
 
 def make_data(data_kw: dict):
-    """The planted-cluster (train, test) of ``data_kw``."""
+    """The planted-cluster (train, test) of ``data_kw``. With
+    ``narrow_users=(first, items)`` the train clicks of the users from
+    ``first`` on are replaced by ``items`` (each user clicks them all):
+    a data shard of such users has no click in most of a sub-epoch
+    partition's buckets."""
+    from heat_tpu_torch.data.datasets import ClickDataset
     from heat_tpu_torch.data.synthetic import synthetic_click_dataset
 
-    return synthetic_click_dataset(**data_kw)
+    kw = dict(data_kw)
+    narrow = kw.pop("narrow_users", None)
+    train, test = synthetic_click_dataset(**kw)
+    if narrow is not None:
+        first, items = narrow
+        user_items = [u if i < first else np.asarray(items, np.int32)
+                      for i, u in enumerate(train.user_items)]
+        train = ClickDataset.from_user_items(
+            user_items, kw["max_his"], num_items=train.num_items,
+            seed=kw.get("seed"))
+    return train, test
+
+
+def generator_digest(engine) -> dict:
+    """The digests of the engine's two generators' states (the torch one,
+    which draws the shuffles, the tile and the negatives, and the numpy
+    one of the sub-epochs' permutations): equal on every rank of a mesh,
+    and equal to its single-rank oracle's, when every draw stayed
+    aligned."""
+    import torch
+
+    state = engine._np_rng.bit_generator.state
+    return {"torch": digest(engine.generator.get_state().to(torch.uint8)),
+            "numpy": hashlib.sha256(repr(state).encode()).hexdigest()}
+
+
+class ComplementProbe:
+    """Within a ``with`` block, every step under a sub-epoch's negative
+    pool is checked: its negatives (the tile remapped through the pool,
+    ``pool[tile % size]``) and its real positives lie in disjoint item
+    sets, the negatives in the pool's ``size`` real entries and none of
+    the positives there. ``steps`` counts the checked steps."""
+
+    def __init__(self):
+        import heat_tpu_torch.train.train_step as ts
+
+        self.ts, self.orig, self.steps = ts, ts.train_step, 0
+
+    def step(self, state, sampler_state, generator, batch, *args, **kw):
+        out = self.orig(state, sampler_state, generator, batch, *args, **kw)
+        pool, size = kw.get("neg_candidates"), kw.get("neg_candidates_size")
+        if pool is not None:
+            size = pool.shape[0] if size is None else int(size)
+            allowed = set(pool[:size].tolist())
+            negs = pool[sampler_state.tile.long() % size].tolist()
+            real = batch.pos[batch.weight > 0].tolist()
+            if not set(negs) <= allowed or allowed & set(real):
+                raise AssertionError(
+                    f"a complement step's negatives {sorted(set(negs))[:8]} "
+                    f"or positives {sorted(set(real))[:8]} cross the partition")
+            self.steps += 1
+        return out
+
+    def __enter__(self):
+        self.ts.train_step = self.step
+        return self
+
+    def __exit__(self, *exc):
+        self.ts.train_step = self.orig
 
 
 def mesh_engine(shape, data_kw: dict, cfg_kw: dict, device: str, data=None):
@@ -194,11 +263,12 @@ COLLECTIVE_PREFIXES = ("gloo:", "nccl:")
 def trace_summary(path) -> dict:
     """What a ``torch.profiler`` chrome trace (``path``) shows of its
     process: the device's busy seconds (the union of its kernel, copy and
-    set events) over the span of all its events, the idle share, and the
+    set events) over the span of all its events, the idle share, the
     collectives' calls and seconds (the host-side ``gloo:*`` / ``nccl:*``
     spans, each from the call to the work's completion, the wait for the
     other ranks included; the trace's device-side copies of those spans
-    are not counted)."""
+    are not counted), and the port's kernels by family
+    (``bench_large.KERNEL_FAMILIES``)."""
     import json
     import math
 
@@ -218,9 +288,17 @@ def trace_summary(path) -> dict:
     coll = [float(e["dur"]) for e in events
             if e.get("cat") == "user_annotation"
             and str(e.get("name", "")).startswith(COLLECTIVE_PREFIXES)]
+    from heat_tpu_torch.bench_large import KERNEL_FAMILIES, kernel_family
+
+    port = dict.fromkeys(KERNEL_FAMILIES, 0)
+    for e in events:
+        fam = kernel_family(str(e.get("name", ""))) if e.get("cat") == "kernel" else None
+        if fam is not None:
+            port[fam] += 1
     return {"span_s": span / 1e6, "device_busy_s": busy / 1e6,
             "idle_share": 1.0 - busy / span, "device_events": len(spans),
-            "collective_calls": len(coll), "collective_s": sum(coll) / 1e6}
+            "collective_calls": len(coll), "collective_s": sum(coll) / 1e6,
+            "port_kernels": port}
 
 
 def profiled(fn, trace_path: str) -> dict:
@@ -251,7 +329,8 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
                restore_dir: Optional[str] = None, evaluate: bool = True,
                export_path: Optional[str] = None, serve_users=None,
                all_states: bool = True, step_losses: int = 0,
-               profile_last: Optional[str] = None, topk: int = 0) -> dict:
+               profile_last: Optional[str] = None, topk: int = 0,
+               dedup: bool = True, probe_complement: bool = False) -> dict:
     """A rank program: restore from ``restore_dir`` (when given), train
     ``epochs`` epochs (saving a checkpoint into ``save_dir`` after the
     first ``save_after``), evaluate, export (rank 0 writes
@@ -264,7 +343,11 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
     there (:func:`profiled`: its device time and collectives, and its
     steps), with ``topk`` the
     sharded top ``topk + 1`` ids of the rank's users after the training,
-    and the process's kernel launches (``launches``)."""
+    the process's kernel launches (``launches``), the generators' digests
+    (:func:`generator_digest`), whether the history dedup's maps were in
+    use (``dedup_engaged``; ``dedup=False`` turns them off), with
+    ``probe_complement`` the steps :class:`ComplementProbe` checked, and
+    the steps of each epoch."""
     import contextlib
     import time
 
@@ -277,6 +360,8 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
     from heat_tpu_torch.serving import Recommender
 
     engine = mesh_engine(shape, data_kw, cfg_kw, device)
+    if not dedup:
+        engine._history_dedup = lambda *a, **k: None
     out = {"restored": None}
     if restore_dir is not None:
         out["restored"] = CheckpointManager(restore_dir).restore_latest(engine)
@@ -285,10 +370,13 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
             else lambda *a: None)
     recorder = (StepLosses(step_losses, engine.device) if step_losses
                 else contextlib.nullcontext())
+    probe = ComplementProbe() if probe_complement else contextlib.nullcontext()
+    epoch_steps = []
     sync()
     t0 = time.perf_counter()
-    with recorder:
+    with recorder, probe:
         for e in range(epochs):
+            before_epoch = int(engine.state.step)
             if profile_last and rank == 0 and e == epochs - 1:
                 before = int(engine.state.step)
                 seen = profiled(lambda: losses.append(engine.train_one_epoch()),
@@ -297,12 +385,19 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
                     seen, steps=int(engine.state.step) - before)
             else:
                 losses.append(engine.train_one_epoch())
+            epoch_steps.append(int(engine.state.step) - before_epoch)
             if save_dir is not None and e + 1 == save_after:
                 CheckpointManager(save_dir).save(engine)
     sync()
     out["train_s"] = time.perf_counter() - t0
     out["steps"] = int(engine.state.step)
+    out["epoch_steps"] = epoch_steps
     out["losses"] = losses
+    out["generators"] = generator_digest(engine)
+    out["dedup_engaged"] = bool(engine._dedup_cache is not None
+                                and engine._dedup_cache[2] is not None)
+    if probe_complement:
+        out["complement_steps"] = probe.steps
     if step_losses:
         out["step_losses"] = recorder.read()
     if evaluate:
@@ -331,13 +426,14 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
 
 
 class PartialMeans:
-    """Within a ``with`` block, the single-rank step pools its history
+    """Within a ``with`` block, the single-rank engine pools its history
     means as a mesh of ``n_model`` item shards does: K1 over each shard's
-    rows of the item table (other shards' ids outside it), each a mean
-    over the whole length, and the partial means added in shard order, as
-    the model group's all-reduce adds them. It patches
-    ``models.aggregator.history_mean_gather``, which the step's K1 call
-    reads at call time (a captured step captures it)."""
+    rows of the item table (other shards' ids outside it), each an f32
+    mean over the whole length, the partial means added in shard order, as
+    the model group's all-reduce adds them, and the sum rounded once to
+    the type asked for. It patches ``models.aggregator.history_mean_gather``,
+    which the step's K1 call and the pools' refresh read at call time (a
+    captured step captures it)."""
 
     def __init__(self, n_model: int):
         from heat_tpu_torch.models import aggregator
@@ -355,11 +451,15 @@ class PartialMeans:
         if key not in self._rebased:
             self._rebased = {key: [his_ids - m * rows_m
                                    for m in range(self.n_model)]}
+        import torch
+
+        dtype = out_dtype or (table.dtype if out is None else out.dtype)
         total = None
         for m, his in enumerate(self._rebased[key]):
             part = self.orig(table[m * rows_m: (m + 1) * rows_m], his, lens,
-                             out_dtype, rows=rows, split=split)
+                             torch.float32, rows=rows, split=split)
             total = part if total is None else total + part
+        total = total.to(dtype)
         return total if out is None else out.copy_(total)
 
     def __enter__(self):
@@ -432,7 +532,7 @@ def train_oracle(n_data, data_kw, cfg_kw, epochs, device, *,
     train, test = make_data(data_kw) if data is None else data
     engine = Engine(CFConfig(**cfg_kw), train, test, device=device)
     engine._shard_stream(n_data)
-    out = {"restored": None}
+    out = {"restored": None, "w0_start": engine.state.w0.cpu().numpy().copy()}
     if restore_dir is not None:
         out["restored"] = CheckpointManager(restore_dir).restore_latest(engine)
     recorder = (StepLosses(step_losses, engine.device) if step_losses
@@ -445,7 +545,29 @@ def train_oracle(n_data, data_kw, cfg_kw, epochs, device, *,
     if evaluate:
         out["metrics"] = engine.evaluate()
     out["state"] = state_to_numpy(engine.state)
+    out["generators"] = generator_digest(engine)
     return out
+
+
+def rank_pools(rank, shape, data_kw, cfg_kw, device) -> dict:
+    """A rank program: the pools' refresh (``Engine._pooled_history``) of
+    the initial tables of ``Engine(mesh=)``, and beside it the model
+    group's partial pools in the table's type added in that type (each
+    partial rounded before the sum, as a bf16 all-reduce adds them).
+    Returns the rank's users (global ids) and both, as f32 numpy."""
+    from heat_tpu_torch.models.aggregator import user_pools_impl
+
+    engine = mesh_engine(shape, data_kw, cfg_kw, device)
+    pools = engine._pooled_history()
+    parts = engine.mesh.all_gather(user_pools_impl(
+        engine.state.item_emb, engine.his_items, engine.his_masks), "model")
+    double = parts[0]
+    for part in parts[1:]:
+        double = double + part
+    lo = engine.shards.user_lo
+    return {"users": np.arange(lo, lo + engine.shards.user_rows),
+            "pools": pools.float().cpu().numpy(),
+            "double_rounded": double.float().cpu().numpy()}
 
 
 def rank_cli(rank, argv) -> dict:
@@ -495,20 +617,32 @@ def rank_topk(rank, shape, user_emb, item_emb, train_pairs, truth_items, k,
 
 
 def rank_steps_injected(rank, shape, arrays: dict, cfg_kw: dict, steps: int,
-                        device: str) -> dict:
+                        device: str, pools: bool = False) -> dict:
     """A rank program: ``steps`` sharded steps from an injected global state
     (``arrays``: user_emb, item_emb, w0, his, masks, users, pos, weight of
     the global batch, whose rows ``[d * b, (d + 1) * b)`` hold data index
-    d's users, and the (steps * B, K) draws), each rank's negatives pinned
-    to its rows of the draws at the sampler's count. Returns the global
-    state after the steps (numpy), the losses and the counters."""
+    d's users, and the (steps * B, K) uniform ``draws``, or the tile
+    sampler's ``tiles`` (n, T) and ``idx`` (steps * B, K)), each rank's
+    negatives pinned at the sampler's count: its rows of the draws, or the
+    tile ``tiles[it % n]`` and its rows of ``idx[it: it + B]``, as
+    ``tests/test_torch_fastpath.py`` ``pinned_tiles`` pins one rank. The
+    tables take the config's ``param_dtype``; with ``pools`` each step
+    reads the pools the engine's refresh computes before it
+    (``Engine._pooled_history``'s arithmetic). Returns the global state
+    after the steps (numpy), the losses, the counters and the replica
+    digests."""
     import torch
 
     from heat_tpu_torch.config import CFConfig
-    from heat_tpu_torch.models.state import state_from_numpy, state_to_numpy
+    from heat_tpu_torch.models.state import (
+        state_from_numpy,
+        state_to_numpy,
+        torch_dtype,
+    )
+    from heat_tpu_torch.models.aggregator import user_pools_impl
     from heat_tpu_torch.parallel.mesh import make_mesh, table_shards
     from heat_tpu_torch.train import train_step as ts
-    from heat_tpu_torch.train.samplers import init_sampler_state
+    from heat_tpu_torch.train.samplers import NegSample, init_sampler_state
 
     mesh = make_mesh(*shape, device=device)
     cfg = CFConfig(**cfg_kw)
@@ -516,14 +650,23 @@ def rank_steps_injected(rank, shape, arrays: dict, cfg_kw: dict, steps: int,
     sh = table_shards(mesh, a["user_emb"].shape[0], a["item_emb"].shape[0])
     dev = mesh.device
     state = state_from_numpy(a["user_emb"], a["item_emb"], a["w0"],
-                             lr=cfg.l_r, step=0, device=dev, shards=sh)
-    sampler = init_sampler_state(cfg, dev)
-    draws = torch.as_tensor(a["draws"], device=dev)
+                             lr=cfg.l_r, step=0, device=dev, shards=sh,
+                             param_dtype=torch_dtype(cfg.param_dtype))
+    cfg.num_items = a["item_emb"].shape[0]
+    sampler = init_sampler_state(cfg, dev, torch.Generator(device=dev))
+    tiled = "tiles" in a
+    table = {k: torch.as_tensor(a[k], device=dev)
+             for k in (("tiles", "idx") if tiled else ("draws",))}
 
-    def pinned(generator, batch, num_negs, num_items, pos_ids, ignore_pos,
-               rows=None):
-        it = int(sampler.iterations)
-        return draws[it + rows[0]: it + rows[1]]
+    def pinned(generator, sstate, pos_ids, cfg, batch, rows, real):
+        it = int(sstate.iterations)
+        sstate.iterations.add_(real.to(torch.int32))
+        if not tiled:
+            return NegSample(table["draws"][it + rows[0]: it + rows[1]]), sstate
+        tile = table["tiles"][it % table["tiles"].shape[0]]
+        sstate.tile.copy_(tile)
+        idx = table["idx"][it + rows[0]: it + rows[1]]
+        return NegSample(tile[idx.long()], sstate.tile, idx), sstate
 
     b = a["users"].shape[0] // shape[0]
     lo = mesh.data_index * b
@@ -533,15 +676,26 @@ def rank_steps_injected(rank, shape, arrays: dict, cfg_kw: dict, steps: int,
     his = torch.as_tensor(his.astype(np.int32), device=dev)
     masks = torch.as_tensor(a["masks"][sh.user_lo: sh.user_lo + sh.user_rows],
                             device=dev)
-    orig, ts.uniform_negatives = ts.uniform_negatives, pinned
+    orig, ts.sample_negatives_rows = ts.sample_negatives_rows, pinned
     losses = []
     try:
         for _ in range(steps):
+            means = None
+            if pools:
+                # Engine._pooled_history: f32 partial pools summed over the
+                # model group, rounded once to the table's type.
+                means = user_pools_impl(state.item_emb, his, masks, out=torch.empty(
+                    (sh.user_rows, state.item_emb.shape[1]), device=dev))
+                means = mesh.all_reduce(means, "model").to(state.item_emb.dtype)
             state, sampler, loss = ts.train_step(
                 state, sampler, torch.Generator(device=dev), batch, his, masks,
-                cfg, shards=sh)
+                cfg, user_means=means, shards=sh)
             losses.append(float(loss))
     finally:
-        ts.uniform_negatives = orig
+        ts.sample_negatives_rows = orig
     return {"state": state_to_numpy(state, sh), "losses": losses,
-            "iterations": int(sampler.iterations)}
+            "iterations": int(sampler.iterations),
+            "replicas": {"index": (mesh.data_index, mesh.model_index),
+                         "user_emb": digest(state.user_emb),
+                         "item_emb": digest(state.item_emb),
+                         "w0": digest(state.w0)}}
