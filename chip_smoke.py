@@ -310,6 +310,12 @@ GATED_RUNS = {
     "config0_mesh41": [],  # config0 on a (4, 1) mesh: check_mesh_cli
     # The headline and the default shape on a (4, 1) mesh: check_mesh_cli_fast
     "headline_mesh41": HEADLINE, "default_shape_mesh41": DEFAULT_SHAPE,
+    # The JAX multihost demo's "full" settings and config0 with
+    # self-attention on a (4, 1) mesh: check_mesh_cli_fast
+    "full_mesh41": ["optimizer=adam", "aggregator=user_attention",
+                    "neg_sampler=1", "tile_size=512", "refresh_interval=8192",
+                    "his_refresh=subepoch"],
+    "config0_self_attention_mesh41": CONFIG0_SELF,
 }
 APPROX_RECALL = 0.95  # --eval-approx, and exact=False against exact
 # K4's timed launches rotate over buffers (scores, window ids, outputs) of
@@ -4052,6 +4058,7 @@ def check_mesh_kernels(dev, entries: dict) -> None:
             f"its plain version")
     worst(entries["window_extract"], got, want)
     check_mesh_kernels_bf16(dev, entries, users, items, uids, lo, his, lens)
+    check_mesh_kernels_slice(dev, entries, users, items, uids, item_ids, his)
     print(f"kernels at a (2, 2) rank's shapes (users ({u_rows}, {DIM}), "
           f"items ({i_rows}, {DIM}), {b} ids, a ({EVAL_TILE}, {i_rows}) eval "
           f"tile with {i_rows - real} pad columns), max_abs_err so far: "
@@ -4141,6 +4148,103 @@ def check_mesh_kernels_bf16(dev, entries, users, items, uids, lo, his, lens):
               "scatter_set_rows_bf16")}))
 
 
+def check_mesh_kernels_slice(dev, entries, users, items, uids, item_ids, his):
+    """The kernel uses ROADMAP item 15b points 3 and 4 add to a mesh, at a
+    (2, 2) rank's shapes (``users``, ``items``: its f32 shards; ``uids``
+    its half batch's users, ``item_ids`` its positives' and negatives'
+    rebased ids, ``his`` its users' histories rebased to the shard), each
+    against its plain version, ids of the other item shard among them:
+
+    * K2 multi with the history segment: the step's user and item rows
+      and its users' (b, H) history rows, into f32 (the buffer the model
+      group sums): bit-equal, other shards' rows zero;
+    * the pools' chunk read (``user_pools_impl(reduce=)``): one chunk of
+      POOL_CHUNK_BYTES of the shard's users' history rows into f32:
+      bit-equal, other shards' rows zero;
+    * K3 into the item shard's f32 accumulator and its touched counts
+      (``apply_row_updates_reduced`` under the slots and accum): the
+      accumulator held as K3 is (:func:`hold_scatter_add`), the counts
+      (small integers) bit-equal;
+    * K2 multi and S1 as the model group's first rank keeps the user rows
+      and their slots equal: the rows of the table and two f32 slot
+      tables read into one packed byte buffer, and written back: both
+      bit-equal."""
+    import torch
+
+    from heat_tpu_torch.models.aggregator import POOL_CHUNK_BYTES
+    from heat_tpu_torch.ops.cuda import gather, scatter
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    i_rows = items.shape[0]
+    his_ids = his.index_select(0, uids).view(-1)
+    segments = [(users, uids), (items, item_ids), (items, his_ids)]
+    got = gather.gather_rows_multi(segments, torch.float32)
+    want = gather.gather_rows_multi_ref(segments, torch.float32)
+    torch.cuda.synchronize()
+    outside = (his_ids < 0) | (his_ids >= i_rows)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)) or not bool(
+            (got[2][outside] == 0).all()) or not bool(outside.any()):
+        raise AssertionError("K2 multi with the history segment at a shard "
+                             "differs from its plain version")
+    for x, y in zip(got, want):
+        worst(entries["gather_rows_multi"], x, y)
+    chunk = POOL_CHUNK_BYTES // (MAX_HIS * DIM * 4)
+    ids = his[:chunk].reshape(-1)
+    (got,) = gather.gather_rows_multi([(items, ids)], torch.float32)
+    want = gather.gather_rows_ref(items, ids)
+    torch.cuda.synchronize()
+    outside = (ids < 0) | (ids >= i_rows)
+    if not torch.equal(got, want) or not bool((got[outside] == 0).all()):
+        raise AssertionError(f"the pools' chunk read ({chunk} users) at a "
+                             "shard differs from its plain version")
+    worst(entries["gather_rows_multi"], got, want)
+    grads = torch.randn(item_ids.shape[0], DIM, generator=g, device=dev)
+    acc = torch.zeros(i_rows, DIM, device=dev)
+    got = scatter.scatter_add_rows(acc.clone(), item_ids, grads)
+    want = scatter.scatter_add_rows_ref(acc.clone(), item_ids, grads)
+    ones = torch.ones(item_ids.shape[0], 1, device=dev)
+    counts = scatter.scatter_add_rows(torch.zeros(i_rows, 1, device=dev),
+                                      item_ids, ones)
+    counts_ref = scatter.scatter_add_rows_ref(
+        torch.zeros(i_rows, 1, device=dev), item_ids, ones)
+    torch.cuda.synchronize()
+    hold_scatter_add("K3 into a shard's accumulator", acc, item_ids, grads,
+                     {"kernel": got, "plain version": want})
+    if not torch.equal(counts, counts_ref):
+        raise AssertionError("K3's touched counts at a shard differ from "
+                             "their plain version")
+    worst(entries["scatter_add_rows"], got, want)
+    u_rows = users.shape[0]
+    users_w = torch.where(torch.arange(uids.shape[0], device=dev)
+                          < uids.shape[0] - 64, uids, u_rows).to(torch.int32)
+    tables = [users, torch.rand(users.shape, generator=g, device=dev),
+              torch.randn(users.shape, generator=g, device=dev)]
+    m = users_w.shape[0]
+    packed = torch.empty(len(tables) * m * DIM * 4, dtype=torch.uint8,
+                         device=dev)
+    views = [packed[k * m * DIM * 4: (k + 1) * m * DIM * 4].view(
+        torch.float32).view(m, DIM) for k in range(len(tables))]
+    gather.gather_rows_multi([(t, users_w) for t in tables], outs=views)
+    want = gather.gather_rows_multi_ref([(t, users_w) for t in tables])
+    after = [scatter.scatter_set_rows(torch.zeros_like(t), users_w, v)
+             for t, v in zip(tables, views)]
+    after_ref = [scatter.scatter_set_rows_ref(torch.zeros_like(t), users_w, v)
+                 for t, v in zip(tables, views)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(views, want)) or not all(
+            torch.equal(x, y) for x, y in zip(after, after_ref)):
+        raise AssertionError("K2 multi / S1 of the packed user and slot rows "
+                             "differ from their plain versions")
+    for x, y in zip(after, after_ref):
+        worst(entries["scatter_set_rows"], x, y)
+    print("kernels of 15b points 3 and 4 at a (2, 2) rank's shapes (history "
+          f"segment {his_ids.shape[0]} ids, a pools chunk of {chunk} users, "
+          f"{item_ids.shape[0]} ids into the accumulator and its counts, "
+          f"{len(tables)} packed tables), max_abs_err so far: "
+          + json.dumps({name: entries[name]["max_abs_err"] for name in (
+              "gather_rows_multi", "scatter_add_rows", "scatter_set_rows")}))
+
+
 # The fast path on a mesh (ROADMAP item 15b, points 1 and 2): the CLI runs
 # gated to the JAX package's (4, 1) runs, and the Engine runs on (2, 2).
 MESH_FAST_RUNS = {"headline_mesh41": (HEADLINE, 1),
@@ -4173,56 +4277,100 @@ def check_step_kernels(what, port, sub_epochs, shape) -> dict:
     return {f: n / steps for f, n in port.items()}
 
 
-def check_mesh_cli_fast(dev, run) -> dict:
-    """(d) and (e): the CLI on a (4, 1) mesh, four ranks on the card through
-    gloo, launched by ``torch.distributed.run``: config0's schedule on
-    MESH_SYNTHETIC with the headline's (or the default shape's) overrides,
-    rank 0's kernel launches and its trace of the second epoch (its device
-    time, collectives and the port's kernels a step,
-    :func:`check_step_kernels`). Recall@20 and NDCG@50 within 0.0015 of the
-    JAX package's (4, 1) run of the same name (PARITY_TORCH.json, whose
-    data checksums must be this data's). Every launch of the step's kernels
-    is of its bf16 instance."""
+def run_mesh_clis(dev, runs: dict) -> dict:
+    """The CLI on a (4, 1) mesh for each run of ``runs`` ({run: (its
+    config0 overrides, whether to trace)}), all at once: each four ranks on
+    the card through gloo, launched by its own ``torch.distributed.run``
+    (the eager mesh steps leave the card idle most of the time and use a
+    core a rank, so two runs share the card and the host's eight cores
+    with little cost to either; their epoch walls are not speeds).
+    config0's schedule on MESH_SYNTHETIC, rank 0's kernel launches and,
+    traced, its trace of the second epoch. Five finite epoch losses that
+    fall, the trace with collectives, the final metrics gated to the JAX
+    package's (4, 1) run of the run's name (PARITY_TORCH.json, whose data
+    checksums must be this data's). Returns {run: what it read}."""
     import re
     import shutil
 
     from heat_tpu_torch import parity
 
-    sets, sub_epochs = MESH_FAST_RUNS[run]
     _, _, (train, test) = mesh_data()
     record = parity.load_parity()
-    data = parity.check_run_data(record, run, train, test)
+    data = {run: parity.check_run_data(record, run, train, test) for run in runs}
     del train, test
     root = Path(__file__).resolve().parent
-    trace_dir = MESH_TRACE.with_name(f"mesh_trace_{run}")
-    shutil.rmtree(trace_dir, ignore_errors=True)
-    argv = ["--config", CONFIG0, "--synthetic",
-            ",".join(map(str, MESH_SYNTHETIC)), "--device", dev.type]
-    argv += [x for kv in sets for x in ("--set", kv)]
     env = dict(__import__("os").environ)
     env["PYTHONPATH"] = str(root) + ":" + env.get("PYTHONPATH", "")
+    procs, dirs = {}, {}
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "4", "-m", "heat_tpu_torch.main", *argv,
-         "--kernel-launches", "--profile-dir", str(trace_dir)],
-        capture_output=True, text=True, timeout=MESH_TIMEOUT, cwd=root, env=env)
-    wall = time.perf_counter() - t0
-    text = proc.stdout
-    if proc.returncode:
-        raise AssertionError(f"the (4, 1) CLI ({run}) exited {proc.returncode}:"
-                             f"\n{text[-3000:]}\n{proc.stderr[-3000:]}")
-    epochs = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
-        r"^epoch: \d+; loss: (\S+); epoch_time: (\S+)s$", text, re.M)]
-    losses = [loss for loss, _ in epochs]
-    report = json.loads([ln for ln in text.splitlines()
-                         if ln.startswith('{"kernel_launches"')][-1])
-    final = json.loads([ln for ln in text.splitlines()
-                        if ln.startswith('{"final_metrics"')][-1])["final_metrics"]
-    if len(losses) != 5 or not all(map(math.isfinite, losses)) or not losses[4] < losses[0]:
-        raise AssertionError(f"(4, 1) CLI ({run}): epoch losses {losses}")
-    steps, evals, launches = (report["steps"], report["evaluations"],
-                              report["kernel_launches"])
+    for run, (sets, trace) in runs.items():
+        argv = ["--config", CONFIG0, "--synthetic",
+                ",".join(map(str, MESH_SYNTHETIC)), "--device", dev.type,
+                "--kernel-launches"]
+        argv += [x for kv in sets for x in ("--set", kv)]
+        if trace:
+            dirs[run] = MESH_TRACE.with_name(f"mesh_trace_{run}")
+            shutil.rmtree(dirs[run], ignore_errors=True)
+            argv += ["--profile-dir", str(dirs[run])]
+        procs[run] = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "4", "-m", "heat_tpu_torch.main", *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=root, env=env)
+    outs = {}
+    try:
+        for run, proc in procs.items():
+            text, err = proc.communicate(
+                timeout=max(1.0, MESH_TIMEOUT - (time.perf_counter() - t0)))
+            outs[run] = (text, err, proc.returncode, time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    result = {}
+    for run, (text, err, code, wall) in outs.items():
+        if code:
+            raise AssertionError(f"the (4, 1) CLI ({run}) exited {code}:"
+                                 f"\n{text[-3000:]}\n{err[-3000:]}")
+        epochs = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
+            r"^epoch: \d+; loss: (\S+); epoch_time: (\S+)s$", text, re.M)]
+        losses = [loss for loss, _ in epochs]
+        report = json.loads([ln for ln in text.splitlines()
+                             if ln.startswith('{"kernel_launches"')][-1])
+        final = json.loads([ln for ln in text.splitlines()
+                            if ln.startswith('{"final_metrics"')][-1])["final_metrics"]
+        if len(losses) != 5 or not all(map(math.isfinite, losses)) or not losses[4] < losses[0]:
+            raise AssertionError(f"(4, 1) CLI ({run}): epoch losses {losses}")
+        traced = None
+        if run in dirs:
+            traced = trace_busy(dirs[run])
+            if not traced["collective_calls"]:
+                raise AssertionError(f"(4, 1) CLI ({run}): no collective in "
+                                     "rank 0's trace")
+        result[run] = {
+            "wall_s": wall, "beside": [r for r in runs if r != run],
+            "losses": losses, "epoch_s": [t for _, t in epochs],
+            "final_metrics": final,
+            "gate_jax": parity.gate(record, run, final, parity.BANDS[run]),
+            "steps_rank0": report["steps"], "evaluations": report["evaluations"],
+            "launches_rank0": report["kernel_launches"],
+            "trace_epoch1_rank0": traced, **data[run]}
+    return result
+
+
+def check_mesh_cli_fast(dev, run, out=None) -> dict:
+    """(d) and (e): :func:`run_mesh_clis` with the headline's (or the
+    default shape's) overrides (``out``: its result, where the run was made
+    beside another), held within 0.0015 of the JAX package's (4, 1) run of
+    the same name; rank 0's kernels a step in its trace
+    (:func:`check_step_kernels`). Every launch of the step's kernels is of
+    its bf16 instance."""
+    sets, sub_epochs = MESH_FAST_RUNS[run]
+    if out is None:
+        out = run_mesh_clis(dev, {run: (sets, True)})[run]
+    steps, evals, launches = (out["steps_rank0"], out["evaluations"],
+                              out["launches_rank0"])
     chunks = -(-MESH_SYNTHETIC[0] // 4 // EVAL_TILE)
     want = {"gather_rows_multi_bf16": steps, "scatter_add_update_bf16": 2 * steps,
             "scatter_set_rows_bf16": steps, "gather_rows_bf16": steps,
@@ -4240,83 +4388,260 @@ def check_mesh_cli_fast(dev, run) -> dict:
                                  f"{launches}")
     if launches["scatter_add_rows"]:
         raise AssertionError(f"(4, 1) CLI ({run}): the plain K3 ran: {launches}")
-    traced = trace_busy(trace_dir)
-    if not traced["collective_calls"]:
-        raise AssertionError(f"(4, 1) CLI ({run}): no collective in rank 0's trace")
-    per_step = check_step_kernels(f"(4, 1) CLI ({run})", traced["port_kernels"],
-                                  sub_epochs, (4, 1))
-    gate_jax = parity.gate(record, run, final, parity.BANDS[run])
-    out = {"wall_s": wall, "losses": losses, "epoch_s": [t for _, t in epochs],
-           "final_metrics": final, "gate_jax": gate_jax, "steps_rank0": steps,
-           "evaluations": evals, "launches_rank0": launches,
-           "port_kernels_per_step_rank0": per_step,
-           "collective_ms_per_step": (1e3 * traced["collective_s"]
-                                      / traced["port_kernels"]["K2_multi"]),
-           "trace_epoch1_rank0": traced, **data}
+    traced = out["trace_epoch1_rank0"]
+    out["port_kernels_per_step_rank0"] = check_step_kernels(
+        f"(4, 1) CLI ({run})", traced["port_kernels"], sub_epochs, (4, 1))
+    out["collective_ms_per_step"] = (1e3 * traced["collective_s"]
+                                     / traced["port_kernels"]["K2_multi"])
     print(f"mesh ({'d' if run.startswith('headline') else 'e'}), the CLI on "
           f"(4, 1) through gloo, {run}: {json.dumps(out)}")
     return out
 
 
-def check_mesh_engine_fast(dev) -> dict:
-    """(f) The Engine API on a (2, 2) mesh, four ranks on the card through
-    gloo, MESH_SYNTHETIC, one epoch of each of MESH_ENGINE_RUNS (the
-    headline; the default shape in complement scope; config0 with the
-    fixed stream of ``shuffle_mode: none, visit_order: user``, whose
-    history dedup must be in use): step losses, tables and ``w0`` against
-    ORACLE_RUNS single-rank runs on the same global batches and draws
-    (``Engine._shard_stream(2)``, pooling as two model shards do) by
-    :func:`held_to_spread`; replicas bit-equal (SHA-256); the ranks'
-    generators equal; rank 0's kernels a step from its trace."""
+def mesh_engine_job(dev, phase, runs):
+    """One job of four ranks on a (2, 2) mesh, on the card through gloo,
+    over MESH_SYNTHETIC: one epoch of every run of ``runs`` ({name: its
+    config0 overrides}), one after the other (``rank_runs``: one start of
+    the ranks for them all), each with its step losses and rank 0's trace
+    of the epoch. Every run's replicas bit-equal (SHA-256, slots and accum
+    rows included), its ranks' generators equal and their step losses the
+    same. Returns {name: (its config, rank 0's result, with its own
+    launches)}, the job's wall seconds, and the data's keywords and
+    (train, test)."""
     import dataclasses
 
     import numpy as np
 
     mc = mesh_support()
-    cfg, data_kw, (train, test) = mesh_data()
+    cfg, data_kw, data = mesh_data()
     LIFECYCLE.mkdir(parents=True, exist_ok=True)
-    out = {}
-    for name, (sets, sub_epochs) in MESH_ENGINE_RUNS.items():
-        cfg_kw = dict(dataclasses.asdict(cfg), **overrides_of(sets))
-        t0 = time.perf_counter()
-        ranks = mc.spawn_ranks(
-            mc.rank_train, 4, (2, 2), data_kw, cfg_kw, 1, dev.type,
-            device=dev.type, timeout=MESH_TIMEOUT, evaluate=False,
-            all_states=False, step_losses=MESH_STEPS,
-            profile_last=str(LIFECYCLE / f"mesh_22_{name}.pt.trace.json"))
-        wall = time.perf_counter() - t0
-        mc.check_replicas([r["replicas"] for r in ranks])
-        if len({json.dumps(r["generators"]) for r in ranks}) != 1:
-            raise AssertionError(f"(2, 2) {name}: the ranks' generators differ")
-        for r in ranks[1:]:
-            if not np.array_equal(r["step_losses"], ranks[0]["step_losses"]):
-                raise AssertionError(f"(2, 2) {name}: the ranks report other "
-                                     "step losses")
-        if name == "config0_none_user" and not all(
-                r["dedup_engaged"] for r in ranks):
-            raise AssertionError("(2, 2) config0_none_user: the dedup is idle")
-        oracles = [mc.train_oracle(2, data_kw, cfg_kw, 1, dev.type,
-                                   data=(train, test), step_losses=MESH_STEPS,
-                                   n_model=2, evaluate=False)
-                   for _ in range(ORACLE_RUNS)]
-        head = ranks[0]
-        last = head["last_epoch_profile"]
-        held = {"step_losses": held_to_spread(
-            f"(2, 2) {name} step losses", head["step_losses"],
-            [o["step_losses"] for o in oracles])}
-        for key in ("user_emb", "item_emb", "w0"):
-            held[key] = held_to_spread(f"(2, 2) {name} {key}", head["state"][key],
+    cfgs = {name: dict(dataclasses.asdict(cfg), **overrides_of(sets))
+            for name, sets in runs.items()}
+    t0 = time.perf_counter()
+    ranks = mc.spawn_ranks(
+        mc.rank_runs, 4, (2, 2), data_kw,
+        {name: (cfgs[name], 1, {"profile_last": str(
+            LIFECYCLE / f"mesh_22_{name}.pt.trace.json")}) for name in runs},
+        dev.type, device=dev.type, timeout=MESH_TIMEOUT, evaluate=False,
+        all_states=False, step_losses=MESH_STEPS)
+    wall = time.perf_counter() - t0
+    out, before = {}, {}
+    for name in runs:
+        results = [r[name] for r in ranks]
+        mc.check_replicas([r["replicas"] for r in results])
+        if len({json.dumps(r["generators"]) for r in results}) != 1:
+            raise AssertionError(f"({phase}) (2, 2) {name}: the ranks' "
+                                 "generators differ")
+        for r in results[1:]:
+            if not np.array_equal(r["step_losses"], results[0]["step_losses"]):
+                raise AssertionError(f"({phase}) (2, 2) {name}: the ranks "
+                                     "report other step losses")
+        head = dict(results[0])
+        total = head["launches"]
+        head["launches"] = {k: n - before.get(k, 0) for k, n in total.items()}
+        before = total
+        out[name] = (cfgs[name], head)
+    return out, wall, data_kw, data
+
+
+def held_to_oracles(dev, phase, name, cfg_kw, head, data_kw, data) -> dict:
+    """Rank 0's step losses, tables, ``w0`` (and ``attn_q``) of a
+    :func:`mesh_engine_job` run against ORACLE_RUNS single-rank runs on
+    the same global batches and draws (``Engine._shard_stream(2)``,
+    summing as the two data shards and the two model shards do) by
+    :func:`held_to_spread`."""
+    mc = mesh_support()
+    t0 = time.perf_counter()
+    oracles = [mc.train_oracle(2, data_kw, cfg_kw, 1, dev.type, data=data,
+                               step_losses=MESH_STEPS, n_model=2,
+                               evaluate=False)
+               for _ in range(ORACLE_RUNS)]
+    held = {"step_losses": held_to_spread(
+        f"({phase}) (2, 2) {name} step losses", head["step_losses"],
+        [o["step_losses"] for o in oracles])}
+    for key in ("user_emb", "item_emb", "w0", "attn_q"):
+        if key in head["state"]:
+            held[key] = held_to_spread(f"({phase}) (2, 2) {name} {key}",
+                                       head["state"][key],
                                        [o["state"][key] for o in oracles])
+    return {"held": held, "oracle_losses": [o["losses"] for o in oracles],
+            "oracles_s": time.perf_counter() - t0}
+
+
+def check_mesh_engine_fast(dev, job=None) -> dict:
+    """(f) The Engine API on a (2, 2) mesh (:func:`mesh_engine_job`; ``job``:
+    its result, where the runs were made in one job with (i)'s), one
+    epoch of each of MESH_ENGINE_RUNS (the headline; the default shape in
+    complement scope; config0 with the fixed stream of ``shuffle_mode:
+    none, visit_order: user``, whose history dedup must be in use), held
+    to single-rank runs (:func:`held_to_oracles`); rank 0's kernels a step
+    from its trace."""
+    if job is None:
+        job = mesh_engine_job(dev, "f", {
+            name: sets for name, (sets, _) in MESH_ENGINE_RUNS.items()})
+    jobs, wall, data_kw, data = job
+    out = {}
+    for name, (cfg_kw, head) in jobs.items():
+        if name not in MESH_ENGINE_RUNS:
+            continue
+        sub_epochs = MESH_ENGINE_RUNS[name][1]
+        if name == "config0_none_user" and not head["dedup_engaged"]:
+            raise AssertionError("(2, 2) config0_none_user: the dedup is idle")
+        last = head["last_epoch_profile"]
         per_step = (check_step_kernels(f"(2, 2) {name}", last["port_kernels"],
                                        sub_epochs, (2, 2)) if sub_epochs else
                     {f: n / last["steps"] for f, n in last["port_kernels"].items()})
-        out[name] = {"wall_s": wall, "losses": head["losses"],
-                     "oracle_losses": [o["losses"] for o in oracles],
+        out[name] = {"job_wall_s": wall, "losses": head["losses"],
                      "steps": head["steps"], "train_s": head["train_s"],
                      "collective_ms_per_step": 1e3 * last["collective_s"] / last["steps"],
                      "last_epoch_rank0": last, "launches_rank0": head["launches"],
-                     "port_kernels_per_step_rank0": per_step, "held": held}
+                     "port_kernels_per_step_rank0": per_step,
+                     **held_to_oracles(dev, "f", name, cfg_kw, head, data_kw,
+                                       data)}
         print(f"mesh (f), the Engine API on (2, 2) through gloo, {name}: "
+              f"{json.dumps(out[name])}")
+    return out
+
+
+# ROADMAP item 15b, points 3 and 4: (g) the JAX multihost demo's "full"
+# settings and (h) config0 with self-attention through the CLI on (4, 1),
+# gated to the JAX package's (4, 1) runs, untraced (phase (i) traces the
+# slice's steps). Rank 0's launches over the run, by wrapper (every eager
+# step's launches are counted), as functions of its steps: (g) Adam on the
+# user rows (K3 into the accumulator and the touched counts, S1 the
+# write-back) and on the item shard (K3 twice), the pools' refresh read in
+# 3 chunks of POOL_CHUNK_BYTES by K2 (13,161 users a rank) each of the 5
+# epochs; (h) K2 multi with the history rows, K3 for the users and the
+# items, S1. Neither launches K1 or a bf16 instance.
+MESH_SLICE_CLI = {
+    "full_mesh41": lambda n: {"gather_rows_multi": n, "scatter_add_rows": 4 * n,
+                              "scatter_set_rows": n, "gather_rows": 15},
+    "config0_self_attention_mesh41": lambda n: {
+        "gather_rows_multi": n, "scatter_add_rows": 2 * n,
+        "scatter_set_rows": n, "gather_rows": 0},
+}
+
+
+def check_mesh_cli_slice(dev, run, out=None) -> dict:
+    """(g) and (h): :func:`run_mesh_clis` with the run's overrides
+    (``GATED_RUNS``), untraced (``out``: its result, where the run was made
+    beside another), held within 0.0003 of the JAX package's (4, 1) run;
+    rank 0's launches as MESH_SLICE_CLI predicts, K4 on every evaluation's
+    chunks, no K1 and no bf16 instance."""
+    if out is None:
+        out = run_mesh_clis(dev, {run: (GATED_RUNS[run], False)})[run]
+    steps, launches = out["steps_rank0"], out["launches_rank0"]
+    want = MESH_SLICE_CLI[run](steps)
+    got = {name: launches[name] for name in want}
+    chunks = -(-MESH_SYNTHETIC[0] // 4 // EVAL_TILE)
+    if (steps < 1 or got != want or launches["history_mean_gather"]
+            or launches["window_extract"] < out["evaluations"] * chunks
+            or any(n for name, n in launches.items() if name.endswith("_bf16"))):
+        raise AssertionError(f"(4, 1) CLI ({run}): rank 0 launched {launches} "
+                             f"over {steps} steps, expected {want}")
+    out["launches_per_step_rank0"] = {k: n / steps for k, n in got.items()}
+    print(f"mesh ({'g' if run.startswith('full') else 'h'}), the CLI on (4, 1) "
+          f"through gloo, {run}: {json.dumps(out)}")
+    return out
+
+
+# (i) three Engine runs on (2, 2), one epoch each: the "full" settings,
+# config0 under accum mode, Adagrad with self-attention on the fixed stream
+# with its dedup. Rank 0's kernels in its traced epoch (model index 0: it
+# reads and broadcasts its users' rows and their slots or accum rows, one
+# K2 multi a step beside the step's own): functions of the epoch's steps.
+MESH_SLICE_ENGINE = {
+    # Adam's K3 twice on each side; the pools' refresh reads 26,322 users
+    # in 6 chunks (K2 multi into f32, summed over "model").
+    "full": (GATED_RUNS["full_mesh41"], lambda n: {
+        "K2_multi": 2 * n + 6, "K3": 4 * n, "S1": n, "K2": 0, "K1": 0, "K4": 0}),
+    # The partial means (K1), the stale term's accum rows (K2), K3 twice
+    # on each side (the touched counts), the write-back (S1).
+    "config0_accum": (["sgd_mode=accum"], lambda n: {
+        "K2_multi": 2 * n, "K3": 4 * n, "S1": n, "K2": n, "K1": n, "K4": 0}),
+    "adagrad_self_grouped": (["optimizer=adagrad", "aggregator=self_attention",
+                              "shuffle_mode=none", "visit_order=user"],
+                             lambda n: {"K2_multi": 2 * n, "K3": 4 * n, "S1": n,
+                                        "K2": 0, "K1": 0, "K4": 0}),
+}
+
+
+def model_sum_bytes(name, train) -> dict:
+    """The f32 bytes a (2, 2) rank sums over "model" in a step of the
+    MESH_SLICE_ENGINE run ``name`` (its item rows and, per-step pooling,
+    its history rows or partial means) and in each pools' refresh, and
+    over "data" (its item shard's accumulator, touched counts and the
+    dense sums), from the run's geometry; under the fixed stream's dedup
+    the largest count of distinct users a batch holds (rounded up to 8,
+    the step's width) sets the history rows."""
+    import numpy as np
+
+    from heat_tpu_torch.parallel.mesh import sharded_item_rows
+
+    lb = BATCH // 2
+    item_rows = sharded_item_rows(MESH_SYNTHETIC[1], 2) // 2
+    sets = overrides_of(MESH_SLICE_ENGINE[name][0])
+    rows = lb + (TILE if sets.get("neg_sampler") == 1 else lb * NUM_NEGS)
+    out = {"refresh": 0}
+    if sets.get("his_refresh") == "subepoch":
+        out["refresh"] = MESH_SYNTHETIC[0] // 2 * MAX_HIS * DIM * 4
+    elif sets.get("aggregator", "mean") == "mean":
+        rows += lb  # the partial means
+    else:
+        pairs = np.asarray(train.pairs)
+        half = MESH_SYNTHETIC[0] // 2
+        bu = 0
+        for d in range(2):
+            users = np.sort(pairs[(pairs[:, 0] >= d * half)
+                                  & (pairs[:, 0] < (d + 1) * half), 0])
+            bu = max([bu] + [len(np.unique(users[i: i + lb]))
+                             for i in range(0, len(users), lb)])
+        rows += -(-bu // 8) * 8 * MAX_HIS
+        out["distinct_users"] = bu
+    out["step"] = rows * DIM * 4
+    accum = sets.get("sgd_mode") == "accum"
+    counts = item_rows if sets.get("optimizer", "sgd") != "sgd" or accum else 0
+    dense = DIM * DIM * (2 if accum else 1) + (
+        DIM if sets.get("aggregator") == "self_attention" else 0) + 1
+    out["data_step"] = (item_rows * DIM + counts + dense) * 4
+    return out
+
+
+def check_mesh_engine_slice(dev, job=None) -> dict:
+    """(i) The Engine API on a (2, 2) mesh (:func:`mesh_engine_job`; ``job``:
+    its result, where the runs were made in one job with (f)'s), one epoch
+    of each of MESH_SLICE_ENGINE, held to single-rank runs
+    (:func:`held_to_oracles`); the fixed stream's dedup in use; rank 0's
+    kernels in its traced epoch as MESH_SLICE_ENGINE predicts; the bytes
+    the step sums (:func:`model_sum_bytes`)."""
+    if job is None:
+        job = mesh_engine_job(dev, "i", {
+            name: sets for name, (sets, _) in MESH_SLICE_ENGINE.items()})
+    jobs, wall, data_kw, data = job
+    out = {}
+    for name, (cfg_kw, head) in jobs.items():
+        if name not in MESH_SLICE_ENGINE:
+            continue
+        sets, predict = MESH_SLICE_ENGINE[name]
+        if "shuffle_mode=none" in sets and not head["dedup_engaged"]:
+            raise AssertionError(f"(2, 2) {name}: the dedup is idle")
+        last = head["last_epoch_profile"]
+        steps = last["steps"]
+        want = predict(steps)
+        if steps < 1 or last["port_kernels"] != want:
+            raise AssertionError(f"(2, 2) {name}: rank 0's traced epoch ran "
+                                 f"{last['port_kernels']} of the port's "
+                                 f"kernels, expected {want}")
+        out[name] = {"job_wall_s": wall, "losses": head["losses"],
+                     "steps": head["steps"], "train_s": head["train_s"],
+                     "collective_ms_per_step": 1e3 * last["collective_s"] / steps,
+                     "sum_bytes": model_sum_bytes(name, data[0]),
+                     "last_epoch_rank0": last, "launches_rank0": head["launches"],
+                     "port_kernels_per_step_rank0": {
+                         f: n / steps for f, n in last["port_kernels"].items()},
+                     **held_to_oracles(dev, "i", name, cfg_kw, head, data_kw,
+                                       data)}
+        print(f"mesh (i), the Engine API on (2, 2) through gloo, {name}: "
               f"{json.dumps(out[name])}")
     return out
 
@@ -4815,12 +5140,30 @@ def main() -> int:
     mesh = {"a": check_mesh_cli(dev, cli), "b": check_mesh_engine(dev),
             "c": check_mesh_nccl(dev)}
     # ROADMAP item 15b, points 1 and 2: (d) the headline and (e) the default
-    # shape through the CLI on (4, 1), (f) three Engine runs on (2, 2).
-    mesh["d"] = check_mesh_cli_fast(dev, "headline_mesh41")
-    mesh["e"] = check_mesh_cli_fast(dev, "default_shape_mesh41")
-    mesh["f"] = check_mesh_engine_fast(dev)
+    # shape through the CLI on (4, 1), (f) three Engine runs on (2, 2);
+    # points 3 and 4: (g) the JAX demo's "full" settings and (h) config0
+    # with self-attention through the CLI on (4, 1), (i) three Engine runs
+    # on (2, 2). The CLI runs two at a time, (f) and (i) in one job.
+    clis = run_mesh_clis(dev, {run: (sets, True) for run, (sets, _)
+                               in MESH_FAST_RUNS.items()})
+    mesh["d"] = check_mesh_cli_fast(dev, "headline_mesh41",
+                                    clis["headline_mesh41"])
+    mesh["e"] = check_mesh_cli_fast(dev, "default_shape_mesh41",
+                                    clis["default_shape_mesh41"])
+    clis = run_mesh_clis(dev, {run: (GATED_RUNS[run], False)
+                               for run in MESH_SLICE_CLI})
+    mesh["g"] = check_mesh_cli_slice(dev, "full_mesh41", clis["full_mesh41"])
+    mesh["h"] = check_mesh_cli_slice(dev, "config0_self_attention_mesh41",
+                                     clis["config0_self_attention_mesh41"])
+    job = mesh_engine_job(dev, "f, i", {
+        name: sets for name, (sets, _) in [*MESH_ENGINE_RUNS.items(),
+                                           *MESH_SLICE_ENGINE.items()]})
+    mesh["f"] = check_mesh_engine_fast(dev, job)
+    mesh["i"] = check_mesh_engine_slice(dev, job)
     gate.update(check_gate({run: mesh[x]["final_metrics"] for x, run in (
-        ("d", "headline_mesh41"), ("e", "default_shape_mesh41"))}, data=False)[0])
+        ("d", "headline_mesh41"), ("e", "default_shape_mesh41"),
+        ("g", "full_mesh41"), ("h", "config0_self_attention_mesh41"))},
+        data=False)[0])
     print(json.dumps({"mesh": {
         "(a) wall_s, collective ms a step, rank 0's traced idle share": [
             mesh["a"]["wall_s"], mesh["a"]["collective_ms_per_step"],
@@ -4837,10 +5180,19 @@ def main() -> int:
                mesh[x]["gate_jax"]["gap"]] for x in ("d", "e")},
         **{f"(f) {name} wall_s, train_s, collective ms a step, rank 0's idle "
            f"share, ratios to the spread": [
-               r["wall_s"], r["train_s"], r["collective_ms_per_step"],
+               r["job_wall_s"], r["train_s"], r["collective_ms_per_step"],
                r["last_epoch_rank0"]["idle_share"],
                {k: h["ratio"] for k, h in r["held"].items()}]
-           for name, r in mesh["f"].items()}}}))
+           for name, r in mesh["f"].items()},
+        **{f"({x}) wall_s, epoch_s, gate gaps": [
+               mesh[x]["wall_s"], mesh[x]["epoch_s"],
+               mesh[x]["gate_jax"]["gap"]] for x in ("g", "h")},
+        **{f"(i) {name} wall_s, train_s, collective ms a step, rank 0's idle "
+           f"share, bytes summed, ratios to the spread": [
+               r["job_wall_s"], r["train_s"], r["collective_ms_per_step"],
+               r["last_epoch_rank0"]["idle_share"], r["sum_bytes"],
+               {k: h["ratio"] for k, h in r["held"].items()}]
+           for name, r in mesh["i"].items()}}}))
     print(f"card for the line above (ranks sharing one card; no multi-card "
           f"speed): {card}")
 
@@ -4883,7 +5235,10 @@ def main() -> int:
         k["launches_mesh_22_rank0"] = mesh["b"]["launches_rank0"][name]
         k["launches_mesh_headline_41_rank0"] = mesh["d"]["launches_rank0"][name]
         k["launches_mesh_default_shape_41_rank0"] = mesh["e"]["launches_rank0"][name]
-        for run, r in mesh["f"].items():
+        k["launches_mesh_full_41_rank0"] = mesh["g"]["launches_rank0"][name]
+        k["launches_mesh_self_attention_41_rank0"] = (
+            mesh["h"]["launches_rank0"][name])
+        for run, r in [*mesh["f"].items(), *mesh["i"].items()]:
             k[f"launches_mesh_22_{run}_rank0"] = r["launches_rank0"][name]
         k["launches_serving"] = serving_launches[name]
         k["launches_serving_bf16"] = serving16_launches[name]

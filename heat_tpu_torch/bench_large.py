@@ -171,6 +171,11 @@ def _bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+# The record_function labels of the step (train/train_step.py).
+STEP_LABELS = frozenset(("data", "read_emb", "read_his", "aggr_f", "grad",
+                         "his_mm", "dot", "loss", "write_emb", "aggr_b"))
+
+
 def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
     """Where a step's time goes, in one process, in two forms: ``"eager"``,
     the steps one by one (``train_step`` per batch), and ``"replayed"``,
@@ -276,12 +281,20 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
         wrappers = {fam: n - wrappers[fam]
                     for fam, n in wrapper_launches().items()}
         device, launches = {}, 0
+        annotations = [0, 0.0]  # events, ms
         port = dict.fromkeys(KERNEL_FAMILIES, 0)
         for event in prof.key_averages():
             # The schedule's step annotation ("ProfilerStep#n") spans the
             # traced window on the device timeline too: it is no device work.
             if (event.device_type != DeviceType.CPU
                     and not event.key.startswith("ProfilerStep")):
+                if event.key in STEP_LABELS:
+                    # The step's record_function labels, which the profiler
+                    # may copy onto the device timeline as spans over their
+                    # region's kernels: counted apart, no device work.
+                    annotations[0] += event.count
+                    annotations[1] += event.self_device_time_total / 1e3
+                    continue
                 device[event.key] = device.get(event.key, 0.0) + (
                     event.self_device_time_total / 1e3 / steps
                 )
@@ -304,6 +317,12 @@ def profile_steps(engine: Engine, steps: int, top: int = 12) -> dict:
             "wrapper_launches_per_step": {
                 f: n / steps for f, n in wrappers.items()},
             "step_peak_device_bytes": step_peak,
+            # Device-timeline spans of the step's record_function labels,
+            # left out of the device time and launches above.
+            "annotation_spans_per_step": (annotations[0] / steps
+                                          if on_card else None),
+            "annotation_ms_per_step": (annotations[1] / steps
+                                       if on_card else None),
         }
 
     eager = measure(engine._epoch_fn(False))

@@ -59,7 +59,9 @@ config0's path and the fast path: the JAX ``bench.py`` headline (``--set
 neg_sampler=1 --set tile_size=512 --set refresh_interval=8192 --set
 his_refresh=subepoch --set param_dtype=bfloat16 --set
 compute_dtype=bfloat16 --set update_mode=direct``) and the reference's
-default shape (the headline and ``--set num_subepochs=2``).
+default shape (the headline and ``--set num_subepochs=2``); and
+``--set optimizer=adagrad|adam``, ``--set sgd_mode=accum`` and ``--set
+aggregator=self_attention|user_attention``.
 
 ``--eval-approx RECALL`` (in (0, 1]) ranks the periodic evaluations with
 ``exact=False`` at that recall target, as the JAX CLI does; the final

@@ -26,7 +26,11 @@ import functools
 
 import torch
 
-from heat_tpu_torch.ops.cuda.gather import gather_rows, history_mean_gather
+from heat_tpu_torch.ops.cuda.gather import (
+    gather_rows,
+    gather_rows_multi,
+    history_mean_gather,
+)
 
 
 def history_mean(his_embs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -153,6 +157,7 @@ def user_pools_impl(
     aggregator: str = "mean",
     chunk: int | None = None,
     out: torch.Tensor | None = None,
+    reduce=None,
 ) -> torch.Tensor:
     """(U, d) pooled history of every user, in the item table's type.
 
@@ -189,6 +194,14 @@ def user_pools_impl(
         table's type) on its device, written and returned (the engine
         refreshes one buffer every epoch, whose address its captured step
         reads); a new one when None.
+      reduce: the attention kinds on a shard of the item table
+        (``item_emb`` a mesh rank's item rows, ``his_items`` made local to
+        them, ids of other shards outside): each chunk's rows are read in
+        f32 (other shards' ids read zeros), ``reduce(rows)`` sums them in
+        place over the shards (one nonzero term a row: exact), and the sum
+        is cast to the table's type, the whole rows one table would give.
+        Every rank of the group calls it equally often: the chunks follow
+        from ``chunk`` and U.
     """
     if aggregator not in ("mean", "self_attention", "user_attention"):
         raise ValueError(f"unknown aggregator {aggregator!r}")
@@ -234,7 +247,13 @@ def user_pools_impl(
                 out[lo : lo + chunk] = history_mean_fused(item_emb, ids, lens,
                                                           out.dtype)
                 continue
-            rows = gather_rows(item_emb, ids.reshape(-1)).view(-1, h, d)
+            if reduce is None:
+                rows = gather_rows(item_emb, ids.reshape(-1))
+            else:
+                (rows,) = gather_rows_multi([(item_emb, ids.reshape(-1))],
+                                            torch.float32)
+                rows = reduce(rows).to(item_emb.dtype)
+            rows = rows.view(-1, h, d)
             out[lo : lo + chunk] = pool_history(
                 rows, lens,
                 u=None if user_emb is None else user_emb[lo : lo + chunk],
@@ -246,17 +265,21 @@ def user_pools_impl(
 class _ProductF32WeightGrad(torch.autograd.Function):
     """``means @ w0`` in the type of ``means``, whose gradient with respect
     to the (f32) ``w0`` is the f32 product ``means^T @ g``, not rounded to
-    the type of ``means``; no gradient reaches ``means``."""
+    the type of ``means``. Where ``means`` takes a gradient (the attention
+    kinds' pools, through their query) it is autograd's ``g @ w0^T`` in
+    the type of ``means``."""
 
     @staticmethod
     def forward(ctx, means, w0):
-        ctx.save_for_backward(means)
-        return means @ w0.to(means.dtype)
+        w0c = w0.to(means.dtype)
+        ctx.save_for_backward(means, w0c)
+        return means @ w0c
 
     @staticmethod
     def backward(ctx, g):
-        (means,) = ctx.saved_tensors
-        return None, means.float().T @ g.float()
+        means, w0c = ctx.saved_tensors
+        g_means = g @ w0c.T if ctx.needs_input_grad[0] else None
+        return g_means, means.float().T @ g.float()
 
 
 def aggregate_history(

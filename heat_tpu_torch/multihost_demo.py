@@ -1,6 +1,6 @@
 """A multi-process training and evaluation run on a mesh of ranks: the
-port's counterpart of ``scripts/multihost_demo.py`` (its "base",
-"subepoch" and "visit" variants).
+port's counterpart of ``scripts/multihost_demo.py`` (its "base", "full",
+"subepoch", "visit" and "accl" variants).
 
 The JAX demo runs ``--procs`` processes of four CPU devices each on a
 ``(2 * procs, 2)`` mesh. Here every device is a rank, so the launcher
@@ -15,6 +15,9 @@ ids. The variants (``--variant``):
   users, and with ``exact=False``. Each rank checks that the sharded
   evaluation equals the single-process evaluator over the gathered
   tables and the whole test set.
+* ``full``: ``base`` with the JAX variant's settings (Adam's slot tables,
+  user-attention pools, the tile sampler; lr 0.01), Recall@20 above 0.05
+  as the JAX demo holds it.
 * ``subepoch``: the reference's default shape (the headline's fast path:
   tile sampler, cached pools, bf16, ``direct``; two sub-epochs) in
   complement scope, as the JAX variant runs it, three epochs. The losses
@@ -25,6 +28,13 @@ ids. The variants (``--variant``):
   shard's stream (``shuffle_mode: none``) trains exactly as an engine fed
   that shard presorted by user in file order, three epochs, and the
   history dedup's maps are in use.
+* ``accl``: user-attention pooled every step on the parse-order fixed
+  stream (``shuffle_mode: none``), three epochs with the history dedup's
+  maps in use (``uniq_first`` among them) against three with the maps
+  forced off, losses within rtol 1e-5; then self-attention the same way
+  over two epochs. The JAX variant compares ``train_epochs(3)`` runs; a
+  mesh refuses ``train_epochs`` (ROADMAP item 15b, point 6), so the
+  epochs run one by one.
 
 Each rank prints one line; the launcher checks that every rank exits
 cleanly and reports the same one.
@@ -51,7 +61,11 @@ SUBEPOCH_CFG = dict(DEMO_CFG, neg_sampler=1, tile_size=32, refresh_interval=256,
                     his_refresh="subepoch", param_dtype="bfloat16",
                     compute_dtype="bfloat16", update_mode="direct",
                     num_subepochs=2, subepoch_neg_scope="complement")
-VARIANTS = ("base", "subepoch", "visit")
+# The JAX "full" variant (scripts/multihost_demo.py:72-83).
+FULL_CFG = dict(DEMO_CFG, optimizer="adam", aggregator="user_attention",
+                neg_sampler=1, tile_size=32, refresh_interval=128,
+                his_refresh="subepoch", l_r=0.01)
+VARIANTS = ("base", "full", "subepoch", "visit", "accl")
 
 
 def _same_everywhere(value) -> None:
@@ -132,6 +146,36 @@ def visit_variant(rank, mesh, local_train, local_test, device) -> None:
     print(f"rank {rank}: visit losses {got} == presorted", flush=True)
 
 
+def accl_variant(rank, mesh, local_train, local_test, device) -> None:
+    """The attention history dedup against the maps forced off (module
+    docstring)."""
+    import numpy as np
+
+    from heat_tpu_torch.config import CFConfig
+    from heat_tpu_torch.train.engine import Engine
+
+    def epochs(kind, n, dedup):
+        engine = Engine(CFConfig(**DEMO_CFG, shuffle_mode="none",
+                                 his_refresh="step", aggregator=kind),
+                        local_train, local_test, device=device, mesh=mesh)
+        if not dedup:
+            engine._history_dedup = lambda *a, **k: None
+        losses = [engine.train_one_epoch() for _ in range(n)]
+        maps = engine._dedup_cache[2] if engine._dedup_cache else None
+        return losses, maps
+
+    out = {}
+    for kind, n in (("user_attention", 3), ("self_attention", 2)):
+        on, maps = epochs(kind, n, True)
+        assert maps is not None and maps[2] is not None, (
+            f"{kind}: the history dedup is idle")
+        off, _ = epochs(kind, n, False)
+        assert np.allclose(on, off, rtol=1e-5, atol=0), (kind, on, off)
+        out[kind] = on
+    print(f"rank {rank}: accl dedup ok, user_attention {out['user_attention']}"
+          f" == off, self_attention {out['self_attention']} == off", flush=True)
+
+
 def worker(procs: int, rank: int, port: int, device: str,
            variant: str = "base") -> None:
     """One rank: the variant's training and its checks."""
@@ -159,13 +203,14 @@ def worker(procs: int, rank: int, port: int, device: str,
     n_data, d = mesh.shape[0], mesh.data_index
     local_train = shard_by_user_range(train, n_data, d, rebase=False)
     local_test = shard_by_user_range(test, n_data, d)
-    if variant != "base":
-        run = subepoch_variant if variant == "subepoch" else visit_variant
+    if variant not in ("base", "full"):
+        run = {"subepoch": subepoch_variant, "visit": visit_variant,
+               "accl": accl_variant}[variant]
         run(rank, mesh, local_train, local_test, device)
         distributed.shutdown()
         return
-    engine = Engine(CFConfig(**DEMO_CFG), local_train, local_test,
-                    device=device, mesh=mesh)
+    cfg = CFConfig(**(FULL_CFG if variant == "full" else DEMO_CFG))
+    engine = Engine(cfg, local_train, local_test, device=device, mesh=mesh)
     losses = [engine.train_one_epoch() for _ in range(4)]
     m = engine.evaluate()
     m_agg = engine.evaluate(aggregate_users=True)
@@ -186,7 +231,7 @@ def worker(procs: int, rank: int, port: int, device: str,
     print(f"rank {rank}: losses {[float(x) for x in losses]} "
           f"recall@20 {m['Recall(k=20)']!r}", flush=True)
     assert losses[-1] < losses[0], losses
-    assert m["Recall(k=20)"] > 0.1, m
+    assert m["Recall(k=20)"] > (0.1 if variant == "base" else 0.05), m
     assert np.isfinite(losses).all()
     distributed.shutdown()
 

@@ -50,6 +50,8 @@ BANDS = {
     "config0_mesh41": CONFIG0_BAND,
     "headline_mesh41": HEADLINE_BAND,
     "default_shape_mesh41": HEADLINE_BAND,
+    "full_mesh41": CONFIG0_BAND,
+    "config0_self_attention_mesh41": CONFIG0_BAND,
 }
 
 

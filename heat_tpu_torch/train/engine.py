@@ -49,7 +49,8 @@ unpartitioned epoch: buckets are drawn anew every epoch, so maps cached
 per stream would never be read twice. On a stream laid out over data
 shards (a mesh, or :meth:`Engine._shard_stream`) each shard buckets its own
 pairs and every globally non-empty bucket is stepped by every rank
-(:meth:`Engine._subepochs_sharded`, the JAX engine's multiprocess form);
+(:meth:`Engine._subepochs_sharded`, the JAX engine's multiprocess form,
+the accum rows zeroed after each sub-epoch there too);
 ``_fuse_subepochs`` has no other form there.
 
 Per epoch, before the first step: under ``his_refresh: subepoch`` the
@@ -89,6 +90,7 @@ take).
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -160,22 +162,6 @@ def refuse_15b(what: str, point: int, why: str = ""):
         f"modules still to port, item 15b, point {point})")
 
 
-def check_mesh_slice(cfg: CFConfig) -> None:
-    """Raise NotImplementedError for any setting the mesh path does not run
-    yet. Item 15a is config0's path; 15b points 1 and 2 add the fast path
-    (the tile sampler, cached pools, bf16, ``direct``, the fixed streams
-    with their history dedup) and sub-epochs; the rest of 15b is refused
-    by its point."""
-    off_mesh = [
-        (cfg.aggregator != "mean", "attention aggregators", 4),
-        (cfg.optimizer != "sgd", "Adagrad / Adam slots", 3),
-        (cfg.sgd_mode == SGD_MODE_ACCUM, "sgd_mode: accum", 3),
-    ]
-    for bad, what, point in off_mesh:
-        if bad:
-            refuse_15b(what, point)
-
-
 def _refuse_on_mesh(what: str):
     refuse_15b(what, 6, ": the mesh's steps run eagerly, epoch by epoch")
 
@@ -222,11 +208,12 @@ class Engine:
     (``train_step.train_step_sharded``). ``cfg.train_size`` is the
     global count. The mesh runs config0's path (item 15a), the fast path
     (the tile sampler, cached pools, bf16, ``direct``, the fixed streams
-    with their history dedup) and sub-epochs (item 15b, points 1 and 2;
-    :meth:`_subepochs_sharded`). The steps run eagerly (no CUDA graph:
-    gloo cannot be captured), and the settings outside those raise
-    NotImplementedError naming item 15b and its point
-    (``check_mesh_slice``).
+    with their history dedup), sub-epochs (item 15b, points 1 and 2;
+    :meth:`_subepochs_sharded`), Adagrad, Adam and accum mode (point 3)
+    and the attention aggregators (point 4). The steps run eagerly (no
+    CUDA graph: gloo cannot be captured): ``train_epochs`` and
+    ``run_epochs_with_eval`` raise NotImplementedError naming item 15b,
+    point 6, and so does a shard on the sort-dedup path (point 5).
     """
 
     def __init__(
@@ -245,7 +232,6 @@ class Engine:
         self.mesh = mesh
         self.shards = None
         if mesh is not None:
-            check_mesh_slice(cfg)
             if torch.device(device).type != mesh.device.type:
                 raise ValueError(
                     f"device {device!r} is not the mesh's {mesh.device}")
@@ -368,7 +354,6 @@ class Engine:
         epoch."""
         if self.mesh is not None:
             raise ValueError("a mesh lays out its own batch stream")
-        check_mesh_slice(self.cfg)  # the oracle of the mesh's slice only
         bounds = [user_range_bounds(self.cfg.num_users, n_data, s)
                   for s in range(n_data)]
         self._stream_shards = n_data
@@ -606,7 +591,11 @@ class Engine:
         mesh the maps are of the rank's (nb, lb) block (its users are its
         own: the dedup is exact per rank), and the go/no-go and Bu are
         decided over the data group from every shard's largest distinct
-        count and width, so that every rank steps the same path."""
+        count and width, so that every rank steps the same path. A stream
+        laid out over S data shards without a mesh (the oracle of
+        :meth:`_shard_stream`) takes the mesh's maps side by side: each
+        shard's columns deduplicated alone into a block of Bu slots, so
+        that its steps pool what every rank of the mesh pools."""
         cfg = self.cfg
         if (cfg.his_refresh != "step"
                 or cfg.shuffle_mode not in ("none", "once")
@@ -618,15 +607,14 @@ class Engine:
                 and cached[1] == tuple(users.shape)):
             return cached[2]
         users_np = users.cpu().numpy()
-        nb, batch = users_np.shape
-        uniqs, firsts, invs, max_u = [], [], [], 1
-        for b in range(nb):
-            uu, first, inv = np.unique(
-                users_np[b], return_index=True, return_inverse=True)
-            uniqs.append(uu)
-            firsts.append(first)
-            invs.append(inv)
-            max_u = max(max_u, len(uu))
+        blocks = 1 if self.mesh is not None else self._stream_shards
+        nb, batch = users_np.shape[0], users_np.shape[1] // blocks
+        # maps[b][s]: (distinct users, first occurrences, inverse) of
+        # batch b's columns of data shard s.
+        maps = [[np.unique(users_np[b, s * batch: (s + 1) * batch],
+                           return_index=True, return_inverse=True)
+                 for s in range(blocks)] for b in range(nb)]
+        max_u = max([1] + [len(uu) for row in maps for uu, _, _ in row])
         if self.mesh is not None:
             # Every rank of the mesh takes the same decision and width from
             # every data shard's (max_u, batch): one that decided alone
@@ -638,16 +626,19 @@ class Engine:
         out = None
         if max_u <= 0.7 * batch:  # worth the extra (B,) means gather
             bu = -(-max_u // 8) * 8
-            uu_arr = np.zeros((nb, bu), np.int32)
-            uf_arr = np.zeros((nb, bu), np.int32)
-            for b, (uu, uf) in enumerate(zip(uniqs, firsts)):
-                n = len(uu)
-                uu_arr[b, :n], uf_arr[b, :n] = uu, uf
-                uu_arr[b, n:] = uu[0] if n else 0
-                uf_arr[b, n:] = uf[0] if n else 0
+            uu_arr = np.zeros((nb, blocks, bu), np.int32)
+            uf_arr = np.zeros((nb, blocks, bu), np.int32)
+            inv_arr = np.zeros((nb, blocks, batch), np.int32)
+            for b, row in enumerate(maps):
+                for s, (uu, uf, inv) in enumerate(row):
+                    n = len(uu)
+                    uu_arr[b, s, :n], uu_arr[b, s, n:] = uu, uu[0]
+                    uf_arr[b, s, :n], uf_arr[b, s, n:] = uf, uf[0]
+                    uf_arr[b, s] += s * batch
+                    inv_arr[b, s] = inv + s * bu
             out = tuple(
-                torch.as_tensor(a, device=self.device) for a in (
-                    uu_arr, np.stack(invs).astype(np.int32), uf_arr))
+                torch.as_tensor(a.reshape(nb, -1), device=self.device)
+                for a in (uu_arr, inv_arr, uf_arr))
         self._dedup_cache = (pairs, tuple(users.shape), out)
         return out
 
@@ -655,30 +646,36 @@ class Engine:
         """(U, d) pooled history of every user from the live tables under
         the configured aggregator (the query of the attention kinds: the
         live ``attn_q``, or the live user rows), in the item table's type
-        (written into ``out`` when given). On a mesh: the rank's users'
-        means over its item shard (K1 writing f32), summed over the model
-        group in f32 and rounded once to the table's type; on a (., 1)
-        mesh K1 writes the table's type itself."""
-        st = self.state
-        if self.mesh is not None and self.mesh.shape[1] > 1:
+        (written into ``out`` when given). On a mesh, the pools of the
+        rank's users: the mean's partial means over its item shard (K1
+        writing f32), summed over the model group in f32 and rounded once
+        to the table's type (on a (., 1) mesh K1 writes the table's type
+        itself); the attention kinds pool whole rows, each chunk's history
+        rows summed over the model group (``user_pools_impl(reduce=)``)."""
+        st, mesh = self.state, self.mesh
+        if mesh is not None and self.cfg.aggregator == "mean":
+            if mesh.shape[1] == 1:
+                return compute_user_pools(st.item_emb, self.his_items,
+                                          self.his_masks, out=out)
             # The partial means of the model shards summed in f32 and
             # rounded once: the one rounding of a single rank's K1.
             pools = compute_user_pools(
                 st.item_emb, self.his_items, self.his_masks,
                 out=torch.empty((self.his_items.shape[0], st.item_emb.shape[1]),
                                 dtype=torch.float32, device=self.device))
-            self.mesh.all_reduce(pools, "model")
+            mesh.all_reduce(pools, "model")
             if out is None:
                 return pools.to(st.item_emb.dtype)
             return out.copy_(pools)
-        if self.mesh is not None:
-            return compute_user_pools(st.item_emb, self.his_items,
-                                      self.his_masks, out=out)
+        reduce = None
+        if mesh is not None and mesh.shape[1] > 1:
+            reduce = functools.partial(mesh.all_reduce, axis="model")
         return compute_user_pools(
             st.item_emb, self.his_items, self.his_masks,
             user_emb=(st.user_emb if self.cfg.aggregator == "user_attention"
                       else None),
             attn_q=st.attn_q, aggregator=self.cfg.aggregator, out=out,
+            reduce=reduce,
         )
 
     def _pools_buffer(self) -> torch.Tensor:
@@ -1021,6 +1018,8 @@ class Engine:
                 total = total + self._steps(
                     capture, steps[p],
                     neg_pool=self._write_complement(perm_dev, bounds, p))
+                if cfg.sgd_mode == SGD_MODE_ACCUM:
+                    zero_grad_accumulators(self.state)
         return total
 
     def _epoch(self, capture: bool) -> torch.Tensor:

@@ -225,19 +225,29 @@ def _dense_acc(table, ids, grads) -> torch.Tensor:
 
 
 def _touched(table, ids) -> torch.Tensor:
-    """(N, 1) f32: 1 for rows that ``ids`` names, else 0."""
+    """(N, 1) f32: how many times ``ids`` names each row (the passes
+    clamp it to 1)."""
     touched = torch.zeros(
         (table.shape[0], 1), dtype=torch.float32, device=table.device
     )
     ones = torch.ones((ids.shape[0], 1), dtype=torch.float32, device=ids.device)
-    return scatter_add_rows(touched, ids, ones).clamp_(max=1.0)
+    return scatter_add_rows(touched, ids, ones)
 
 
 def _apply_row_updates_dense(table, ids, grads, *, lr, clip_val, gacc, decay, l2):
     """Dense-accumulator path: no sort; duplicates combine in K3."""
     acc = _dense_acc(table, ids, grads)
-    if l2 or gacc is not None:
-        touched = _touched(table, ids)
+    touched = _touched(table, ids) if l2 or gacc is not None else None
+    return _dense_update(table, acc, touched, lr=lr, clip_val=clip_val,
+                         gacc=gacc, decay=decay, l2=l2)
+
+
+def _dense_update(table, acc, touched, *, lr, clip_val, gacc, decay, l2):
+    """The dense SGD pass from the combined row gradients ``acc`` (N, d)
+    f32 and the (N, 1) touched counts (needed under l2 and accum),
+    in place; ``acc`` is consumed."""
+    if touched is not None:
+        touched = touched.clamp_(max=1.0)
     if l2:
         acc += l2 * table.float() * touched
     if gacc is None:
@@ -261,44 +271,68 @@ def apply_row_updates_reduced(
     l2: float,
     reduce,
     extra: torch.Tensor,
+    gacc: Optional[torch.Tensor] = None,
+    decay: float = 1.0,
+    opt: Optional[dict] = None,
 ) -> torch.Tensor:
-    """Batch-mode SGD of one shard of a table whose rows take gradients
-    from every rank of a group (the item table on a mesh): the dense path
-    with one collective in it, in place.
+    """The dense update of one shard of a table whose rows take gradients
+    from every rank of a group (the item table on a mesh), with one
+    collective in it, in place: batch-mode SGD, accum mode (``gacc``,
+    ``decay``) or, with ``opt`` (the keywords of
+    :func:`apply_row_updates_opt` but the table's: ``step``, ``m``, ``v``,
+    ``beta1``, ``beta2``, ``eps``), Adagrad / Adam.
 
     The rank's gradient rows go into a shard-sized f32 accumulator (K3;
-    ids outside the shard are out of range and dropped), under l2 the
-    touched-row counts after it (K3 again), and ``extra`` (a flat f32
-    tensor of other sums the group reduces, such as ``w0``'s gradient)
-    after those, all in one buffer; ``reduce(buf)`` sums the buffer in
-    place over the group, so every replica then holds the combined row
-    gradient of the whole batch; the clip, the l2 term and ``-lr`` follow
-    as in the dense path, on equal inputs on every replica. Returns the
-    reduced ``extra``."""
+    ids outside the shard are out of range and dropped), the touched-row
+    counts after it (K3 again; under l2, accum and the slots, whose
+    passes read them), and ``extra`` (a flat f32 tensor of other sums the
+    group reduces, such as ``w0``'s gradient) after those, all in one
+    buffer; ``reduce(buf)`` sums the buffer in place over the group, so
+    every replica then holds the combined row gradient of the whole batch
+    and every row some rank touched counts as touched on every replica
+    (a rank-local mask would leave Adam's moments, and the accum rows,
+    apart between replicas). The single-rank dense pass of the rule
+    follows, on equal inputs on every replica, which end bit-equal.
+    Returns the reduced ``extra``."""
     n, d = table.shape
     e = extra.numel()
-    size = n * d + (n if l2 else 0) + e
+    counts = bool(l2) or gacc is not None or opt is not None
+    size = n * d + (n if counts else 0) + e
     buf = torch.zeros(size, dtype=torch.float32, device=table.device)
     acc = buf[: n * d].view(n, d)
     scatter_add_rows(acc, ids, grads.float().contiguous())
-    if l2:
+    touched = None
+    if counts:
         touched = buf[n * d: n * d + n].view(n, 1)
         ones = torch.ones((ids.shape[0], 1), dtype=torch.float32,
                           device=ids.device)
         scatter_add_rows(touched, ids, ones)
     buf[size - e:].copy_(extra.reshape(-1))
     reduce(buf)
-    if l2:
-        acc += l2 * table.float() * touched.clamp_(max=1.0)
-    table.sub_((lr * acc.clamp_(-clip_val, clip_val)).to(table.dtype))
+    if opt is not None:
+        _opt_dense_update(table, acc, touched, lr=lr, clip_val=clip_val,
+                          l2=l2, **opt)
+    else:
+        _dense_update(table, acc, touched, lr=lr, clip_val=clip_val,
+                      gacc=gacc, decay=decay, l2=l2)
     return buf[size - e:]
 
 
 def _apply_row_updates_opt_dense(
     table, ids, grads, *, lr, clip_val, step, m, v, beta1, beta2, eps, l2
 ):
-    acc = _dense_acc(table, ids, grads)
-    touched = _touched(table, ids)
+    return _opt_dense_update(
+        table, _dense_acc(table, ids, grads), _touched(table, ids), lr=lr,
+        clip_val=clip_val, step=step, m=m, v=v, beta1=beta1, beta2=beta2,
+        eps=eps, l2=l2)
+
+
+def _opt_dense_update(table, acc, touched, *, lr, clip_val, step, m, v,
+                      beta1, beta2, eps, l2):
+    """The dense Adagrad / Adam pass from the combined row gradients
+    ``acc`` and the (N, 1) touched counts, in place; ``acc`` is
+    consumed."""
+    touched = touched.clamp_(max=1.0)
     if l2:
         acc += l2 * table.float() * touched
     g = acc.clamp_(-clip_val, clip_val)

@@ -120,6 +120,99 @@ class Batch(NamedTuple):
     weight: torch.Tensor  # (B,) f32 — 1 for real samples, 0 for padding
 
 
+def _check_dedup_query(cfg: CFConfig, uniq_users, uniq_first) -> None:
+    if (uniq_users is not None and cfg.aggregator == "user_attention"
+            and uniq_first is None):
+        raise ValueError(
+            "user_attention history dedup requires uniq_first (the "
+            "per-user query is sliced from the first occurrence of the "
+            "differentiable user rows)")
+
+
+def _pool_attention(state, cfg, leaves, his_embs, his_mask, uniq_inverse,
+                    uniq_first) -> torch.Tensor:
+    """The attention kinds' pooled history of every sample, inside
+    autograd: under self-attention the f32 ``attn_q`` becomes a leaf
+    (appended to ``leaves``), cast to the rows' compute type; under
+    user-attention the query is the user rows' leaf ``leaves[0]``. With
+    the dedup maps the (Bu, H) rows are pooled once per distinct user (the
+    user-attention query sliced from the user's first occurrence) and read
+    back per sample."""
+    q = None
+    if cfg.aggregator == "self_attention":
+        q_l = state.attn_q.detach().requires_grad_()
+        leaves.append(q_l)
+        q = q_l.to(his_embs.dtype)
+    u_l = leaves[0]
+    with record_function("aggr_f"):
+        if uniq_inverse is None:
+            return pool_history(his_embs, his_mask, u=u_l, attn_q=q,
+                                kind=cfg.aggregator)
+        u_first = (u_l.index_select(0, uniq_first)
+                   if cfg.aggregator == "user_attention" else None)
+        return pool_history(his_embs, his_mask, u=u_first, attn_q=q,
+                            kind=cfg.aggregator).index_select(0, uniq_inverse)
+
+
+def _update_args(state: TrainState, cfg: CFConfig, l2: float):
+    """The keywords of the SGD updates and of the Adagrad / Adam ones
+    (``step`` already advanced: Adam's bias correction reads it)."""
+    sgd = dict(lr=state.lr, clip_val=cfg.clip_val, l2=l2)
+    opt = dict(sgd, step=state.step, beta1=cfg.adam_beta1,
+               beta2=cfg.adam_beta2, eps=cfg.opt_eps)
+    return sgd, opt
+
+
+def _update_user_rows(state, cfg, users_w, g_u, u_agg, sgd, opt) -> None:
+    """The user table's write-back of the aggregated rows ``u_agg`` and
+    its update by ``cfg.update_mode`` and ``cfg.optimizer``, in place (the
+    gradient rows and the slot tables too). In batch mode the write-back
+    rides the update's own scatter; accum mode writes it first (its update
+    reads the persistent grad rows)."""
+    user_emb = state.user_emb
+    writeback = u_agg
+    if state.user_gacc is not None:
+        scatter_set_rows(user_emb, users_w, u_agg)
+        writeback = None
+    if cfg.update_mode == "direct":
+        # Config validation guarantees batch-mode SGD here.
+        apply_row_updates_direct(
+            user_emb, users_w, g_u, rows=u_agg if sgd["l2"] else None,
+            writeback=writeback, **sgd)
+    elif cfg.optimizer == "sgd":
+        apply_row_updates(
+            user_emb, users_w, g_u, gacc=state.user_gacc, decay=cfg.gamma,
+            writeback=writeback, **sgd)
+    else:
+        apply_row_updates_opt(
+            user_emb, users_w, g_u, m=state.opt_slots.get("user_m"),
+            v=state.opt_slots["user_v"], writeback=writeback, **opt)
+
+
+def _update_dense(state: TrainState, cfg: CFConfig, dense, real) -> None:
+    """``w0`` (and ``attn_q``) from their batch gradients, ``dense`` a list
+    of (slot name, parameter, gradient): B / aggr_minibatch reference
+    updates collapsed into one, in place. Under Adagrad / Adam the moment
+    updates are not no-ops at zero gradient (Adam decays its moments,
+    Adagrad divides by sqrt(v)), so a batch without a real sample
+    (``real``, 0-d) leaves the parameters and their slots untouched."""
+    if cfg.optimizer == "sgd":
+        for _, param, g in dense:
+            param.sub_(state.lr * g / cfg.aggr_minibatch)
+        return
+    slots = state.opt_slots
+    has_real = real > 0
+    for name, param, g in dense:
+        new, slots_new = dense_opt_update(
+            param, g / cfg.aggr_minibatch, slots, name, lr=state.lr,
+            step=state.step, beta1=cfg.adam_beta1, beta2=cfg.adam_beta2,
+            eps=cfg.opt_eps)
+        for key in (name + "_m", name + "_v"):
+            if key in slots_new:
+                slots[key].copy_(torch.where(has_real, slots_new[key], slots[key]))
+        param.copy_(torch.where(has_real, new, param))
+
+
 def train_step(
     state: TrainState,
     sampler_state: SamplerState,
@@ -175,7 +268,7 @@ def train_step(
             state, sampler_state, generator, batch, his_items, his_masks, cfg,
             shards, user_means=user_means, uniq_users=uniq_users,
             uniq_inverse=uniq_inverse, neg_candidates=neg_candidates,
-            neg_candidates_size=neg_candidates_size)
+            neg_candidates_size=neg_candidates_size, uniq_first=uniq_first)
     users, pos, weight = batch
     user_emb, item_emb, w0 = state.user_emb, state.item_emb, state.w0
     d = item_emb.shape[1]
@@ -231,12 +324,7 @@ def train_step(
     # launch; they take no gradient.
     attention = cfg.aggregator != "mean" and user_means is None
     if attention:
-        if (uniq_users is not None and cfg.aggregator == "user_attention"
-                and uniq_first is None):
-            raise ValueError(
-                "user_attention history dedup requires uniq_first (the "
-                "per-user query is sliced from the first occurrence of the "
-                "differentiable user rows)")
+        _check_dedup_query(cfg, uniq_users, uniq_first)
         his_users = users if uniq_users is None else uniq_users
         with record_function("read_his"):
             segments.append(
@@ -273,23 +361,8 @@ def train_step(
         )
         leaves = [u_l, p_l, n_l, w0_l]
         if attention:
-            q = None
-            if cfg.aggregator == "self_attention":
-                # The f32 query, cast to the compute type inside the loss.
-                q_l = state.attn_q.detach().requires_grad_()
-                leaves.append(q_l)
-                q = q_l.to(compute)
-            with record_function("aggr_f"):
-                if uniq_users is None:
-                    means = pool_history(his_embs, his_mask, u=u_l,
-                                         attn_q=q, kind=cfg.aggregator)
-                else:
-                    u_first = (u_l.index_select(0, uniq_first)
-                               if cfg.aggregator == "user_attention"
-                               else None)
-                    means = pool_history(his_embs, his_mask, u=u_first,
-                                         attn_q=q, kind=cfg.aggregator
-                                         ).index_select(0, uniq_inverse)
+            means = _pool_attention(state, cfg, leaves, his_embs, his_mask,
+                                    uniq_inverse, uniq_first)
         with record_function("his_mm"):
             u_agg = aggregate_history(u_l, means, w0_l, cfg.gamma)
         with record_function("dot"):
@@ -328,39 +401,11 @@ def train_step(
     u_agg = u_agg.detach()
     l2 = cfg.l2 if cfg.l2_enabled else 0.0
     state.step.add_((real > 0).to(state.step.dtype))  # 1-based from here on
-    moments = dict(lr=state.lr, step=state.step, beta1=cfg.adam_beta1,
-                   beta2=cfg.adam_beta2, eps=cfg.opt_eps)
-    opt = dict(clip_val=cfg.clip_val, l2=l2, **moments)
-    sgd = dict(lr=state.lr, clip_val=cfg.clip_val, l2=l2)
+    sgd, opt = _update_args(state, cfg, l2)
     opt_slots = state.opt_slots
 
     with record_function("write_emb"):
-        # User table: the aggregated rows replace the rows, then the update.
-        # In batch mode the write-back rides the update's own scatter; accum
-        # mode writes it first (its update reads the persistent grad rows).
-        # Every update below works in place on the state's tensors.
-        if state.user_gacc is not None:
-            scatter_set_rows(user_emb, users_w, u_agg)
-            u_writeback = None
-        else:
-            u_writeback = u_agg
-        if cfg.update_mode == "direct":
-            # Config validation guarantees batch-mode SGD here.
-            apply_row_updates_direct(
-                user_emb, users_w, g_u, rows=u_agg if l2 else None,
-                writeback=u_writeback, **sgd,
-            )
-        elif cfg.optimizer == "sgd":
-            apply_row_updates(
-                user_emb, users_w, g_u, gacc=state.user_gacc, decay=cfg.gamma,
-                writeback=u_writeback, **sgd,
-            )
-        else:
-            # The slot tables are updated in place.
-            apply_row_updates_opt(
-                user_emb, users_w, g_u, m=opt_slots.get("user_m"),
-                v=opt_slots["user_v"], writeback=u_writeback, **opt,
-            )
+        _update_user_rows(state, cfg, users_w, g_u, u_agg, sgd, opt)
 
         # Item table: positives and negatives in one deduplicated update.
         # On the tile path g_n already is the per-tile-row gradient (T, d):
@@ -393,47 +438,49 @@ def train_step(
             )
 
     with record_function("aggr_b"):
-        # w0 (and attn_q): B / aggr_minibatch reference updates collapsed into
-        # one.
         dense = [("w0", w0, g_w0)]
         if g_q:
             dense.append(("attn_q", state.attn_q, g_q[0]))
-        if cfg.optimizer == "sgd":
-            for _, param, g in dense:
-                param.sub_(state.lr * g / cfg.aggr_minibatch)
-        else:
-            # Dense moment updates are not no-ops at zero gradient (Adam
-            # decays its moments, Adagrad divides by sqrt(v)), so an
-            # all-padding batch must leave w0, attn_q and their slots
-            # untouched.
-            has_real = real > 0
-            for name, param, g in dense:
-                new, slots_new = dense_opt_update(
-                    param, g / cfg.aggr_minibatch, opt_slots, name, **moments
-                )
-                for key in (name + "_m", name + "_v"):
-                    if key in slots_new:
-                        opt_slots[key].copy_(torch.where(
-                            has_real, slots_new[key], opt_slots[key]))
-                param.copy_(torch.where(has_real, new, param))
+        _update_dense(state, cfg, dense, real)
     return state, sampler_state, loss_sum.detach()
 
 
-def _replicas_equal(mesh, axis: str, table: torch.Tensor,
-                    ids: torch.Tensor) -> None:
-    """Make the rows ``table[ids]`` of every replica along ``axis`` those
-    of the group's first rank: it reads them (K2) and ``broadcast``s them,
-    and the others write them (S1). Replicas that updated from equal
-    inputs still differ where K3 added repeated rows in another order;
-    after this they are bit-equal by construction."""
+def _replicas_equal(mesh, axis: str, tables, ids: torch.Tensor) -> None:
+    """Make the rows ``t[ids]`` of every table ``t`` of ``tables`` (None
+    entries left out) on every replica along ``axis`` those of the group's
+    first rank: it reads them (K2; several tables in one launch of its
+    multi entry, into one byte buffer, a table's rows after the other's),
+    one ``broadcast`` sends them, and the others write them (S1). Replicas
+    that updated from equal inputs still differ where K3 added repeated
+    rows in another order; after this they are bit-equal by
+    construction."""
     if mesh.axis_size(axis) == 1:
         return
     first = mesh.index(axis) == 0
-    rows = (gather_rows(table, ids) if first else torch.empty(
-        (ids.shape[0], table.shape[1]), dtype=table.dtype, device=table.device))
-    mesh.broadcast(rows, axis, 0)
+    tables = [t for t in tables if t is not None]
+    m = ids.shape[0]
+    if len(tables) == 1:
+        (table,) = tables
+        rows = (gather_rows(table, ids) if first else torch.empty(
+            (m, table.shape[1]), dtype=table.dtype, device=table.device))
+        mesh.broadcast(rows, axis, 0)
+        if not first:
+            scatter_set_rows(table, ids, rows)
+        return
+    # The widest elements first, so that every view starts aligned.
+    tables.sort(key=lambda t: -t.element_size())
+    sizes = [m * t.shape[1] * t.element_size() for t in tables]
+    packed = torch.empty(sum(sizes), dtype=torch.uint8, device=ids.device)
+    views, lo = [], 0
+    for t, n in zip(tables, sizes):
+        views.append(packed[lo: lo + n].view(t.dtype).view(m, t.shape[1]))
+        lo += n
+    if first:
+        gather_rows_multi([(t, ids) for t in tables], outs=views)
+    mesh.broadcast(packed, axis, 0)
     if not first:
-        scatter_set_rows(table, ids, rows)
+        for t, rows in zip(tables, views):
+            scatter_set_rows(t, ids, rows)
 
 
 def _direct_items_sharded(mesh, item_emb, occ_ids, occ_grads, tile_ids,
@@ -479,7 +526,7 @@ def _direct_items_sharded(mesh, item_emb, occ_ids, occ_grads, tile_ids,
         grads = torch.cat(grads).to(compute)
         rows = gather_rows(item_emb, ids).to(compute) if sgd["l2"] else None
         apply_row_updates_direct(item_emb, ids, grads, rows=rows, **sgd)
-    _replicas_equal(mesh, "data", item_emb, ids)
+    _replicas_equal(mesh, "data", [item_emb], ids)
     return buf[size - e:]
 
 
@@ -497,25 +544,28 @@ def train_step_sharded(
     uniq_inverse: Optional[torch.Tensor] = None,
     neg_candidates: Optional[torch.Tensor] = None,
     neg_candidates_size: Optional[torch.Tensor] = None,
+    uniq_first: Optional[torch.Tensor] = None,
 ) -> tuple[TrainState, SamplerState, torch.Tensor]:
     """One step on a ("data", "model") mesh: the counterpart of the JAX
-    step under GSPMD, with its collectives written out. The mean
-    aggregator, SGD in batch mode (the combined-row clip) or ``direct``
-    mode, uniform or tile negatives, the history mean every step (with the
+    step under GSPMD, with its collectives written out. Every setting
+    :func:`train_step` runs: the three aggregators, SGD in batch or accum
+    mode (the combined-row clip) or ``direct`` mode, Adagrad and Adam,
+    uniform or tile negatives, the history pooled every step (with the
     dedup maps, once per distinct user) or the cached pools, f32 or bf16
-    tables and compute (the engine refuses the rest, ROADMAP item 15b).
+    tables and compute.
 
     ``batch`` holds this rank's rows of the global batch (data index d
     holds rows ``[d * b, (d + 1) * b)``, b = its width); user and item ids
     are global. ``state`` is the rank's shard (``parallel.mesh``: its user
-    rows, its rows of the padded item table, replicated ``w0``);
-    ``his_items`` holds its users' histories with item ids already made
-    local to its item rows (ids of other shards fall outside them), and
-    ``his_masks`` their lengths; ``user_means`` (his_refresh: subepoch) the
-    pools of its users, whole (summed over the model group at the
-    refresh); ``uniq_users`` / ``uniq_inverse`` the dedup maps of its rows
-    (global user ids; indices into them); ``neg_candidates`` a sub-epoch's
-    negative pool, the same on every rank.
+    rows, its rows of the padded item table, with their accum rows and
+    slots; replicated ``w0``, ``attn_q`` and their slots); ``his_items``
+    holds its users' histories with item ids already made local to its
+    item rows (ids of other shards fall outside them), and ``his_masks``
+    their lengths; ``user_means`` (his_refresh: subepoch) the pools of its
+    users, whole (the refresh pools whole rows); ``uniq_users`` /
+    ``uniq_inverse`` / ``uniq_first`` the dedup maps of its rows (global
+    user ids; indices into them; indices into its rows); ``neg_candidates``
+    a sub-epoch's negative pool, the same on every rank.
 
     1. The global batch's count of real samples is summed over the data
        group. The negatives of the whole global batch are drawn from the
@@ -526,37 +576,48 @@ def train_step_sharded(
     2. One K2 launch reads the user rows (local) and the positives' and
        the negatives' rows (the T tile rows, once, or the (b, K) draws) of
        the rank's item shard (ids rebased to it; ids of other shards read
-       zeros), with the pools' rows; K1 pools the users' (or the distinct
+       zeros), with the pools' rows; under the attention kinds it reads
+       the (b, H) history rows (the (Bu, H) rows of the distinct users) of
+       the shard too. For the mean K1 pools the users' (or the distinct
        users') histories over the shard, leaving other shards' items out
        of the sum and dividing by the whole length: a partial mean. Item
-       rows and partial means sit in one f32 buffer, summed over the model
-       group by one ``all_reduce``: whole rows (one nonzero term each,
-       exact in any type) and whole means (summed in another order than on
-       one rank), each rounded once to the compute type after the sum. On
-       a (., 1) mesh K1 writes the compute type itself.
-    3. Forward and backward as :func:`train_step`: whole-tile scoring with
-       the draws' (b, T) multiplicities of the rank's rows, or the pairs.
-       The tile's (T, d) gradient holds the rank's part of each slot's
+       rows, history rows and partial means sit in one f32 buffer, summed
+       over the model group by one ``all_reduce``: whole rows (one nonzero
+       term each, exact in any type) and whole means (summed in another
+       order than on one rank), each rounded once to the compute type
+       after the sum. On a (., 1) mesh K1 writes the compute type itself.
+    3. Forward and backward as :func:`train_step` (the attention kinds
+       pool the whole rows inside autograd): whole-tile scoring with the
+       draws' (b, T) multiplicities of the rank's rows, or the pairs. The
+       tile's (T, d) gradient holds the rank's part of each slot's
        gradient, in f32 (the tile's rows enter the f32 scoring as f32
        tensors of the compute type's values); each slot is one occurrence
        whose gradient is the whole global batch's sum, so it is summed
        over the data group before any clip binds, as the JAX step clips
        the global sum, and rounded to the compute type once after the sum
-       (``direct``; the batch mode's f32 accumulator takes it unrounded).
-    4. The user rows: the write-back and the update (S1, K3; ``direct``:
-       K3's update entry) on the rank's users; then the model group's
-       first rank broadcasts the batch's rows and the others write them,
-       so that user replicas stay bit-equal (K3 adds repeated rows in no
-       fixed order).
-    5. The item rows: in batch mode :func:`scatter.apply_row_updates_reduced`,
-       whose one ``all_reduce`` over the data group also sums ``w0``'s
-       gradient and the loss, every replica then updating from equal sums;
+       (``direct``; the dense update's f32 accumulator takes it
+       unrounded). The ranks of a model group compute the
+       same ``w0`` and ``attn_q`` gradients from the same rows, so those
+       are summed over the data group only (with accum mode's stale term
+       of ``w0``).
+    4. ``step`` advances by the global count (before the updates: Adam's
+       bias correction reads it). The user rows: the write-back and the
+       update (S1, K3; ``direct``: K3's update entry) on the rank's users,
+       with their accum rows or slots; then the model group's first rank
+       broadcasts the batch's rows of the table and of those, one packed
+       buffer, and the others write them, so that user replicas stay
+       bit-equal (K3 adds repeated rows in no fixed order).
+    5. The item rows: batch or accum mode, Adagrad or Adam by
+       :func:`scatter.apply_row_updates_reduced`, whose one ``all_reduce``
+       over the data group also sums the touched rows, the dense
+       gradients and the loss, every replica then updating from equal sums;
        in ``direct`` mode :func:`_direct_items_sharded`. Every sum across
        ranks is of f32 buffers.
-    6. ``w0`` by SGD on the summed gradient (each rank's part of it in
-       f32, rounded once to the compute type after the sum, as one rank's
-       bf16 product gives it); ``step`` and the sampler's ``iterations``
-       advance by the global count.
+    6. ``w0`` and ``attn_q`` by SGD, or Adagrad / Adam gated on the global
+       count, on the summed gradients (each rank's part of them in f32,
+       rounded once to the compute type after the sum, as one rank's
+       product gives them); the sampler's ``iterations`` advance by the
+       global count.
     """
     mesh = shards.mesh
     users, pos, weight = batch
@@ -571,7 +632,8 @@ def train_step_sharded(
         sample, sampler_state = sample_negatives_rows(
             generator, sampler_state, pos, cfg, b * mesh.shape[0],
             (lo, lo + b), real)
-        tiled = sample.tile is not None
+        # Whole-tile scoring is batch-mode only, as in train_step.
+        tiled = sample.tile is not None and state.item_gacc is None
         neg_ids = sample.tile if tiled else sample.ids.reshape(-1)
         if neg_candidates is not None:
             size = (neg_candidates.shape[0] if neg_candidates_size is None
@@ -582,22 +644,33 @@ def train_step_sharded(
     item_loc = torch.cat([pos, neg_ids]) - shards.item_lo
     m = item_loc.shape[0]
     model_sum = mesh.shape[1] > 1
-    # Per-step means: of the samples, or of the distinct users (dedup).
+    attention = cfg.aggregator != "mean" and user_means is None
+    # Per-step pools: of the samples, or of the distinct users (dedup).
     his_rows = None
     if user_means is None:
         his_rows = u_loc if uniq_users is None else uniq_users - shards.user_lo
-    partial = his_rows is not None and model_sum
-    # [positive rows | negative or tile rows | partial means]: one sum.
-    buf = torch.empty((m + (his_rows.shape[0] if partial else 0), d),
-                      dtype=f32, device=item_emb.device)
+    if attention:
+        _check_dedup_query(cfg, uniq_users, uniq_first)
+        extra_rows = his_rows.shape[0] * his_items.shape[1]
+    else:
+        partial = his_rows is not None and model_sum
+        extra_rows = his_rows.shape[0] if partial else 0
+    # [positive rows | negative or tile rows | history rows or partial
+    # means]: one sum.
+    buf = torch.empty((m + extra_rows, d), dtype=f32, device=item_emb.device)
     segments = [(user_emb, u_loc), (item_emb, item_loc)]
     outs = [None, buf[:m]]
     if user_means is not None:
         segments.append((user_means, u_loc))
         outs.append(None)
+    if attention:
+        with record_function("read_his"):
+            segments.append(
+                (item_emb, his_items.index_select(0, his_rows).view(-1)))
+            outs.append(buf[m:])
     with record_function("read_emb"):
         rows = gather_rows_multi(segments, f32, outs=outs)
-    if his_rows is not None:
+    if his_rows is not None and not attention:
         with record_function("read_his"), record_function("aggr_f"):
             means = history_mean_gather(
                 item_emb, his_items, his_masks, f32 if partial else compute,
@@ -608,6 +681,9 @@ def train_step_sharded(
     n_rows = buf[b:m].to(compute)
     if user_means is not None:
         means = rows[2].to(compute)
+    elif attention:
+        his_embs = buf[m:].view(his_rows.shape[0], -1, d).to(compute)
+        his_mask = his_masks.index_select(0, his_rows)
     else:
         means = means.to(compute)
         if uniq_users is not None:
@@ -626,6 +702,10 @@ def train_step_sharded(
         u_l, p_l, n_l, w0_l = (
             t.detach().requires_grad_() for t in (u_rows, p_rows, n_rows, w0)
         )
+        leaves = [u_l, p_l, n_l, w0_l]
+        if attention:
+            means = _pool_attention(state, cfg, leaves, his_embs, his_mask,
+                                    uniq_inverse, uniq_first)
         with record_function("his_mm"):
             u_agg = aggregate_history(u_l, means, w0_l, cfg.gamma,
                                       f32_weight_grad=True)
@@ -648,8 +728,20 @@ def train_step_sharded(
             else:
                 losses = sample_losses(s_up, s_un, cfg)
             loss_sum = (losses * weight).sum()
-        g_u, g_p, g_n, g_w0 = torch.autograd.grad(loss_sum, [u_l, p_l, n_l, w0_l])
+        g_u, g_p, g_n, g_w0, *g_q = torch.autograd.grad(loss_sum, leaves)
+    means = means.detach()
 
+    # What the data group sums beside the item rows: [w0's gradient |
+    # accum mode's stale term of it | attn_q's gradient | the loss].
+    extra = [g_w0.reshape(-1)]
+    if state.user_gacc is not None:
+        # train_step's stale accumulated user rows' term of the w0 gradient.
+        with record_function("aggr_b"):
+            prev_acc = gather_rows(state.user_gacc, u_loc).float()
+            extra.append(((1.0 - cfg.gamma) * (
+                (means.float() * weight[:, None]).T @ prev_acc)).reshape(-1))
+    extra += [g.reshape(-1) for g in g_q]
+    extra = torch.cat(extra + [loss_sum.detach().reshape(1)])
     valid = weight > 0
     n_users = user_emb.shape[0]
     users_w = torch.where(valid, u_loc, n_users)
@@ -663,34 +755,51 @@ def train_step_sharded(
     occ_w = torch.where(occ_valid, item_w[: occ_valid.shape[0]], n_items)
     tile_w = item_w[b:] if tiled else None
     l2 = cfg.l2 if cfg.l2_enabled else 0.0
-    sgd = dict(lr=state.lr, clip_val=cfg.clip_val, l2=l2)
+    state.step.add_((real > 0).to(state.step.dtype))  # 1-based from here on
+    sgd, opt = _update_args(state, cfg, l2)
+    slots = state.opt_slots or {}
     u_agg = u_agg.detach()
-    extra = torch.cat([g_w0.reshape(-1), loss_sum.detach().reshape(1)])
     with record_function("write_emb"):
-        if cfg.update_mode == "direct":
-            apply_row_updates_direct(user_emb, users_w, g_u,
-                                     rows=u_agg if l2 else None,
-                                     writeback=u_agg, **sgd)
-        else:
-            apply_row_updates(user_emb, users_w, g_u, writeback=u_agg, **sgd)
-        _replicas_equal(mesh, "model", user_emb, users_w)
+        _update_user_rows(state, cfg, users_w, g_u, u_agg, sgd, opt)
+        _replicas_equal(mesh, "model", [user_emb, state.user_gacc,
+                                        slots.get("user_v"), slots.get("user_m")],
+                        users_w)
         if cfg.update_mode == "direct":
             g_occ = g_p if tiled else torch.cat([g_p, g_n.reshape(-1, d)])
             extra = _direct_items_sharded(
                 mesh, item_emb, occ_w, g_occ, tile_w,
                 g_n if tiled else None, extra, compute, sgd)
         else:
+            item_opt = None
+            if cfg.optimizer != "sgd":
+                item_opt = {k: opt[k] for k in ("step", "beta1", "beta2", "eps")}
+                item_opt.update(m=slots.get("item_m"), v=slots["item_v"])
             ids = occ_w if not tiled else torch.cat([occ_w, tile_w])
             extra = apply_row_updates_reduced(
                 item_emb, ids, torch.cat([g_p, g_n.reshape(-1, d)]),
                 reduce=lambda t: mesh.all_reduce(t, "data"), extra=extra,
-                **sgd)
+                gacc=state.item_gacc, opt=item_opt, **sgd)
+    if g_q and uniq_inverse is not None and model_sum:
+        # The dedup's read-back adds a distinct user's samples' gradients
+        # in no fixed order on the card (index_select's backward), so the
+        # ranks of a model group may compute attn_q's gradient apart: the
+        # replicated w0 and attn_q take model index 0's sums.
+        mesh.broadcast(extra, "model", 0)
     with record_function("aggr_b"):
-        # The gradient in the compute type, as one rank's is, rounded once.
+        # The gradients in the compute type, as one rank's are, rounded
+        # once; the stale term is f32, as train_step adds it.
         g_w0 = extra[: d * d].view(d, d).to(compute).float()
-        w0.sub_(state.lr * g_w0 / cfg.aggr_minibatch)
-        state.step.add_((real > 0).to(state.step.dtype))
-    return state, sampler_state, extra[d * d].clone()
+        at = d * d
+        if state.user_gacc is not None:
+            g_w0 = g_w0 + extra[at: at + d * d].view(d, d)
+            at += d * d
+        dense = [("w0", w0, g_w0)]
+        if g_q:
+            dense.append(("attn_q", state.attn_q,
+                          extra[at: at + d].to(compute).float()))
+            at += d
+        _update_dense(state, cfg, dense, real)
+    return state, sampler_state, extra[at].clone()
 
 
 _CAPTURE_STREAMS: dict = {}  # device index: the side stream of every capture

@@ -37,6 +37,9 @@ from typing import Iterator
 
 import torch
 
+# Seconds of idle device at each edge of a trace's window (``trace``).
+TRACE_MARGIN_S = 0.01
+
 # The reference phase names (thread_buffer.hpp:32-46), for record_function.
 REFERENCE_PHASES = (
     "data", "f_b", "forward", "backward", "read_emb", "dot", "norm",
@@ -83,11 +86,22 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     trace (``*.pt.trace.json``, for TensorBoard or Perfetto). Yields the
     profiler."""
     os.makedirs(log_dir, exist_ok=True)
+    card = torch.cuda.is_available()
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if card:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(
         activities=activities,
         on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
     ) as prof:
+        # The device's events are traced from a little after the profiler
+        # starts: an idle pause at each edge keeps the region's first and
+        # last kernels inside the window (a replayed epoch's first two
+        # steps were once missing from it).
+        if card:
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
         yield prof
+        if card:
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)

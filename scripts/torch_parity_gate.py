@@ -8,8 +8,9 @@ config's seed, 2022), in config0 and in every configuration the port's
 reference's default shape, config0 with self-attention, bench.py's ACCL
 and CCL rows, complement scope), config0 again at two other engine
 seeds (``SEED_RUNS``: the JAX package's own spread), and config0, the
-headline and the default shape on a (4, 1) mesh of four JAX processes
-(``MESH_RUNS``: on 52,644 x 91,599, one user more, since the JAX engine
+headline, the default shape, the settings of the JAX multihost demo's
+"full" variant and config0 with self-attention on a (4, 1) mesh of four
+JAX processes (``MESH_RUNS``: on 52,644 x 91,599, one user more, since the JAX engine
 needs the data axis to divide the users; each such run records its own
 geometry and checksums), and writes
 ``PARITY_TORCH.json`` at the root of the repository: the JAX version, the
@@ -80,10 +81,19 @@ SEED_RUNS = {"config0_seed2023": ("config0", 2023),
 # geometry (users, items). Each is also a RUNS entry (its overrides).
 MESH_RUNS = {"config0_mesh41": ((4, 1), (52644, 91599)),
              "headline_mesh41": ((4, 1), (52644, 91599)),
-             "default_shape_mesh41": ((4, 1), (52644, 91599))}
+             "default_shape_mesh41": ((4, 1), (52644, 91599)),
+             "full_mesh41": ((4, 1), (52644, 91599)),
+             "config0_self_attention_mesh41": ((4, 1), (52644, 91599))}
 RUNS["config0_mesh41"] = []
 RUNS["headline_mesh41"] = HEADLINE
 RUNS["default_shape_mesh41"] = DEFAULT_SHAPE
+# The settings of the JAX multihost demo's "full" variant
+# (scripts/multihost_demo.py:72-83: Adam, user-attention pools, the tile
+# sampler) at config0's widths, tile and learning rate, in f32.
+RUNS["full_mesh41"] = ["optimizer=adam", "aggregator=user_attention",
+                       "neg_sampler=1", "tile_size=512",
+                       "refresh_interval=8192", "his_refresh=subepoch"]
+RUNS["config0_self_attention_mesh41"] = RUNS["config0_self_attention"]
 
 
 class _Tee(io.TextIOBase):

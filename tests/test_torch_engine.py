@@ -352,15 +352,31 @@ def test_off_slice_settings_are_refused(override, where):
     assert where in str(err.value)
 
 
-def test_mesh_refuses_item_15b_settings():
+def test_mesh_refuses_item_15b_settings(monkeypatch):
     """Meshes run since item 15a (the fast path and sub-epochs since 15b
-    points 1 and 2); the settings outside them are refused by name and
-    point before the mesh is touched (tests/test_torch_mesh.py holds every
-    one on a real mesh)."""
+    points 1 and 2, the slots, accum and attention since points 3 and 4);
+    what 15b still leaves out is refused by name and point before any
+    collective runs: a shard on the sort-dedup path (point 5) and the fused
+    epochs (point 6). A stand-in for a world of one, whose only collective
+    is the gather of the shards' pair counts (tests/test_torch_mesh.py
+    holds every setting on a real mesh)."""
+    import heat_tpu_torch.train.scatter as tsc
+
+    class OneRank:
+        shape, data_index, model_index = (1, 1), 0, 0
+        device = torch.device("cpu")
+
+        def all_gather(self, t, axis):
+            return [t]
+
     train, test = tsynthetic(20, 40, max_his=4, seed=1)
-    with pytest.raises(NotImplementedError, match="item 15b, point 3"):
-        TEngine(CFConfig(max_his=4, optimizer="adam"), train, test,
-                device="cpu", mesh=object())
+    cfg = dict(max_his=4, optimizer="adam", aggregator="user_attention")
+    engine = TEngine(CFConfig(**cfg), train, test, device="cpu", mesh=OneRank())
+    with pytest.raises(NotImplementedError, match=r"item 15b, point 6\)"):
+        engine.train_epochs(1)
+    monkeypatch.setattr(tsc, "DENSE_ROWS_THRESHOLD", 16)
+    with pytest.raises(NotImplementedError, match=r"item 15b, point 5\)"):
+        TEngine(CFConfig(**cfg), train, test, device="cpu", mesh=OneRank())
 
 
 def test_cuda_device_fails_without_cuda():

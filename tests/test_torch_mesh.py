@@ -446,38 +446,52 @@ def test_data_axis_must_divide_users():
         table_shards(FakeMesh(), 131, 256)
 
 
-# What a mesh still refuses, by ROADMAP item 15b's point, alone and on top
-# of the fast path and sub-epochs, which it runs (15b points 1 and 2).
+# Settings a mesh runs since ROADMAP item 15b points 3 and 4 (the attention
+# aggregators, the Adagrad / Adam slots, accum mode), alone and on top of the
+# fast path and sub-epochs (points 1 and 2): each builds on a mesh, and what
+# 15b still leaves out refuses with it by its point.
 TILE_BF16 = {"neg_sampler": 1, "tile_size": 16, "refresh_interval": 64,
              "his_refresh": "subepoch", "param_dtype": "bfloat16",
              "compute_dtype": "bfloat16"}
 REFUSED = [
-    ({"aggregator": "user_attention"}, "attention", 4),
-    ({"aggregator": "self_attention"}, "attention", 4),
+    ({"aggregator": "user_attention"}, "attention"),
+    ({"aggregator": "self_attention"}, "attention"),
     ({**TILE_BF16, "update_mode": "direct", "aggregator": "user_attention"},
-     "attention", 4),
-    ({"shuffle_mode": "none", "aggregator": "self_attention"}, "attention", 4),
-    ({"optimizer": "adam"}, "Adagrad / Adam", 3),
-    ({"optimizer": "adagrad"}, "Adagrad / Adam", 3),
+     "attention"),
+    ({"shuffle_mode": "none", "aggregator": "self_attention"}, "attention"),
+    ({"optimizer": "adam"}, "Adagrad / Adam"),
+    ({"optimizer": "adagrad"}, "Adagrad / Adam"),
     ({**TILE_BF16, "num_subepochs": 2, "optimizer": "adagrad"},
-     "Adagrad / Adam", 3),
-    ({"sgd_mode": "accum"}, "accum", 3),
-    ({"num_subepochs": 2, "sgd_mode": "accum"}, "accum", 3),
-    ({"shuffle_mode": "once", "sgd_mode": "accum"}, "accum", 3),
+     "Adagrad / Adam"),
+    ({"sgd_mode": "accum"}, "accum"),
+    ({"num_subepochs": 2, "sgd_mode": "accum"}, "accum"),
+    ({"shuffle_mode": "once", "sgd_mode": "accum"}, "accum"),
 ]
 
 
-@pytest.mark.parametrize("override,what,point", REFUSED,
+@pytest.mark.parametrize("override,what", REFUSED,
                          ids=[w.replace(" ", "_") + str(i)
-                              for i, (_, w, _) in enumerate(REFUSED)])
-def test_mesh_refuses_item_15b(mesh11, override, what, point):
+                              for i, (_, w) in enumerate(REFUSED)])
+def test_mesh_refuses_item_15b(mesh11, monkeypatch, override, what):
+    """The setting (``what``) builds on a mesh; with it the fused epochs
+    still refuse (point 6), and so does a shard on the sort-dedup path
+    (point 5)."""
+    import heat_tpu_torch.train.scatter as tsc
+
     train, test = synthetic_click_dataset(num_users=20, num_items=40,
                                           max_his=4, seed=1)
-    with pytest.raises(NotImplementedError, match="item 15b") as err:
+    engine = Engine(CFConfig(max_his=4, **override), train, test,
+                    device="cpu", mesh=mesh11)
+    assert engine.shards is not None
+    if what == "attention":
+        assert engine.cfg.aggregator != "mean"
+    with pytest.raises(NotImplementedError, match=r"item 15b, point 6\)"):
+        engine.train_epochs(1)
+    monkeypatch.setattr(tsc, "DENSE_ROWS_THRESHOLD", 16)
+    with pytest.raises(NotImplementedError,
+                       match=r"sort-dedup.*item 15b, point 5\)"):
         Engine(CFConfig(max_his=4, **override), train, test, device="cpu",
                mesh=mesh11)
-    assert what in str(err.value)
-    assert f"item 15b, point {point})" in str(err.value)
 
 
 def test_mesh_refuses_fused_epochs_and_the_sort_dedup(mesh11, monkeypatch):

@@ -203,24 +203,47 @@ def mesh_engine(shape, data_kw: dict, cfg_kw: dict, device: str, data=None):
                   mesh=mesh)
 
 
+def state_digests(state) -> dict:
+    """The SHA-256 of every tensor of a TrainState (a rank's shard): the
+    tables, their accum rows and optimizer slots, ``w0``, ``attn_q`` and
+    their slots, and ``step``, by field or slot name."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(state):
+        value = getattr(state, f.name)
+        if isinstance(value, dict):
+            out.update({k: digest(t) for k, t in value.items()})
+        elif value is not None and f.name != "lr":
+            out[f.name] = digest(value)
+    return out
+
+
 def replica_report(engine) -> dict:
-    """The rank's index and the digests of its shards: user rows equal
-    across each model group, item rows across each data group, ``w0``
-    everywhere."""
-    st, mesh = engine.state, engine.mesh
+    """The rank's index and the digests of every tensor of its shard
+    (:func:`state_digests`): user rows and their accum rows and slots
+    equal across each model group, item rows and theirs across each data
+    group, the replicated rest everywhere."""
+    mesh = engine.mesh
     return {"index": (mesh.data_index, mesh.model_index),
-            "user_emb": digest(st.user_emb), "item_emb": digest(st.item_emb),
-            "w0": digest(st.w0)}
+            **state_digests(engine.state)}
 
 
 def check_replicas(reports: list) -> None:
     """Raise AssertionError unless the ranks' replicas are bit-equal
-    (:func:`replica_report`)."""
-    for key, axis in (("user_emb", 0), ("item_emb", 1), ("w0", None)):
+    (:func:`replica_report`), every tensor by the axis
+    ``parallel.mesh.field_axis`` splits it over."""
+    from heat_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, field_axis
+
+    for key in reports[0]:
+        if key == "index":
+            continue
+        axis = field_axis(key)
         groups: dict = {}
         for r in reports:
-            groups.setdefault(None if axis is None else r["index"][axis],
-                              set()).add(r[key])
+            group = {DATA_AXIS: r["index"][0], MODEL_AXIS: r["index"][1],
+                     None: None}[axis]
+            groups.setdefault(group, set()).add(r[key])
         bad = {g: v for g, v in groups.items() if len(v) != 1}
         if bad:
             raise AssertionError(f"{key} replicas differ: {bad}")
@@ -330,7 +353,9 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
                export_path: Optional[str] = None, serve_users=None,
                all_states: bool = True, step_losses: int = 0,
                profile_last: Optional[str] = None, topk: int = 0,
-               dedup: bool = True, probe_complement: bool = False) -> dict:
+               dedup: bool = True, probe_complement: bool = False,
+               serve_routes: bool = False, pools: bool = False,
+               probe_gacc: bool = False, aggregated_eval: bool = False) -> dict:
     """A rank program: restore from ``restore_dir`` (when given), train
     ``epochs`` epochs (saving a checkpoint into ``save_dir`` after the
     first ``save_after``), evaluate, export (rank 0 writes
@@ -347,7 +372,12 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
     (:func:`generator_digest`), whether the history dedup's maps were in
     use (``dedup_engaged``; ``dedup=False`` turns them off), with
     ``probe_complement`` the steps :class:`ComplementProbe` checked, and
-    the steps of each epoch."""
+    the steps of each epoch. ``serve_routes`` also serves ``serve_users``
+    aggregated and :data:`COLD` cold; ``pools`` returns the pools of the
+    initial state (``Engine._pooled_history``) with the rank's users;
+    ``probe_gacc`` the largest accum row element found before each
+    ``Engine._steps`` call and after the epochs (:class:`GaccProbe`);
+    ``aggregated_eval`` the evaluation with ``aggregate_users=True``."""
     import contextlib
     import time
 
@@ -363,6 +393,10 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
     if not dedup:
         engine._history_dedup = lambda *a, **k: None
     out = {"restored": None}
+    if pools:
+        lo = engine.shards.user_lo
+        out["pools"] = engine._pooled_history().float().cpu().numpy()
+        out["pool_users"] = np.arange(lo, lo + engine.shards.user_rows)
     if restore_dir is not None:
         out["restored"] = CheckpointManager(restore_dir).restore_latest(engine)
     losses = []
@@ -371,10 +405,11 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
     recorder = (StepLosses(step_losses, engine.device) if step_losses
                 else contextlib.nullcontext())
     probe = ComplementProbe() if probe_complement else contextlib.nullcontext()
+    gacc = GaccProbe(engine) if probe_gacc else contextlib.nullcontext()
     epoch_steps = []
     sync()
     t0 = time.perf_counter()
-    with recorder, probe:
+    with recorder, probe, gacc:
         for e in range(epochs):
             before_epoch = int(engine.state.step)
             if profile_last and rank == 0 and e == epochs - 1:
@@ -398,12 +433,17 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
                                 and engine._dedup_cache[2] is not None)
     if probe_complement:
         out["complement_steps"] = probe.steps
+    if probe_gacc:
+        out["gacc_before_steps"] = gacc.before
+        out["gacc_after"] = gacc.largest()
     if step_losses:
         out["step_losses"] = recorder.read()
     if evaluate:
         t0 = time.perf_counter()
         out["metrics"] = engine.evaluate()
         out["eval_s"] = time.perf_counter() - t0
+    if aggregated_eval:
+        out["metrics_aggregated"] = engine.evaluate(aggregate_users=True)
     if topk:
         from heat_tpu_torch.evaluation.evaluator import sharded_topk
 
@@ -421,8 +461,52 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
     if serve_users is not None:
         rec = Recommender.from_engine(engine)
         out["served"] = rec.recommend(list(serve_users), 10)
+        if serve_routes:
+            out["served_aggregated"] = rec.recommend(
+                list(serve_users), 10, aggregate_users=True)
+            out["served_cold"] = rec.recommend_cold(COLD, 10)
     out["backend"] = engine.mesh.backend
     return out
+
+
+# Histories served cold (``Recommender.recommend_cold``) by ``serve_routes``.
+COLD = [[1, 2, 3], [5], [40, 41, 42, 43, 44, 45]]
+
+
+def rank_runs(rank, shape, data_kw, runs: dict, device, **kw) -> dict:
+    """A rank program: :func:`rank_train` for each run of ``runs``, one
+    after the other in one job (the start of a job's processes is most of
+    a small run's time): ``{name: (cfg_kw, epochs, keywords)}``, the
+    keywords over ``kw``. Returns ``{name: its result}``."""
+    return {name: rank_train(rank, shape, data_kw, cfg_kw, epochs, device,
+                             **dict(kw, **extra))
+            for name, (cfg_kw, epochs, extra) in runs.items()}
+
+
+class GaccProbe:
+    """Within a ``with`` block, the largest absolute element of the
+    engine's accum rows (user and item, this rank's shard) before every
+    ``Engine._steps`` call (each sub-epoch's steps), in ``before``: zero
+    wherever the rows were zeroed after the sub-epoch before
+    (engine.cpp:344-347)."""
+
+    def __init__(self, engine):
+        self.engine, self.orig, self.before = engine, engine._steps, []
+
+    def largest(self) -> float:
+        st = self.engine.state
+        return max(float(t.abs().max()) for t in (st.user_gacc, st.item_gacc))
+
+    def steps(self, *args, **kw):
+        self.before.append(self.largest())
+        return self.orig(*args, **kw)
+
+    def __enter__(self):
+        self.engine._steps = self.steps
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._steps = self.orig
 
 
 class PartialMeans:
@@ -470,6 +554,125 @@ class PartialMeans:
         self.aggregator.history_mean_gather = self.orig
 
 
+_KEEP_GRAD = []
+
+
+def _keep_grad():
+    """An identity autograd Function, ``apply(x, store, key)``, whose
+    backward keeps the gradient it passes in ``store[key]`` (built at the
+    first call: the module imports torch lazily)."""
+    if not _KEEP_GRAD:
+        import torch
+
+        class KeepGrad(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, store, key):
+                ctx.store, ctx.key = store, key
+                return x.clone()
+
+            @staticmethod
+            def backward(ctx, g):
+                ctx.store[ctx.key] = g
+                return g, None, None
+
+        _KEEP_GRAD.append(KeepGrad)
+    return _KEEP_GRAD[0]
+
+
+class DataChunks:
+    """Within a ``with`` block, the single-rank ``engine``'s step sums
+    what a mesh's data group sums as the data ranks do. The gradients of
+    ``w0``, of the tile rows and of self-attention's ``attn_q`` become the
+    sum of ``n_data`` partials, one a data shard's columns of the global
+    batch: the step's ``aggregate_history``, ``tile_scores`` and
+    ``pool_history`` are patched (read at call time; a captured step
+    captures the patch) to run on each shard's rows and concatenate, so
+    that autograd adds the shards' gradients. The item table's dense
+    accumulator (``scatter._dense_acc``) becomes the sum of each shard's
+    own (its positives' rows, its samples' negatives' rows or its part of
+    the tile rows' gradient, kept as autograd passes it), as a data rank
+    accumulates its own before ``scatter.apply_row_updates_reduced`` sums
+    them. (Two partials add alike in either order.) Optimizers that
+    divide a gradient by its own size (Adagrad, Adam) turn another
+    summation order into a drift beyond the single-rank runs' spread."""
+
+    def __init__(self, n_data: int, engine):
+        import heat_tpu_torch.train.scatter as sc
+        import heat_tpu_torch.train.train_step as ts
+
+        self.ts, self.sc, self.n, self.engine = ts, sc, n_data, engine
+        self.orig = (ts.aggregate_history, ts.tile_scores, ts.pool_history,
+                     sc._dense_acc)
+        self.tile_grads = {}  # shard: its part of the tile rows' gradient
+
+    def aggregate(self, u, means, w0, gamma, **kw):
+        import torch
+
+        return torch.cat([self.orig[0](a, m, w0, gamma, **kw) for a, m in
+                          zip(u.chunk(self.n), means.chunk(self.n))])
+
+    def tile(self, u_agg, p, n, similarity="cosine"):
+        import torch
+
+        keep = _keep_grad()
+        parts = [self.orig[1](a, q, keep.apply(n, self.tile_grads, s),
+                              similarity=similarity)
+                 for s, (a, q) in enumerate(zip(u_agg.chunk(self.n),
+                                                p.chunk(self.n)))]
+        return (torch.cat([s for s, _ in parts]),
+                torch.cat([t for _, t in parts]))
+
+    def pool(self, his_embs, mask, u=None, attn_q=None, kind="mean"):
+        import torch
+
+        if attn_q is None:  # a per-user query: no sum across the users
+            return self.orig[2](his_embs, mask, u=u, attn_q=attn_q, kind=kind)
+        # The samples', or the distinct users' (the oracle's dedup maps are
+        # laid out shard by shard, Engine._history_dedup), rows.
+        return torch.cat([self.orig[2](e, k, attn_q=attn_q, kind=kind) for e, k
+                          in zip(his_embs.chunk(self.n), mask.chunk(self.n))])
+
+    def dense_acc(self, table, ids, grads):
+        import torch
+
+        from heat_tpu_torch.config import NEG_SAMPLER_TILE
+
+        st, cfg = self.engine.state, self.engine.cfg
+        if table is not st.item_emb:
+            return self.orig[3](table, ids, grads)
+        # The step's item occurrences: B positives, then the T tile slots
+        # or the B x K negatives, sample by sample.
+        tiled = cfg.neg_sampler == NEG_SAMPLER_TILE and st.item_gacc is None
+        k, t = (0, cfg.tile_size) if tiled else (cfg.num_negs, 0)
+        b = (ids.shape[0] - t) // (1 + k)
+        lb = b // self.n
+        acc = None
+        for s in range(self.n):
+            rows = [slice(s * lb, (s + 1) * lb)]
+            if tiled:  # the shard's part of the tile's gradient
+                own = [grads[rows[0]], self.tile_grads[s].to(grads.dtype)]
+                rows.append(slice(b, None))
+            else:
+                rows.append(slice(b + s * lb * k, b + (s + 1) * lb * k))
+                own = [grads[r] for r in rows]
+            part = self.orig[3](table, torch.cat([ids[r] for r in rows]),
+                                torch.cat(own))
+            acc = part if acc is None else acc + part
+        return acc
+
+    def __enter__(self):
+        ts, sc = self.ts, self.sc
+        ts.aggregate_history, ts.tile_scores, ts.pool_history = (
+            self.aggregate, self.tile, self.pool)
+        sc._dense_acc = self.dense_acc
+        return self
+
+    def __exit__(self, *exc):
+        ts, sc = self.ts, self.sc
+        (ts.aggregate_history, ts.tile_scores, ts.pool_history,
+         sc._dense_acc) = self.orig
+
+
 def rank_world_of_one(rank, data_kw, cfg_kw, device, step_losses,
                       plain_runs: int = 3) -> dict:
     """A rank program for a world of one: an all-reduce over the job's
@@ -514,14 +717,19 @@ def rank_world_of_one(rank, data_kw, cfg_kw, device, step_losses,
 
 def train_oracle(n_data, data_kw, cfg_kw, epochs, device, *,
                  restore_dir: Optional[str] = None, evaluate: bool = True,
-                 data=None, step_losses: int = 0, n_model: int = 1) -> dict:
+                 data=None, step_losses: int = 0, n_model: int = 1,
+                 pools: bool = False, aggregated_eval: bool = False,
+                 dedup: bool = True) -> dict:
     """The single-rank counterpart of :func:`rank_train`: one engine over
     all the data that steps the global batches of an ``n_data``-row mesh
     with its draws (``Engine._shard_stream``; on a card each step a replay of
     the captured step). Returns its losses, metrics, state, restored
     epoch and, with ``step_losses``, every step's loss. ``n_model`` > 1
     pools the history means in the mesh's partial sums
-    (:class:`PartialMeans`)."""
+    (:class:`PartialMeans`); ``n_data`` > 1 takes the gradients the data
+    group sums as the sum of the data shards' partials
+    (:class:`DataChunks`). ``pools``, ``aggregated_eval`` and ``dedup``
+    as :func:`rank_train` takes them."""
     import contextlib
 
     from heat_tpu_torch.checkpoint import CheckpointManager
@@ -532,18 +740,26 @@ def train_oracle(n_data, data_kw, cfg_kw, epochs, device, *,
     train, test = make_data(data_kw) if data is None else data
     engine = Engine(CFConfig(**cfg_kw), train, test, device=device)
     engine._shard_stream(n_data)
+    if not dedup:
+        engine._history_dedup = lambda *a, **k: None
     out = {"restored": None, "w0_start": engine.state.w0.cpu().numpy().copy()}
+    if pools:
+        out["pools"] = engine._pooled_history().float().cpu().numpy()
     if restore_dir is not None:
         out["restored"] = CheckpointManager(restore_dir).restore_latest(engine)
     recorder = (StepLosses(step_losses, engine.device) if step_losses
                 else contextlib.nullcontext())
     means = PartialMeans(n_model) if n_model > 1 else contextlib.nullcontext()
-    with recorder, means:
+    chunks = (DataChunks(n_data, engine) if n_data > 1
+              else contextlib.nullcontext())
+    with recorder, means, chunks:
         out["losses"] = [engine.train_one_epoch() for _ in range(epochs)]
     if step_losses:
         out["step_losses"] = recorder.read()
     if evaluate:
         out["metrics"] = engine.evaluate()
+    if aggregated_eval:
+        out["metrics_aggregated"] = engine.evaluate(aggregate_users=True)
     out["state"] = state_to_numpy(engine.state)
     out["generators"] = generator_digest(engine)
     return out
@@ -628,9 +844,10 @@ def rank_steps_injected(rank, shape, arrays: dict, cfg_kw: dict, steps: int,
     ``tests/test_torch_fastpath.py`` ``pinned_tiles`` pins one rank. The
     tables take the config's ``param_dtype``; with ``pools`` each step
     reads the pools the engine's refresh computes before it
-    (``Engine._pooled_history``'s arithmetic). Returns the global state
-    after the steps (numpy), the losses, the counters and the replica
-    digests."""
+    (``Engine._pooled_history``'s arithmetic). ``arrays`` may also hold
+    the state's ``user_gacc`` / ``item_gacc``, ``opt_slots`` (a dict) and
+    ``attn_q``. Returns the global state after the steps (numpy), the
+    losses, the counters and the replica digests."""
     import torch
 
     from heat_tpu_torch.config import CFConfig
@@ -649,9 +866,11 @@ def rank_steps_injected(rank, shape, arrays: dict, cfg_kw: dict, steps: int,
     a = arrays
     sh = table_shards(mesh, a["user_emb"].shape[0], a["item_emb"].shape[0])
     dev = mesh.device
-    state = state_from_numpy(a["user_emb"], a["item_emb"], a["w0"],
-                             lr=cfg.l_r, step=0, device=dev, shards=sh,
-                             param_dtype=torch_dtype(cfg.param_dtype))
+    state = state_from_numpy(
+        a["user_emb"], a["item_emb"], a["w0"], lr=cfg.l_r, step=0,
+        device=dev, shards=sh, param_dtype=torch_dtype(cfg.param_dtype),
+        user_gacc=a.get("user_gacc"), item_gacc=a.get("item_gacc"),
+        opt_slots=a.get("opt_slots"), attn_q=a.get("attn_q"))
     cfg.num_items = a["item_emb"].shape[0]
     sampler = init_sampler_state(cfg, dev, torch.Generator(device=dev))
     tiled = "tiles" in a
@@ -696,6 +915,4 @@ def rank_steps_injected(rank, shape, arrays: dict, cfg_kw: dict, steps: int,
     return {"state": state_to_numpy(state, sh), "losses": losses,
             "iterations": int(sampler.iterations),
             "replicas": {"index": (mesh.data_index, mesh.model_index),
-                         "user_emb": digest(state.user_emb),
-                         "item_emb": digest(state.item_emb),
-                         "w0": digest(state.w0)}}
+                         **state_digests(state)}}
