@@ -215,7 +215,28 @@ bit-equal, the sharded top-k against ``TiledEvaluator.topk`` tie aware,
 the checkpoint resumed on one rank and on (4, 1) (``check_mesh_engine``);
 (c) ``make_mesh(1, 1)`` through NCCL against ORACLE_RUNS mesh-less engines
 (``check_mesh_nccl``); and a ``{"mesh": ...}`` line of each phase's wall,
-collectives a step and idle share.
+collectives a step and idle share. ROADMAP item 15b adds (d)-(i) (the
+fast path, sub-epochs, slots, accum and attention on the mesh) and, for
+points 5 and 6: (j) two (2, 1) ranks at 10M x 6M, both shards above the
+real DENSE_ROWS_THRESHOLD on the sort-dedup update, in bench_large's bf16
+settings and BASELINE.json config 5's f32 model, against single-rank
+runs, each rank's peak memory at init within its shard, its data and one
+draw block (``check_mesh_sorted_huge``), with K3 and S1 at those shapes
+against their plain versions (``check_mesh_kernels_sorted``) and the
+four-chip cell's reckoning (``synthetic100m_reckoning``); (k) config0 on
+(4, 1) with the threshold at 8,192 rows in the ranks, gated to the JAX
+package's (4, 1) run at that threshold, and in its job the CLI's
+``--fused-epochs 2`` and ``--fused-run`` against plain runs
+(``check_mesh_sorted_gate``); (l) ``train_epochs`` and
+``run_epochs_with_eval`` captured over NCCL at (1, 1), and one collective
+captured and replayed, in (c)'s job (``check_mesh_nccl_captured``).
+(k)'s and (a)'s ranks run beside phases 4-6 (after the kernels are
+timed), (c)'s beside (b), and (j)'s ranks beside the (f) and (i) jobs,
+which run as a pair: their ranks step eagerly through gloo and leave the
+card idle most of the time, and the checks that capture graphs in this
+process run one after the other.
+Each phase's start is printed as it starts, and all of them on a
+``{"phase_start_s": ...}`` line before the kernels' line.
 
 9. the kernels' JSON line (each instance with its launches on its own main
    path: f32 on config0, bf16 on the headline run, K2's single entry on
@@ -316,6 +337,9 @@ GATED_RUNS = {
                     "neg_sampler=1", "tile_size=512", "refresh_interval=8192",
                     "his_refresh=subepoch"],
     "config0_self_attention_mesh41": CONFIG0_SELF,
+    # config0 on (4, 1), both shards on the sort-dedup update:
+    # check_mesh_sorted_gate
+    "config0_sorted_mesh41": [],
 }
 APPROX_RECALL = 0.95  # --eval-approx, and exact=False against exact
 # K4's timed launches rotate over buffers (scores, window ids, outputs) of
@@ -3821,12 +3845,13 @@ def trace_busy(trace_dir: Path) -> dict:
     return mesh_support().trace_summary(path)
 
 
-def held_to_spread(what, got, oracles) -> dict:
+def held_to_spread(what, got, oracles, floor: float = 0.0) -> dict:
     """``check_resume_cli``'s rule against K3's atomics: ``got`` (a tensor
     of step losses or a table) lies within SPREAD_RULE times the rms spread
     pooled over the pairs of ``oracles`` (ORACLE_RUNS single-rank runs on
     the same batches and draws), its own distance pooled over its pairs
-    with them."""
+    with them; or within ``floor`` of them, where the mesh sums something
+    in another order by design (a step's loss over the ranks)."""
     import torch
 
     got = torch.as_tensor(got)
@@ -3835,7 +3860,9 @@ def held_to_spread(what, got, oracles) -> dict:
     diff, diff_max = pooled_rms_diff([(got, o) for o in oracles])
     out = {"spread_rms": spread, "rms": diff, "spread_max": spread_max,
            "max": diff_max, "ratio": diff / spread if spread else None}
-    if not diff <= SPREAD_RULE * spread:
+    if floor:
+        out["floor"] = floor
+    if not diff <= max(SPREAD_RULE * spread, floor):
         raise AssertionError(
             f"{what}: {diff} (rms over its pairs) from the single-rank runs, "
             f"more than {SPREAD_RULE} x their spread {spread}")
@@ -3859,18 +3886,44 @@ def check_mesh_launches(launches: dict, steps: int, evals: int) -> None:
         raise AssertionError(f"(4, 1) CLI launched a bf16 kernel: {launches}")
 
 
-def check_mesh_cli(dev, cli) -> dict:
-    """(a) The CLI on a (4, 1) mesh: four ranks on the card through gloo,
-    launched by ``torch.distributed.run``, config0's schedule on
-    MESH_SYNTHETIC with the export, rank 0's kernel launches
-    (``--kernel-launches``) and its trace of the second epoch (its device
-    time and collectives).
+def mesh_cli_argv(dev) -> list:
+    """(a)'s CLI arguments: config0 on MESH_SYNTHETIC on ``dev``."""
+    return ["--config", CONFIG0, "--synthetic",
+            ",".join(map(str, MESH_SYNTHETIC)), "--device", dev.type]
+
+
+def mesh_cli_job(dev) -> tuple:
+    """(a)'s ranks: the CLI on a (4, 1) mesh, four ranks on the card through
+    gloo launched by ``torch.distributed.run``, with the export, rank 0's
+    kernel launches and its trace of the second epoch (no CUDA work in
+    this process: it may run beside the main thread's). Returns the
+    finished process and its wall seconds."""
+    import shutil
+
+    root = Path(__file__).resolve().parent
+    shutil.rmtree(MESH_TRACE, ignore_errors=True)
+    env = dict(__import__("os").environ)
+    env["PYTHONPATH"] = str(root) + ":" + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "heat_tpu_torch.main",
+         *mesh_cli_argv(dev), "--export-embeddings", str(EXPORT_MESH),
+         "--kernel-launches", "--profile-dir", str(MESH_TRACE)],
+        capture_output=True, text=True, timeout=MESH_TIMEOUT, cwd=root, env=env)
+    return proc, time.perf_counter() - t0
+
+
+def check_mesh_cli(dev, cli, job) -> dict:
+    """(a) The CLI on a (4, 1) mesh (:func:`mesh_cli_job`'s ``job``):
+    config0's schedule on MESH_SYNTHETIC with the export, rank 0's kernel
+    launches (``--kernel-launches``) and its trace of the second epoch
+    (its device time and collectives).
     Recall@20 and NDCG@50 within 0.0003 of the JAX package's (4, 1) run
     (PARITY_TORCH.json ``config0_mesh41``, whose data checksums must be
     this data's) and of the port's single-rank run of the same data in
     this call; the export served, its Recall@20 the run's within 1e-5."""
     import re
-    import shutil
 
     import numpy as np
 
@@ -3883,20 +3936,8 @@ def check_mesh_cli(dev, cli) -> dict:
     cfg, _, (train, test) = mesh_data()
     record = parity.load_parity()
     data = parity.check_run_data(record, MESH_RUN, train, test)
-    root = Path(__file__).resolve().parent
-    shutil.rmtree(MESH_TRACE, ignore_errors=True)
-    argv = ["--config", CONFIG0, "--synthetic",
-            ",".join(map(str, MESH_SYNTHETIC)), "--device", dev.type]
-    env = dict(__import__("os").environ)
-    env["PYTHONPATH"] = str(root) + ":" + env.get("PYTHONPATH", "")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "4", "-m", "heat_tpu_torch.main", *argv,
-         "--export-embeddings", str(EXPORT_MESH), "--kernel-launches",
-         "--profile-dir", str(MESH_TRACE)],
-        capture_output=True, text=True, timeout=MESH_TIMEOUT, cwd=root, env=env)
-    wall = time.perf_counter() - t0
+    argv = mesh_cli_argv(dev)
+    proc, wall = job
     text = proc.stdout
     if proc.returncode:
         raise AssertionError(f"the (4, 1) CLI exited {proc.returncode}:\n"
@@ -4765,16 +4806,20 @@ def check_mesh_engine(dev) -> dict:
 def check_mesh_nccl(dev) -> dict:
     """(c) NCCL at a world of one: ``Engine(mesh=make_mesh(1, 1))`` on the
     card in a process of its own (the backend must be nccl), one epoch
-    and an evaluation, against ORACLE_RUNS mesh-less engines in the same process
-    by :func:`held_to_spread` (step losses, tables); the metrics beside
-    theirs."""
+    (each step a replay: NCCL is captured) and an evaluation, against
+    ORACLE_RUNS mesh-less engines in the same process by
+    :func:`held_to_spread` (step losses, tables); the metrics beside
+    theirs. The same job runs (l)'s captured epochs
+    (:func:`check_mesh_nccl_captured`)."""
     mc = mesh_support()
     cfg, data_kw, _ = mesh_data()
     t0 = time.perf_counter()
     (res,) = mc.spawn_ranks(mc.rank_world_of_one, 1, data_kw,
                             __import__("dataclasses").asdict(cfg), dev.type,
                             MESH_STEPS, ORACLE_RUNS, device=dev.type,
-                            timeout=MESH_TIMEOUT)
+                            timeout=MESH_TIMEOUT,
+                            capture_epochs=CAPTURE_EPOCHS,
+                            capture_runs=CAPTURE_REFS)
     wall = time.perf_counter() - t0
     if res["backend"] != "nccl":
         raise AssertionError(f"(1, 1) on the card: backend {res['backend']}")
@@ -4793,7 +4838,461 @@ def check_mesh_nccl(dev) -> dict:
     out["metric_gaps"] = {m: max(abs(p["metrics"][m] - v) for p in plain)
                           for m, v in mesh["metrics"].items()}
     print(f"mesh (c), NCCL at a world of one: {json.dumps(out)}")
+    out["captured"] = check_mesh_nccl_captured(res)
     return out
+
+
+# ROADMAP item 15b point 5 on the card: (j) the sort-dedup update of shards
+# above the real DENSE_ROWS_THRESHOLD (4,194,304 rows), nothing lowered. A
+# (2, 1) mesh of two gloo ranks on 10M users x 6M items: each rank holds a
+# 5M-row user shard and the whole 6M-row item table; uniform clicks and
+# histories (``torch_mesh_support.uniform_data``, each rank drawing only
+# its rows), one epoch of HUGE_MESH_STEPS global batches.
+HUGE_MESH = (10_000_000, 6_000_000)
+HUGE_MESH_STEPS = {"bench_bf16": 200, "s100m_f32": 150}
+HUGE_MESH_ORACLES = 4  # single-rank runs a (j) run is held to (6 pairs)
+HUGE_SAMPLE_ROWS = 97  # every 97th row of the tables is compared
+SYNTHETIC100M = "benchmarks/Synthetic100M/config0.yaml"
+
+
+def huge_mesh_runs() -> dict:
+    """(j)'s runs: {name: (config keywords, data keywords)}: bench_large's
+    bf16 settings (d = 64, K = 16, H = 10, batch 32,768, the tile of
+    "auto" at this batch (128) refreshed every 32,768 samples, cached
+    pools, bf16, the sort-dedup update), and BASELINE.json config 5's f32
+    model (``benchmarks/Synthetic100M/config0.yaml``: d = 128, K = 16, H =
+    100, batch 65,536, tile 4,096 refreshed every 8,192 samples, pools)."""
+    import dataclasses
+
+    from heat_tpu_torch import bench_large
+    from heat_tpu_torch.config import load_config
+
+    bench = bench_large.make_config(bench_large._parser().parse_args(
+        ["--tile", str(BIG_TILE)]))
+    s100m, _ = load_config(SYNTHETIC100M)
+    out = {}
+    for name, cfg in (("bench_bf16", bench), ("s100m_f32", s100m)):
+        clicks = HUGE_MESH_STEPS[name] * cfg.batch_size
+        out[name] = (dataclasses.asdict(cfg), {"uniform": dict(
+            users=HUGE_MESH[0], items=HUGE_MESH[1], clicks=clicks,
+            max_his=cfg.max_his, seed=7)})
+    return out
+
+
+def shard_reckoning(cfg_kw: dict, shards) -> dict:
+    """A rank's bytes by the code, for ``shards`` (user rows, item rows):
+    its state (the user shard and its item rows in the tables' type,
+    ``w0``, ``lr`` and ``step``; SGD, so no slots), the pools
+    (his_refresh: subepoch) of its users, and the largest draw block of
+    the blocked initial draw (f32, ``models.state.INIT_BLOCK_ROWS``
+    rows): the rank's histories and pairs come on top."""
+    from heat_tpu_torch.models import state
+
+    d = cfg_kw["emb_dim"]
+    elem = 2 if cfg_kw["param_dtype"] == "bfloat16" else 4
+    return {"state_bytes": (shards[0] + shards[1]) * d * elem + d * d * 4 + 8,
+            "pools_bytes": shards[0] * d * elem,
+            "draw_block": state.INIT_BLOCK_ROWS * d * 4,
+            "global_tables_bytes": (HUGE_MESH[0] + HUGE_MESH[1]) * d * elem}
+
+
+def synthetic100m_reckoning() -> dict:
+    """BASELINE.json config 5 (``benchmarks/Synthetic100M/config0.yaml``:
+    100M users x 10M items, d = 128, f32, H = 100, batch 65,536, tile
+    4,096, his_refresh: subepoch) on a (4, 1) mesh: a rank's device bytes
+    by the code, on the data ``--synthetic 100000000,10000000`` would make
+    (``data.synthetic``: 48 clicks a user at 10M items, 36 of them train).
+    Its 25M-row user shard, the 10M-row item table, the pools of its
+    users, its histories and lengths, its pairs and the grow-only stream
+    buffers (users, items, weights), one epoch permutation (every rank
+    draws every shard's and keeps its own), the sort-dedup update's
+    buffers (the all-gather of the data group's occurrences and tile
+    parts, the concatenated occurrences, their segment sums and the
+    broadcast rows), and the init: before the blocked draw, the global
+    tables in f32 beside the shards cut from them; after it, the shards
+    and one draw block."""
+    from heat_tpu_torch.config import load_config
+    from heat_tpu_torch.models import state
+    from heat_tpu_torch.parallel.mesh import sharded_item_rows
+
+    cfg, _ = load_config(SYNTHETIC100M)
+    users, items, n = 100_000_000, 10_000_000, 4
+    d, h, t = cfg.emb_dim, cfg.max_his, cfg.tile_size
+    b = cfg.batch_size // n
+    clicks = users * 36 // n  # a rank's train pairs
+    u_rows, i_rows = users // n, sharded_item_rows(items, 1)
+    m = b + t  # a rank's occurrences: its positives, then the tile slots
+    shards = (u_rows + i_rows) * d * 4
+    out = {
+        "user_shard": u_rows * d * 4, "item_table": i_rows * d * 4,
+        "pools": u_rows * d * 4, "histories": u_rows * (h + 1) * 4,
+        "pairs": clicks * 8, "stream_buffers": clicks * 12,
+        "epoch_permutation": clicks * 4,
+        "sorted_update": (n * 4 * (m * d + d * d + 1 + b)  # the gathered buffers
+                          + 3 * (n * b + t) * d * 4),  # rows, sums, broadcast
+        "draw_block": state.INIT_BLOCK_ROWS * d * 4,
+        "init_before": (users + items) * d * 4 + shards,
+        "init_after": shards + state.INIT_BLOCK_ROWS * d * 4,
+    }
+    out["held"] = sum(out[k] for k in ("user_shard", "item_table", "pools",
+                                       "histories", "pairs", "stream_buffers"))
+    return out
+
+
+def check_mesh_kernels_sorted(dev, entries: dict, name: str, cfg_kw: dict) -> dict:
+    """K3 and S1 at the shapes (j)'s run ``name`` gives them on the
+    sort-dedup update of its shards, against their plain versions: K3's
+    segment sums of the data group's gathered occurrences (2 b positives
+    and T tile slots) into (2 b + T, d) f32; K3's update entry on the
+    6M-row item table at the first rank's unique ids (l2 first, the
+    sentinel tail dropped); S1 as the other rank writes the first rank's
+    rows of those occurrences (repeated ids carry equal rows); S1's
+    update entry on a 5M-row user shard with the write-back fused. Timed
+    with the suffix ``_mesh_sorted_<name>``."""
+    import torch
+
+    from heat_tpu_torch.train import scatter as tsc
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    d, dtype = cfg_kw["emb_dim"], torch.float32
+    if cfg_kw["param_dtype"] == "bfloat16":
+        dtype = torch.bfloat16
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    b, t = cfg_kw["batch_size"] // 2, cfg_kw["tile_size"]
+    m = 2 * b + t
+    key = f"_mesh_sorted_{name}"
+    ids = torch.randint(0, HUGE_MESH[1], (m,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[b - b // 16: b] = HUGE_MESH[1]  # a weight-0 tail: the sentinel
+    grads = torch.randn(m, d, generator=g, device=dev).mul_(1e-2)
+    order, seg, rep_ids = tsc._sort_segments(ids, HUGE_MESH[1])
+    seg_of = torch.empty_like(seg, dtype=torch.int32).scatter_(
+        0, order, seg.to(torch.int32))
+    check_scatter_add(entries["scatter_add_rows"], key,
+                      torch.zeros(m, d, device=dev), seg_of, grads)
+    summed = tsc._segment_sum(order, seg, grads)
+    items = torch.randn(HUGE_MESH[1], d, generator=g, device=dev).mul_(
+        1e-2).to(dtype)
+    lr = torch.tensor([cfg_kw["l_r"]], device=dev)
+    check_add_update(entries["scatter_add_update" + suffix], key, items,
+                     rep_ids, summed, lr, cfg_kw["clip_val"], l2=1e-4,
+                     clip_first=False)
+    rows = tsc.gather_rows(items, ids)
+    check_scatter_set_at(entries["scatter_set_rows" + suffix], key, items,
+                         ids, rows)
+    del items, rows
+    users = torch.randn(HUGE_MESH[0] // 2, d, generator=g, device=dev).mul_(
+        1e-2).to(dtype)
+    uids = torch.randint(0, HUGE_MESH[0] // 2, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+    u_rep, u_sum, base = tsc._sorted_dedup_with_base(
+        uids, grads[:b], users.shape[0],
+        torch.randn(b, d, generator=g, device=dev).mul_(1e-2).to(dtype))
+    check_set_update(entries["scatter_set_update" + suffix], key, users, u_rep,
+                     base, u_sum, lr, cfg_kw["clip_val"])
+    del users
+    torch.cuda.empty_cache()
+    return {"occurrences": m, "unique_item_ids": int((rep_ids < HUGE_MESH[1]).sum())}
+
+
+def mesh_sorted_huge_job(dev):
+    """(j)'s ranks: both runs of :func:`huge_mesh_runs` in one job of two
+    gloo ranks on the card, one epoch each (no CUDA work in this process:
+    it may run beside the main thread's). Returns the ranks' results and
+    the job's wall seconds."""
+    from heat_tpu_torch.train import scatter as tsc
+
+    runs = huge_mesh_runs()
+    if min(HUGE_MESH[0] // 2, HUGE_MESH[1]) <= tsc.DENSE_ROWS_THRESHOLD:
+        raise AssertionError("(j): a shard at or below the threshold")
+    t0 = time.perf_counter()
+    ranks = mesh_support().spawn_ranks(
+        mesh_support().rank_runs, 2, (2, 1), {},
+        {name: (cfg_kw, 1, {"data_kw": data_kw}) for name, (cfg_kw, data_kw)
+         in runs.items()},
+        dev.type, device=dev.type, timeout=MESH_TIMEOUT, evaluate=False,
+        step_losses=max(HUGE_MESH_STEPS.values()) + 1,
+        sample_rows=HUGE_SAMPLE_ROWS)
+    return ranks, time.perf_counter() - t0
+
+
+def check_mesh_sorted_huge(dev, job) -> dict:
+    """(j) The sort-dedup shards at the real threshold (module constants
+    above), from :func:`mesh_sorted_huge_job`'s ``job``: each run against
+    HUGE_MESH_ORACLES single-rank runs laid out as the two data shards
+    (``Engine._shard_stream(2)``, the data shards' parts summed in the
+    mesh's order) by :func:`held_to_spread`: step losses, both tables,
+    ``w0``. Replicas bit-equal (SHA-256), the ranks' generators equal;
+    rank 0 (the data group's first) launches per step the segment sums of
+    both tables (K3 twice), the item update (K3's update entry), the user
+    update with the write-back fused (S1's update entry) and the touched
+    rows' read (K2), rank 1 the write of them (S1). Each rank's peak of
+    allocated bytes after its engine's construction at or below
+    :func:`shard_reckoning`'s tables, data and one draw block (1% over for
+    the allocator's rounding; a global table would exceed it by GBs),
+    printed beside its peak over the epoch. (K3 and S1 at these shapes:
+    :func:`check_mesh_kernels_sorted`, timed with the card to itself.)"""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.parallel.mesh import sharded_item_rows
+
+    mc = mesh_support()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh (j), the four-chip cell's reckoning, bytes a (4, 1) rank "
+          f"holds: {json.dumps(synthetic100m_reckoning())}")
+    runs = huge_mesh_runs()
+    t0 = time.perf_counter()
+    ranks, wall = job
+    out = {"job_wall_s": wall}
+    before = [{}, {}]
+    for name, (cfg_kw, data_kw) in runs.items():
+        results = [r[name] for r in ranks]
+        mc.check_replicas([r["replicas"] for r in results])
+        if len({json.dumps(r["generators"]) for r in results}) != 1:
+            raise AssertionError(f"(j) {name}: the ranks' generators differ")
+        if {r["backend"] for r in results} != {"gloo"} or any(
+                r.get("capture") for r in results):
+            raise AssertionError(f"(j) {name}: not eager gloo ranks")
+        launches = []
+        for i, r in enumerate(results):
+            launches.append({k: n - before[i].get(k, 0)
+                             for k, n in r["launches"].items()})
+            before[i] = r["launches"]
+        steps = results[0]["steps"]
+        suffix = "_bf16" if cfg_kw["param_dtype"] == "bfloat16" else ""
+        want0 = {"scatter_add_rows": 2 * steps, "scatter_add_update" + suffix: steps,
+                 "scatter_set_update" + suffix: steps, "gather_rows" + suffix: steps}
+        want1 = {"scatter_set_rows" + suffix: steps}
+        for i, want in ((0, want0), (1, want1)):
+            if steps < HUGE_MESH_STEPS[name] or any(
+                    launches[i][k] < n for k, n in want.items()):
+                raise AssertionError(f"(j) {name}: rank {i} launched "
+                                     f"{launches[i]} over {steps} steps, "
+                                     f"expected at least {want}")
+        reck = shard_reckoning(cfg_kw, (HUGE_MESH[0] // 2,
+                                        sharded_item_rows(HUGE_MESH[1], 1)))
+        peaks = [{"init": r["peak_init_bytes"], "epoch": r["peak_bytes"],
+                  "held_init": r["held_init"], "held": r["held"]} for r in results]
+        for i, p in enumerate(peaks):
+            if abs(p["held_init"]["state"] - reck["state_bytes"]) > 1024:
+                raise AssertionError(
+                    f"(j) {name}: rank {i} holds {p['held_init']['state']} "
+                    f"bytes of state, its shard {reck['state_bytes']}")
+            bound = reck["state_bytes"] + p["held_init"]["data"] + reck["draw_block"]
+            p["init_bound"] = bound
+            if p["init"] > 1.01 * bound:
+                raise AssertionError(
+                    f"(j) {name}: rank {i} peaked at {p['init']} bytes at init, "
+                    f"over its shard, its data and one draw block: {bound}")
+        t1 = time.perf_counter()
+        data = mc.uniform_data(**data_kw["uniform"])
+        oracles = [mc.train_oracle(2, {}, cfg_kw, 1, dev.type, data=data,
+                                   evaluate=False,
+                                   step_losses=HUGE_MESH_STEPS[name] + 1,
+                                   sample_rows=HUGE_SAMPLE_ROWS)
+                   for _ in range(HUGE_MESH_ORACLES)]
+        del data
+        head = results[0]
+        # Each step's loss is summed over the two ranks, in another order
+        # than one rank's sum of its B terms: two f32 sums of B positive
+        # terms in pairwise orders part by at most 2 log2(B) 2^-24 of the
+        # sum, and the floor is twice that of the losses' rms (calls 2 and 5
+        # read 1.8e-6 of it beside the oracles' spread); a table that
+        # parted is held by its own rule below.
+        sl = np.asarray(head["step_losses"], np.float64)
+        floor = (4 * math.log2(cfg_kw["batch_size"]) * 2.0**-24
+                 * float(np.sqrt((sl ** 2).mean())))
+        held = {"step_losses": held_to_spread(
+            f"(j) {name} step losses", head["step_losses"],
+            [o["step_losses"] for o in oracles], floor=floor)}
+        for key in ("user_emb", "item_emb", "w0"):
+            held[key] = held_to_spread(f"(j) {name} {key}", head["state"][key],
+                                       [o["state"][key] for o in oracles])
+        for r in results:
+            r.pop("state", None)
+        out[name] = {"steps": steps, "losses": head["losses"],
+                     "oracle_losses": [o["losses"] for o in oracles],
+                     "train_s": [r["train_s"] for r in results],
+                     "oracles_s": time.perf_counter() - t1,
+                     "held": held, "launches_rank0": launches[0],
+                     "launches_rank1": launches[1], "peaks": peaks,
+                     "reckoning": reck}
+        del oracles
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not np.isfinite(head["losses"]).all():
+            raise AssertionError(f"(j) {name}: losses {head['losses']}")
+        print(f"mesh (j), {name} on (2, 1) at {HUGE_MESH[0]:,} x "
+              f"{HUGE_MESH[1]:,}: {json.dumps(out[name])}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+MESH_SORTED_RUN = "config0_sorted_mesh41"  # PARITY_TORCH.json, JAX on (4, 1)
+MESH_SORTED_ROWS = 8192  # DENSE_ROWS_THRESHOLD inside the ranks of (k)
+FUSED_CLI_SYNTHETIC = "4000,6000"  # (l)'s CLI runs: 3 epochs at a small size
+FUSED_CLI_PLAIN = 5  # plain CLI runs whose spread the fused ones are held to
+
+
+def check_mesh_sorted_gate(dev, cli_argv) -> dict:
+    """(k) and the gloo half of (l), in one job of four ranks on the card
+    through gloo: (k) an Engine run on a (4, 1) mesh over MESH_SYNTHETIC,
+    config0 for the epochs of the JAX run MESH_SORTED_RUN, with
+    DENSE_ROWS_THRESHOLD at MESH_SORTED_ROWS inside the ranks (13,161-row
+    user shards and the 91,648-row item table, both above it, on the
+    sort-dedup update; the JAX package sorts both global tables at that
+    threshold), Recall@20 and NDCG@50 within the band of the JAX run's
+    (``parity.gate``); rank 0's launches show both sorted updates every
+    step. Then the CLI on (4, 1) (``cli_argv``: FUSED_CLI_PLAIN plain runs,
+    ``--fused-epochs 2`` and ``--fused-run``): each fused run's losses and
+    final metrics within SPREAD_RULE times the plain runs' pooled spread
+    (K3's atomics), its printed lines the plain run's in number and
+    kind."""
+    import dataclasses
+
+    import numpy as np
+
+    from heat_tpu_torch import parity
+
+    mc = mesh_support()
+    cfg, data_kw, (train, test) = mesh_data()
+    record = parity.load_parity()
+    data = parity.check_run_data(record, MESH_SORTED_RUN, train, test)
+    del train, test
+    run = record["runs"][MESH_SORTED_RUN]
+    if run["dense_rows_threshold"] != MESH_SORTED_ROWS:
+        raise AssertionError(f"(k): the JAX run's threshold {run}")
+    cfg_kw = dict(dataclasses.asdict(cfg), **overrides_of(run["overrides"]))
+    epochs = cfg_kw["epochs"]
+    argvs = ([cli_argv] * FUSED_CLI_PLAIN
+             + [cli_argv + ["--fused-epochs", "2"], cli_argv + ["--fused-run"]])
+    t0 = time.perf_counter()
+    ranks = mc.spawn_ranks(mc.rank_calls, 4, [
+        ("rank_train", ((4, 1), data_kw, cfg_kw, epochs, dev.type),
+         {"dense_rows": MESH_SORTED_ROWS, "all_states": False,
+          "fused": "epochs"}),
+        ("rank_clis", (argvs,), {})], device=dev.type, timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    gate_run, clis = ranks[0]
+    mc.check_replicas([r[0]["replicas"] for r in ranks])
+    steps = gate_run["steps"]
+    launches = gate_run["launches"]
+    want = {"scatter_add_update": steps, "scatter_set_update": steps,
+            "scatter_add_rows": 2 * steps}
+    if any(launches[k] < n for k, n in want.items()):
+        raise AssertionError(f"(k): rank 0 launched {launches} over {steps} "
+                             f"steps, expected at least {want}")
+    # (l), gloo: the fused CLI runs against the plain ones.
+    def numbers(c):
+        rec = c["record"]
+        return np.asarray(rec["losses"] + [rec["final_metrics"][m] for m in
+                                           parity.GATED_METRICS])
+
+    def kinds(c):
+        return [ln.split(":")[0] for ln in c["printed"]]
+
+    plain = clis[:FUSED_CLI_PLAIN]
+    fused = {"fused_epochs_2": clis[FUSED_CLI_PLAIN],
+             "fused_run": clis[FUSED_CLI_PLAIN + 1]}
+    held = {}
+    for name, c in fused.items():
+        if kinds(c) != kinds(plain[0]):
+            raise AssertionError(f"(l) CLI {name} printed {c['printed']}, the "
+                                 f"plain run {plain[0]['printed']}")
+        held[name] = held_to_spread(f"(l) (4, 1) CLI {name}", numbers(c),
+                                    [numbers(p) for p in plain])
+    print(f"mesh (l), the CLI's fused flags on (4, 1) through gloo: "
+          f"{json.dumps(held)}; (k) in {wall:.1f} s: {gate_run['metrics']}")
+    gate = parity.gate(record, MESH_SORTED_RUN, gate_run["metrics"],
+                       parity.BANDS[MESH_SORTED_RUN])
+    out = {"job_wall_s": wall, "gate": {
+        "steps": steps, "losses": gate_run["losses"],
+        "final_metrics": gate_run["metrics"], "gate_jax": gate,
+        "train_s": gate_run["train_s"], "launches_rank0": launches,
+        "capture": gate_run["capture"], **data},
+        "fused_cli": {"held": held, "losses": {
+            name: c["record"]["losses"] for name, c in
+            [*fused.items(), *(("plain", p) for p in plain)]}}}
+    print(f"mesh (k), config0 on (4, 1) on the sort-dedup update: "
+          f"{json.dumps(out['gate'])}")
+    print(f"mesh (l), the CLI's fused flags on (4, 1) through gloo: "
+          f"{json.dumps(out['fused_cli'])}")
+    return out
+
+
+CAPTURE_EPOCHS = 3  # (l): train_epochs / run_epochs_with_eval on NCCL (1, 1)
+CAPTURE_REFS = 3  # (l): eager mesh runs and mesh-less replays, each
+
+
+def check_mesh_nccl_captured(res) -> dict:
+    """(l), NCCL: from (c)'s job (``rank_world_of_one(capture_epochs=)``):
+    the world-1 NCCL group's ``all_reduce`` and ``broadcast`` captured in a
+    CUDA graph and replayed, the results right; ``train_epochs(3)`` and
+    ``run_epochs_with_eval(3, 2)`` of the (1, 1) mesh engine replayed
+    (captured once each), their step losses and item tables within
+    SPREAD_RULE times the pooled spread of the eager mesh runs and the
+    mesh-less replayed runs (K3's atomics), their evaluation at epoch 2.
+    A mesh axis of size 1 calls no collective, so the step's graph holds
+    none here: a multi-rank NCCL capture needs a card a rank."""
+    probe = res["probe"]
+    if not probe["ok"]:
+        raise AssertionError(f"(l) NCCL collectives under capture: {probe}")
+    refs = res["eager_mesh"] + res["replayed_plain"]
+    if any(r["capture"] for r in res["eager_mesh"]) or not all(
+            r["capture"] for r in res["replayed_plain"]):
+        raise AssertionError("(l): the eager and replayed runs swapped")
+    out = {"probe": probe, "held": {}, "captures": {}, "losses": {
+        "eager_mesh": [r["losses"] for r in res["eager_mesh"]],
+        "replayed_plain": [r["losses"] for r in res["replayed_plain"]]}}
+    for form, r in res["captured"].items():
+        if not r["capture"] or r["captures"] != 1:
+            raise AssertionError(f"(l) {form} on NCCL (1, 1): capture "
+                                 f"{r['capture']}, {r['captures']} captures")
+        out["captures"][form] = r["captures"]
+        out["losses"][form] = r["losses"]
+        for key in ("step_losses", "item_emb"):
+            out["held"][f"{form} {key}"] = held_to_spread(
+                f"(l) {form} {key}", r[key], [x[key] for x in refs])
+    evals = res["captured"]["run_epochs_with_eval"]["evals"]
+    if [e["epoch"] for e in evals] != [2]:
+        raise AssertionError(f"(l) run_epochs_with_eval evaluated {evals}")
+    out["evals"] = evals
+    print(f"mesh (l), captured epochs on NCCL (1, 1): {json.dumps(out)}")
+    return out
+
+
+def start_beside(fn, *args) -> tuple:
+    """``fn(*args)`` in a thread of its own, beside the caller's work (a
+    mesh phase whose ranks step eagerly through gloo: the card idles most
+    of the time, and the host's cores hold both phases' ranks): the thread
+    and the dict that will hold its ``value`` or ``error``
+    (:func:`finish_beside`)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn(*args)
+        except BaseException as err:  # raised again by finish_beside
+            box["error"] = err
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    return thread, box
+
+
+def finish_beside(job: tuple):
+    """Wait for a :func:`start_beside` job; its value, or its error raised."""
+    thread, box = job
+    thread.join()
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
 
 
 def main() -> int:
@@ -4810,6 +5309,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     card = card_line()
+    start = time.perf_counter()
+    walls = {}
+
+    def mark(phase: str) -> None:
+        """The script's seconds when ``phase`` starts."""
+        walls[phase] = time.perf_counter() - start
+        print(f"phase {phase!r} starts at {walls[phase]:.1f} s", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     print(card)
@@ -4820,6 +5326,7 @@ def main() -> int:
     _build.library()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
 
+    mark("kernels")
     kernels = check_kernels(dev)
     check_path_shapes(dev, {k["name"]: k for k in kernels})
     for k in kernels:
@@ -4896,6 +5403,17 @@ def main() -> int:
 
     eval_tiles = 3 * -(-NUM_USERS // EVAL_TILE)  # two periodic evals + final
 
+    # (k), the gate of the sort-dedup shards on (4, 1) with (l)'s fused CLI
+    # runs in its job (ROADMAP item 15b, points 5 and 6): four gloo ranks
+    # that leave the card idle most of the time, beside phases 4-6 (their
+    # times are taken beside it; the kernels' times above are not), joined
+    # before the mesh.
+    k_job = start_beside(check_mesh_sorted_gate, dev, [
+        "--config", CONFIG0, "--synthetic", FUSED_CLI_SYNTHETIC, "--epochs",
+        "3", "--device", dev.type])
+    # And (a)'s CLI ranks (checked with the mesh), for the same reason.
+    a_job = start_beside(mesh_cli_job, dev)
+    mark("config0 CLI")
     # config0 at full width (f32, uniform sampler, per-step history mean).
     EXPORT.parent.mkdir(parents=True, exist_ok=True)
     reset()
@@ -4930,6 +5448,7 @@ def main() -> int:
     eval_approx = check_eval_approx_cli(cli, args, reset, read, check_run, record)
     approx_launches = eval_approx["launches"]
 
+    mark("headline")
     # The headline configuration at full width: tile sampler with
     # whole-tile scoring, cached pools, bf16 tables and compute, direct.
     reset()
@@ -4972,11 +5491,15 @@ def main() -> int:
     gate, (gate_train, gate_test) = check_gate(
         {"config0": final, "headline": head_final})
 
+    mark("replay")
     replay = check_replay(dev)
+    mark("subepochs")
     subepochs = check_subepochs(dev, cli, reset, read, final["Recall(k=20)"],
                                 check_run)
+    mark("attention")
     attention = check_attention(dev, cli, reset, read, final["Recall(k=20)"],
                                 check_run)
+    mark("gated runs")
     gated = check_gated_runs(cli, reset, read, check_run)
     gate.update(check_gate({
         "default_shape": subepochs["runs"]["default shape"]["final_metrics"],
@@ -4987,6 +5510,7 @@ def main() -> int:
         "headline_ccl": gated["headline_ccl"]["final_metrics"],
         "complement": gated["complement"]["final_metrics"],
     }, data=False)[0])
+    mark("lifecycle")
     lifecycle = {
         "gate": gate,
         "eval_approx": eval_approx,
@@ -5003,6 +5527,7 @@ def main() -> int:
     del gate_train, gate_test
 
     reset()
+    mark("serving")
     serving = check_serving(dev, final["Recall(k=20)"])
     serving.update(check_huge_table(dev))
     serving_launches = read()
@@ -5032,6 +5557,7 @@ def main() -> int:
     print(f"serving, self-attention: {json.dumps(serving_attn)}")
     print(f"serving launches, self-attention: {serving_attn_launches}")
 
+    mark("huge tables")
     huge_f32 = check_huge_f32(dev, reset, read)
     huge = check_huge_training(reset, read)
     huge_sub = check_huge_subepochs(dev)
@@ -5044,6 +5570,7 @@ def main() -> int:
     # PROFILE_STEPS steps timed and as many traced).
     from heat_tpu_torch import bench_large
 
+    mark("headline bench")
     head_before = torch.cuda.memory_allocated()
     head_bench = bench_large.run([
         "--users", str(NUM_USERS), "--items", str(NUM_ITEMS), "--clicks",
@@ -5107,6 +5634,7 @@ def main() -> int:
     print(f"card for the line above: {card}")
     print(json.dumps({"lifecycle": lifecycle}))
     print(f"card for the line above: {card}")
+    mark("full-size update")
     step = check_huge_step(dev)
     if min(step["launches"][name] for name in
            ("scatter_set_update", "scatter_add_update", "scatter_add_rows")) < 1:
@@ -5119,6 +5647,7 @@ def main() -> int:
 
     # S2's path: the measuring entry point, at a reduced iteration count.
     reset()
+    mark("S2 script")
     ceiling = profile_exact_ceiling.run(["--iters", "10"])
     ceiling_launches = read()
     print(json.dumps(ceiling))
@@ -5136,14 +5665,27 @@ def main() -> int:
     # API on (2, 2) and its checkpoint on one rank and (4, 1), (c) NCCL at
     # a world of one; and every kernel of (b) at a rank's shard shapes.
     entries = {k["name"]: k for k in kernels}
+    mark("mesh a-c")
+    mesh = {"k": finish_beside(k_job)}
     check_mesh_kernels(dev, entries)
-    mesh = {"a": check_mesh_cli(dev, cli), "b": check_mesh_engine(dev),
-            "c": check_mesh_nccl(dev)}
+    mesh["a"] = check_mesh_cli(dev, cli, finish_beside(a_job))
+    # (c)'s one NCCL rank (its own process) beside (b), whose oracles
+    # capture graphs here.
+    c_job = start_beside(check_mesh_nccl, dev)
+    try:
+        mesh["b"] = check_mesh_engine(dev)
+    finally:
+        c_job[0].join()
+    mesh["c"] = finish_beside(c_job)
     # ROADMAP item 15b, points 1 and 2: (d) the headline and (e) the default
     # shape through the CLI on (4, 1), (f) three Engine runs on (2, 2);
     # points 3 and 4: (g) the JAX demo's "full" settings and (h) config0
     # with self-attention through the CLI on (4, 1), (i) three Engine runs
-    # on (2, 2). The CLI runs two at a time, (f) and (i) in one job.
+    # on (2, 2). The CLI runs two at a time, and so do the (f) and (i)
+    # jobs, beside (j): the sort-dedup shards at the real threshold on
+    # (2, 1) (points 5 and 6; (l)'s captured epochs over NCCL ran in (c)'s
+    # job). Their walls are not speeds.
+    mark("mesh d-i")
     clis = run_mesh_clis(dev, {run: (sets, True) for run, (sets, _)
                                in MESH_FAST_RUNS.items()})
     mesh["d"] = check_mesh_cli_fast(dev, "headline_mesh41",
@@ -5155,15 +5697,42 @@ def main() -> int:
     mesh["g"] = check_mesh_cli_slice(dev, "full_mesh41", clis["full_mesh41"])
     mesh["h"] = check_mesh_cli_slice(dev, "config0_self_attention_mesh41",
                                      clis["config0_self_attention_mesh41"])
-    job = mesh_engine_job(dev, "f, i", {
-        name: sets for name, (sets, _) in [*MESH_ENGINE_RUNS.items(),
-                                           *MESH_SLICE_ENGINE.items()]})
-    mesh["f"] = check_mesh_engine_fast(dev, job)
-    mesh["i"] = check_mesh_engine_slice(dev, job)
+    # The three jobs' ranks run together; their oracles and checks, which
+    # capture CUDA graphs in this process, one after the other.
+    mark("mesh f, i, j")
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # (j)'s ranks hold 15 GB each
+    j_job = start_beside(mesh_sorted_huge_job, dev)
+    try:
+        f_job = start_beside(mesh_engine_job, dev, "f", {
+            name: sets for name, (sets, _) in MESH_ENGINE_RUNS.items()})
+        try:
+            i_runs = mesh_engine_job(dev, "i", {
+                name: sets for name, (sets, _) in MESH_SLICE_ENGINE.items()})
+        finally:
+            f_job[0].join()
+    finally:
+        j_job[0].join()
+    mesh["f"] = check_mesh_engine_fast(dev, finish_beside(f_job))
+    mesh["i"] = check_mesh_engine_slice(dev, i_runs)
+    mesh["j"] = check_mesh_sorted_huge(dev, finish_beside(j_job))
+    mark("mesh sorted kernels")
+    for name, (cfg_kw, _) in huge_mesh_runs().items():
+        mesh["j"][name]["kernels"] = check_mesh_kernels_sorted(
+            dev, entries, name, cfg_kw)
     gate.update(check_gate({run: mesh[x]["final_metrics"] for x, run in (
         ("d", "headline_mesh41"), ("e", "default_shape_mesh41"),
         ("g", "full_mesh41"), ("h", "config0_self_attention_mesh41"))},
         data=False)[0])
+    gate.update(check_gate({MESH_SORTED_RUN: mesh["k"]["gate"]["final_metrics"]},
+                           data=False)[0])
+    print(f"capture by backend (Engine._capture, the rule of "
+          f"parallel.distributed.choose_backend): NCCL (1, 1) captured, "
+          f"captures a run {mesh['c']['captured']['captures']}; gloo (4, 1) "
+          f"captured: {mesh['k']['gate']['capture']}")
+    mark("end of the mesh")
     print(json.dumps({"mesh": {
         "(a) wall_s, collective ms a step, rank 0's traced idle share": [
             mesh["a"]["wall_s"], mesh["a"]["collective_ms_per_step"],
@@ -5187,6 +5756,19 @@ def main() -> int:
         **{f"({x}) wall_s, epoch_s, gate gaps": [
                mesh[x]["wall_s"], mesh[x]["epoch_s"],
                mesh[x]["gate_jax"]["gap"]] for x in ("g", "h")},
+        **{f"(j) {name} train_s by rank, ratios to the spread, peak bytes "
+           f"at init and over the epoch by rank, the init bound": [
+               r["train_s"], {k: h["ratio"] for k, h in r["held"].items()},
+               [(p["init"], p["epoch"]) for p in r["peaks"]],
+               r["peaks"][0]["init_bound"]]
+           for name, r in mesh["j"].items() if isinstance(r, dict)},
+        "(j) wall_s": mesh["j"]["wall_s"],
+        "(k) wall_s, train_s, gate gaps": [
+            mesh["k"]["job_wall_s"], mesh["k"]["gate"]["train_s"],
+            mesh["k"]["gate"]["gate_jax"]["gap"]],
+        "(l) fused CLI ratios to the spread; NCCL captured ratios": [
+            {k: h["ratio"] for k, h in mesh["k"]["fused_cli"]["held"].items()},
+            {k: h["ratio"] for k, h in mesh["c"]["captured"]["held"].items()}],
         **{f"(i) {name} wall_s, train_s, collective ms a step, rank 0's idle "
            f"share, bytes summed, ratios to the spread": [
                r["job_wall_s"], r["train_s"], r["collective_ms_per_step"],
@@ -5240,6 +5822,11 @@ def main() -> int:
             mesh["h"]["launches_rank0"][name])
         for run, r in [*mesh["f"].items(), *mesh["i"].items()]:
             k[f"launches_mesh_22_{run}_rank0"] = r["launches_rank0"][name]
+        for run in huge_mesh_runs():
+            k[f"launches_mesh_sorted_{run}_rank0"] = (
+                mesh["j"][run]["launches_rank0"][name])
+        k["launches_mesh_sorted_gate_41_rank0"] = (
+            mesh["k"]["gate"]["launches_rank0"][name])
         k["launches_serving"] = serving_launches[name]
         k["launches_serving_bf16"] = serving16_launches[name]
         for mode in HUGE_ENGINE_RUNS:
@@ -5247,6 +5834,8 @@ def main() -> int:
         for mode in ("dedup", "direct"):
             k[f"launches_huge_{mode}"] = huge[mode]["launches"][name]
         del k["shape"]
+    mark("end")
+    print(json.dumps({"phase_start_s": walls}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -53,15 +53,17 @@ synthetic data included: the JAX CLI shards only file data, and given the
 whole synthetic data in every process it fails at its first evaluation.
 The engine gets ``global_mesh()``, an (N, 1) mesh; rank 0 prints and
 logs, and writes the export and the checkpoints, which hold the global
-tables. On a mesh the epochs run one by one (``--fused-epochs`` above 1
-and ``--fused-run`` raise, ROADMAP item 15b, point 6). The mesh runs
-config0's path and the fast path: the JAX ``bench.py`` headline (``--set
+tables. ``--fused-epochs`` and ``--fused-run`` run on the mesh as without
+one; the steps are replayed CUDA graphs over NCCL and eager over gloo
+(``Engine``). The mesh runs every setting the CLI takes: config0's path
+and the fast path: the JAX ``bench.py`` headline (``--set
 neg_sampler=1 --set tile_size=512 --set refresh_interval=8192 --set
 his_refresh=subepoch --set param_dtype=bfloat16 --set
 compute_dtype=bfloat16 --set update_mode=direct``) and the reference's
 default shape (the headline and ``--set num_subepochs=2``); and
-``--set optimizer=adagrad|adam``, ``--set sgd_mode=accum`` and ``--set
-aggregator=self_attention|user_attention``.
+``--set optimizer=adagrad|adam``, ``--set sgd_mode=accum``, ``--set
+aggregator=self_attention|user_attention``, and tables whose shards
+exceed the dense update's threshold (the sort-dedup update).
 
 ``--eval-approx RECALL`` (in (0, 1]) ranks the periodic evaluations with
 ``exact=False`` at that recall target, as the JAX CLI does; the final
@@ -232,15 +234,14 @@ def main(argv=None) -> dict:
     if args.epochs is not None:
         cfg.epochs = args.epochs
 
-    # Under a launcher: one rank of a mesh (the JAX CLI's processes).
+    # Under a launcher: one rank of a mesh (the JAX CLI's processes). A
+    # process group started here is ended here, before the process exits
+    # (its threads must not outlive the interpreter).
+    started = False
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        started = not torch.distributed.is_initialized()
         distributed.initialize(device=args.device)
     nproc, rank = distributed.process_shard_index()
-    if nproc > 1 and (args.fused_run or args.fused_epochs > 1):
-        raise NotImplementedError(
-            "--fused-epochs and --fused-run on a mesh are not ported to "
-            "heat_tpu_torch (ROADMAP.md, modules still to port, item 15b, "
-            "point 6)")
 
     if args.synthetic:
         num_users, num_items = (int(x) for x in args.synthetic.split(","))
@@ -343,14 +344,11 @@ def main(argv=None) -> dict:
             n = 1 if start == profile_epoch else profile_epoch - start
         _sync(engine)
         t0 = time.perf_counter()
-        # A mesh runs its epochs one by one (n is 1 there).
-        run = ((lambda k: [engine.train_one_epoch()]) if mesh is not None
-               else engine.train_epochs)
         if n == 1 and start == profile_epoch:
             with trace(args.profile_dir) if lead else contextlib.nullcontext():
-                losses = run(1)
+                losses = engine.train_epochs(1)
         else:
-            losses = run(n)  # reads the losses: waits
+            losses = engine.train_epochs(n)  # reads the losses: waits
         dt = (time.perf_counter() - t0) / n
         for i, loss in enumerate(losses):
             report(start + i, loss, dt)
@@ -391,6 +389,8 @@ def main(argv=None) -> dict:
         }
         say(json.dumps(report_k))
     say(json.dumps({"final_metrics": metrics}))
+    if started:
+        distributed.shutdown()
     return record
 
 

@@ -9,8 +9,11 @@ Initialization: user/item embeddings, ``w0`` and, under
 ``aggregator: self_attention``, the attention query ``attn_q`` ~
 N(0, INIT_STD^2), drawn in f32 from an explicit ``torch.Generator`` in that
 order; the tables are then cast to ``cfg.param_dtype`` (``w0``, ``attn_q``
-and the optimizer slots stay f32). The accum mode's gradient rows and the
-optimizer slots start at zero.
+and the optimizer slots stay f32). A table of more than INIT_BLOCK_ROWS
+rows is drawn in blocks of that many rows, in order; on a mesh every rank
+draws every block and keeps the rows of its shard, so that no rank holds a
+global table and the generators stay in step. The accum mode's gradient
+rows and the optimizer slots start at zero, a shard's on a mesh.
 ``state_from_numpy`` / ``state_to_numpy`` carry the state across from and
 to the JAX package (or any numpy source), which is how the parity tests
 start both packages from one state. numpy has no bfloat16 of its own, so a
@@ -34,6 +37,11 @@ from heat_tpu_torch.config import CFConfig, SGD_MODE_ACCUM
 INIT_STD = 1e-2  # reference nn.init.normal_(w, std=1e-2)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Tables of more rows are drawn in blocks of this many (at d = 128 in f32
+# a block is 2 GB). At least the dense update's threshold
+# (``train/scatter.py`` DENSE_ROWS_THRESHOLD), so every table of the
+# dense path draws in one call.
+INIT_BLOCK_ROWS = 4 * 1024 * 1024
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -81,24 +89,53 @@ class TrainState:
 
 
 def init_train_state(
-    cfg: CFConfig, generator: torch.Generator, device
+    cfg: CFConfig, generator: torch.Generator, device, shards=None
 ) -> TrainState:
     """Normal(0, INIT_STD) tables, w0 and (self_attention) attn_q, drawn
     in f32 on ``device`` from ``generator`` (which must live on that
     device), the tables cast to ``cfg.param_dtype``; zero gradient rows
-    (accum, the tables' type) and f32 optimizer slots (adagrad, adam)."""
+    (accum, the tables' type) and f32 optimizer slots (adagrad, adam).
+
+    shards: a rank's ``parallel.mesh.TableShards``: the rank's shard of the
+      global state is returned, its user rows and its rows of the
+      zero-padded item table (``parallel.mesh.shard_train_state``'s
+      layout). A table of at most INIT_BLOCK_ROWS rows is drawn whole and
+      cut; a larger one block by block, each block drawn on every rank and
+      only its rows of the shard kept, so the peak is one block and the
+      global state is the mesh-less engine's of the same seed."""
     d = cfg.emb_dim
     dtype = torch_dtype(cfg.param_dtype)
 
-    def normal(*shape, dtype=torch.float32):
-        # Scaled in place: a 16M-row table is 4 GB in f32.
+    def normal(*shape):
+        # Scaled in place: a block of 4M rows at d = 128 is 2 GB in f32.
         return torch.randn(
             shape, generator=generator, device=device, dtype=torch.float32
-        ).mul_(INIT_STD).to(dtype)
+        ).mul_(INIT_STD)
 
+    def table(rows: int, lo: int, keep: int) -> torch.Tensor:
+        """Rows [lo, lo + keep) of a (rows, d) table, zero past its end."""
+        out = None
+        if rows <= INIT_BLOCK_ROWS:
+            out = normal(rows, d).to(dtype)
+            if (lo, keep) == (0, rows):
+                return out
+        part = torch.zeros((keep, d), dtype=dtype, device=device)
+        for start in range(0, rows, INIT_BLOCK_ROWS):
+            n = min(INIT_BLOCK_ROWS, rows - start)
+            block = out if out is not None else normal(n, d)
+            a, b = max(start, lo), min(start + n, lo + keep)
+            if b > a:
+                part[a - lo: b - lo].copy_(block[a - start: b - start])
+            del block  # freed before the next block is drawn
+        return part
+
+    users = (0, cfg.num_users) if shards is None else (
+        shards.user_lo, shards.user_rows)
+    items = (0, cfg.num_items) if shards is None else (
+        shards.item_lo, shards.item_rows)
     params = {
-        "user": normal(cfg.num_users, d, dtype=dtype),
-        "item": normal(cfg.num_items, d, dtype=dtype),
+        "user": table(cfg.num_users, *users),
+        "item": table(cfg.num_items, *items),
         "w0": normal(d, d),
     }
     if cfg.aggregator == "self_attention":

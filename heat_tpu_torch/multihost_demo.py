@@ -1,6 +1,6 @@
 """A multi-process training and evaluation run on a mesh of ranks: the
-port's counterpart of ``scripts/multihost_demo.py`` (its "base", "full",
-"subepoch", "visit" and "accl" variants).
+port's counterpart of ``scripts/multihost_demo.py`` and its eight
+variants.
 
 The JAX demo runs ``--procs`` processes of four CPU devices each on a
 ``(2 * procs, 2)`` mesh. Here every device is a rank, so the launcher
@@ -29,12 +29,23 @@ ids. The variants (``--variant``):
   that shard presorted by user in file order, three epochs, and the
   history dedup's maps are in use.
 * ``accl``: user-attention pooled every step on the parse-order fixed
-  stream (``shuffle_mode: none``), three epochs with the history dedup's
-  maps in use (``uniq_first`` among them) against three with the maps
-  forced off, losses within rtol 1e-5; then self-attention the same way
-  over two epochs. The JAX variant compares ``train_epochs(3)`` runs; a
-  mesh refuses ``train_epochs`` (ROADMAP item 15b, point 6), so the
-  epochs run one by one.
+  stream (``shuffle_mode: none``), ``train_epochs(3)`` with the history
+  dedup's maps in use (``uniq_first`` among them) against
+  ``train_epochs(3)`` with the maps forced off, losses within rtol 1e-5;
+  then self-attention the same way over two epochs.
+* ``fused``: ``train_epochs(3)`` against three ``train_one_epoch`` calls
+  of a twin engine, on the shuffled stream and on the fixed one
+  (``shuffle_mode: none``, where the history dedup must be in use),
+  losses equal bit for bit (the JAX variant: within 1e-6); the fixed
+  stream's ``train_epochs(3)`` with the maps forced off within rtol 1e-5.
+* ``serve``: three epochs, then ``Recommender.from_engine`` (collective:
+  the tables, the train pairs and the histories gathered, every rank
+  serving the whole model): a request equals the rows of
+  ``recommend_all``, aggregated and cold requests have their shapes,
+  every rank serves the same ids, and the export, loaded into a plain
+  ``Recommender`` over the whole data, serves them again.
+* ``checkpoint``: ``train_epochs(4)`` against two epochs, a save, a new
+  engine restored from it and two more epochs: the losses within 1e-6.
 
 Each rank prints one line; the launcher checks that every rank exits
 cleanly and reports the same one.
@@ -48,9 +59,11 @@ from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 
 DEMO_DATA = dict(num_users=64, num_items=126, clicks_per_user=12, max_his=6,
                  seed=7)
@@ -65,7 +78,8 @@ SUBEPOCH_CFG = dict(DEMO_CFG, neg_sampler=1, tile_size=32, refresh_interval=256,
 FULL_CFG = dict(DEMO_CFG, optimizer="adam", aggregator="user_attention",
                 neg_sampler=1, tile_size=32, refresh_interval=128,
                 his_refresh="subepoch", l_r=0.01)
-VARIANTS = ("base", "full", "subepoch", "visit", "accl")
+VARIANTS = ("base", "full", "checkpoint", "fused", "subepoch", "serve",
+            "accl", "visit")
 
 
 def _same_everywhere(value) -> None:
@@ -160,7 +174,7 @@ def accl_variant(rank, mesh, local_train, local_test, device) -> None:
                         local_train, local_test, device=device, mesh=mesh)
         if not dedup:
             engine._history_dedup = lambda *a, **k: None
-        losses = [engine.train_one_epoch() for _ in range(n)]
+        losses = engine.train_epochs(n)
         maps = engine._dedup_cache[2] if engine._dedup_cache else None
         return losses, maps
 
@@ -176,8 +190,101 @@ def accl_variant(rank, mesh, local_train, local_test, device) -> None:
           f" == off, self_attention {out['self_attention']} == off", flush=True)
 
 
+def fused_variant(rank, mesh, local_train, local_test, device) -> None:
+    """``train_epochs`` against the epochs one by one (module docstring)."""
+    import numpy as np
+
+    from heat_tpu_torch.config import CFConfig
+    from heat_tpu_torch.train.engine import Engine
+
+    def engine(**kw):
+        return Engine(CFConfig(**DEMO_CFG, **kw), local_train, local_test,
+                      device=device, mesh=mesh)
+
+    out = {}
+    for mode in ("epoch", "none"):
+        e_seq = engine(shuffle_mode=mode)
+        seq = [e_seq.train_one_epoch() for _ in range(3)]
+        e_fused = engine(shuffle_mode=mode)
+        fused = e_fused.train_epochs(3)
+        assert fused == seq, (mode, fused, seq)
+        out[mode] = fused
+    assert e_fused._dedup_cache is not None and e_fused._dedup_cache[2] is not None, (
+        "the history dedup is idle on the fixed stream")
+    e_off = engine(shuffle_mode="none")
+    e_off._history_dedup = lambda *a, **k: None
+    off = e_off.train_epochs(3)
+    assert np.allclose(off, out["none"], rtol=1e-5, atol=0), (off, out["none"])
+    print(f"rank {rank}: fused == sequential losses {out['epoch']} "
+          f"(epoch shuffle) {out['none']} (fixed)", flush=True)
+
+
+def serve_variant(rank, mesh, local_train, local_test, device, train,
+                  workdir) -> None:
+    """Serving and the export from the live mesh engine (module
+    docstring)."""
+    import numpy as np
+
+    from heat_tpu_torch.config import CFConfig
+    from heat_tpu_torch.export import export_embeddings, load_embeddings
+    from heat_tpu_torch.models.state import state_from_numpy
+    from heat_tpu_torch.serving import Recommender
+    from heat_tpu_torch.train.engine import Engine
+
+    engine = Engine(CFConfig(**DEMO_CFG), local_train, local_test,
+                    device=device, mesh=mesh)
+    losses = [engine.train_one_epoch() for _ in range(3)]
+    assert np.isfinite(losses).all(), losses
+    rec = Recommender.from_engine(engine)
+    assert rec.state.user_emb.shape[0] == train.num_users
+    assert rec.state.item_emb.shape[0] == train.num_items
+    uids = [0, 7, 33, 63]  # every data shard's users
+    got = rec.recommend(uids, 10)
+    assert np.array_equal(got, rec.recommend_all(10)[np.asarray(uids)]), (
+        "the request path differs from the whole-table ranking")
+    assert rec.recommend(uids, 10, aggregate_users=True).shape == (4, 10)
+    assert rec.recommend_cold([[1, 2, 3], [5]], 10).shape == (2, 10)
+    _same_everywhere(np.asarray(got).tolist())
+    path = os.path.join(workdir, "export.npz")
+    export_embeddings(engine.unpadded_state(), path, cfg=engine.cfg, mesh=mesh)
+    z = load_embeddings(path)
+    assert z["user_emb"].shape == (train.num_users, DEMO_CFG["emb_dim"])
+    oracle = Recommender(
+        state_from_numpy(z["user_emb"], z["item_emb"], z["w0"], lr=0.0,
+                         step=0, device=engine.device),
+        engine.cfg, seen_pairs=train.pairs, his_items=train.his_items,
+        his_masks=train.masks)
+    assert np.array_equal(oracle.recommend(uids, 10), got), (
+        "the exported model serves other ids")
+    print(f"rank {rank}: serve ok, request == whole-table rows, ranks agree, "
+          f"export served alike (losses {losses})", flush=True)
+
+
+def checkpoint_variant(rank, mesh, local_train, local_test, device,
+                       workdir) -> None:
+    """Resume from a checkpoint mid-run (module docstring)."""
+    from heat_tpu_torch.checkpoint import CheckpointManager
+    from heat_tpu_torch.config import CFConfig
+    from heat_tpu_torch.train.engine import Engine
+
+    def engine():
+        return Engine(CFConfig(**DEMO_CFG), local_train, local_test,
+                      device=device, mesh=mesh)
+
+    ref = engine().train_epochs(4)
+    first = engine()
+    half = [first.train_one_epoch() for _ in range(2)]
+    CheckpointManager(os.path.join(workdir, "ckpt")).save(first)
+    resumed = engine()
+    assert CheckpointManager(os.path.join(workdir, "ckpt")).restore_latest(
+        resumed) == 2
+    got = half + [resumed.train_one_epoch() for _ in range(2)]
+    assert all(abs(a - b) < 1e-6 for a, b in zip(ref, got)), (ref, got)
+    print(f"rank {rank}: checkpoint-resume losses match {got}", flush=True)
+
+
 def worker(procs: int, rank: int, port: int, device: str,
-           variant: str = "base") -> None:
+           variant: str = "base", workdir: str = "") -> None:
     """One rank: the variant's training and its checks."""
     import numpy as np
     import torch
@@ -205,7 +312,10 @@ def worker(procs: int, rank: int, port: int, device: str,
     local_test = shard_by_user_range(test, n_data, d)
     if variant not in ("base", "full"):
         run = {"subepoch": subepoch_variant, "visit": visit_variant,
-               "accl": accl_variant}[variant]
+               "accl": accl_variant, "fused": fused_variant,
+               "serve": lambda *a: serve_variant(*a, train, workdir),
+               "checkpoint": lambda *a: checkpoint_variant(*a, workdir),
+               }[variant]
         run(rank, mesh, local_train, local_test, device)
         distributed.shutdown()
         return
@@ -255,19 +365,24 @@ def main(argv=None) -> int:
     parser.add_argument("--timeout", type=float, default=240.0,
                         help="seconds each rank may take")
     parser.add_argument("--worker", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--workdir", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     port = args.port or _free_port()
     if args.worker is not None:
-        worker(args.procs, args.worker, port, args.device, args.variant)
+        worker(args.procs, args.worker, port, args.device, args.variant,
+               args.workdir)
         return 0
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    # The export and the checkpoints of the serve and checkpoint variants.
+    workdir = tempfile.mkdtemp(prefix="heat_demo_")
     procs = [
         subprocess.Popen(
             [sys.executable, "-m", "heat_tpu_torch.multihost_demo",
              "--procs", str(args.procs), "--port", str(port), "--device",
-             args.device, "--variant", args.variant, "--worker", str(rank)],
+             args.device, "--variant", args.variant, "--worker", str(rank),
+             "--workdir", workdir],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             env=env)
         for rank in range(4 * args.procs)
@@ -285,6 +400,7 @@ def main(argv=None) -> int:
         for p in procs:
             if p.poll() is None:
                 p.kill()
+        shutil.rmtree(workdir, ignore_errors=True)
     if ok and all(r is not None and r == reports[0] for r in reports):
         print("multihost demo ok", flush=True)
         return 0

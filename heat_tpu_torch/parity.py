@@ -52,6 +52,7 @@ BANDS = {
     "default_shape_mesh41": HEADLINE_BAND,
     "full_mesh41": CONFIG0_BAND,
     "config0_self_attention_mesh41": CONFIG0_BAND,
+    "config0_sorted_mesh41": CONFIG0_BAND,
 }
 
 

@@ -1,17 +1,18 @@
 """Training engine: the epoch loop and evaluation.
 
-Counterpart of ``heat_tpu/train/engine.py`` for the single-device slice:
-``Engine.__init__`` (with the tile sampler's "auto" parameters and the
-stable pre-sort of ``visit_order`` "user" / "item"), batch packing with
-weight-0 padding (``_make_batches`` / ``_shuffle_or_pack``, modes "epoch",
-"once" and "none"), ``train_one_epoch`` with the LR milestones, sub-epoch
+Counterpart of ``heat_tpu/train/engine.py``, on one device or on a mesh
+of ranks (``Engine(mesh=)``): ``Engine.__init__`` (with the tile
+sampler's "auto" parameters and the stable pre-sort of ``visit_order``
+"user" / "item"), batch packing with weight-0 padding
+(``_make_batches`` / ``_shuffle_or_pack``, modes "epoch", "once" and
+"none"), ``train_one_epoch`` with the LR milestones, sub-epoch
 item partitioning (``num_subepochs > 1``), ``evaluate`` and ``evaluate0``;
 ``train_epochs`` and ``run_epochs_with_eval``, the JAX engine's fused
 programs. Where the JAX epoch is one ``lax.scan`` program, here on the
 card each step is one replay of a CUDA graph of the step, captured once
 (``train_step.make_epoch_fn``), and the epoch is a host loop of replays; on
-the CPU, and for the eager oracle (``self._capture = False``), the steps
-run one by one. The epoch shuffle, the bucketing, the pool refresh and the
+the CPU, on a gloo mesh, and for the eager oracle (``self._capture =
+False``), the steps run one by one. The epoch shuffle, the bucketing, the pool refresh and the
 evaluation stay eager between the replays. The epoch's loss sum stays on
 the device and is read once per call (per epoch for ``train_one_epoch``,
 once for ``train_epochs(n)``).
@@ -77,8 +78,8 @@ drops its captures (``drop_captures``); under ``shuffle_mode: once`` the
 generator's state before the stream's draw is kept (``_once_state``), so
 that a restored engine draws the same stream (``redraw_once_stream``).
 
-Configurations outside the ported slices raise ``NotImplementedError``
-naming the ROADMAP item that will add them; nothing falls back silently.
+The one configuration outside the port (``emb_pad``, on the do-not-port
+list) raises ``NotImplementedError``; nothing falls back silently.
 
 Memory: the step updates the state in place (``train/scatter.py``), and
 the per-epoch visit order is built with int32 index tensors, so at a
@@ -122,12 +123,7 @@ from heat_tpu_torch.models.state import (
     init_train_state,
     zero_grad_accumulators,
 )
-from heat_tpu_torch.parallel.mesh import (
-    gather_train_state,
-    shard_train_state,
-    table_shards,
-)
-from heat_tpu_torch.train import scatter
+from heat_tpu_torch.parallel.mesh import gather_train_state, table_shards
 from heat_tpu_torch.train.optimizer import scheduled_lr
 from heat_tpu_torch.train.run import reference_schedule
 from heat_tpu_torch.train.samplers import derive_tile_params, init_sampler_state
@@ -152,18 +148,6 @@ def check_slice(cfg: CFConfig) -> None:
                 f"{what} is not ported to heat_tpu_torch "
                 f"(ROADMAP.md, modules still to port, {where})"
             )
-
-
-def refuse_15b(what: str, point: int, why: str = ""):
-    """Raise NotImplementedError for ``what`` on a mesh, naming ROADMAP
-    item 15b and the point of it that will add it."""
-    raise NotImplementedError(
-        f"{what} on a mesh is not ported to heat_tpu_torch{why} (ROADMAP.md, "
-        f"modules still to port, item 15b, point {point})")
-
-
-def _refuse_on_mesh(what: str):
-    refuse_15b(what, 6, ": the mesh's steps run eagerly, epoch by epoch")
 
 
 def set_f32_matmul_precision() -> None:
@@ -200,20 +184,30 @@ class Engine:
 
     On a mesh (``parallel.mesh``): every rank draws the mesh-less global
     initial state from the engine's generator and keeps its shard
-    (``shard_train_state``): user rows by data index, item rows (padded
-    to ``sharded_item_rows``) by model index, the rest replicated. The
-    engine's generator stays in step on every rank: each epoch every rank
-    draws the permutation of every data shard's pairs in turn and keeps
-    its own, and every step draws the global batch's negatives
-    (``train_step.train_step_sharded``). ``cfg.train_size`` is the
-    global count. The mesh runs config0's path (item 15a), the fast path
+    (``init_train_state(shards=)``: a table above one draw block is drawn
+    block by block, and no rank holds it whole): user rows by data index,
+    item rows (padded to ``sharded_item_rows``) by model index, the rest
+    replicated. The engine's generator stays in step on every rank: each
+    epoch every rank draws the permutation of every data shard's pairs in
+    turn and keeps its own, and every step draws the global batch's
+    negatives (``train_step.train_step_sharded``). ``cfg.train_size`` is
+    the global count. The mesh runs every setting and entry point the
+    engine runs without one: config0's path (item 15a), the fast path
     (the tile sampler, cached pools, bf16, ``direct``, the fixed streams
     with their history dedup), sub-epochs (item 15b, points 1 and 2;
-    :meth:`_subepochs_sharded`), Adagrad, Adam and accum mode (point 3)
-    and the attention aggregators (point 4). The steps run eagerly (no
-    CUDA graph: gloo cannot be captured): ``train_epochs`` and
-    ``run_epochs_with_eval`` raise NotImplementedError naming item 15b,
-    point 6, and so does a shard on the sort-dedup path (point 5).
+    :meth:`_subepochs_sharded`), Adagrad, Adam and accum mode (point 3),
+    the attention aggregators (point 4), shards on the sort-dedup update
+    (point 5: a shard above ``scatter.DENSE_ROWS_THRESHOLD`` rows, where
+    the JAX package counts the global table's rows; ``train/scatter.py``),
+    and ``train_epochs`` / ``run_epochs_with_eval`` (point 6), with the
+    draws and results of as many ``train_one_epoch`` calls.
+
+    The backend rule (``parallel.distributed.choose_backend``) decides
+    the capture: over NCCL (one card a rank) each step is one replay of a
+    CUDA graph holding the step's collectives, as without a mesh; over
+    gloo (ranks that share a card, or the CPU) the steps run eagerly,
+    since gloo's collectives cannot be captured. That is the rule, not a
+    fallback: nothing is tried and caught.
     """
 
     def __init__(
@@ -262,18 +256,13 @@ class Engine:
                 [pairs.shape[0]], device=self.device), "data")
             self._shard_counts = [int(c) for c in torch.cat(counts).cpu()]
             cfg.train_size = sum(self._shard_counts)
-            if max(sh.user_rows, sh.item_rows) > scatter.DENSE_ROWS_THRESHOLD:
-                refuse_15b("the sort-dedup update (a shard above "
-                           f"{scatter.DENSE_ROWS_THRESHOLD} rows)", 5)
 
         seed = cfg.seed if seed is None else seed
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.state: TrainState = init_train_state(
-            cfg, self.generator, self.device
+            cfg, self.generator, self.device, shards=self.shards
         )
-        if mesh is not None:
-            self.state = shard_train_state(self.state, self.shards)
         self.sampler_state = init_sampler_state(
             cfg, self.device, self.generator
         )
@@ -299,10 +288,12 @@ class Engine:
         self._mp_eval_cache = None  # the mesh's (bits, truth, truth_len)
         self._batch_cache = None  # (pairs, geometry, stream) of "once"
         self._dedup_cache = None  # (pairs, stream shape, maps) of _history_dedup
-        # Each step one replay of a captured CUDA graph (on the card), or
-        # the eager steps (the CPU, a mesh; the oracle the tests compare
-        # with).
-        self._capture = self.device.type == "cuda" and mesh is None
+        # Each step one replay of a captured CUDA graph (on the card; on a
+        # mesh over NCCL, its collectives in the graph), or the eager steps
+        # (the CPU; a gloo mesh, whose collectives cannot be captured; the
+        # oracle the tests compare with).
+        self._capture = self.device.type == "cuda" and (
+            mesh is None or mesh.backend == "nccl")
         self._epoch_fns = {}  # capture: make_epoch_fn(cfg, capture)
         self._stream = None  # (users, pos, weight) grow-only (rows, B) buffers
         self._pools = None  # the (U, d) pools buffer of his_refresh: subepoch
@@ -538,12 +529,16 @@ class Engine:
         the tail padded by repeating its stream with weight 0, and an empty
         shard pads with its first user and item 0."""
         mode = self.cfg.shuffle_mode
-        perms = [
-            torch.arange(c, dtype=torch.int32, device=self.device)
-            if mode == "none" else torch.randperm(
-                c, generator=self.generator, device=self.device,
-                dtype=torch.int32)
-            for c in counts]
+        # The written shards' permutations are kept; the others are drawn
+        # (the generator stays in step) and dropped one by one.
+        perms = {}
+        for s, c in enumerate(counts):
+            perm = (torch.arange(c, dtype=torch.int32, device=self.device)
+                    if mode == "none" else torch.randperm(
+                        c, generator=self.generator, device=self.device,
+                        dtype=torch.int32))
+            if s in parts:
+                perms[s] = perm
         width = lb if self.mesh is not None else lb * len(counts)
         self._batch_cache = None
         out = tuple(t[:nb] for t in self._stream_buffers(rows, width))
@@ -1050,8 +1045,6 @@ class Engine:
         return float(self._epoch(self._capture)) / max(1, self.cfg.train_size)
 
     def _train_epochs(self, n: int, capture: bool) -> list[float]:
-        if self.mesh is not None:
-            _refuse_on_mesh("train_epochs / run_epochs_with_eval")
         if n <= 0:
             return []
         sums = torch.stack([self._epoch(capture) for _ in range(n)]).cpu()
@@ -1065,7 +1058,8 @@ class Engine:
         with its own shuffle and pool refresh), with one read of the ``n``
         loss sums at the end: the port of the JAX engine's
         ``train_epochs`` / ``_train_epochs_fixed``, whose one device program
-        here is the replays of the captured step."""
+        here is the replays of the captured step. On a mesh every rank
+        calls it (the JAX engine's multiprocess epochs)."""
         return self._train_epochs(n, self._capture)
 
     def run_epochs_with_eval(

@@ -19,6 +19,17 @@ implementations, picked per table by its row count
   JAX version: M segments, and the unused tail has ``rep_ids ==
   num_rows``, which every scatter drops.
 
+On a mesh the row count is the shard's, the rows one card holds, since
+the dense accumulator's cost is that card's memory and time; the JAX
+package picks by the global table's rows (``table.shape[0]`` under GSPMD),
+so a shard at or below the threshold of a table above it takes the dense
+path here and the sort-dedup path there. The two paths compute the same
+update in another order of sums. A shard whose rows take gradients from
+every rank of its group is updated by :func:`apply_row_updates_reduced`
+(dense: one all-reduce of a shard-sized buffer) or
+:func:`apply_row_updates_sorted_reduced` (sort-dedup: one all-gather of
+the occurrences, the update on the group's first rank, its rows shared).
+
 Besides: the per-occurrence ``direct`` update, row-sparse Adagrad and lazy
 Adam (``apply_row_updates_opt``), ``dense_opt_update`` for ``w0``, the l2
 term on touched rows and the accum mode's persistent gradient rows.
@@ -27,9 +38,9 @@ In-place contract: every function here updates ``table``, ``gacc`` and
 the optimizer slot tables IN PLACE and returns them (the JAX package
 donates them to its step program instead). A caller that needs the old
 values clones them first. The dense path's accumulator is table-sized, as
-in JAX; the sorted and direct paths allocate only (M, d) buffers and never
-copy a table. On the card nothing here waits for the host: no
-``torch.unique``, no boolean-mask indexing, no ``.item()``.
+in JAX (a shard's on a mesh); the sorted and direct paths allocate only
+(M, d) buffers and never copy a table. On the card nothing here waits for
+the host: no ``torch.unique``, no boolean-mask indexing, no ``.item()``.
 
 Ids equal to the table size mark weight-0 padding and are dropped, as
 JAX's ``mode="drop"`` does.
@@ -316,6 +327,95 @@ def apply_row_updates_reduced(
         _dense_update(table, acc, touched, lr=lr, clip_val=clip_val,
                       gacc=gacc, decay=decay, l2=l2)
     return buf[size - e:]
+
+
+def apply_row_updates_sorted_reduced(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    grads: torch.Tensor,
+    *,
+    lr: torch.Tensor,
+    clip_val: float,
+    l2: float,
+    gather,
+    share,
+    first: bool,
+    extra: torch.Tensor,
+    tile_ids: Optional[torch.Tensor] = None,
+    tile_grads: Optional[torch.Tensor] = None,
+    compute: torch.dtype = torch.float32,
+    gacc: Optional[torch.Tensor] = None,
+    decay: float = 1.0,
+    opt: Optional[dict] = None,
+) -> torch.Tensor:
+    """The sort-dedup counterpart of :func:`apply_row_updates_reduced`, for
+    a shard above DENSE_ROWS_THRESHOLD rows whose replicas (a group of
+    ranks) take occurrences from every rank of the group, in place: batch
+    mode, accum mode or, with ``opt``, Adagrad / Adam. No table-sized
+    buffer.
+
+    Each rank packs its occurrences (``ids`` (M,) int32 shard-local, the
+    table size for the dropped ones; ``grads`` (M, d), widened to f32),
+    its part of the tile's (T, d) f32 gradient (``tile_grads``, for the T
+    slots ``tile_ids`` every rank shares) and ``extra`` into one byte
+    buffer, ``4 * ((M + T) * d + e + M)`` bytes, which one all-gather
+    over the group sends to every rank (``gather(buf)``: every rank's
+    buffer in index order). The tiles' parts and the extras are summed in
+    that order on every rank (bit-equal sums everywhere; the tile's
+    rounded once to ``compute``, as one rank's gradient is). The group's
+    first rank (``first``) then sorts the group's occurrences and the
+    tile slots, sums each id's run (K3 into (n M + T, d) f32) and
+    updates one row per id, the clip on the combined row of the whole
+    group's batch (:func:`_apply_row_updates_sorted`,
+    :func:`_apply_row_updates_opt_sorted`); ``share(tables, ids)`` then
+    makes those rows of the table, and of its accum rows or slots, on
+    every other rank the first rank's: every rank sorts the gathered ids
+    and sends the first min(n M + T, rows) distinct ids, in which every
+    touched row lies. K3 adds repeated ids in no fixed
+    order on the card, so replicas that each applied the update could
+    part; after the share they are bit-equal by construction. Returns the
+    summed ``extra``.
+
+    The dense path sums every occurrence into a table-sized accumulator
+    in K3's order; this path sums each id's run in the order of the
+    sorted occurrences: the same update up to the order of its sums."""
+    m, d = grads.shape
+    t = 0 if tile_ids is None else tile_ids.shape[0]
+    e = extra.numel()
+    nf = (m + t) * d + e
+    buf = torch.empty(4 * (nf + m), dtype=torch.uint8, device=table.device)
+    floats = buf[: 4 * nf].view(torch.float32)
+    floats[: m * d].view(m, d).copy_(grads)
+    if t:
+        floats[m * d: (m + t) * d].view(t, d).copy_(tile_grads)
+    floats[(m + t) * d:].copy_(extra.reshape(-1))
+    buf[4 * nf:].view(torch.int32).copy_(ids)
+    parts = gather(buf)
+    sums = parts[0][4 * m * d: 4 * nf].view(torch.float32).clone()
+    for p in parts[1:]:
+        sums += p[4 * m * d: 4 * nf].view(torch.float32)
+    all_ids = torch.cat([p[4 * nf:].view(torch.int32) for p in parts]
+                        + ([tile_ids] if t else []))
+    if first:
+        all_grads = [p[: 4 * m * d].view(torch.float32).view(m, d)
+                     for p in parts]
+        if t:
+            all_grads.append(sums[: t * d].view(t, d).to(compute))
+        all_grads = torch.cat(all_grads)
+        if opt is not None:
+            _apply_row_updates_opt_sorted(table, all_ids, all_grads, lr=lr,
+                                          clip_val=clip_val, l2=l2, **opt)
+        else:
+            _apply_row_updates_sorted(table, all_ids, all_grads, lr=lr,
+                                      clip_val=clip_val, gacc=gacc,
+                                      decay=decay, l2=l2)
+    # The touched rows: every distinct id, within the first min(ids, rows)
+    # entries of the sorted ids' representatives (the sentinel's last).
+    rep_ids = _sort_segments(all_ids, table.shape[0])[2]
+    slots = [] if opt is None else [opt["v"], opt.get("m")]
+    share([table, gacc, *slots],
+          rep_ids[: min(rep_ids.shape[0], table.shape[0])])
+    return sums[t * d:]
 
 
 def _apply_row_updates_opt_dense(

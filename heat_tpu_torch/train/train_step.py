@@ -101,11 +101,13 @@ from heat_tpu_torch.train.samplers import (
     sample_negatives,
     sample_negatives_rows,
 )
+from heat_tpu_torch.train import scatter
 from heat_tpu_torch.train.scatter import (
     apply_row_updates,
     apply_row_updates_direct,
     apply_row_updates_opt,
     apply_row_updates_reduced,
+    apply_row_updates_sorted_reduced,
     dense_opt_update,
 )
 
@@ -607,12 +609,22 @@ def train_step_sharded(
        broadcasts the batch's rows of the table and of those, one packed
        buffer, and the others write them, so that user replicas stay
        bit-equal (K3 adds repeated rows in no fixed order).
-    5. The item rows: batch or accum mode, Adagrad or Adam by
-       :func:`scatter.apply_row_updates_reduced`, whose one ``all_reduce``
-       over the data group also sums the touched rows, the dense
-       gradients and the loss, every replica then updating from equal sums;
-       in ``direct`` mode :func:`_direct_items_sharded`. Every sum across
-       ranks is of f32 buffers.
+    5. The item rows: batch or accum mode, Adagrad or Adam; for a shard
+       at or below ``scatter.DENSE_ROWS_THRESHOLD`` rows (read at call
+       time) by :func:`scatter.apply_row_updates_reduced`, whose one
+       ``all_reduce`` over the data group also sums the touched rows, the
+       dense gradients and the loss, every replica then updating from
+       equal sums; above it by
+       :func:`scatter.apply_row_updates_sorted_reduced`, whose one
+       ``all_gather`` over the data group brings every data rank's
+       occurrences (shard-local ids, f32 rows), its part of the tile's
+       gradient, the dense gradients and the loss to every rank, the data
+       group's first rank applying the sort-dedup update and broadcasting
+       the touched rows with their accum rows or slots
+       (:func:`_replicas_equal`); in ``direct`` mode
+       :func:`_direct_items_sharded`. Every sum across ranks is of f32
+       buffers. The user rows take the dense or the sort-dedup path by
+       the user shard's rows (:func:`scatter.apply_row_updates`).
     6. ``w0`` and ``attn_q`` by SGD, or Adagrad / Adam gated on the global
        count, on the summed gradients (each rank's part of them in f32,
        rounded once to the compute type after the sum, as one rank's
@@ -774,11 +786,23 @@ def train_step_sharded(
             if cfg.optimizer != "sgd":
                 item_opt = {k: opt[k] for k in ("step", "beta1", "beta2", "eps")}
                 item_opt.update(m=slots.get("item_m"), v=slots["item_v"])
-            ids = occ_w if not tiled else torch.cat([occ_w, tile_w])
-            extra = apply_row_updates_reduced(
-                item_emb, ids, torch.cat([g_p, g_n.reshape(-1, d)]),
-                reduce=lambda t: mesh.all_reduce(t, "data"), extra=extra,
-                gacc=state.item_gacc, opt=item_opt, **sgd)
+            if n_items > scatter.DENSE_ROWS_THRESHOLD:
+                extra = apply_row_updates_sorted_reduced(
+                    item_emb, occ_w,
+                    g_p if tiled else torch.cat([g_p, g_n.reshape(-1, d)]),
+                    gather=lambda t: mesh.all_gather(t, "data"),
+                    share=lambda tables, ids: _replicas_equal(
+                        mesh, "data", tables, ids),
+                    first=mesh.data_index == 0, extra=extra,
+                    tile_ids=tile_w, tile_grads=g_n if tiled else None,
+                    compute=compute, gacc=state.item_gacc, opt=item_opt,
+                    **sgd)
+            else:
+                ids = occ_w if not tiled else torch.cat([occ_w, tile_w])
+                extra = apply_row_updates_reduced(
+                    item_emb, ids, torch.cat([g_p, g_n.reshape(-1, d)]),
+                    reduce=lambda t: mesh.all_reduce(t, "data"), extra=extra,
+                    gacc=state.item_gacc, opt=item_opt, **sgd)
     if g_q and uniq_inverse is not None and model_sum:
         # The dedup's read-back adds a distinct user's samples' gradients
         # in no fixed order on the card (index_select's backward), so the
@@ -843,9 +867,10 @@ class EpochFn:
     passed, advanced in place, and a new 0-d f32 tensor, the steps' loss sum,
     on the step's device. Nothing waits for the device.
 
+    On a mesh (``shards``) each step is :func:`train_step_sharded`.
     ``capture=False`` runs the steps one by one: the CPU, the eager
-    oracle on the card, and the steps on a mesh (``shards``, each step
-    :func:`train_step_sharded`). ``capture=True`` (CUDA tensors only) runs each step
+    oracle on the card, and a mesh whose collectives cannot be captured
+    (gloo). ``capture=True`` (CUDA tensors only) runs each step
     as one replay of a CUDA graph of: batch ``index`` of the stream buffers
     (``index_select`` on a device step index) -> ``train_step`` -> the loss
     into a device accumulator -> index + 1. The graph reads every input at
@@ -863,6 +888,10 @@ class EpochFn:
     copy of the tables (a copy would cost a table-sized buffer at the
     16M x 6M geometry) and leaves the generator where the next step expects
     it. The capture itself runs nothing. ``captures`` counts the captures.
+    On a mesh over NCCL the graph holds the step's collectives: the
+    warm-up step has run each of them on its process group first, so
+    every communicator exists before the capture (NCCL creates them at a
+    group's first collective, which a capture cannot hold).
 
     The engine's generator is registered with the graph
     (``CUDAGraph.register_generator_state``), so every replay draws what
@@ -877,10 +906,6 @@ class EpochFn:
     """
 
     def __init__(self, cfg, capture: bool, shards=None):
-        if capture and shards is not None:
-            raise NotImplementedError(
-                "a captured step on a mesh (NCCL inside the CUDA graph) is "
-                "not ported (ROADMAP.md, item 15b, point 6)")
         self.cfg = cfg
         self.capture = capture
         self.shards = shards
@@ -917,7 +942,7 @@ class EpochFn:
             self.cfg, user_means=user_means, uniq_users=row(uniq_users),
             uniq_inverse=row(uniq_inverse), uniq_first=row(uniq_first),
             neg_candidates=neg_candidates,
-            neg_candidates_size=neg_candidates_size,
+            neg_candidates_size=neg_candidates_size, shards=self.shards,
         )
         self._loss += loss
         i += 1
@@ -1027,5 +1052,5 @@ class EpochFn:
 def make_epoch_fn(cfg: CFConfig, capture: bool, shards=None) -> EpochFn:
     """The epoch function of ``cfg`` (see :class:`EpochFn`): one CUDA
     graph replay a step when ``capture``, the eager steps otherwise; on a
-    mesh (``shards``, the rank's table layout) the eager sharded steps."""
+    mesh (``shards``, the rank's table layout) the sharded steps."""
     return EpochFn(cfg, capture, shards)

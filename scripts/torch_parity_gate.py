@@ -9,8 +9,9 @@ reference's default shape, config0 with self-attention, bench.py's ACCL
 and CCL rows, complement scope), config0 again at two other engine
 seeds (``SEED_RUNS``: the JAX package's own spread), and config0, the
 headline, the default shape, the settings of the JAX multihost demo's
-"full" variant and config0 with self-attention on a (4, 1) mesh of four
-JAX processes (``MESH_RUNS``: on 52,644 x 91,599, one user more, since the JAX engine
+"full" variant, config0 with self-attention and config0 with both tables
+on the sort-dedup update on a (4, 1) mesh of four JAX processes
+(``MESH_RUNS``: on 52,644 x 91,599, one user more, since the JAX engine
 needs the data axis to divide the users; each such run records its own
 geometry and checksums), and writes
 ``PARITY_TORCH.json`` at the root of the repository: the JAX version, the
@@ -94,6 +95,13 @@ RUNS["full_mesh41"] = ["optimizer=adam", "aggregator=user_attention",
                        "neg_sampler=1", "tile_size=512",
                        "refresh_interval=8192", "his_refresh=subepoch"]
 RUNS["config0_self_attention_mesh41"] = RUNS["config0_self_attention"]
+# config0 on (4, 1) with both tables on the sort-dedup update: the JAX
+# package picks it by the global table's rows, so a threshold of 8,192
+# rows (``heat_tpu.train.scatter.DENSE_ROWS_THRESHOLD``, set in every
+# rank) sends both tables there; config0's schedule.
+MESH_RUNS["config0_sorted_mesh41"] = ((4, 1), (52644, 91599))
+RUNS["config0_sorted_mesh41"] = []
+DENSE_ROWS = {"config0_sorted_mesh41": 8192}
 
 
 class _Tee(io.TextIOBase):
@@ -163,6 +171,10 @@ def mesh_worker(rank: int, world: int, port: int, name: str) -> None:
     (n_data, n_model), synthetic = MESH_RUNS[name]
     if (n_data * n_model, n_model) != (world, 1):
         raise SystemExit(f"{name}: the JAX CLI's mesh is (processes, 1)")
+    if name in DENSE_ROWS:
+        from heat_tpu.train import scatter
+
+        scatter.DENSE_ROWS_THRESHOLD = DENSE_ROWS[name]
     with mock.patch.object(jax_main, "synthetic_click_dataset", sharded):
         jax_main.main(_argv(RUNS[name], synthetic))
     jax.distributed.shutdown()
@@ -286,6 +298,8 @@ def main(argv=None) -> None:
             record["runs"][name] = {
                 "overrides": RUNS[name], "mesh": [n_data, n_model],
                 "synthetic": geom,
+                **({"dense_rows_threshold": DENSE_ROWS[name]}
+                   if name in DENSE_ROWS else {}),
                 **data_fingerprint(*synthetic_click_dataset(**geom)),
                 **run_jax_mesh(name)}
             write()

@@ -354,29 +354,51 @@ def test_off_slice_settings_are_refused(override, where):
 
 def test_mesh_refuses_item_15b_settings(monkeypatch):
     """Meshes run since item 15a (the fast path and sub-epochs since 15b
-    points 1 and 2, the slots, accum and attention since points 3 and 4);
-    what 15b still leaves out is refused by name and point before any
-    collective runs: a shard on the sort-dedup path (point 5) and the fused
-    epochs (point 6). A stand-in for a world of one, whose only collective
-    is the gather of the shards' pair counts (tests/test_torch_mesh.py
-    holds every setting on a real mesh)."""
+    points 1 and 2, the slots, accum and attention since points 3 and 4,
+    the sort-dedup shards and the fused epochs since points 5 and 6, which
+    this test once held refused): on a stand-in for a world of one, whose
+    collectives return their input, ``train_epochs(1)`` of Adam with
+    user-attention pools equals ``train_one_epoch()`` of a twin bit for
+    bit, and with DENSE_ROWS_THRESHOLD at 16 rows (both shards above it)
+    the engine builds and steps (tests/test_torch_mesh.py holds every
+    setting on a real mesh)."""
     import heat_tpu_torch.train.scatter as tsc
 
     class OneRank:
         shape, data_index, model_index = (1, 1), 0, 0
         device = torch.device("cpu")
+        backend = "gloo"
 
         def all_gather(self, t, axis):
             return [t]
 
+        def all_reduce(self, t, axis):
+            return t
+
+        def broadcast(self, t, axis, index=0):
+            return t
+
+        def axis_size(self, axis):
+            return 1
+
+        def index(self, axis):
+            return 0
+
     train, test = tsynthetic(20, 40, max_his=4, seed=1)
     cfg = dict(max_his=4, optimizer="adam", aggregator="user_attention")
-    engine = TEngine(CFConfig(**cfg), train, test, device="cpu", mesh=OneRank())
-    with pytest.raises(NotImplementedError, match=r"item 15b, point 6\)"):
-        engine.train_epochs(1)
+
+    def engine():
+        return TEngine(CFConfig(**cfg), train, test, device="cpu",
+                       mesh=OneRank())
+
+    fused, plain = engine(), engine()
+    assert fused.train_epochs(1) == [plain.train_one_epoch()]
+    assert torch.equal(fused.state.item_emb, plain.state.item_emb)
     monkeypatch.setattr(tsc, "DENSE_ROWS_THRESHOLD", 16)
-    with pytest.raises(NotImplementedError, match=r"item 15b, point 5\)"):
-        TEngine(CFConfig(**cfg), train, test, device="cpu", mesh=OneRank())
+    lowered = engine()
+    assert min(lowered.shards.user_rows, lowered.shards.item_rows) > 16
+    assert np.isfinite(lowered.train_epochs(1)).all()
+    assert int(lowered.state.step) > 0
 
 
 def test_cuda_device_fails_without_cuda():

@@ -448,8 +448,9 @@ def test_data_axis_must_divide_users():
 
 # Settings a mesh runs since ROADMAP item 15b points 3 and 4 (the attention
 # aggregators, the Adagrad / Adam slots, accum mode), alone and on top of the
-# fast path and sub-epochs (points 1 and 2): each builds on a mesh, and what
-# 15b still leaves out refuses with it by its point.
+# fast path and sub-epochs (points 1 and 2). Each of them refused the fused
+# epochs (point 6) and a shard on the sort-dedup update (point 5) until
+# those points were ported; each now runs both (the ids keep their names).
 TILE_BF16 = {"neg_sampler": 1, "tile_size": 16, "refresh_interval": 64,
              "his_refresh": "subepoch", "param_dtype": "bfloat16",
              "compute_dtype": "bfloat16"}
@@ -469,45 +470,106 @@ REFUSED = [
 ]
 
 
+def _digests(engine):
+    return mc.state_digests(engine.state)
+
+
+class _SortedCalls:
+    """Counts the sort-dedup updates the steps make: the item shard's
+    across the data group (``train_step.apply_row_updates_sorted_reduced``)
+    and every table's sorted update (``scatter._apply_row_updates_sorted``
+    and its Adagrad / Adam form: the user shard's and the item shard's)."""
+
+    def __init__(self, monkeypatch):
+        import heat_tpu_torch.train.scatter as tsc
+        import heat_tpu_torch.train.train_step as ts
+
+        self.calls = {"items": 0, "tables": 0}
+        for mod, name, key in (
+                (ts, "apply_row_updates_sorted_reduced", "items"),
+                (tsc, "_apply_row_updates_sorted", "tables"),
+                (tsc, "_apply_row_updates_opt_sorted", "tables")):
+            monkeypatch.setattr(mod, name, self._counted(
+                getattr(mod, name), key))
+
+    def _counted(self, fn, key):
+        def call(*args, **kw):
+            self.calls[key] += 1
+            return fn(*args, **kw)
+        return call
+
+
 @pytest.mark.parametrize("override,what", REFUSED,
                          ids=[w.replace(" ", "_") + str(i)
                               for i, (_, w) in enumerate(REFUSED)])
 def test_mesh_refuses_item_15b(mesh11, monkeypatch, override, what):
-    """The setting (``what``) builds on a mesh; with it the fused epochs
-    still refuse (point 6), and so does a shard on the sort-dedup path
-    (point 5)."""
+    """The setting (``what``) on a mesh, with what ROADMAP item 15b's
+    points 5 and 6 added: ``train_epochs(1)`` equals ``train_one_epoch()``
+    of a twin engine bit for bit (the loss and every tensor of the
+    state); and with DENSE_ROWS_THRESHOLD at 16 rows (20 user rows, 128
+    item rows) it builds and steps, both shards on the sort-dedup update
+    (the item shard through the data group's one all-gather) unless
+    ``update_mode: direct``, which has no table-sized buffer."""
     import heat_tpu_torch.train.scatter as tsc
 
     train, test = synthetic_click_dataset(num_users=20, num_items=40,
                                           max_his=4, seed=1)
-    engine = Engine(CFConfig(max_his=4, **override), train, test,
-                    device="cpu", mesh=mesh11)
-    assert engine.shards is not None
+
+    def engine():
+        return Engine(CFConfig(max_his=4, **override), train, test,
+                      device="cpu", mesh=mesh11)
+
+    fused, plain = engine(), engine()
     if what == "attention":
-        assert engine.cfg.aggregator != "mean"
-    with pytest.raises(NotImplementedError, match=r"item 15b, point 6\)"):
-        engine.train_epochs(1)
+        assert fused.cfg.aggregator != "mean"
+    assert fused.train_epochs(1) == [plain.train_one_epoch()]
+    assert _digests(fused) == _digests(plain)
     monkeypatch.setattr(tsc, "DENSE_ROWS_THRESHOLD", 16)
-    with pytest.raises(NotImplementedError,
-                       match=r"sort-dedup.*item 15b, point 5\)"):
-        Engine(CFConfig(max_his=4, **override), train, test, device="cpu",
-               mesh=mesh11)
+    calls = _SortedCalls(monkeypatch).calls
+    lowered = engine()
+    assert lowered.shards.user_rows > 16 and lowered.shards.item_rows > 16
+    assert np.isfinite(lowered.train_epochs(1)).all()
+    direct = override.get("update_mode") == "direct"
+    steps = int(lowered.state.step)
+    assert steps > 0
+    assert calls == ({"items": 0, "tables": 0} if direct
+                     else {"items": steps, "tables": 2 * steps}), calls
 
 
 def test_mesh_refuses_fused_epochs_and_the_sort_dedup(mesh11, monkeypatch):
-    train, test = synthetic_click_dataset(num_users=20, num_items=40,
-                                          max_his=4, seed=1)
-    engine = Engine(CFConfig(max_his=4), train, test, device="cpu", mesh=mesh11)
-    assert not engine._capture and engine.shards.item_rows == 128
-    for call in (lambda: engine.train_epochs(2),
-                 lambda: engine.run_epochs_with_eval(2, 1)):
-        with pytest.raises(NotImplementedError, match="item 15b, point 6"):
-            call()
+    """config0's path on a (1, 1) mesh: ``train_epochs(2)`` and
+    ``run_epochs_with_eval(2, 1)`` equal two ``train_one_epoch`` calls
+    and the evaluation after the second (``reference_schedule``) on twin
+    engines bit for bit; with DENSE_ROWS_THRESHOLD at 64 rows (the 128
+    item rows above it) the item shard takes the sort-dedup update and
+    equals a mesh-less engine at that threshold bit for bit (one rank:
+    the same occurrences in the same order). A rank's data must hold
+    global user ids."""
     import heat_tpu_torch.train.scatter as tsc
 
+    train, test = synthetic_click_dataset(num_users=20, num_items=40,
+                                          max_his=4, seed=1)
+
+    def engine(mesh=mesh11):
+        return Engine(CFConfig(max_his=4), train, test, device="cpu",
+                      mesh=mesh)
+
+    fused, run, plain = engine(), engine(), engine()
+    assert not fused._capture and fused.shards.item_rows == 128
+    want = [plain.train_one_epoch() for _ in range(2)]
+    want_eval = [{"epoch": 1, **plain.evaluate()}]
+    assert fused.train_epochs(2) == want
+    assert run.run_epochs_with_eval(2, 1) == (want, want_eval)
+    assert _digests(fused) == _digests(plain) == _digests(run)
     monkeypatch.setattr(tsc, "DENSE_ROWS_THRESHOLD", 64)
-    with pytest.raises(NotImplementedError, match="sort-dedup.*point 5"):
-        Engine(CFConfig(max_his=4), train, test, device="cpu", mesh=mesh11)
+    calls = _SortedCalls(monkeypatch).calls
+    sorted_mesh, sorted_one = engine(), engine(mesh=None)
+    got = sorted_mesh.train_epochs(2)
+    assert calls["items"] == int(sorted_mesh.state.step) > 0
+    assert got == [sorted_one.train_one_epoch() for _ in range(2)]
+    st = sorted_mesh.unpadded_state()
+    assert torch.equal(st.item_emb, sorted_one.state.item_emb)
+    assert torch.equal(st.user_emb, sorted_one.state.user_emb)
     monkeypatch.undo()
     with pytest.raises(ValueError, match="rebase=False"):
         from heat_tpu_torch.data.datasets import shard_by_user_range

@@ -1,5 +1,5 @@
 """The port's multi-process entry points on the CPU (ROADMAP item 15a):
-the CLI under ``torch.distributed.run``, its refusals, the multihost demo,
+the CLI under ``torch.distributed.run``, its fused flags, the multihost demo,
 and the JAX CLI's handling of synthetic data across processes, which the
 port does not reproduce.
 
@@ -9,12 +9,12 @@ Every subprocess has its own timeout (at most 300 s) and a free port
 
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
 
 import numpy as np
-import pytest
 
 from heat_tpu_torch.config import load_config
 from heat_tpu_torch.data.synthetic import synthetic_click_dataset
@@ -102,10 +102,47 @@ def test_cli_on_a_mesh_equals_one_rank(tmp_path):
                                rtol=1e-2, atol=1e-4)
 
 
+def _printed(run):
+    """What a CLI run printed, the epoch times left out."""
+    return [re.sub(r"epoch_time: \S+s", "", ln) for ln in run["printed"]]
+
+
 def test_cli_on_a_mesh_refuses_fused_runs():
-    for flags in (["--fused-run"], ["--fused-epochs", "2"]):
-        with pytest.raises(RuntimeError, match="item 15b"):
-            mc.spawn_ranks(mc.rank_cli, 2, _argv(*flags), timeout=120)
+    """The CLI's ``--fused-epochs 2`` and ``--fused-run`` over two ranks,
+    which refused until ROADMAP item 15b's point 6 was ported, in one job
+    beside the plain run: each prints the plain run's lines (every
+    epoch's loss, the periodic and the final metrics; the epoch times
+    aside), and its record holds the same losses, metrics and steps, bit
+    for bit."""
+    ranks = mc.spawn_ranks(mc.rank_clis, 2, [
+        _argv(), _argv("--fused-epochs", "2"), _argv("--fused-run")],
+        timeout=120)
+    plain, chunks, run = ranks[0]
+    assert any(ln.startswith("[Metrics]") for ln in plain["printed"])
+    for fused in (chunks, run):
+        assert _printed(fused) == _printed(plain)
+        for key in ("losses", "final_metrics", "steps"):
+            assert fused["record"][key] == plain["record"][key], key
+        assert ([e["metrics"] for e in fused["record"]["evals"]]
+                == [e["metrics"] for e in plain["record"]["evals"]])
+    assert not any(r["printed"] for r in ranks[1])
+
+
+def test_multihost_demo_fused():
+    """The demo's ``fused`` variant (the JAX demo's): on a (2, 2) mesh of
+    four ranks ``train_epochs(3)`` equals three ``train_one_epoch`` calls
+    on the shuffled and on the fixed stream (the history dedup in use
+    there, and within rtol 1e-5 of the maps turned off)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "heat_tpu_torch.multihost_demo", "--procs",
+         "1", "--device", "cpu", "--variant", "fused", "--timeout", "240"],
+        capture_output=True, text=True, timeout=300, env=_env(), cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "multihost demo ok" in proc.stdout
+    reports = [ln.split(":", 1)[1] for ln in proc.stdout.splitlines()
+               if ln.startswith("rank ")]
+    assert len(reports) == 4 and len(set(reports)) == 1
+    assert "fused == sequential" in reports[0]
 
 
 def test_multihost_demo():

@@ -117,7 +117,8 @@ def test_the_bands_were_set_before_the_card(record):
         assert band == (parity.HEADLINE_BAND if bf16 else parity.CONFIG0_BAND), name
     assert sorted(n for n, b in parity.BANDS.items() if b == parity.CONFIG0_BAND) == [
         "config0", "config0_mesh41", "config0_self_attention",
-        "config0_self_attention_mesh41", "full_mesh41"]
+        "config0_self_attention_mesh41", "config0_sorted_mesh41",
+        "full_mesh41"]
     want = record["runs"]["complement"]["final_metrics"]
     assert all(parity.COLLAPSED_BAND < 0.5 * want[m] for m in parity.GATED_METRICS)
     with pytest.raises(AssertionError, match="beyond"):

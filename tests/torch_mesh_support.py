@@ -116,15 +116,53 @@ def digest(t) -> str:
     return hashlib.sha256(t.numpy().tobytes()).hexdigest()
 
 
+UNIFORM_BLOCK = 1 << 20  # users whose histories one generator draws
+
+
+def uniform_data(users: int, items: int, clicks: int, max_his: int,
+                 seed: int = 0, shard: Optional[tuple] = None):
+    """``bench_large``'s kind of data at any scale: ``clicks`` uniform
+    random (user, item) pairs and full histories of uniform random items,
+    the histories drawn in blocks of UNIFORM_BLOCK users from generators
+    seeded by (seed, block), so that a rank draws only its own rows.
+    Returns the train ClickDataset (no test data: None), whole, or with
+    ``shard=(n_data, index)`` the data shard's user range with global ids
+    (``shard_by_user_range(..., rebase=False)``'s result)."""
+    from heat_tpu_torch.data.datasets import ClickDataset, user_range_bounds
+
+    rng = np.random.default_rng(seed)
+    pairs = np.stack([rng.integers(0, users, clicks, dtype=np.int32),
+                      rng.integers(0, items, clicks, dtype=np.int32)], axis=1)
+    lo, hi = 0, users
+    if shard is not None:
+        lo, hi = user_range_bounds(users, *shard)
+        pairs = pairs[(pairs[:, 0] >= lo) & (pairs[:, 0] < hi)]
+    his = np.empty((hi - lo, max_his), np.int32)
+    for block in range(lo // UNIFORM_BLOCK, -(-hi // UNIFORM_BLOCK)):
+        b_lo = block * UNIFORM_BLOCK
+        rows = np.random.default_rng((seed, block)).integers(
+            0, items, (min(UNIFORM_BLOCK, users - b_lo), max_his),
+            dtype=np.int32)
+        a, b = max(b_lo, lo), min(b_lo + rows.shape[0], hi)
+        his[a - lo: b - lo] = rows[a - b_lo: b - b_lo]
+    return ClickDataset(pairs=pairs, his_items=his,
+                        masks=np.full(hi - lo, max_his, np.int32),
+                        num_users=users, num_items=items, max_his=max_his,
+                        user_items=[]), None
+
+
 def make_data(data_kw: dict):
     """The planted-cluster (train, test) of ``data_kw``. With
     ``narrow_users=(first, items)`` the train clicks of the users from
     ``first`` on are replaced by ``items`` (each user clicks them all):
     a data shard of such users has no click in most of a sub-epoch
-    partition's buckets."""
+    partition's buckets. ``{"uniform": {...}}`` is :func:`uniform_data`'s
+    keywords instead (no test data)."""
     from heat_tpu_torch.data.datasets import ClickDataset
     from heat_tpu_torch.data.synthetic import synthetic_click_dataset
 
+    if "uniform" in data_kw:
+        return uniform_data(**data_kw["uniform"])
     kw = dict(data_kw)
     narrow = kw.pop("narrow_users", None)
     train, test = synthetic_click_dataset(**kw)
@@ -195,8 +233,12 @@ def mesh_engine(shape, data_kw: dict, cfg_kw: dict, device: str, data=None):
     from heat_tpu_torch.train.engine import Engine
 
     mesh = make_mesh(*shape, device=device)
-    train, test = make_data(data_kw) if data is None else data
     d = mesh.data_index
+    if data is None and "uniform" in data_kw:  # only the rank's rows drawn
+        train, _ = uniform_data(**data_kw["uniform"], shard=(shape[0], d))
+        return Engine(CFConfig(**cfg_kw), train, None, device=device,
+                      mesh=mesh)
+    train, test = make_data(data_kw) if data is None else data
     return Engine(CFConfig(**cfg_kw),
                   shard_by_user_range(train, shape[0], d, rebase=False),
                   shard_by_user_range(test, shape[0], d), device=device,
@@ -347,7 +389,87 @@ def profiled(fn, trace_path: str) -> dict:
     return {"wall_s": wall, **trace_summary(trace_path)}
 
 
+class Lowered:
+    """Within a ``with`` block, ``train.scatter.DENSE_ROWS_THRESHOLD``
+    (``dense_rows``) and ``models.state.INIT_BLOCK_ROWS``
+    (``init_block_rows``) set in this process (None leaves one as it
+    is): how a test reaches the sort-dedup update and the blocked draw at
+    small sizes. A spawned rank sets them itself (a parent's setting
+    does not reach it)."""
+
+    def __init__(self, dense_rows: Optional[int] = None,
+                 init_block_rows: Optional[int] = None):
+        from heat_tpu_torch.models import state
+        from heat_tpu_torch.train import scatter
+
+        self.sets = [(m, k, v) for m, k, v in (
+            (scatter, "DENSE_ROWS_THRESHOLD", dense_rows),
+            (state, "INIT_BLOCK_ROWS", init_block_rows)) if v is not None]
+        self.saved = []
+
+    def __enter__(self):
+        self.saved = [(m, k, getattr(m, k)) for m, k, _ in self.sets]
+        for m, k, v in self.sets:
+            setattr(m, k, v)
+        return self
+
+    def __exit__(self, *exc):
+        for m, k, v in self.saved:
+            setattr(m, k, v)
+
+
+def held_bytes(engine) -> dict:
+    """The bytes a rank's engine holds on its device: the state (tables,
+    accum rows, slots, ``w0``), the data (pairs, histories, lengths) and
+    the pools buffer."""
+    import dataclasses
+
+    def size(t):
+        return 0 if t is None else t.numel() * t.element_size()
+
+    state = 0
+    for f in dataclasses.fields(engine.state):
+        value = getattr(engine.state, f.name)
+        state += (sum(map(size, value.values())) if isinstance(value, dict)
+                  else size(value))
+    return {"state": state,
+            "data": sum(map(size, (engine.pairs, engine.his_items,
+                                   engine.his_masks))),
+            "pools": size(engine._pools)}
+
+
+def sampled_state(engine, stride: int) -> dict:
+    """Every ``stride``-th row of the global user and item tables (rows
+    0, stride, 2 stride, ...) and ``w0``, as f32 numpy, without gathering a
+    table: on a mesh each rank takes its shard's rows at those global
+    indices and the pieces are all-gathered as host objects (collective:
+    every rank calls it). For tables too large to move whole."""
+    st, sh, mesh = engine.state, engine.shards, engine.mesh
+    out = {"w0": st.w0.detach().float().cpu().numpy()}
+    for key, axis, lo, total in (
+            ("user_emb", "data", 0 if sh is None else sh.user_lo,
+             engine.cfg.num_users),
+            ("item_emb", "model", 0 if sh is None else sh.item_lo,
+             engine.cfg.num_items)):
+        table = getattr(st, key)
+        rows = table[(-lo) % stride: max(0, total - lo): stride]
+        part = rows.detach().float().cpu().numpy()
+        if mesh is not None:
+            part = np.concatenate(mesh.all_gather_object(part, axis))
+        out[key] = part
+    return out
+
+
 def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
+               dense_rows: Optional[int] = None,
+               init_block_rows: Optional[int] = None, **kw) -> dict:
+    """:func:`train_run` with DENSE_ROWS_THRESHOLD and INIT_BLOCK_ROWS set
+    in the rank (:class:`Lowered`) for the run."""
+    with Lowered(dense_rows, init_block_rows):
+        return train_run(rank, shape, data_kw, cfg_kw, epochs, device, **kw)
+
+
+def train_run(rank, shape, data_kw, cfg_kw, epochs, device, *,
                save_dir: Optional[str] = None, save_after: int = 0,
                restore_dir: Optional[str] = None, evaluate: bool = True,
                export_path: Optional[str] = None, serve_users=None,
@@ -355,7 +477,9 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
                profile_last: Optional[str] = None, topk: int = 0,
                dedup: bool = True, probe_complement: bool = False,
                serve_routes: bool = False, pools: bool = False,
-               probe_gacc: bool = False, aggregated_eval: bool = False) -> dict:
+               probe_gacc: bool = False, aggregated_eval: bool = False,
+               fused: Optional[str] = None, eval_interval: int = 0,
+               sample_rows: int = 0) -> dict:
     """A rank program: restore from ``restore_dir`` (when given), train
     ``epochs`` epochs (saving a checkpoint into ``save_dir`` after the
     first ``save_after``), evaluate, export (rank 0 writes
@@ -377,7 +501,17 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
     initial state (``Engine._pooled_history``) with the rank's users;
     ``probe_gacc`` the largest accum row element found before each
     ``Engine._steps`` call and after the epochs (:class:`GaccProbe`);
-    ``aggregated_eval`` the evaluation with ``aggregate_users=True``."""
+    ``aggregated_eval`` the evaluation with ``aggregate_users=True``.
+    The epochs run one ``train_one_epoch`` at a time, with an evaluation
+    after each epoch e > 0 with e % ``eval_interval`` == 0 (``evals``;
+    none when 0); ``fused="epochs"`` runs them as one
+    ``Engine.train_epochs`` call, ``fused="run"`` as
+    ``Engine.run_epochs_with_eval(epochs, eval_interval)``. On a card it
+    also returns the peak of allocated bytes after the engine's
+    construction (``peak_init_bytes``) and after the epochs
+    (``peak_bytes``), with the engine's :func:`held_bytes`. ``sample_rows``
+    returns every such row of the tables (:func:`sampled_state`) in
+    place of the global state."""
     import contextlib
     import time
 
@@ -389,10 +523,17 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
     from heat_tpu_torch.models.state import state_to_numpy
     from heat_tpu_torch.serving import Recommender
 
+    card = torch.device(device).type == "cuda"
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     engine = mesh_engine(shape, data_kw, cfg_kw, device)
+    out = {"restored": None}
+    if card:
+        out["peak_init_bytes"] = torch.cuda.max_memory_allocated()
+        out["held_init"] = held_bytes(engine)
     if not dedup:
         engine._history_dedup = lambda *a, **k: None
-    out = {"restored": None}
     if pools:
         lo = engine.shards.user_lo
         out["pools"] = engine._pooled_history().float().cpu().numpy()
@@ -407,10 +548,15 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
     probe = ComplementProbe() if probe_complement else contextlib.nullcontext()
     gacc = GaccProbe(engine) if probe_gacc else contextlib.nullcontext()
     epoch_steps = []
+    evals = []
     sync()
     t0 = time.perf_counter()
     with recorder, probe, gacc:
-        for e in range(epochs):
+        if fused == "epochs":
+            losses = engine.train_epochs(epochs)
+        elif fused == "run":
+            losses, evals = engine.run_epochs_with_eval(epochs, eval_interval)
+        for e in range(epochs if fused is None else 0):
             before_epoch = int(engine.state.step)
             if profile_last and rank == 0 and e == epochs - 1:
                 before = int(engine.state.step)
@@ -423,8 +569,14 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
             epoch_steps.append(int(engine.state.step) - before_epoch)
             if save_dir is not None and e + 1 == save_after:
                 CheckpointManager(save_dir).save(engine)
+            if eval_interval and e > 0 and e % eval_interval == 0:
+                evals.append({"epoch": e, **engine.evaluate()})
     sync()
     out["train_s"] = time.perf_counter() - t0
+    out["evals"] = evals
+    if card:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["held"] = held_bytes(engine)
     out["steps"] = int(engine.state.step)
     out["epoch_steps"] = epoch_steps
     out["losses"] = losses
@@ -451,8 +603,10 @@ def rank_train(rank, shape, data_kw, cfg_kw, epochs, device, *,
         _, ids = sharded_topk(engine.mesh, engine.state.user_emb,
                               engine.state.item_emb, bits, topk + 1)
         out["topk"] = ids.cpu().numpy()
-    state = state_to_numpy(engine.state, engine.shards)
+    state = (sampled_state(engine, sample_rows) if sample_rows
+             else state_to_numpy(engine.state, engine.shards))
     out["state"] = state if all_states or rank == 0 else None
+    out["capture"] = engine._capture
     out["launches"] = _launches()
     out["replicas"] = replica_report(engine)
     if export_path is not None:
@@ -477,9 +631,12 @@ def rank_runs(rank, shape, data_kw, runs: dict, device, **kw) -> dict:
     """A rank program: :func:`rank_train` for each run of ``runs``, one
     after the other in one job (the start of a job's processes is most of
     a small run's time): ``{name: (cfg_kw, epochs, keywords)}``, the
-    keywords over ``kw``. Returns ``{name: its result}``."""
-    return {name: rank_train(rank, shape, data_kw, cfg_kw, epochs, device,
-                             **dict(kw, **extra))
+    keywords over ``kw`` (``data_kw`` among them: the run's data in place
+    of the job's). Returns ``{name: its result}``."""
+    return {name: rank_train(
+                rank, shape, extra.get("data_kw", data_kw), cfg_kw, epochs,
+                device, **dict(kw, **{k: v for k, v in extra.items()
+                                      if k != "data_kw"}))
             for name, (cfg_kw, epochs, extra) in runs.items()}
 
 
@@ -579,6 +736,39 @@ def _keep_grad():
     return _KEEP_GRAD[0]
 
 
+_FAN = []
+
+
+def _fan():
+    """An autograd Function, ``apply(x, n, dtype)``: ``n`` copies of ``x``
+    whose backward adds their gradients in index order (first + second,
+    then + third...), the order in which the sort-dedup update on a mesh
+    adds the data ranks' parts, and rounds the sum once to ``dtype`` (None:
+    not at all), as a mesh rounds a sum of f32 parts to the compute type
+    (built at the first call)."""
+    if not _FAN:
+        import torch
+
+        class Fan(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, n, dtype):
+                ctx.dtype = dtype
+                return tuple(x.clone() for _ in range(n))
+
+            @staticmethod
+            def backward(ctx, *grads):
+                total = None
+                for g in grads:
+                    if g is not None:
+                        total = g if total is None else total + g
+                if ctx.dtype is not None:
+                    total = total.to(ctx.dtype).to(total.dtype)
+                return total, None, None
+
+        _FAN.append(Fan)
+    return _FAN[0]
+
+
 class DataChunks:
     """Within a ``with`` block, the single-rank ``engine``'s step sums
     what a mesh's data group sums as the data ranks do. The gradients of
@@ -592,9 +782,19 @@ class DataChunks:
     own (its positives' rows, its samples' negatives' rows or its part of
     the tile rows' gradient, kept as autograd passes it), as a data rank
     accumulates its own before ``scatter.apply_row_updates_reduced`` sums
-    them. (Two partials add alike in either order.) Optimizers that
-    divide a gradient by its own size (Adagrad, Adam) turn another
-    summation order into a drift beyond the single-rank runs' spread."""
+    them. The shards' parts of ``w0``'s and of the tile rows' gradients
+    are f32, added in index order, as the sort-dedup update adds them
+    (two partials add alike in either order), and rounded once to the
+    compute type after the sum, as a mesh rounds them (``w0``'s: the
+    shards' products with ``f32_weight_grad``; the tile rows enter the
+    shards' scoring in f32, and their gradient is rounded to the rows'
+    type). On the sort-dedup
+    path (``scatter._apply_row_updates_sorted`` and its Adagrad / Adam
+    form) the item occurrences are put in the order the data group's
+    first rank gathers them: each shard's positives and its negatives in
+    turn, the tile slots last. Optimizers that divide a gradient by its
+    own size (Adagrad, Adam) turn another summation order into a drift
+    beyond the single-rank runs' spread."""
 
     def __init__(self, n_data: int, engine):
         import heat_tpu_torch.train.scatter as sc
@@ -602,20 +802,27 @@ class DataChunks:
 
         self.ts, self.sc, self.n, self.engine = ts, sc, n_data, engine
         self.orig = (ts.aggregate_history, ts.tile_scores, ts.pool_history,
-                     sc._dense_acc)
+                     sc._dense_acc, sc._apply_row_updates_sorted,
+                     sc._apply_row_updates_opt_sorted)
         self.tile_grads = {}  # shard: its part of the tile rows' gradient
 
     def aggregate(self, u, means, w0, gamma, **kw):
         import torch
 
-        return torch.cat([self.orig[0](a, m, w0, gamma, **kw) for a, m in
-                          zip(u.chunk(self.n), means.chunk(self.n))])
+        # Each shard's part of w0's gradient in f32, summed, rounded once.
+        w0s = _fan().apply(w0, self.n, means.dtype)
+        return torch.cat([self.orig[0](a, m, w, gamma, f32_weight_grad=True)
+                          for a, m, w in zip(u.chunk(self.n),
+                                             means.chunk(self.n), w0s)])
 
     def tile(self, u_agg, p, n, similarity="cosine"):
         import torch
 
         keep = _keep_grad()
-        parts = [self.orig[1](a, q, keep.apply(n, self.tile_grads, s),
+        # One f32 gradient, the shards' parts added in index order and
+        # rounded once to n's type.
+        n32 = _fan().apply(n.float(), self.n, None)
+        parts = [self.orig[1](a, q, keep.apply(n32[s], self.tile_grads, s),
                               similarity=similarity)
                  for s, (a, q) in enumerate(zip(u_agg.chunk(self.n),
                                                 p.chunk(self.n)))]
@@ -632,20 +839,39 @@ class DataChunks:
         return torch.cat([self.orig[2](e, k, attn_q=attn_q, kind=kind) for e, k
                           in zip(his_embs.chunk(self.n), mask.chunk(self.n))])
 
-    def dense_acc(self, table, ids, grads):
-        import torch
-
+    def _layout(self, ids):
+        """(tiled, K, T, B, rows a shard) of the step's item occurrences:
+        B positives, then the T tile slots or the B x K negatives, sample
+        by sample."""
         from heat_tpu_torch.config import NEG_SAMPLER_TILE
 
         st, cfg = self.engine.state, self.engine.cfg
-        if table is not st.item_emb:
-            return self.orig[3](table, ids, grads)
-        # The step's item occurrences: B positives, then the T tile slots
-        # or the B x K negatives, sample by sample.
         tiled = cfg.neg_sampler == NEG_SAMPLER_TILE and st.item_gacc is None
         k, t = (0, cfg.tile_size) if tiled else (cfg.num_negs, 0)
         b = (ids.shape[0] - t) // (1 + k)
-        lb = b // self.n
+        return tiled, k, t, b, b // self.n
+
+    def sorted_update(self, table, ids, grads, **kw):
+        import torch
+
+        fn = self.orig[5] if "step" in kw else self.orig[4]
+        if table is not self.engine.state.item_emb:
+            return fn(table, ids, grads, **kw)
+        tiled, k, t, b, lb = self._layout(ids)
+        if not tiled:
+            order = torch.cat([torch.cat([
+                torch.arange(s * lb, (s + 1) * lb),
+                torch.arange(b + s * lb * k, b + (s + 1) * lb * k)])
+                for s in range(self.n)]).to(ids.device)
+            ids, grads = ids.index_select(0, order), grads.index_select(0, order)
+        return fn(table, ids, grads, **kw)
+
+    def dense_acc(self, table, ids, grads):
+        import torch
+
+        if table is not self.engine.state.item_emb:
+            return self.orig[3](table, ids, grads)
+        tiled, k, t, b, lb = self._layout(ids)
         acc = None
         for s in range(self.n):
             rows = [slice(s * lb, (s + 1) * lb)]
@@ -665,22 +891,67 @@ class DataChunks:
         ts.aggregate_history, ts.tile_scores, ts.pool_history = (
             self.aggregate, self.tile, self.pool)
         sc._dense_acc = self.dense_acc
+        sc._apply_row_updates_sorted = self.sorted_update
+        sc._apply_row_updates_opt_sorted = self.sorted_update
         return self
 
     def __exit__(self, *exc):
         ts, sc = self.ts, self.sc
         (ts.aggregate_history, ts.tile_scores, ts.pool_history,
-         sc._dense_acc) = self.orig
+         sc._dense_acc, sc._apply_row_updates_sorted,
+         sc._apply_row_updates_opt_sorted) = self.orig
+
+
+def capture_collectives(device) -> dict:
+    """One ``all_reduce`` and one ``broadcast`` over the job's group
+    captured in a CUDA graph (after each ran once eagerly, which makes the
+    communicator), the graph replayed twice on new values: returns what
+    each replay gave and what it should give (a world of one: the sum of
+    one term, the broadcast of its own value)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.arange(4.0, device=device)
+    y = torch.zeros(4, device=device)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        dist.all_reduce(x)
+        dist.broadcast(y, src=0)
+    torch.cuda.current_stream(device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        x.mul_(2.0)
+        dist.all_reduce(x)
+        y.copy_(x).add_(1.0)
+        dist.broadcast(y, src=0)
+    got, want = [], []
+    for start in (1.0, 5.0):
+        x.copy_(torch.arange(4.0, device=device) + start)
+        graph.replay()
+        torch.cuda.synchronize(device)
+        got.append([x.tolist(), y.tolist()])
+        w = [2.0 * (k + start) for k in range(4)]
+        want.append([w, [v + 1.0 for v in w]])
+    return {"got": got, "want": want, "ok": got == want}
 
 
 def rank_world_of_one(rank, data_kw, cfg_kw, device, step_losses,
-                      plain_runs: int = 3) -> dict:
+                      plain_runs: int = 3, capture_epochs: int = 0,
+                      capture_runs: int = 2) -> dict:
     """A rank program for a world of one: an all-reduce over the job's
     group, then one epoch and an evaluation of
-    ``Engine(mesh=make_mesh(1, 1))`` (eager, through the job's backend:
-    NCCL on a card), then of ``plain_runs`` mesh-less engines (replayed on
-    a card);
-    each with its step losses, state, epoch seconds and metrics."""
+    ``Engine(mesh=make_mesh(1, 1))`` (each step a replay over NCCL on a
+    card, eager over gloo), then of ``plain_runs`` mesh-less engines
+    (replayed on a card); each with its step losses, state, epoch seconds
+    and metrics. With ``capture_epochs`` n (on a card) also: the
+    collectives captured in a graph (:func:`capture_collectives`); and n
+    epochs of the mesh engine by ``train_epochs(n)`` and by
+    ``run_epochs_with_eval(n, cfg.eval_interval)`` (replayed), beside
+    ``capture_runs`` mesh engines stepping eagerly (``_capture = False``)
+    and as many mesh-less replayed ones, n ``train_one_epoch`` calls each:
+    their losses, step losses (``step_losses`` bounds an epoch's), item
+    tables, evaluations and captures."""
     import time
 
     import torch
@@ -711,15 +982,46 @@ def rank_world_of_one(rank, data_kw, cfg_kw, device, step_losses,
                 "step_losses": rec.read(), "metrics": engine.evaluate(),
                 "state": state_to_numpy(engine.unpadded_state())}
 
-    return {"backend": mesh.backend, "mesh": one(mesh=mesh),
-            "plain": [one() for _ in range(plain_runs)]}
+    out = {"backend": mesh.backend, "mesh": one(mesh=mesh),
+           "plain": [one() for _ in range(plain_runs)]}
+    if not capture_epochs:
+        return out
+    n = capture_epochs
+    out["probe"] = capture_collectives(mesh.device)
+
+    def epochs(form, **kw):
+        engine = Engine(CFConfig(**cfg_kw), train, test, device=device, **kw)
+        if form == "eager":
+            engine._capture = False
+        evals = []
+        with StepLosses(n * step_losses, engine.device) as rec:
+            if form == "train_epochs":
+                losses = engine.train_epochs(n)
+            elif form == "run_epochs_with_eval":
+                losses, evals = engine.run_epochs_with_eval(
+                    n, engine.cfg.eval_interval)
+            else:
+                losses = [engine.train_one_epoch() for _ in range(n)]
+        fn = engine._epoch_fns.get(True)
+        return {"losses": losses, "evals": evals, "step_losses": rec.read(),
+                "capture": engine._capture,
+                "captures": 0 if fn is None else fn.captures,
+                "item_emb": engine.unpadded_state().item_emb.float().cpu().numpy()}
+
+    out["captured"] = {form: epochs(form, mesh=mesh) for form in (
+        "train_epochs", "run_epochs_with_eval")}
+    out["eager_mesh"] = [epochs("eager", mesh=mesh) for _ in range(capture_runs)]
+    out["replayed_plain"] = [epochs("plain") for _ in range(capture_runs)]
+    return out
 
 
 def train_oracle(n_data, data_kw, cfg_kw, epochs, device, *,
                  restore_dir: Optional[str] = None, evaluate: bool = True,
                  data=None, step_losses: int = 0, n_model: int = 1,
                  pools: bool = False, aggregated_eval: bool = False,
-                 dedup: bool = True) -> dict:
+                 dedup: bool = True, dense_rows: Optional[int] = None,
+                 init_block_rows: Optional[int] = None,
+                 sample_rows: int = 0) -> dict:
     """The single-rank counterpart of :func:`rank_train`: one engine over
     all the data that steps the global batches of an ``n_data``-row mesh
     with its draws (``Engine._shard_stream``; on a card each step a replay of
@@ -728,8 +1030,18 @@ def train_oracle(n_data, data_kw, cfg_kw, epochs, device, *,
     pools the history means in the mesh's partial sums
     (:class:`PartialMeans`); ``n_data`` > 1 takes the gradients the data
     group sums as the sum of the data shards' partials
-    (:class:`DataChunks`). ``pools``, ``aggregated_eval`` and ``dedup``
-    as :func:`rank_train` takes them."""
+    (:class:`DataChunks`). ``pools``, ``aggregated_eval``, ``dedup``,
+    ``dense_rows``, ``init_block_rows`` and ``sample_rows`` as
+    :func:`rank_train` takes them."""
+    with Lowered(dense_rows, init_block_rows):
+        return _oracle_run(n_data, data_kw, cfg_kw, epochs, device,
+                           restore_dir, evaluate, data, step_losses, n_model,
+                           pools, aggregated_eval, dedup, sample_rows)
+
+
+def _oracle_run(n_data, data_kw, cfg_kw, epochs, device, restore_dir,
+                evaluate, data, step_losses, n_model, pools, aggregated_eval,
+                dedup, sample_rows) -> dict:
     import contextlib
 
     from heat_tpu_torch.checkpoint import CheckpointManager
@@ -760,7 +1072,8 @@ def train_oracle(n_data, data_kw, cfg_kw, epochs, device, *,
         out["metrics"] = engine.evaluate()
     if aggregated_eval:
         out["metrics_aggregated"] = engine.evaluate(aggregate_users=True)
-    out["state"] = state_to_numpy(engine.state)
+    out["state"] = (sampled_state(engine, sample_rows) if sample_rows
+                    else state_to_numpy(engine.state))
     out["generators"] = generator_digest(engine)
     return out
 
@@ -786,12 +1099,37 @@ def rank_pools(rank, shape, data_kw, cfg_kw, device) -> dict:
             "double_rounded": double.float().cpu().numpy()}
 
 
+def rank_calls(rank, calls: list) -> list:
+    """A rank program: each ``(name, args, keywords)`` of ``calls`` in
+    turn, ``name`` a rank program of this module, in one job (one start
+    of the ranks for them all); returns their results."""
+    return [globals()[name](rank, *args, **kw) for name, args, kw in calls]
+
+
 def rank_cli(rank, argv) -> dict:
     """A rank program: the CLI (``heat_tpu_torch.main``) on this rank of
     the job; returns its record."""
     from heat_tpu_torch import main
 
     return main.main(list(argv))
+
+
+def rank_clis(rank, argvs) -> list:
+    """A rank program: the CLI once for each argv of ``argvs``, one after
+    the other in one job; returns each run's record and the lines it
+    printed (rank 0 prints, the other ranks print nothing)."""
+    import contextlib
+    import io
+
+    from heat_tpu_torch import main
+
+    out = []
+    for argv in argvs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            record = main.main(list(argv))
+        out.append({"record": record, "printed": buf.getvalue().splitlines()})
+    return out
 
 
 def rank_topk(rank, shape, user_emb, item_emb, train_pairs, truth_items, k,
@@ -833,7 +1171,8 @@ def rank_topk(rank, shape, user_emb, item_emb, train_pairs, truth_items, k,
 
 
 def rank_steps_injected(rank, shape, arrays: dict, cfg_kw: dict, steps: int,
-                        device: str, pools: bool = False) -> dict:
+                        device: str, pools: bool = False,
+                        dense_rows: Optional[int] = None) -> dict:
     """A rank program: ``steps`` sharded steps from an injected global state
     (``arrays``: user_emb, item_emb, w0, his, masks, users, pos, weight of
     the global batch, whose rows ``[d * b, (d + 1) * b)`` hold data index
@@ -846,8 +1185,14 @@ def rank_steps_injected(rank, shape, arrays: dict, cfg_kw: dict, steps: int,
     reads the pools the engine's refresh computes before it
     (``Engine._pooled_history``'s arithmetic). ``arrays`` may also hold
     the state's ``user_gacc`` / ``item_gacc``, ``opt_slots`` (a dict) and
-    ``attn_q``. Returns the global state after the steps (numpy), the
-    losses, the counters and the replica digests."""
+    ``attn_q``. ``dense_rows``: DENSE_ROWS_THRESHOLD in the rank. Returns
+    the global state after the steps (numpy), the losses, the counters
+    and the replica digests."""
+    with Lowered(dense_rows):
+        return _steps_injected(shape, arrays, cfg_kw, steps, device, pools)
+
+
+def _steps_injected(shape, arrays, cfg_kw, steps, device, pools) -> dict:
     import torch
 
     from heat_tpu_torch.config import CFConfig
