@@ -627,6 +627,16 @@ def check_pools(entry, key, table, his, lens, plain_chunk=None) -> None:
           nbytes=_distinct(flat) * d * table.element_size() + 4 * rows_read
           + 4 * u + u * d * out.element_size(),
           nops=rows_read * d)
+    # The bound above counts each distinct row once; this one each row read
+    # (every valid history slot), as a table beyond the L2 is read.
+    entry["bound_rows_ms" + key] = (
+        rows_read * (d * table.element_size() + 4) + 4 * u
+        + u * d * out.element_size()) / H100_BYTES_PER_MS
+    entry["rows_read" + key] = rows_read
+    print(f"kernel {entry['name']} at {key[1:]}: bound per row read "
+          f"{entry['bound_rows_ms' + key]:.4f} ms ({rows_read} rows read), "
+          f"per distinct row {entry['bound_ms' + key]:.4f} ms; graph_ms "
+          f"{entry['graph_ms' + key]:.4f}")
 
 
 def check_same_bits(table, his, lens, rows) -> None:
@@ -2177,7 +2187,10 @@ def check_trace(what, profile, every_step) -> dict:
     exactly the kernels the trace saw over the eager steps and none over
     the replayed ones (a replay calls no wrapper), each family of
     ``every_step`` ran at least once a step, and the replayed steps' device
-    time is at most 1.25x their wall time."""
+    time is at most 1.25x the wall time of the same traced steps (rank
+    jobs beside this process share the card: its kernels then take longer
+    while another context runs, and only the traced window's own wall
+    bounds their sum)."""
     eager, replayed = profile["eager"], profile["replayed"]
     got = replayed["port_kernels_per_step"]
     if got != eager["port_kernels_per_step"]:
@@ -2196,12 +2209,15 @@ def check_trace(what, profile, every_step) -> dict:
         if got[fam] < 1:
             raise AssertionError(
                 f"{what}: {fam} ran {got[fam]} times a replayed step")
-    # One stream: the device's time a step cannot much exceed the wall's.
-    if replayed["device_ms_per_step"] > 1.25 * replayed["wall_ms_per_step"]:
+    # One stream: the device's time a step cannot much exceed the wall's
+    # over the same steps.
+    traced_wall = replayed["profiled_wall_ms_per_step"]
+    if replayed["device_ms_per_step"] > 1.25 * traced_wall:
         raise AssertionError(
             f"{what}: {replayed['device_ms_per_step']} ms of device time a "
-            f"replayed step in {replayed['wall_ms_per_step']} ms of wall: "
-            f"the trace counts something that is not device work")
+            f"replayed step in {traced_wall} ms of the traced steps' wall "
+            f"({replayed['wall_ms_per_step']} ms untraced): the trace counts "
+            f"something that is not device work")
     print(f"{what}: port kernels a replayed step (device trace of "
           f"{profile['steps']} steps): {json.dumps(got)}")
     return got
@@ -3101,7 +3117,9 @@ def check_gate(finals: dict, data: bool = True):
     within its band (``parity.BANDS``: 0.0003 on the f32 runs, 0.0015 on
     the bf16 ones, set before their first run here; 0.0005 on the
     collapsed complement run, less than half its JAX metrics) of the JAX
-    run's. With
+    run's; where the record holds the JAX run's range over engine seeds
+    (``seed_spread``: config0, the (4, 1) "full" run), it is reported
+    beside the gap (``jax_seeds``). With
     ``data``, also the data this script trains on (the CLI's
     ``--synthetic`` data, regenerated here with the port's copy of the
     generator) has the record's pair counts and SHA-256 checksums, and the
@@ -3123,6 +3141,9 @@ def check_gate(finals: dict, data: bool = True):
                 f"the gate's {run} ran {record['runs'][run]['overrides']}, "
                 f"this script's {run} is {GATED_RUNS[run]}")
         out[run] = parity.gate(record, run, final, parity.BANDS[run])
+        seeds = record["seed_spread"].get(run)
+        if seeds:  # the JAX package's own range over three engine seeds
+            out[run]["jax_seeds"] = {m: seeds[m] for m in parity.GATED_METRICS}
         print(f"gate, {run} against the JAX package (jax "
               f"{record['jax_version']}, CPU): {json.dumps(out[run])}")
     if not data:
@@ -3811,6 +3832,9 @@ SPREAD_RULE = 2.0  # check_resume_cli's: at most twice the pooled rms spread
 # pairs is a noisy yardstick), so five (ten pairs).
 ORACLE_RUNS = 5
 MESH_STEPS = 2 * (-(-1895184 // BATCH) + 1)  # a bound on two epochs' steps
+# (b), (f) and (i): each epoch cut to the first half of its steps, on the
+# ranks and in their oracles alike (``torch_mesh_support.PartEpochs``).
+MESH_EPOCH_FRACTION = 0.5
 
 
 def mesh_support():
@@ -4439,16 +4463,17 @@ def check_mesh_cli_fast(dev, run, out=None) -> dict:
     return out
 
 
-def mesh_engine_job(dev, phase, runs):
-    """One job of four ranks on a (2, 2) mesh, on the card through gloo,
-    over MESH_SYNTHETIC: one epoch of every run of ``runs`` ({name: its
-    config0 overrides}), one after the other (``rank_runs``: one start of
-    the ranks for them all), each with its step losses and rank 0's trace
-    of the epoch. Every run's replicas bit-equal (SHA-256, slots and accum
-    rows included), its ranks' generators equal and their step losses the
-    same. Returns {name: (its config, rank 0's result, with its own
-    launches)}, the job's wall seconds, and the data's keywords and
-    (train, test)."""
+def mesh_engine_job(dev, phase, runs, shape=(2, 2)):
+    """One job of four ranks on a ``shape`` mesh ((2, 2) or (4, 1)), on the
+    card through gloo, over MESH_SYNTHETIC: one epoch (its first
+    MESH_EPOCH_FRACTION of the steps) of every run of ``runs`` ({name: its
+    config0 overrides}), one after the other
+    (``rank_runs``: one start of the ranks for them all), each with its
+    step losses and rank 0's trace of the epoch. Every run's replicas
+    bit-equal (SHA-256, slots and accum rows included), its ranks'
+    generators equal and their step losses the same. Returns {name: (its
+    config, rank 0's result, with its own launches)}, the job's wall
+    seconds, and the data's keywords and (train, test)."""
     import dataclasses
 
     import numpy as np
@@ -4459,23 +4484,25 @@ def mesh_engine_job(dev, phase, runs):
     cfgs = {name: dict(dataclasses.asdict(cfg), **overrides_of(sets))
             for name, sets in runs.items()}
     t0 = time.perf_counter()
+    tag = f"{shape[0]}{shape[1]}"
     ranks = mc.spawn_ranks(
-        mc.rank_runs, 4, (2, 2), data_kw,
+        mc.rank_runs, 4, shape, data_kw,
         {name: (cfgs[name], 1, {"profile_last": str(
-            LIFECYCLE / f"mesh_22_{name}.pt.trace.json")}) for name in runs},
+            LIFECYCLE / f"mesh_{tag}_{name}.pt.trace.json")}) for name in runs},
         dev.type, device=dev.type, timeout=MESH_TIMEOUT, evaluate=False,
-        all_states=False, step_losses=MESH_STEPS)
+        all_states=False, step_losses=MESH_STEPS,
+        epoch_fraction=MESH_EPOCH_FRACTION)
     wall = time.perf_counter() - t0
     out, before = {}, {}
     for name in runs:
         results = [r[name] for r in ranks]
         mc.check_replicas([r["replicas"] for r in results])
         if len({json.dumps(r["generators"]) for r in results}) != 1:
-            raise AssertionError(f"({phase}) (2, 2) {name}: the ranks' "
+            raise AssertionError(f"({phase}) {shape} {name}: the ranks' "
                                  "generators differ")
         for r in results[1:]:
             if not np.array_equal(r["step_losses"], results[0]["step_losses"]):
-                raise AssertionError(f"({phase}) (2, 2) {name}: the ranks "
+                raise AssertionError(f"({phase}) {shape} {name}: the ranks "
                                      "report other step losses")
         head = dict(results[0])
         total = head["launches"]
@@ -4485,24 +4512,27 @@ def mesh_engine_job(dev, phase, runs):
     return out, wall, data_kw, data
 
 
-def held_to_oracles(dev, phase, name, cfg_kw, head, data_kw, data) -> dict:
+def held_to_oracles(dev, phase, name, cfg_kw, head, data_kw, data,
+                    shape=(2, 2)) -> dict:
     """Rank 0's step losses, tables, ``w0`` (and ``attn_q``) of a
-    :func:`mesh_engine_job` run against ORACLE_RUNS single-rank runs on
-    the same global batches and draws (``Engine._shard_stream(2)``,
-    summing as the two data shards and the two model shards do) by
+    :func:`mesh_engine_job` run on a ``shape`` mesh against ORACLE_RUNS
+    single-rank runs on the same global batches and draws
+    (``Engine._shard_stream(shape[0])``, summing as the data shards and
+    the model shards do: ``DataChunks``, ``PartialMeans``) by
     :func:`held_to_spread`."""
     mc = mesh_support()
     t0 = time.perf_counter()
-    oracles = [mc.train_oracle(2, data_kw, cfg_kw, 1, dev.type, data=data,
-                               step_losses=MESH_STEPS, n_model=2,
-                               evaluate=False)
+    oracles = [mc.train_oracle(shape[0], data_kw, cfg_kw, 1, dev.type,
+                               data=data, step_losses=MESH_STEPS,
+                               n_model=shape[1], evaluate=False,
+                               epoch_fraction=MESH_EPOCH_FRACTION)
                for _ in range(ORACLE_RUNS)]
     held = {"step_losses": held_to_spread(
-        f"({phase}) (2, 2) {name} step losses", head["step_losses"],
+        f"({phase}) {shape} {name} step losses", head["step_losses"],
         [o["step_losses"] for o in oracles])}
     for key in ("user_emb", "item_emb", "w0", "attn_q"):
         if key in head["state"]:
-            held[key] = held_to_spread(f"({phase}) (2, 2) {name} {key}",
+            held[key] = held_to_spread(f"({phase}) {shape} {name} {key}",
                                        head["state"][key],
                                        [o["state"][key] for o in oracles])
     return {"held": held, "oracle_losses": [o["losses"] for o in oracles],
@@ -4607,6 +4637,18 @@ MESH_SLICE_ENGINE = {
 }
 
 
+# (i) on (4, 1): config0 under accum mode, whose stale term of w0's
+# gradient is four data ranks' partial products summed over "data" (the
+# oracles sum it so: ``DataChunks``; ROADMAP F5). Rank 0's kernels a step:
+# K2 multi (user and item rows), K3 four times (both sides' accumulators
+# and touched counts), S1 (the write-back), K2 (the stale term's accum
+# rows), K1 (the means); no model group, so no user broadcast.
+MESH_SLICE_ENGINE_41 = {
+    "config0_accum_41": (["sgd_mode=accum"], lambda n: {
+        "K2_multi": n, "K3": 4 * n, "S1": n, "K2": n, "K1": n, "K4": 0}),
+}
+
+
 def model_sum_bytes(name, train) -> dict:
     """The f32 bytes a (2, 2) rank sums over "model" in a step of the
     MESH_SLICE_ENGINE run ``name`` (its item rows and, per-step pooling,
@@ -4648,49 +4690,62 @@ def model_sum_bytes(name, train) -> dict:
     return out
 
 
-def check_mesh_engine_slice(dev, job=None) -> dict:
+def check_mesh_engine_slice(dev, job=None, job41=None) -> dict:
     """(i) The Engine API on a (2, 2) mesh (:func:`mesh_engine_job`; ``job``:
-    its result, where the runs were made in one job with (f)'s), one epoch
-    of each of MESH_SLICE_ENGINE, held to single-rank runs
-    (:func:`held_to_oracles`); the fixed stream's dedup in use; rank 0's
-    kernels in its traced epoch as MESH_SLICE_ENGINE predicts; the bytes
-    the step sums (:func:`model_sum_bytes`)."""
+    its result, where the runs were made in one job with (f)'s), one
+    epoch of each of MESH_SLICE_ENGINE, and on a (4, 1) mesh one epoch of
+    MESH_SLICE_ENGINE_41 (``job41``: its job's result), each held to
+    single-rank runs (:func:`held_to_oracles`); the fixed stream's dedup
+    in use; rank 0's kernels in its traced epoch as predicted; on (2, 2)
+    the bytes the step sums (:func:`model_sum_bytes`)."""
     if job is None:
         job = mesh_engine_job(dev, "i", {
             name: sets for name, (sets, _) in MESH_SLICE_ENGINE.items()})
-    jobs, wall, data_kw, data = job
+    if job41 is None:
+        job41 = mesh_engine_job(dev, "i", {
+            name: sets for name, (sets, _) in MESH_SLICE_ENGINE_41.items()},
+            (4, 1))
     out = {}
-    for name, (cfg_kw, head) in jobs.items():
-        if name not in MESH_SLICE_ENGINE:
-            continue
-        sets, predict = MESH_SLICE_ENGINE[name]
-        if "shuffle_mode=none" in sets and not head["dedup_engaged"]:
-            raise AssertionError(f"(2, 2) {name}: the dedup is idle")
-        last = head["last_epoch_profile"]
-        steps = last["steps"]
-        want = predict(steps)
-        if steps < 1 or last["port_kernels"] != want:
-            raise AssertionError(f"(2, 2) {name}: rank 0's traced epoch ran "
-                                 f"{last['port_kernels']} of the port's "
-                                 f"kernels, expected {want}")
-        out[name] = {"job_wall_s": wall, "losses": head["losses"],
-                     "steps": head["steps"], "train_s": head["train_s"],
-                     "collective_ms_per_step": 1e3 * last["collective_s"] / steps,
-                     "sum_bytes": model_sum_bytes(name, data[0]),
-                     "last_epoch_rank0": last, "launches_rank0": head["launches"],
-                     "port_kernels_per_step_rank0": {
-                         f: n / steps for f, n in last["port_kernels"].items()},
-                     **held_to_oracles(dev, "i", name, cfg_kw, head, data_kw,
-                                       data)}
-        print(f"mesh (i), the Engine API on (2, 2) through gloo, {name}: "
-              f"{json.dumps(out[name])}")
+    for (jobs, wall, data_kw, data), table, shape in (
+            (job, MESH_SLICE_ENGINE, (2, 2)),
+            (job41, MESH_SLICE_ENGINE_41, (4, 1))):
+        for name, (cfg_kw, head) in jobs.items():
+            if name not in table:
+                continue
+            sets, predict = table[name]
+            if "shuffle_mode=none" in sets and not head["dedup_engaged"]:
+                raise AssertionError(f"{shape} {name}: the dedup is idle")
+            last = head["last_epoch_profile"]
+            steps = last["steps"]
+            want = predict(steps)
+            if steps < 1 or last["port_kernels"] != want:
+                raise AssertionError(f"{shape} {name}: rank 0's traced epoch "
+                                     f"ran {last['port_kernels']} of the "
+                                     f"port's kernels, expected {want}")
+            out[name] = {"shape": list(shape), "job_wall_s": wall,
+                         "losses": head["losses"],
+                         "steps": head["steps"], "train_s": head["train_s"],
+                         "collective_ms_per_step":
+                             1e3 * last["collective_s"] / steps,
+                         "last_epoch_rank0": last,
+                         "launches_rank0": head["launches"],
+                         "port_kernels_per_step_rank0": {
+                             f: n / steps for f, n in last["port_kernels"].items()},
+                         **held_to_oracles(dev, "i", name, cfg_kw, head,
+                                           data_kw, data, shape)}
+            if shape == (2, 2):
+                out[name]["sum_bytes"] = model_sum_bytes(name, data[0])
+            print(f"mesh (i), the Engine API on {shape} through gloo, {name}: "
+                  f"{json.dumps(out[name])}")
     return out
 
 
 def check_mesh_engine(dev) -> dict:
     """(b) The Engine API on a (2, 2) mesh, four ranks on the card through
     gloo (``torch_mesh_support.spawn_ranks``), MESH_SYNTHETIC, config0,
-    two epochs and an evaluation, a checkpoint after the first epoch:
+    two epochs (each cut to MESH_EPOCH_FRACTION of its steps, as every
+    run and oracle below) and an evaluation, a checkpoint after the first
+    epoch:
 
     * step losses, tables and ``w0`` against ORACLE_RUNS single-rank runs
       on the same global batches and draws (``Engine._shard_stream(2)``)
@@ -4723,7 +4778,7 @@ def check_mesh_engine(dev) -> dict:
         timeout=MESH_TIMEOUT, save_dir=str(ck), save_after=1,
         all_states=False, step_losses=MESH_STEPS,
         profile_last=str(LIFECYCLE / "mesh_22_last_epoch.pt.trace.json"),
-        topk=50)
+        topk=50, epoch_fraction=MESH_EPOCH_FRACTION)
     wall = time.perf_counter() - t0
     if {r["backend"] for r in ranks} != {"gloo"}:
         raise AssertionError(f"(2, 2): backends {[r['backend'] for r in ranks]}")
@@ -4733,7 +4788,7 @@ def check_mesh_engine(dev) -> dict:
             raise AssertionError("(2, 2): the ranks report other step losses")
     oracles = [mc.train_oracle(2, data_kw, cfg_kw, 2, dev.type,
                                data=(train, test), step_losses=MESH_STEPS,
-                               n_model=2)
+                               n_model=2, epoch_fraction=MESH_EPOCH_FRACTION)
                for _ in range(ORACLE_RUNS)]
     head = ranks[0]
     last = head["last_epoch_profile"]
@@ -4777,7 +4832,8 @@ def check_mesh_engine(dev) -> dict:
     steps1 = len(oracles[0]["step_losses"]) // 2
     one = mc.train_oracle(2, data_kw, cfg_kw, 1, dev.type, data=(train, test),
                           restore_dir=str(ck), step_losses=MESH_STEPS,
-                          evaluate=False, n_model=2)
+                          evaluate=False, n_model=2,
+                          epoch_fraction=MESH_EPOCH_FRACTION)
     if one["restored"] != 1:
         raise AssertionError(f"(2, 2) checkpoint restored at {one['restored']}")
     out["held"]["resumed_one_rank"] = held_to_spread(
@@ -4787,12 +4843,14 @@ def check_mesh_engine(dev) -> dict:
     run41 = mc.spawn_ranks(
         mc.rank_train, 4, (4, 1), data_kw, cfg_kw, 1, dev.type, device=dev.type,
         timeout=MESH_TIMEOUT, restore_dir=str(ck), evaluate=False,
-        all_states=False, step_losses=MESH_STEPS)
+        all_states=False, step_losses=MESH_STEPS,
+        epoch_fraction=MESH_EPOCH_FRACTION)
     out["resume_41_wall_s"] = time.perf_counter() - t0
     mc.check_replicas([r["replicas"] for r in run41])
     four = [mc.train_oracle(4, data_kw, cfg_kw, 1, dev.type, data=(train, test),
                             restore_dir=str(ck), step_losses=MESH_STEPS,
-                            evaluate=False) for _ in range(ORACLE_RUNS)]
+                            evaluate=False, epoch_fraction=MESH_EPOCH_FRACTION)
+            for _ in range(ORACLE_RUNS)]
     out["held"]["resumed_41"] = held_to_spread(
         "(2, 2) checkpoint resumed on (4, 1)", run41[0]["step_losses"],
         [o["step_losses"] for o in four])
@@ -4849,7 +4907,7 @@ def check_mesh_nccl(dev) -> dict:
 # histories (``torch_mesh_support.uniform_data``, each rank drawing only
 # its rows), one epoch of HUGE_MESH_STEPS global batches.
 HUGE_MESH = (10_000_000, 6_000_000)
-HUGE_MESH_STEPS = {"bench_bf16": 200, "s100m_f32": 150}
+HUGE_MESH_STEPS = {"bench_bf16": 100, "s100m_f32": 75}
 HUGE_MESH_ORACLES = 4  # single-rank runs a (j) run is held to (6 pairs)
 HUGE_SAMPLE_ROWS = 97  # every 97th row of the tables is compared
 SYNTHETIC100M = "benchmarks/Synthetic100M/config0.yaml"
@@ -5286,6 +5344,24 @@ def start_beside(fn, *args) -> tuple:
     return thread, box
 
 
+def mesh_jobs_after(dev, first: tuple) -> dict:
+    """The mesh's rank jobs that need no check in this process while they
+    run, one after the other once the ``first`` :func:`start_beside` jobs
+    have ended (their errors are raised where they are finished): (d) and
+    (e)'s CLI pair, (g) and (h)'s, and (i)'s (4, 1) Engine job. Four or
+    eight gloo ranks at a time beside the single-card phases, which leave
+    most of the host's cores idle; checked with the mesh."""
+    for job in first:
+        job[0].join()
+    out = {"de": run_mesh_clis(dev, {run: (sets, True) for run, (sets, _)
+                                     in MESH_FAST_RUNS.items()})}
+    out["gh"] = run_mesh_clis(dev, {run: (GATED_RUNS[run], False)
+                                    for run in MESH_SLICE_CLI})
+    out["i41"] = mesh_engine_job(dev, "i", {
+        name: sets for name, (sets, _) in MESH_SLICE_ENGINE_41.items()}, (4, 1))
+    return out
+
+
 def finish_beside(job: tuple):
     """Wait for a :func:`start_beside` job; its value, or its error raised."""
     thread, box = job
@@ -5411,8 +5487,11 @@ def main() -> int:
     k_job = start_beside(check_mesh_sorted_gate, dev, [
         "--config", CONFIG0, "--synthetic", FUSED_CLI_SYNTHETIC, "--epochs",
         "3", "--device", dev.type])
-    # And (a)'s CLI ranks (checked with the mesh), for the same reason.
+    # And (a)'s CLI ranks (checked with the mesh), for the same reason;
+    # once both have ended, (d)-(e)'s and (g)-(h)'s CLI pairs and (i)'s
+    # (4, 1) job, beside phases 7-13.
     a_job = start_beside(mesh_cli_job, dev)
+    later_job = start_beside(mesh_jobs_after, dev, (k_job, a_job))
     mark("config0 CLI")
     # config0 at full width (f32, uniform sampler, per-step history mean).
     EXPORT.parent.mkdir(parents=True, exist_ok=True)
@@ -5520,11 +5599,9 @@ def main() -> int:
         "resume_distinct": check_resume_distinct(dev),
         "resume_cli": check_resume_cli(dev, cli, args),
         "profile_dir": check_profile_dir(cli, args),
-        "breakdown": check_breakdown(dev, cli, args, gate_train, gate_test),
         "native": check_native(gate_train, gate_test),
         "checkpoint_16m_6m": replay["dedup_16m_6m"]["checkpoint"],
     }
-    del gate_train, gate_test
 
     reset()
     mark("serving")
@@ -5632,7 +5709,7 @@ def main() -> int:
         "headline_epoch_s": head["epoch_times"],
         "config0_epoch_s": record["epoch_times"]}}))
     print(f"card for the line above: {card}")
-    print(json.dumps({"lifecycle": lifecycle}))
+    print(json.dumps({"lifecycle": lifecycle}))  # the breakdown comes last
     print(f"card for the line above: {card}")
     mark("full-size update")
     step = check_huge_step(dev)
@@ -5681,19 +5758,20 @@ def main() -> int:
     # shape through the CLI on (4, 1), (f) three Engine runs on (2, 2);
     # points 3 and 4: (g) the JAX demo's "full" settings and (h) config0
     # with self-attention through the CLI on (4, 1), (i) three Engine runs
-    # on (2, 2). The CLI runs two at a time, and so do the (f) and (i)
-    # jobs, beside (j): the sort-dedup shards at the real threshold on
-    # (2, 1) (points 5 and 6; (l)'s captured epochs over NCCL ran in (c)'s
-    # job). Their walls are not speeds.
+    # on (2, 2) and config0 under accum on (4, 1) (ROADMAP F5). The CLI
+    # runs two at a time and, with (i)'s (4, 1) job, ran beside phases
+    # 7-13 (``mesh_jobs_after``); the (f) and (i) jobs run as a pair beside
+    # (j): the sort-dedup shards at the real threshold on (2, 1) (points 5
+    # and 6; (l)'s captured epochs over NCCL ran in (c)'s job). Their walls
+    # are not speeds.
     mark("mesh d-i")
-    clis = run_mesh_clis(dev, {run: (sets, True) for run, (sets, _)
-                               in MESH_FAST_RUNS.items()})
+    later = finish_beside(later_job)
+    clis = later["de"]
     mesh["d"] = check_mesh_cli_fast(dev, "headline_mesh41",
                                     clis["headline_mesh41"])
     mesh["e"] = check_mesh_cli_fast(dev, "default_shape_mesh41",
                                     clis["default_shape_mesh41"])
-    clis = run_mesh_clis(dev, {run: (GATED_RUNS[run], False)
-                               for run in MESH_SLICE_CLI})
+    clis = later["gh"]
     mesh["g"] = check_mesh_cli_slice(dev, "full_mesh41", clis["full_mesh41"])
     mesh["h"] = check_mesh_cli_slice(dev, "config0_self_attention_mesh41",
                                      clis["config0_self_attention_mesh41"])
@@ -5716,7 +5794,7 @@ def main() -> int:
     finally:
         j_job[0].join()
     mesh["f"] = check_mesh_engine_fast(dev, finish_beside(f_job))
-    mesh["i"] = check_mesh_engine_slice(dev, i_runs)
+    mesh["i"] = check_mesh_engine_slice(dev, i_runs, later["i41"])
     mesh["j"] = check_mesh_sorted_huge(dev, finish_beside(j_job))
     mark("mesh sorted kernels")
     for name, (cfg_kw, _) in huge_mesh_runs().items():
@@ -5733,6 +5811,14 @@ def main() -> int:
           f"captures a run {mesh['c']['captured']['captures']}; gloo (4, 1) "
           f"captured: {mesh['k']['gate']['capture']}")
     mark("end of the mesh")
+    # The phase timer's syncs cost a share of a replayed epoch measured on
+    # the host's clock: after the mesh, when no rank job shares the host.
+    mark("breakdown")
+    lifecycle["breakdown"] = check_breakdown(dev, cli, args, gate_train,
+                                             gate_test)
+    del gate_train, gate_test
+    print(json.dumps({"lifecycle_breakdown": lifecycle["breakdown"]}))
+    print(f"card for the line above: {card}")
     print(json.dumps({"mesh": {
         "(a) wall_s, collective ms a step, rank 0's traced idle share": [
             mesh["a"]["wall_s"], mesh["a"]["collective_ms_per_step"],
@@ -5769,10 +5855,10 @@ def main() -> int:
         "(l) fused CLI ratios to the spread; NCCL captured ratios": [
             {k: h["ratio"] for k, h in mesh["k"]["fused_cli"]["held"].items()},
             {k: h["ratio"] for k, h in mesh["c"]["captured"]["held"].items()}],
-        **{f"(i) {name} wall_s, train_s, collective ms a step, rank 0's idle "
-           f"share, bytes summed, ratios to the spread": [
+        **{f"(i) {name} {tuple(r['shape'])} wall_s, train_s, collective ms a "
+           f"step, rank 0's idle share, bytes summed, ratios to the spread": [
                r["job_wall_s"], r["train_s"], r["collective_ms_per_step"],
-               r["last_epoch_rank0"]["idle_share"], r["sum_bytes"],
+               r["last_epoch_rank0"]["idle_share"], r.get("sum_bytes"),
                {k: h["ratio"] for k, h in r["held"].items()}]
            for name, r in mesh["i"].items()}}}))
     print(f"card for the line above (ranks sharing one card; no multi-card "
@@ -5821,7 +5907,9 @@ def main() -> int:
         k["launches_mesh_self_attention_41_rank0"] = (
             mesh["h"]["launches_rank0"][name])
         for run, r in [*mesh["f"].items(), *mesh["i"].items()]:
-            k[f"launches_mesh_22_{run}_rank0"] = r["launches_rank0"][name]
+            tag = "".join(map(str, r.get("shape", (2, 2))))
+            k[f"launches_mesh_{tag}_{run.removesuffix('_41')}_rank0"] = (
+                r["launches_rank0"][name])
         for run in huge_mesh_runs():
             k[f"launches_mesh_sorted_{run}_rank0"] = (
                 mesh["j"][run]["launches_rank0"][name])

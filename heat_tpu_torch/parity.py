@@ -5,7 +5,8 @@ trains AmazonBooks config0 and the configurations ``chip_smoke.py`` trains
 (``BANDS``) on the synthetic 52,643 x 91,599 planted-cluster data and
 records the final metrics, with a SHA-256 of the data's train and test
 pairs, in ``PARITY_TORCH.json`` at the root of the repository; and config0
-again at two other engine seeds, whose spread it records beside the bands
+and the (4, 1) run of the JAX demo's "full" settings again at two other
+engine seeds, whose spreads it records beside the bands
 (:func:`seed_spread`). The card's half (``chip_smoke.py``) generates the
 same data with ``heat_tpu_torch.data.synthetic`` (a verbatim copy of the
 JAX package's generator), checks its checksum against the file, and holds
@@ -102,21 +103,26 @@ def check_run_data(record: dict, run: str, train, test) -> dict:
 
 
 def seed_spread(record: dict) -> dict:
-    """The JAX package's spread over engine seeds: config0 (at the config's
-    seed) and the runs of the record that repeat it at another
-    ``engine_seed``, and per gated metric the least and most value and the
+    """The JAX package's spread over engine seeds, keyed by run: for each
+    run that others of the record repeat at another ``engine_seed``
+    (config0; the (4, 1) "full" run), the run (at the config's seed) and
+    its repeats, and per gated metric the least and most value and the
     range between them."""
-    run = "config0"
-    names = [run] + sorted(n for n, r in record["runs"].items()
-                           if r.get("repeats") == run)
-    out = {"run": run, "runs": names,
-           "engine_seeds": [record["runs"][n].get("engine_seed",
-                                                  record["synthetic"]["seed"])
-                            for n in names]}
-    for m in GATED_METRICS:
-        vals = [record["runs"][n]["final_metrics"][m] for n in names]
-        out[m] = {"min": min(vals), "max": max(vals),
-                  "range": max(vals) - min(vals)}
+    runs = record["runs"]
+    out = {}
+    for run in sorted({r["repeats"] for r in runs.values() if "repeats" in r}
+                      & set(runs)):
+        names = [run] + sorted(n for n, r in runs.items()
+                               if r.get("repeats") == run)
+        entry = {"runs": names,
+                 "engine_seeds": [runs[n].get("engine_seed",
+                                              record["synthetic"]["seed"])
+                                  for n in names]}
+        for m in GATED_METRICS:
+            vals = [runs[n]["final_metrics"][m] for n in names]
+            entry[m] = {"min": min(vals), "max": max(vals),
+                        "range": max(vals) - min(vals)}
+        out[run] = entry
     return out
 
 

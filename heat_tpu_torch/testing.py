@@ -1,7 +1,9 @@
 """What the tests and ``chip_smoke.py`` share, so that the two cannot
-drift apart: the comparison rule for two training states computed in
+drift apart: the comparison rules for two training states computed in
 different summation orders (the CPU tests against the JAX package, the
-step on the card against the CPU), the recorder of each step's draws and
+step on the card against the CPU; past a few steps of accum mode, the
+distance held to the port's own spread under permuted sums), the
+recorder of each step's draws and
 loss, and the comparison of replayed epochs with eager ones on clicks
 whose steps repeat no id.
 """
@@ -54,6 +56,106 @@ def assert_state_array_close(
             f"(at least {SHARE} required)"
         )
     return worst
+
+
+SPREAD_MULTIPLE = 4.0  # the spread rule's multiple, stated before measuring
+
+
+def assert_within_order_spread(
+    got, want, runs, name: str, *, multiple: float = SPREAD_MULTIPLE,
+) -> dict:
+    """The spread rule: raise AssertionError unless ``got`` (a state array
+    of the port) lies within ``multiple`` times the port's own summation
+    -order spread of ``want`` (the JAX package's), at every element.
+
+    ``runs`` holds the same array from runs of the port that differ from
+    ``got``'s only in the order of their sums (:class:`Order`): the
+    spread is the largest absolute difference between any two of them and
+    ``got``, or one f32 ulp of the largest ``|want|`` where that is larger
+    (runs that came out equal).
+    The JAX package sums in yet another order, so past the steps where
+    cancellation leaves ``assert_state_array_close``'s cap, its distance
+    to the port is held to the port's own spread, not to a fixed number.
+
+    Returns the distance, the spread and their ratio."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    arrays = [got] + [np.asarray(r, np.float64) for r in runs]
+    spread = max(float(np.abs(a - b).max()) for i, a in enumerate(arrays)
+                 for b in arrays[i + 1:])
+    floor = float(np.spacing(np.float32(np.abs(want).max())))
+    diff = float(np.abs(got - want).max())
+    bound = multiple * max(spread, floor)
+    if not diff <= bound:  # a NaN fails
+        raise AssertionError(
+            f"{name}: {diff:.3g} from the JAX package, more than {multiple} x "
+            f"the port's order spread {max(spread, floor):.3g}")
+    return {"diff": diff, "spread": spread, "floor": floor,
+            "ratio": diff / max(spread, floor)}
+
+
+class Order:
+    """The n-th reordering of a step's sums that changes nothing else (0:
+    none), for the spread rule's runs of the port: the batch's samples
+    permuted with their pinned draws (within each of ``blocks`` equal
+    blocks: a mesh's data shards), each sample's K negatives permuted (the
+    loss sums over them), and the latent axis permuted in every table and
+    in both axes of ``w0`` (every dot product, norm and product sums over
+    it; the step is equivariant under it). The samples' order alone would
+    leave a sample's own gradient, a sum over its negatives and the latent
+    axis, as it was."""
+
+    def __init__(self, n: int, b: int, k: int, d: int, blocks: int = 1):
+        rng = np.random.default_rng(1000 + n)
+        w = b // blocks
+        if n == 0:
+            self.samples, self.negs, self.dims = (
+                np.arange(b), np.arange(k), np.arange(d))
+        else:
+            self.samples = np.concatenate(
+                [i * w + rng.permutation(w) for i in range(blocks)])
+            self.negs, self.dims = rng.permutation(k), rng.permutation(d)
+        self.back = np.argsort(self.dims)
+
+    def state(self, arrays: dict) -> dict:
+        """``arrays`` (numpy, the latent axis last; None entries kept) in
+        this order's latent axis."""
+        return {k: None if v is None else np.ascontiguousarray(
+            v[np.ix_(self.dims, self.dims)] if k == "w0" else v[:, self.dims])
+            for k, v in arrays.items()}
+
+    def restore(self, state: dict) -> dict:
+        """A numpy state of the port back in the given latent order."""
+        out = dict(state)
+        for k, v in state.items():
+            if isinstance(v, np.ndarray) and v.ndim == 2:
+                out[k] = (v[np.ix_(self.back, self.back)] if k == "w0"
+                          else v[:, self.back])
+        return out
+
+
+def hold_by_order_spread(runs, want, first: int = 3) -> dict:
+    """Steps ``first`` on of the port's runs against the JAX package's by
+    :func:`assert_within_order_spread`, array by array and the loss:
+    ``runs`` a list of (losses, states), ``runs[0]`` in the given order
+    and the others reordered (:class:`Order`), each state a numpy state a
+    step (``state_to_numpy``'s keys; ``lr`` and ``step`` are not held
+    here); ``want`` the JAX package's (losses, states). Returns the
+    largest ratio of each array."""
+    ratios = {}
+    for step in range(first - 1, len(want[1])):
+        got, others = runs[0][1][step], [r[1][step] for r in runs[1:]]
+        for name, value in want[1][step].items():
+            if name in ("lr", "step") or value is None:
+                continue
+            out = assert_within_order_spread(
+                got[name], value, [o[name] for o in others],
+                f"{name}, step {step + 1}")
+            ratios[name] = max(ratios.get(name, 0.0), out["ratio"])
+        out = assert_within_order_spread(
+            runs[0][0][step], want[0][step], [r[0][step] for r in runs[1:]],
+            f"loss, step {step + 1}")
+        ratios["loss"] = max(ratios.get("loss", 0.0), out["ratio"])
+    return ratios
 
 
 class StepRecorder:

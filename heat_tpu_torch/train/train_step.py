@@ -191,6 +191,17 @@ def _update_user_rows(state, cfg, users_w, g_u, u_agg, sgd, opt) -> None:
             v=state.opt_slots["user_v"], writeback=writeback, **opt)
 
 
+def stale_w0_term(user_gacc, users, means, weight, gamma: float):
+    """Accum mode's stale term of ``w0``'s gradient: the reference's
+    aggregator backward works on the persistent user-grad rows, so the
+    gradient also holds ``(1 - gamma) * (means * weight)^T @ user_gacc[users]``
+    (an f32 GEMM; the engine turns TF32 off), read before the step's
+    updates. On a mesh each data rank computes it over its rows of the
+    batch, and the data group sums the parts."""
+    prev_acc = gather_rows(user_gacc, users).float()
+    return (1.0 - gamma) * ((means.float() * weight[:, None]).T @ prev_acc)
+
+
 def _update_dense(state: TrainState, cfg: CFConfig, dense, real) -> None:
     """``w0`` (and ``attn_q``) from their batch gradients, ``dense`` a list
     of (slot name, parameter, gradient): B / aggr_minibatch reference
@@ -387,14 +398,9 @@ def train_step(
     means = means.detach()
 
     if state.user_gacc is not None:
-        # Accum mode: the reference's aggregator backward works on the
-        # persistent user-grad row, so the w0 gradient also holds the stale
-        # accumulated rows' term (f32 GEMM; the engine turns TF32 off).
         with record_function("aggr_b"):
-            prev_acc = gather_rows(state.user_gacc, users).float()
-            g_w0 = g_w0 + (1.0 - cfg.gamma) * (
-                (means.float() * weight[:, None]).T @ prev_acc
-            )
+            g_w0 = g_w0 + stale_w0_term(state.user_gacc, users, means,
+                                        weight, cfg.gamma)
 
     num_users, num_items = user_emb.shape[0], item_emb.shape[0]
     valid = weight > 0
@@ -747,11 +753,10 @@ def train_step_sharded(
     # accum mode's stale term of it | attn_q's gradient | the loss].
     extra = [g_w0.reshape(-1)]
     if state.user_gacc is not None:
-        # train_step's stale accumulated user rows' term of the w0 gradient.
+        # The rank's part of the stale term, summed over the data group.
         with record_function("aggr_b"):
-            prev_acc = gather_rows(state.user_gacc, u_loc).float()
-            extra.append(((1.0 - cfg.gamma) * (
-                (means.float() * weight[:, None]).T @ prev_acc)).reshape(-1))
+            extra.append(stale_w0_term(state.user_gacc, u_loc, means, weight,
+                                       cfg.gamma).reshape(-1))
     extra += [g.reshape(-1) for g in g_q]
     extra = torch.cat(extra + [loss_sum.detach().reshape(1)])
     valid = weight > 0

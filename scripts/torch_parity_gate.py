@@ -7,7 +7,8 @@ config's seed, 2022), in config0 and in every configuration the port's
 ``chip_smoke.py`` trains (``RUNS``: the JAX ``bench.py`` headline, the
 reference's default shape, config0 with self-attention, bench.py's ACCL
 and CCL rows, complement scope), config0 again at two other engine
-seeds (``SEED_RUNS``: the JAX package's own spread), and config0, the
+seeds and the (4, 1) "full" run at two (``SEED_RUNS``: the JAX
+package's own spread), and config0, the
 headline, the default shape, the settings of the JAX multihost demo's
 "full" variant, config0 with self-attention and config0 with both tables
 on the sort-dedup update on a (4, 1) mesh of four JAX processes
@@ -74,10 +75,13 @@ RUNS = {
     "headline_ccl": HEADLINE + ["loss=CosineContrastiveLoss"],
     "complement": DEFAULT_SHAPE + ["subepoch_neg_scope=complement"],
 }
-# The JAX package's own spread: config0 again at other engine seeds
-# (``Engine(seed=)``) on the same data (whose seed stays the config's).
+# The JAX package's own spread: a run again at other engine seeds
+# (``Engine(seed=)``) on the same data (whose seed stays the config's);
+# a mesh run's repeats run on its mesh.
 SEED_RUNS = {"config0_seed2023": ("config0", 2023),
-             "config0_seed2024": ("config0", 2024)}
+             "config0_seed2024": ("config0", 2024),
+             "full_mesh41_seed2023": ("full_mesh41", 2023),
+             "full_mesh41_seed2024": ("full_mesh41", 2024)}
 # Runs on a mesh of JAX processes: (n_data, n_model) and the synthetic
 # geometry (users, items). Each is also a RUNS entry (its overrides).
 MESH_RUNS = {"config0_mesh41": ((4, 1), (52644, 91599)),
@@ -124,6 +128,14 @@ def _argv(overrides, synthetic=SYNTHETIC) -> list[str]:
     return argv
 
 
+def _seeded_engine(jax_main, engine_seed):
+    """The JAX CLI's engine class, seeded with ``engine_seed`` in place of
+    the config's seed when one is given."""
+    if engine_seed is None:
+        return jax_main.Engine
+    return functools.partial(jax_main.Engine, seed=engine_seed)
+
+
 def run_jax(overrides, engine_seed=None) -> dict:
     """One run of the JAX CLI on the CPU: its final metrics and seconds.
     ``engine_seed`` seeds the CLI's engine in place of the config's seed
@@ -132,13 +144,10 @@ def run_jax(overrides, engine_seed=None) -> dict:
 
     from heat_tpu import main as jax_main
 
-    engine = jax_main.Engine
-    if engine_seed is not None:
-        engine = functools.partial(engine, seed=engine_seed)
     tee = _Tee(sys.stdout)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee), mock.patch.object(
-            jax_main, "Engine", engine):
+            jax_main, "Engine", _seeded_engine(jax_main, engine_seed)):
         jax_main.main(_argv(overrides))
     seconds = time.perf_counter() - t0
     last = [ln for ln in tee.buf.getvalue().splitlines()
@@ -147,11 +156,13 @@ def run_jax(overrides, engine_seed=None) -> dict:
             "seconds": seconds}
 
 
-def mesh_worker(rank: int, world: int, port: int, name: str) -> None:
+def mesh_worker(rank: int, world: int, port: int, name: str,
+                engine_seed=None) -> None:
     """One rank of a mesh run: ``jax.distributed`` over localhost with one
     CPU device, then the JAX CLI on this rank's user shard of the
-    synthetic data (the CLI shards only file data). Rank 0's output holds
-    the run's final metrics."""
+    synthetic data (the CLI shards only file data), its engine seeded
+    with ``engine_seed`` when one is given. Rank 0's output holds the
+    run's final metrics."""
     from unittest import mock
 
     import jax
@@ -175,14 +186,17 @@ def mesh_worker(rank: int, world: int, port: int, name: str) -> None:
         from heat_tpu.train import scatter
 
         scatter.DENSE_ROWS_THRESHOLD = DENSE_ROWS[name]
-    with mock.patch.object(jax_main, "synthetic_click_dataset", sharded):
+    with mock.patch.object(jax_main, "synthetic_click_dataset", sharded), \
+            mock.patch.object(jax_main, "Engine",
+                              _seeded_engine(jax_main, engine_seed)):
         jax_main.main(_argv(RUNS[name], synthetic))
     jax.distributed.shutdown()
 
 
-def run_jax_mesh(name: str) -> dict:
-    """A mesh run: one worker process a rank; rank 0's final metrics and
-    the run's seconds."""
+def run_jax_mesh(name: str, engine_seed=None) -> dict:
+    """A mesh run: one worker process a rank (each engine seeded with
+    ``engine_seed`` when one is given, as :func:`run_jax`); rank 0's final
+    metrics and the run's seconds."""
     import socket
     import subprocess
 
@@ -197,7 +211,8 @@ def run_jax_mesh(name: str) -> dict:
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--mesh-worker",
-         f"{rank},{world},{port}", "--runs", name],
+         f"{rank},{world},{port}", "--runs", name]
+        + ([] if engine_seed is None else ["--engine-seed", str(engine_seed)]),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
         for rank in range(world)]
     outs = [p.communicate()[0] for p in procs]
@@ -235,11 +250,13 @@ def main(argv=None) -> None:
                         help="also run the port's CLI on the CPU")
     parser.add_argument("--mesh-worker", default=None, metavar="RANK,WORLD,PORT",
                         help=argparse.SUPPRESS)
+    parser.add_argument("--engine-seed", type=int, default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     names = [n for n in args.runs.split(",") if n]
     if args.mesh_worker:
         rank, world, port = map(int, args.mesh_worker.split(","))
-        mesh_worker(rank, world, port, names[0])
+        mesh_worker(rank, world, port, names[0], args.engine_seed)
         return
     unknown = sorted(set(names) - set(RUNS) - set(SEED_RUNS))
     if unknown:
@@ -290,25 +307,29 @@ def main(argv=None) -> None:
             json.dump(record, f, indent=1, sort_keys=True)
             f.write("\n")
 
-    for name in names:
-        print(f"== JAX {name}", flush=True)
-        if name in MESH_RUNS:
-            (n_data, n_model), (users, items) = MESH_RUNS[name]
-            geom = dict(geometry, num_users=users, num_items=items)
-            record["runs"][name] = {
-                "overrides": RUNS[name], "mesh": [n_data, n_model],
+    def mesh_entry(name, engine_seed=None):
+        (n_data, n_model), (users, items) = MESH_RUNS[name]
+        geom = dict(geometry, num_users=users, num_items=items)
+        return {"overrides": RUNS[name], "mesh": [n_data, n_model],
                 "synthetic": geom,
                 **({"dense_rows_threshold": DENSE_ROWS[name]}
                    if name in DENSE_ROWS else {}),
                 **data_fingerprint(*synthetic_click_dataset(**geom)),
-                **run_jax_mesh(name)}
+                **run_jax_mesh(name, engine_seed)}
+
+    for name in names:
+        print(f"== JAX {name}", flush=True)
+        if name in MESH_RUNS:
+            record["runs"][name] = mesh_entry(name)
             write()
             continue
         if name in SEED_RUNS:
             run, seed = SEED_RUNS[name]
-            record["runs"][name] = {"overrides": RUNS[run], "repeats": run,
-                                    "engine_seed": seed,
-                                    **run_jax(RUNS[run], engine_seed=seed)}
+            record["runs"][name] = {
+                "repeats": run, "engine_seed": seed,
+                **(mesh_entry(run, seed) if run in MESH_RUNS else {
+                    "overrides": RUNS[run],
+                    **run_jax(RUNS[run], engine_seed=seed)})}
             write()
             continue
         record["runs"][name] = {"overrides": RUNS[name], **run_jax(RUNS[name])}

@@ -246,26 +246,17 @@ def test_layout_round_trip_in_one_process(cfg):
 # The sharded step against the JAX package's, with injected state and draws.
 
 
-def injected_against_jax(overrides: dict, steps: int = 2):
-    """``steps`` steps of the port's (2, 2) mesh (``rank_steps_injected``)
-    and of the JAX step on the conftest's virtual (2, 2) mesh from one
-    injected state (the JAX package's initial state of ``overrides``,
-    slots, accum rows and ``attn_q`` included), global batch (repeated
-    users and items, a weight-0 tail on each data shard), histories and
-    uniform draws pinned at the sampler's count; lr 0.05 and a clip of
-    0.02 that binds. Returns (the ranks' results, the JAX state, the JAX
-    losses, the JAX sampler state)."""
+def _injected_case(overrides: dict, steps: int):
+    """The injected state (the JAX package's initial state of
+    ``overrides``, slots, accum rows and ``attn_q`` included), global batch
+    (repeated users and items, a weight-0 tail on each data shard),
+    histories and uniform draws for ``steps`` steps; lr 0.05 and a clip
+    of 0.02 that binds. Returns (arrays, the config's keywords, the JAX
+    initial state)."""
     import jax
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
 
-    import heat_tpu.train.train_step as jts
     from heat_tpu.config import CFConfig as JCFConfig
     from heat_tpu.models.state import init_train_state as jinit
-    from heat_tpu.parallel.mesh import make_mesh as jmake_mesh
-    from heat_tpu.parallel.mesh import shard_data_arrays, shard_train_state as jshard
-    from heat_tpu.train.samplers import NegSample as JNegSample
-    from heat_tpu.train.samplers import init_sampler_state as jinit_sampler
 
     rng = np.random.default_rng(0)
     u, i, h, b, k, d = 40, 90, 8, 48, 4, 16
@@ -283,8 +274,7 @@ def injected_against_jax(overrides: dict, steps: int = 2):
     masks = rng.integers(0, h + 1, u).astype(np.int32)
     masks[:2] = [0, h]  # an empty history and a full one
     draws = rng.integers(0, i, ((steps + 2) * b, k)).astype(np.int32)
-    jcfg = JCFConfig(**kw)
-    jstate0 = jinit(jcfg, jax.random.key(1))
+    jstate0 = jinit(JCFConfig(**kw), jax.random.key(1))
     arrays = {"user_emb": np.asarray(jstate0.user_emb),
               "item_emb": np.asarray(jstate0.item_emb),
               "w0": np.asarray(jstate0.w0), "his": his, "masks": masks,
@@ -295,17 +285,33 @@ def injected_against_jax(overrides: dict, steps: int = 2):
     if jstate0.opt_slots is not None:
         arrays["opt_slots"] = {key: np.asarray(v)
                                for key, v in jstate0.opt_slots.items()}
-    cfg_kw = {k2: v for k2, v in kw.items() if k2 not in ("num_users", "num_items")}
-    ranks = mc.spawn_ranks(mc.rank_steps_injected, 4, (2, 2), arrays, cfg_kw,
-                           steps, "cpu", timeout=TIMEOUT)
+    return arrays, kw, jstate0
 
+
+def _jax_steps22(arrays: dict, kw: dict, jstate0, steps: int):
+    """The JAX step on the conftest's virtual (2, 2) mesh from the injected
+    state, the draws pinned at the sampler's count: (the state after each
+    step, the losses, the sampler state)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    import heat_tpu.train.train_step as jts
+    from heat_tpu.config import CFConfig as JCFConfig
+    from heat_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from heat_tpu.parallel.mesh import shard_data_arrays, shard_train_state as jshard
+    from heat_tpu.train.samplers import NegSample as JNegSample
+    from heat_tpu.train.samplers import init_sampler_state as jinit_sampler
+
+    jcfg = JCFConfig(**kw)
     mesh = jmake_mesh(2, 2, jax.devices()[:4])
     jstate = jshard(jstate0, mesh)
-    jhis, jmasks = shard_data_arrays(mesh, jnp.asarray(his), jnp.asarray(masks))
+    jhis, jmasks = shard_data_arrays(mesh, jnp.asarray(arrays["his"]),
+                                     jnp.asarray(arrays["masks"]))
     bsh = NamedSharding(mesh, P("data"))
-    jbatch = jts.Batch(*(jax.device_put(jnp.asarray(x), bsh)
-                         for x in (users, pos, weight)))
-    table = jnp.asarray(draws)
+    jbatch = jts.Batch(*(jax.device_put(jnp.asarray(arrays[x]), bsh)
+                         for x in ("users", "pos", "weight")))
+    table = jnp.asarray(arrays["draws"])
 
     def pinned(key, sstate, pos_ids, cfg, real=None):
         idx = sstate.iterations + jnp.arange(pos_ids.shape[0], dtype=jnp.int32)
@@ -316,15 +322,30 @@ def injected_against_jax(overrides: dict, steps: int = 2):
     orig, jts.sample_negatives = jts.sample_negatives, pinned
     try:
         jss = jinit_sampler(jcfg, jax.random.key(2))
-        jlosses = []
+        jstates, jlosses = [], []
         for _ in range(steps):
             jstate, jss, jloss = jts.train_step(
                 jstate, jss, jax.random.key(3), jbatch, jhis, jmasks, jcfg)
+            jstates.append(jstate)
             jlosses.append(float(jloss))
     finally:
         jts.sample_negatives = orig
     assert "data" in str(jstate.user_emb.sharding)
-    return ranks, jstate, jlosses, jss
+    return jstates, jlosses, jss
+
+
+def injected_against_jax(overrides: dict, steps: int = 2):
+    """``steps`` steps of the port's (2, 2) mesh (``rank_steps_injected``)
+    and of the JAX step on the conftest's virtual (2, 2) mesh from one
+    injected case (:func:`_injected_case`), the uniform draws pinned at
+    the sampler's count. Returns (the ranks' results, the JAX state, the
+    JAX losses, the JAX sampler state)."""
+    arrays, kw, jstate0 = _injected_case(overrides, steps)
+    cfg_kw = {k2: v for k2, v in kw.items() if k2 not in ("num_users", "num_items")}
+    ranks = mc.spawn_ranks(mc.rank_steps_injected, 4, (2, 2), arrays, cfg_kw,
+                           steps, "cpu", timeout=TIMEOUT)
+    jstates, jlosses, jss = _jax_steps22(arrays, kw, jstate0, steps)
+    return ranks, jstates[-1], jlosses, jss
 
 
 def hold_to_jax(ranks, jstate, jlosses, jss, lr=0.05, clip_val=0.02):
@@ -375,19 +396,83 @@ def test_sharded_adam_steps_match_jax():
     hold_to_jax(ranks, jstate, jlosses, jss)
 
 
+ACCUM_STEPS = 8  # accum on (2, 2) against JAX: steps 1-2 by the cap, 3-8 by the spread rule
+ORDERS = 5  # reordered runs of the port for the spread rule
+ACCUM_KEYS = ("user_emb", "item_emb", "w0", "user_gacc", "item_gacc")
+
+
 def test_sharded_accum_steps_match_jax():
-    """``sgd_mode: accum`` on (2, 2) over two steps against the JAX step:
-    the persistent rows (user rows decayed by gamma, item rows by 1.0)
-    and the stale accumulated term of ``w0``'s gradient at the second
-    step, the clip binding on the accumulated rows. Two steps, as the
-    single-card accum branch is held to JAX: at a third the rows of a
+    """``sgd_mode: accum`` on (2, 2) over ACCUM_STEPS = 8 steps against
+    the JAX step: the persistent rows (user rows decayed by gamma, item
+    rows by 1.0) and the stale accumulated term of ``w0``'s gradient from
+    the second step on, the clip binding on the accumulated rows. After
+    step 2 every array is held to the rule of :func:`hold_to_jax` and the
+    losses of steps 1-2 to rtol 1e-5. From step 3 on, where the rows of a
     repeated user, whose per-occurrence gradients of ~1e2 cancel, leave
-    the rule's cap on a world of one too (3.7e-5 against 2e-5, measured;
-    2.4e-5 on (2, 2))."""
-    ranks, jstate, jlosses, jss = injected_against_jax(
-        {"sgd_mode": "accum"}, steps=2)
-    assert np.abs(np.asarray(jstate.user_gacc)).max() >= 0.02 - 1e-9  # clipped
-    hold_to_jax(ranks, jstate, jlosses, jss)
+    that rule's cap on a world of one too (3.7e-5 against 2e-5, measured;
+    2.4e-5 on (2, 2)), every array and the loss are held by the spread
+    rule (``heat_tpu_torch.testing.hold_by_order_spread``): within
+    SPREAD_MULTIPLE = 4 times the largest difference among ORDERS + 1
+    (2, 2) runs of the port that differ only in the order of their sums
+    (``Order``: the samples permuted within each data shard with their
+    pinned draws, each sample's negatives permuted, the latent axis
+    permuted), the multiple stated before the first measurement; the
+    replicas bit-equal and the counters exact in every run."""
+    import threading
+
+    from heat_tpu_torch.testing import Order, hold_by_order_spread
+
+    arrays, kw, jstate0 = _injected_case({"sgd_mode": "accum"}, ACCUM_STEPS)
+    cfg_kw = {k2: v for k2, v in kw.items() if k2 not in ("num_users", "num_items")}
+    b, k = arrays["users"].shape[0], arrays["draws"].shape[1]
+    orders = [Order(n, b, k, kw["emb_dim"], blocks=2) for n in range(ORDERS + 1)]
+    calls = []
+    for order in orders:
+        case = dict(arrays, **order.state({key: arrays[key] for key in ACCUM_KEYS}))
+        case.update({x: arrays[x][order.samples] for x in ("users", "pos", "weight")})
+        case["draws"] = np.ascontiguousarray(arrays["draws"][:, order.negs])
+        calls.append(("rank_steps_injected",
+                      ((2, 2), case, cfg_kw, ACCUM_STEPS, "cpu"),
+                      {"perm": order.samples, "every_step": True}))
+    box = {}
+
+    def job():
+        try:
+            box["ranks"] = mc.spawn_ranks(mc.rank_calls, 4, calls, timeout=TIMEOUT)
+        except BaseException as err:  # raised again below
+            box["error"] = err
+
+    thread = threading.Thread(target=job)
+    thread.start()
+    try:
+        jstates, jlosses, jss = _jax_steps22(arrays, kw, jstate0, ACCUM_STEPS)
+    finally:
+        thread.join()
+    if "error" in box:
+        raise box["error"]
+    ranks = box["ranks"]
+    want = [{key: np.asarray(getattr(js, key)) for key in ACCUM_KEYS}
+            for js in jstates]
+    assert np.abs(want[-1]["user_gacc"]).max() >= 0.02 - 1e-9  # clipped
+    from heat_tpu_torch.testing import assert_state_array_close
+
+    for r in (r[0] for r in ranks):
+        np.testing.assert_allclose(r["losses"][:2], jlosses[:2], rtol=1e-5,
+                                   atol=1e-7)
+        for key in ACCUM_KEYS:
+            assert_state_array_close(r["states"][1][key], want[1][key], key,
+                                     lr=0.05, clip_val=0.02)
+    runs = [(r["losses"], [order.restore(st) for st in r["states"]])
+            for order, r in zip(orders, ranks[0])]
+    hold_by_order_spread(runs, (jlosses, want))
+    for n in range(len(orders)):
+        mc.check_replicas([r[n]["replicas"] for r in ranks])
+        for r in ranks:
+            assert r[n]["iterations"] == int(jss.iterations)
+            assert int(r[n]["state"]["step"]) == int(jstates[-1].step) == ACCUM_STEPS
+            for key in ACCUM_KEYS:  # every rank gathers the same state
+                np.testing.assert_array_equal(r[n]["state"][key],
+                                              ranks[0][n]["state"][key])
 
 
 def test_sharded_adagrad_steps_match_jax():

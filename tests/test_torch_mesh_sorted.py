@@ -20,8 +20,9 @@ of gradients) and losses rtol 1e-5 / atol 1e-7; bf16 tables bit-equal
 where no row occurs twice in a step and within one bf16 ulp where rows
 repeat (an f32 sum taken in another order flips a rounding). Against the
 single-rank oracle (``Engine._shard_stream``, which sums the data
-shards' parts and orders the occurrences as the data group's first rank
-gathers them), those of ``tests/test_torch_mesh_slots.py``. Replicas
+shards' parts, accum mode's stale term of ``w0``'s gradient among them,
+and orders the occurrences as the data group's first rank gathers them),
+those of ``tests/test_torch_mesh_slots.py``. Replicas
 bit-equal (SHA-256 over each group), slots and accum rows included.
 """
 
@@ -329,13 +330,9 @@ FUSED = {
 BLOCK = 16  # INIT_BLOCK_ROWS that splits both tables into blocks
 
 
-# The engine runs of each shape. Not accum on (4, 1): its stale term of
-# ``w0``'s gradient is one product on one rank and four partial products
-# added on the mesh, a summation order the oracle does not take, which
-# grows to 1.4e-4 in the user rows within two epochs (on the dense path
-# alike).
+# The engine runs of each shape.
 SHAPE_ENGINES = {(2, 2): ("sgd", "adam_tile", "accum"),
-                 (4, 1): ("sgd", "adam_tile")}
+                 (4, 1): ("sgd", "adam_tile", "accum")}
 
 
 def _engine_runs(shape):

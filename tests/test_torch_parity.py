@@ -154,19 +154,24 @@ def test_the_mesh_run_records_its_own_data(record):
 
 
 def test_the_seed_spread_entry(record):
-    """config0 at the config's seed and two other engine seeds, on the same
-    data: the record's spread is what ``parity.seed_spread`` reads from its
-    runs."""
+    """config0 and the (4, 1) "full" run at the config's seed and two other
+    engine seeds, on the same data: the record's spread, keyed by run, is
+    what ``parity.seed_spread`` reads from its runs."""
     spread = record["seed_spread"]
     assert spread == parity.seed_spread(record)
-    assert spread["run"] == "config0"
-    assert spread["runs"] == ["config0", "config0_seed2023", "config0_seed2024"]
-    assert spread["engine_seeds"] == [2022, 2023, 2024]
-    for m in parity.GATED_METRICS:
-        vals = [record["runs"][n]["final_metrics"][m] for n in spread["runs"]]
-        assert spread[m] == {"min": min(vals), "max": max(vals),
-                             "range": max(vals) - min(vals)}
-        assert spread[m]["range"] >= 0.0
+    assert sorted(spread) == ["config0", "full_mesh41"]
+    for run, entry in spread.items():
+        assert entry["runs"] == [run, f"{run}_seed2023", f"{run}_seed2024"]
+        assert entry["engine_seeds"] == [2022, 2023, 2024]
+        for m in parity.GATED_METRICS:
+            vals = [record["runs"][n]["final_metrics"][m] for n in entry["runs"]]
+            assert entry[m] == {"min": min(vals), "max": max(vals),
+                                "range": max(vals) - min(vals)}
+            assert entry[m]["range"] >= 0.0
+    full = [record["runs"][n] for n in spread["full_mesh41"]["runs"]]
+    for run in full[1:]:  # a mesh run's repeats on its mesh and its data
+        for key in ("overrides", "mesh", "synthetic", "sha256"):
+            assert run[key] == full[0][key], key
 
 
 def test_the_record_was_made_on_the_ports_synthetic_data(record):

@@ -30,7 +30,11 @@ from heat_tpu.train.samplers import init_sampler_state as jinit_sampler
 from heat_tpu.train.scatter import apply_row_updates as japply
 from heat_tpu_torch.config import CFConfig
 from heat_tpu_torch.models.state import state_from_numpy, state_to_numpy
-from heat_tpu_torch.testing import assert_state_array_close
+from heat_tpu_torch.testing import (
+    Order,
+    assert_state_array_close,
+    hold_by_order_spread,
+)
 from heat_tpu_torch.train.samplers import NegSample as TNegSample
 from heat_tpu_torch.train.samplers import SamplerState, init_sampler_state
 from heat_tpu_torch.train.scatter import apply_row_updates as tapply
@@ -39,9 +43,12 @@ TOL = dict(rtol=1e-5, atol=1e-7)
 
 
 @contextlib.contextmanager
-def pinned_negatives(draws: np.ndarray):
-    """Both packages' samplers return draws[counter : counter + B]."""
+def pinned_negatives(draws: np.ndarray, perm=None):
+    """Both packages' samplers return draws[counter : counter + B]; the
+    port's in the order ``perm`` (a permutation of the batch's samples, to
+    go with a batch permuted alike) when one is given."""
     jtable, ttable = jnp.asarray(draws), torch.from_numpy(draws)
+    order = None if perm is None else torch.as_tensor(perm)
 
     def jpinned(key, sstate, pos_ids, cfg, real=None):
         idx = sstate.iterations + jnp.arange(pos_ids.shape[0], dtype=jnp.int32)
@@ -53,7 +60,10 @@ def pinned_negatives(draws: np.ndarray):
     def tpinned(generator, sstate, pos_ids, cfg, real=None):
         it = int(sstate.iterations)
         adv = pos_ids.shape[0] if real is None else real
-        return TNegSample(ttable[it : it + pos_ids.shape[0]].to(pos_ids.device)), (
+        rows = ttable[it : it + pos_ids.shape[0]]
+        if order is not None:
+            rows = rows.index_select(0, order)
+        return TNegSample(rows.to(pos_ids.device)), (
             SamplerState(iterations=sstate.iterations + adv)
         )
 
@@ -82,6 +92,9 @@ def _setup(lr, clip_val, seed=0, u=40, i=90, h=8, b=48, k=4, d=16, **extra):
     masks[3] = 0  # the repeated user has an empty history
     draws = rng.integers(0, i, (4 * b, k)).astype(np.int32)
     draws[:3, 0] = 5  # negatives that repeat the repeated positive
+    # Rows for the accum steps past the fourth batch.
+    more = rng.integers(0, i, (ACCUM_STEPS * b, k)).astype(np.int32)
+    draws = np.concatenate([draws, more])
     return jcfg, tcfg, (users, pos, weight), his, masks, draws
 
 
@@ -170,6 +183,74 @@ def torch_state_of(jstate, device="cpu"):
 L2 = dict(l2_enabled=True, l2=0.01)
 
 
+def snapshot(tstate) -> dict:
+    """``state_to_numpy`` of the port's state, copied: its arrays are views
+    of the tensors, which the next step updates in place."""
+    return {k: ({n: a.copy() for n, a in v.items()} if isinstance(v, dict)
+                else np.array(v, copy=True))
+            for k, v in state_to_numpy(tstate).items()}
+
+
+# Accum mode is held to the JAX step for ACCUM_STEPS steps: steps 1-2 by
+# assert_state_array_close's cap, steps 3 on by the spread rule
+# (heat_tpu_torch.testing.assert_within_order_spread) against PERMUTATIONS
+# runs of the port with the batch's samples permuted.
+ACCUM_STEPS = 8
+PERMUTATIONS = 5
+
+
+def port_steps(tcfg, jstate0, batch, his, masks, draws, steps, n=0):
+    """``steps`` steps of the port from the JAX initial state on one batch,
+    its sums in :class:`Order` ``n``: each step's loss and state (numpy,
+    in the given order)."""
+    d = jstate0.w0.shape[0]
+    order = Order(n, batch[0].shape[0], draws.shape[1], d)
+    arrays = [x[order.samples] for x in batch]
+    init = order.state({k: None if getattr(jstate0, k) is None
+                        else np.asarray(getattr(jstate0, k))
+                        for k in ("user_emb", "item_emb", "w0", "user_gacc",
+                                  "item_gacc")})
+    tstate = state_from_numpy(
+        init["user_emb"], init["item_emb"], init["w0"], lr=float(jstate0.lr),
+        step=int(jstate0.step), device="cpu", user_gacc=init["user_gacc"],
+        item_gacc=init["item_gacc"])
+    tss = init_sampler_state(tcfg, "cpu")
+    losses, states = [], []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # ops of a few KB: no thread pool to wait on
+    try:
+        with pinned_negatives(np.ascontiguousarray(draws[:, order.negs]),
+                              order.samples):
+            for _ in range(steps):
+                tstate, tss, tloss = tts.train_step(
+                    tstate, tss, torch.Generator(),
+                    tts.Batch(*map(torch.from_numpy, arrays)),
+                    torch.from_numpy(his), torch.from_numpy(masks), tcfg,
+                )
+                losses.append(float(tloss))
+                states.append(order.restore(snapshot(tstate)))
+    finally:
+        torch.set_num_threads(threads)
+    return losses, states
+
+
+def jax_steps(jcfg, jstate0, batch, his, masks, draws, steps):
+    """The JAX step's losses and states (the port's numpy form) over
+    ``steps`` steps on one batch, the draws pinned."""
+    jstate, losses, states = jstate0, [], []
+    with pinned_negatives(draws):
+        jss = jinit_sampler(jcfg, jax.random.key(2))
+        for _ in range(steps):
+            jstate, jss, jloss = jts.train_step(
+                jstate, jss, jax.random.key(3),
+                jts.Batch(*map(jnp.asarray, batch)),
+                jnp.asarray(his), jnp.asarray(masks), jcfg,
+            )
+            losses.append(float(jloss))
+            states.append(state_to_numpy(torch_state_of(jstate)))
+    return losses, states
+
+
 @pytest.mark.parametrize("sort,extra", [
     (True, {}),
     (False, {"update_mode": "direct"}),
@@ -196,17 +277,35 @@ def test_train_step_branches_match_jax(monkeypatch, sort, extra):
     table element in 640-1440 off by up to 2.9e-6); accum rows sum
     per-occurrence gradients of ~1e2 that cancel (measured: one element
     off by 1.5e-5). A wrong update moves a row by ~lr * clip_val = 1e-3
-    (SGD) or ~lr (Adam), a wrong accumulation by ~clip_val."""
+    (SGD) or ~lr (Adam), a wrong accumulation by ~clip_val.
+
+    Accum mode runs ACCUM_STEPS = 8 steps before the padding batch: after
+    step 2 the state is held by that rule, and from step 3 on, where a
+    repeated user's cancelling gradients leave its cap on one card as on
+    a mesh, every state array and the loss by the spread rule
+    (``assert_within_order_spread``): within SPREAD_MULTIPLE = 4 times the
+    largest difference among the port's own runs under orders that change
+    nothing but summation (PERMUTATIONS = 5 runs with the batch's samples
+    and their pinned draws permuted, and the run as given), at every
+    element. The JAX package's order is one more such order; 4x leaves
+    room for the packages' other association of the same sums (a factor
+    applied before or after a product), while a wrong accumulation moves
+    a row by ~clip_val (``test_accum_spread_rule_catches_a_wrong_accumulation``).
+    The multiple was stated before the first measurement."""
     if sort:  # both tables (40 and 90 rows) on the sort-dedup path
         monkeypatch.setattr(jsc, "DENSE_ROWS_THRESHOLD", 16)
         monkeypatch.setattr(tsc, "DENSE_ROWS_THRESHOLD", 16)
     jcfg, tcfg, (users, pos, weight), his, masks, draws = _setup(
         0.05, 0.02, **extra
     )
-    jstate = jinit(jcfg, jax.random.key(1))
+    accum = extra.get("sgd_mode") == "accum"
+    steps = ACCUM_STEPS if accum else 2
+    jstate0 = jinit(jcfg, jax.random.key(1))
+    jstate = jstate0
     tstate = torch_state_of(jstate)
     pad = np.zeros_like(weight)
-    batches = [(users, pos, weight)] * 2 + [(users, pos, pad)]
+    batches = [(users, pos, weight)] * steps + [(users, pos, pad)]
+    tlosses, tstates, jlosses, jstates = [], [], [], []
     with pinned_negatives(draws):
         jss = jinit_sampler(jcfg, jax.random.key(2))
         tss = init_sampler_state(tcfg, "cpu")
@@ -216,13 +315,18 @@ def test_train_step_branches_match_jax(monkeypatch, sort, extra):
                 jts.Batch(*map(jnp.asarray, arrays)),
                 jnp.asarray(his), jnp.asarray(masks), jcfg,
             )
-            before = state_to_numpy(tstate)
+            before = snapshot(tstate)
             tstate, tss, tloss = tts.train_step(
                 tstate, tss, torch.Generator(),
                 tts.Batch(*map(torch.from_numpy, arrays)),
                 torch.from_numpy(his), torch.from_numpy(masks), tcfg,
             )
-            np.testing.assert_allclose(float(tloss), float(jloss), **TOL)
+            if n < 2:
+                np.testing.assert_allclose(float(tloss), float(jloss), **TOL)
+            tlosses.append(float(tloss))
+            jlosses.append(float(jloss))
+            tstates.append(snapshot(tstate))
+            jstates.append(state_to_numpy(torch_state_of(jstate)))
     after = state_to_numpy(tstate)
     want = state_to_numpy(torch_state_of(jstate))
     assert set(after) == set(want)
@@ -231,13 +335,84 @@ def test_train_step_branches_match_jax(monkeypatch, sort, extra):
         assert_state_array_close(got, exp, name, lr=jcfg.l_r,
                                  clip_val=jcfg.clip_val, **TOL)
 
+    # After step 2: the cap rule, as before.
+    two, jtwo = dict(tstates[1]), dict(jstates[1])
+    for slot, got in two.pop("opt_slots", {}).items():
+        close(got, jtwo["opt_slots"][slot], slot)
+    for name, got in two.items():
+        close(got, jtwo[name], name)
+    if accum:
+        runs = [(tlosses[:steps], tstates[:steps])] + [
+            port_steps(tcfg, jstate0, (users, pos, weight), his, masks, draws,
+                       steps, n)
+            for n in range(1, PERMUTATIONS + 1)]
+        hold_by_order_spread(runs, (jlosses[:steps], jstates[:steps]))
+    # The padding batch: no change but the sampler's.
+    np.testing.assert_allclose(tlosses[-1], jlosses[-1], **TOL)
     slots = after.pop("opt_slots", {})
     for slot, got in slots.items():
-        close(got, want["opt_slots"][slot], slot)
         np.testing.assert_array_equal(got, before["opt_slots"][slot])
     for name, got in after.items():
-        close(got, want[name], name)
-        if name not in ("lr", "step"):  # the padding batch: no change
+        if name not in ("lr", "step"):
             np.testing.assert_array_equal(got, before[name], err_msg=name)
     assert set(slots) == set(want.get("opt_slots", {}))
-    assert int(after["step"]) == int(jstate.step) == 2
+    assert int(after["step"]) == int(jstate.step) == steps
+
+
+def _drop_user_decay(orig):
+    def plant(*args, **kw):  # the user rows' accum not decayed by gamma
+        return orig(*args, **dict(kw, decay=1.0))
+    return "apply_row_updates", plant
+
+
+def _drop_stale_term(orig):
+    def plant(user_gacc, users, means, weight, gamma):
+        d = means.shape[1]
+        return torch.zeros((d, d), dtype=torch.float32)
+    return "stale_w0_term", plant
+
+
+def _clip_before_sum(orig):
+    def plant(table, ids, grads, **kw):  # each occurrence clipped, then summed
+        clip = kw["clip_val"]
+        return orig(table, ids, grads.clamp(-clip, clip), **kw)
+    return "apply_row_updates", plant
+
+
+PLANTED = {"user_rows_not_decayed": _drop_user_decay,
+           "stale_term_dropped": _drop_stale_term,
+           "clip_before_the_sum": _clip_before_sum}
+
+
+# The planted faults run to step PLANTED_STEPS: the rule holds steps 3 on.
+PLANTED_STEPS = 4
+
+
+@pytest.fixture(scope="module")
+def accum_jax_steps():
+    """The JAX step's first PLANTED_STEPS accum steps on ``_setup``'s
+    batch (the dense path), computed once for the planted faults."""
+    jcfg, tcfg, batch, his, masks, draws = _setup(0.05, 0.02, sgd_mode="accum")
+    jstate0 = jinit(jcfg, jax.random.key(1))
+    return (tcfg, jstate0, batch, his, masks, draws,
+            jax_steps(jcfg, jstate0, batch, his, masks, draws, PLANTED_STEPS))
+
+
+@pytest.mark.parametrize("fault", sorted(PLANTED))
+def test_accum_spread_rule_catches_a_wrong_accumulation(
+        monkeypatch, accum_jax_steps, fault):
+    """The spread rule of the accum steps (``hold_by_order_spread``, steps
+    3 on) fails a port with a planted fault of its accumulation: the user
+    rows' accum not decayed by gamma, the stale term of ``w0``'s gradient
+    dropped, or each occurrence clipped before the sum. Its spread is
+    taken from the faulty port's own reordered runs, as the rule takes it
+    from a port under test. (The port as it is passes the rule on these
+    steps and on to step 8: ``test_train_step_branches_match_jax``.)"""
+    tcfg, jstate0, batch, his, masks, draws, want = accum_jax_steps
+    name, plant = PLANTED[fault](getattr(tts, {
+        "stale_term_dropped": "stale_w0_term"}.get(fault, "apply_row_updates")))
+    monkeypatch.setattr(tts, name, plant)
+    runs = [port_steps(tcfg, jstate0, batch, his, masks, draws,
+                       PLANTED_STEPS, n) for n in range(PERMUTATIONS + 1)]
+    with pytest.raises(AssertionError, match="order spread"):
+        hold_by_order_spread(runs, want)

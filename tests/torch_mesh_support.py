@@ -18,6 +18,7 @@ it), so that the spawned ranks find it under the same name.
 from __future__ import annotations
 
 import hashlib
+import math
 import os
 import socket
 import time
@@ -479,7 +480,7 @@ def train_run(rank, shape, data_kw, cfg_kw, epochs, device, *,
                serve_routes: bool = False, pools: bool = False,
                probe_gacc: bool = False, aggregated_eval: bool = False,
                fused: Optional[str] = None, eval_interval: int = 0,
-               sample_rows: int = 0) -> dict:
+               sample_rows: int = 0, epoch_fraction: float = 1.0) -> dict:
     """A rank program: restore from ``restore_dir`` (when given), train
     ``epochs`` epochs (saving a checkpoint into ``save_dir`` after the
     first ``save_after``), evaluate, export (rank 0 writes
@@ -511,7 +512,8 @@ def train_run(rank, shape, data_kw, cfg_kw, epochs, device, *,
     construction (``peak_init_bytes``) and after the epochs
     (``peak_bytes``), with the engine's :func:`held_bytes`. ``sample_rows``
     returns every such row of the tables (:func:`sampled_state`) in
-    place of the global state."""
+    place of the global state; ``epoch_fraction`` < 1 runs that share of
+    each epoch's steps (:class:`PartEpochs`)."""
     import contextlib
     import time
 
@@ -547,11 +549,13 @@ def train_run(rank, shape, data_kw, cfg_kw, epochs, device, *,
                 else contextlib.nullcontext())
     probe = ComplementProbe() if probe_complement else contextlib.nullcontext()
     gacc = GaccProbe(engine) if probe_gacc else contextlib.nullcontext()
+    part = (PartEpochs(engine, epoch_fraction) if epoch_fraction < 1
+            else contextlib.nullcontext())
     epoch_steps = []
     evals = []
     sync()
     t0 = time.perf_counter()
-    with recorder, probe, gacc:
+    with recorder, probe, gacc, part:
         if fused == "epochs":
             losses = engine.train_epochs(epochs)
         elif fused == "run":
@@ -657,6 +661,28 @@ class GaccProbe:
     def steps(self, *args, **kw):
         self.before.append(self.largest())
         return self.orig(*args, **kw)
+
+    def __enter__(self):
+        self.engine._steps = self.steps
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._steps = self.orig
+
+
+class PartEpochs:
+    """Within a ``with`` block, each ``Engine._steps`` call of ``engine``
+    (an epoch's steps, or a sub-epoch's) runs the first ceil(``fraction``
+    x its count) steps of its stream: a run cut in depth, each epoch
+    still shuffled, refreshed and counted as a whole one is. A mesh and
+    its single-rank oracle cut alike step the same global batches."""
+
+    def __init__(self, engine, fraction: float):
+        self.engine, self.orig, self.fraction = engine, engine._steps, fraction
+
+    def steps(self, capture, count, *args, **kw):
+        return self.orig(capture, max(1, math.ceil(count * self.fraction)),
+                         *args, **kw)
 
     def __enter__(self):
         self.engine._steps = self.steps
@@ -782,7 +808,13 @@ class DataChunks:
     own (its positives' rows, its samples' negatives' rows or its part of
     the tile rows' gradient, kept as autograd passes it), as a data rank
     accumulates its own before ``scatter.apply_row_updates_reduced`` sums
-    them. The shards' parts of ``w0``'s and of the tile rows' gradients
+    them. Accum mode's stale term of ``w0``'s gradient
+    (``train_step.stale_w0_term``) is one f32 product a shard, the parts
+    added in index order, as the data group sums the ranks' parts before
+    ``train_step_sharded`` adds them to the rounded ``w0`` gradient (one
+    product over the global batch is another order, which grows beyond
+    the tolerances within two epochs on (4, 1)). The shards' parts of
+    ``w0``'s and of the tile rows' gradients
     are f32, added in index order, as the sort-dedup update adds them
     (two partials add alike in either order), and rounded once to the
     compute type after the sum, as a mesh rounds them (``w0``'s: the
@@ -803,8 +835,18 @@ class DataChunks:
         self.ts, self.sc, self.n, self.engine = ts, sc, n_data, engine
         self.orig = (ts.aggregate_history, ts.tile_scores, ts.pool_history,
                      sc._dense_acc, sc._apply_row_updates_sorted,
-                     sc._apply_row_updates_opt_sorted)
+                     sc._apply_row_updates_opt_sorted, ts.stale_w0_term)
         self.tile_grads = {}  # shard: its part of the tile rows' gradient
+
+    def stale(self, user_gacc, users, means, weight, gamma):
+        # Accum mode's stale term of w0's gradient: one f32 product a
+        # shard, added in index order, as the data group's sum adds them.
+        total = None
+        for u, m, w in zip(users.chunk(self.n), means.chunk(self.n),
+                           weight.chunk(self.n)):
+            part = self.orig[6](user_gacc, u, m, w, gamma)
+            total = part if total is None else total + part
+        return total
 
     def aggregate(self, u, means, w0, gamma, **kw):
         import torch
@@ -893,13 +935,14 @@ class DataChunks:
         sc._dense_acc = self.dense_acc
         sc._apply_row_updates_sorted = self.sorted_update
         sc._apply_row_updates_opt_sorted = self.sorted_update
+        ts.stale_w0_term = self.stale
         return self
 
     def __exit__(self, *exc):
         ts, sc = self.ts, self.sc
         (ts.aggregate_history, ts.tile_scores, ts.pool_history,
          sc._dense_acc, sc._apply_row_updates_sorted,
-         sc._apply_row_updates_opt_sorted) = self.orig
+         sc._apply_row_updates_opt_sorted, ts.stale_w0_term) = self.orig
 
 
 def capture_collectives(device) -> dict:
@@ -1021,7 +1064,7 @@ def train_oracle(n_data, data_kw, cfg_kw, epochs, device, *,
                  pools: bool = False, aggregated_eval: bool = False,
                  dedup: bool = True, dense_rows: Optional[int] = None,
                  init_block_rows: Optional[int] = None,
-                 sample_rows: int = 0) -> dict:
+                 sample_rows: int = 0, epoch_fraction: float = 1.0) -> dict:
     """The single-rank counterpart of :func:`rank_train`: one engine over
     all the data that steps the global batches of an ``n_data``-row mesh
     with its draws (``Engine._shard_stream``; on a card each step a replay of
@@ -1031,17 +1074,18 @@ def train_oracle(n_data, data_kw, cfg_kw, epochs, device, *,
     (:class:`PartialMeans`); ``n_data`` > 1 takes the gradients the data
     group sums as the sum of the data shards' partials
     (:class:`DataChunks`). ``pools``, ``aggregated_eval``, ``dedup``,
-    ``dense_rows``, ``init_block_rows`` and ``sample_rows`` as
-    :func:`rank_train` takes them."""
+    ``dense_rows``, ``init_block_rows``, ``sample_rows`` and
+    ``epoch_fraction`` as :func:`rank_train` takes them."""
     with Lowered(dense_rows, init_block_rows):
         return _oracle_run(n_data, data_kw, cfg_kw, epochs, device,
                            restore_dir, evaluate, data, step_losses, n_model,
-                           pools, aggregated_eval, dedup, sample_rows)
+                           pools, aggregated_eval, dedup, sample_rows,
+                           epoch_fraction)
 
 
 def _oracle_run(n_data, data_kw, cfg_kw, epochs, device, restore_dir,
                 evaluate, data, step_losses, n_model, pools, aggregated_eval,
-                dedup, sample_rows) -> dict:
+                dedup, sample_rows, epoch_fraction) -> dict:
     import contextlib
 
     from heat_tpu_torch.checkpoint import CheckpointManager
@@ -1064,7 +1108,9 @@ def _oracle_run(n_data, data_kw, cfg_kw, epochs, device, restore_dir,
     means = PartialMeans(n_model) if n_model > 1 else contextlib.nullcontext()
     chunks = (DataChunks(n_data, engine) if n_data > 1
               else contextlib.nullcontext())
-    with recorder, means, chunks:
+    part = (PartEpochs(engine, epoch_fraction) if epoch_fraction < 1
+            else contextlib.nullcontext())
+    with recorder, means, chunks, part:
         out["losses"] = [engine.train_one_epoch() for _ in range(epochs)]
     if step_losses:
         out["step_losses"] = recorder.read()
@@ -1172,7 +1218,8 @@ def rank_topk(rank, shape, user_emb, item_emb, train_pairs, truth_items, k,
 
 def rank_steps_injected(rank, shape, arrays: dict, cfg_kw: dict, steps: int,
                         device: str, pools: bool = False,
-                        dense_rows: Optional[int] = None) -> dict:
+                        dense_rows: Optional[int] = None, perm=None,
+                        every_step: bool = False) -> dict:
     """A rank program: ``steps`` sharded steps from an injected global state
     (``arrays``: user_emb, item_emb, w0, his, masks, users, pos, weight of
     the global batch, whose rows ``[d * b, (d + 1) * b)`` hold data index
@@ -1185,14 +1232,19 @@ def rank_steps_injected(rank, shape, arrays: dict, cfg_kw: dict, steps: int,
     reads the pools the engine's refresh computes before it
     (``Engine._pooled_history``'s arithmetic). ``arrays`` may also hold
     the state's ``user_gacc`` / ``item_gacc``, ``opt_slots`` (a dict) and
-    ``attn_q``. ``dense_rows``: DENSE_ROWS_THRESHOLD in the rank. Returns
-    the global state after the steps (numpy), the losses, the counters
-    and the replica digests."""
+    ``attn_q``. ``dense_rows``: DENSE_ROWS_THRESHOLD in the rank; ``perm``:
+    the order in which a step's rows of the uniform draws go to the
+    global batch's samples (for a batch permuted alike). Returns the
+    global state after the steps (numpy; with ``every_step`` also after
+    each step, ``states``), the losses, the counters and the replica
+    digests."""
     with Lowered(dense_rows):
-        return _steps_injected(shape, arrays, cfg_kw, steps, device, pools)
+        return _steps_injected(shape, arrays, cfg_kw, steps, device, pools,
+                               perm, every_step)
 
 
-def _steps_injected(shape, arrays, cfg_kw, steps, device, pools) -> dict:
+def _steps_injected(shape, arrays, cfg_kw, steps, device, pools, perm,
+                    every_step) -> dict:
     import torch
 
     from heat_tpu_torch.config import CFConfig
@@ -1222,11 +1274,16 @@ def _steps_injected(shape, arrays, cfg_kw, steps, device, pools) -> dict:
     table = {k: torch.as_tensor(a[k], device=dev)
              for k in (("tiles", "idx") if tiled else ("draws",))}
 
+    order = None if perm is None else torch.as_tensor(perm, device=dev)
+
     def pinned(generator, sstate, pos_ids, cfg, batch, rows, real):
         it = int(sstate.iterations)
         sstate.iterations.add_(real.to(torch.int32))
         if not tiled:
-            return NegSample(table["draws"][it + rows[0]: it + rows[1]]), sstate
+            if order is None:
+                return NegSample(table["draws"][it + rows[0]: it + rows[1]]), sstate
+            window = table["draws"][it: it + order.shape[0]].index_select(0, order)
+            return NegSample(window[rows[0]: rows[1]]), sstate
         tile = table["tiles"][it % table["tiles"].shape[0]]
         sstate.tile.copy_(tile)
         idx = table["idx"][it + rows[0]: it + rows[1]]
@@ -1241,7 +1298,7 @@ def _steps_injected(shape, arrays, cfg_kw, steps, device, pools) -> dict:
     masks = torch.as_tensor(a["masks"][sh.user_lo: sh.user_lo + sh.user_rows],
                             device=dev)
     orig, ts.sample_negatives_rows = ts.sample_negatives_rows, pinned
-    losses = []
+    losses, states = [], []
     try:
         for _ in range(steps):
             means = None
@@ -1255,9 +1312,13 @@ def _steps_injected(shape, arrays, cfg_kw, steps, device, pools) -> dict:
                 state, sampler, torch.Generator(device=dev), batch, his, masks,
                 cfg, user_means=means, shards=sh)
             losses.append(float(loss))
+            if every_step:
+                states.append({k: v.copy() if isinstance(v, np.ndarray) else v
+                               for k, v in state_to_numpy(state, sh).items()})
     finally:
         ts.sample_negatives_rows = orig
     return {"state": state_to_numpy(state, sh), "losses": losses,
+            "states": states,
             "iterations": int(sampler.iterations),
             "replicas": {"index": (mesh.data_index, mesh.model_index),
                          **state_digests(state)}}
