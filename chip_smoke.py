@@ -39,8 +39,12 @@ Phases, each of which raises (exit code 1) on failure:
    increments bit-equal) and, f32 and bf16, at the sorted item update of
    the 6,000,000-row table (unique ids: bit-equal); S1's, f32 and bf16, at
    the 16,000,000-row user table (bit-equal). K3 also with every id
-   distinct and with sorted ids (what repeats cost). S2 (block gather) at the measuring script's
-   shapes, f32 and bf16 at r = 1, 4, 16 (bit-equal). K1 with the user
+   distinct and with sorted ids (what repeats cost). S2 (block gather,
+   ``csrc/blocks.cu``) at the measuring script's shapes, f32 and bf16 at
+   r = 1, 4, 16 and at r = 4 on a table view one element off 16 bytes
+   (``_misaligned``: the warp path), bit-equal, with the design it
+   replaced (``parent_graph_ms``: K2's copy loop on the block view) beside
+   it. K1 with the user
    indirection at config0's step (8,192 ``rows`` into the (52,643, 100)
    history table) and over whole tables of pools in one launch into a given
    buffer ((52,643, 100) and (16,000,000, 10) histories, bf16; the latter
@@ -237,6 +241,12 @@ card idle most of the time, and the checks that capture graphs in this
 process run one after the other.
 Each phase's start is printed as it starts, and all of them on a
 ``{"phase_start_s": ...}`` line before the kernels' line.
+
+On any exception the last line of standard output is
+``{"failed": {"phase": ..., "error": ..., "phase_start_s": {...}}}`` (the
+phase the script was in, the error cut at ERROR_CHARS characters, and
+``beside``: the jobs that failed beside the main phases), and the exit
+code is 1.
 
 9. the kernels' JSON line (each instance with its launches on its own main
    path: f32 on config0, bf16 on the headline run, K2's single entry on
@@ -436,7 +446,8 @@ def graph_ms(fn) -> float:
     return statistics.median(times)
 
 
-def timed(entry: dict, key: str, fn, ref, lib, nbytes: float, nops: float) -> None:
+def timed(entry: dict, key: str, fn, ref, lib, nbytes: float, nops: float,
+          extra: dict | None = None) -> None:
     """Time the kernel ``fn``, its plain version ``ref`` and, where there is
     one, the single PyTorch call (or, for an update entry, the unfused
     sequence) ``lib`` that computes the same function (a yardstick: the
@@ -446,7 +457,9 @@ def timed(entry: dict, key: str, fn, ref, lib, nbytes: float, nops: float) -> No
     f32 rate. ``ms`` is one launch between two events (it holds the host's
     launch latency), ``loop_ms`` and ``host_us`` are :func:`loop_times`,
     ``graph_ms`` (kernel and PyTorch call) is :func:`graph_ms`, the time
-    to read against the bound. Keys get the suffix ``key``."""
+    to read against the bound. Keys get the suffix ``key``. ``extra``:
+    name -> another form of the kernel (a path of it, the design it
+    replaced), whose ``graph_ms`` goes under ``name + "graph_ms"``."""
     for name, f in (("", fn), ("plain_", ref), ("library_", lib)):
         if f is None:
             for what in ("ms", "loop_ms", "host_us", "graph_ms"):
@@ -458,6 +471,8 @@ def timed(entry: dict, key: str, fn, ref, lib, nbytes: float, nops: float) -> No
         entry[name + "host_us" + key] = host
         # Not the plain versions: their masks wait for the host.
         entry[name + "graph_ms" + key] = None if f is ref else graph_ms(f)
+    for name, f in (extra or {}).items():
+        entry[name + "graph_ms" + key] = graph_ms(f)
     by_bytes = nbytes / H100_BYTES_PER_MS
     by_ops = nops / H100_F32_OPS_PER_MS
     entry["bound_ms" + key] = max(by_bytes, by_ops)
@@ -948,12 +963,17 @@ def check_scatter_set_at(entry, key, table, ids, rows, rotate=False) -> None:
 def check_gather_blocks_at(entry, key, table, ids, r, rotate=False) -> None:
     """S2 at one shape: a copy, so bit-equal to its plain version, which
     is the library call too (``index_select`` on the (N / r, r * d)
-    view). ``rotate``: timed over sets of table copies and ids
-    (:func:`timed_rotated`): the table itself fits in L2."""
+    view), on the path its rule takes (the bulk path where the bulk engine
+    takes the blocks, else the warp path). ``rotate``: timed over sets of
+    table copies and ids (:func:`timed_rotated`): the table itself fits in
+    L2. Beside the kernel: ``parent_graph_ms``, the design it replaced
+    (K2's copy loop with a "row" of r * d elements, which is what K2's
+    entry runs on that view)."""
     import torch
 
     from heat_tpu_torch.ops.cuda import gather
 
+    n, d = table.shape
     got = gather.gather_blocks(table, ids, r)
     want = gather.gather_blocks_ref(table, ids, r)
     torch.cuda.synchronize()
@@ -963,11 +983,11 @@ def check_gather_blocks_at(entry, key, table, ids, r, rotate=False) -> None:
             f"{tuple(table.shape)} {table.dtype}, r = {r}"
         )
     worst(entry, got, want)
-    n, d = table.shape
     view, long_ids = table.view(n // r, r * d), ids.long()
     m = ids.shape[0]
     # The ids, each distinct block read once, every block written.
     nbytes = 4 * m + (_distinct(ids) + m) * r * d * table.element_size()
+    extra = {"parent_": lambda t_, i_, v_, li: gather.gather_rows(v_, i_)}
     if rotate:
         def inputs(i, sets):
             t_ = table if i == 0 else table.roll(i, 0)
@@ -979,13 +999,15 @@ def check_gather_blocks_at(entry, key, table, ids, r, rotate=False) -> None:
             lambda t_, i_, v_, li: gather.gather_blocks(t_, i_, r),
             lambda t_, i_, v_, li: gather.gather_blocks_ref(t_, i_, r),
             lambda t_, i_, v_, li: v_.index_select(0, li),
-            nbytes=nbytes, nops=0)
+            nbytes=nbytes, nops=0, extra=extra)
         return
+    args = (table, ids, view, long_ids)
     timed(entry, key,
           lambda: gather.gather_blocks(table, ids, r),
           lambda: gather.gather_blocks_ref(table, ids, r),
           lambda: view.index_select(0, long_ids),
-          nbytes=nbytes, nops=0)
+          nbytes=nbytes, nops=0,
+          extra={name: (lambda f=f: f(*args)) for name, f in extra.items()})
 
 
 def check_kernels(dev) -> list[dict]:
@@ -1167,20 +1189,30 @@ def check_kernels(dev) -> list[dict]:
 
     # S2 at the measuring script's shapes: 65,536 rows of width 128 from a
     # 91,600-row table as blocks of r rows; f32 (the JAX script's type) and
-    # bf16, at r = 4 and, with key suffixes, r = 1 and 16.
+    # bf16, at r = 4 and, with key suffixes, r = 1 and 16; and at r = 4 on a
+    # view of the table one element into its buffer (off 16 bytes: the
+    # kernel's warp path), cut to a multiple of r rows.
     n = NUM_ITEMS // 16 * 16 + 16
     wide = torch.randn(n, S2_WIDTH, generator=g, device=dev)
-    s2 = new_entry("gather_blocks", "gather.cu",
+    s2 = new_entry("gather_blocks", "blocks.cu",
                    "scripts/profile_exact_ceiling.py:125 (gather_blocks, "
                    "_multi_row_kernel)",
                    f"({n}, {S2_WIDTH}) f32 table, {S2_ROWS} rows as blocks of "
-                   f"r = 4; _r1, _r16: r = 1, 16")
-    s2b = new_entry("gather_blocks_bf16", "gather.cu", s2["replaces"],
+                   f"r = 4; _r1, _r16: r = 1, 16; _misaligned: r = 4 on a view "
+                   f"one element off 16 bytes")
+    s2b = new_entry("gather_blocks_bf16", "blocks.cu", s2["replaces"],
                     f"({n}, {S2_WIDTH}) bf16 table, the same blocks")
     for r, key in ((4, ""), (1, "_r1"), (16, "_r16")):
         check_gather_blocks_at(s2, key, wide, ids(S2_ROWS // r, n // r), r)
         check_gather_blocks_at(s2b, key, wide.bfloat16(),
                                ids(S2_ROWS // r, n // r), r, rotate=key == "")
+    r = 4
+    for entry, table in ((s2, wide), (s2b, wide.bfloat16())):
+        view = table.view(-1)[1:1 + (n - r) * S2_WIDTH].view(n - r, S2_WIDTH)
+        if view.data_ptr() % 16 == 0:
+            raise AssertionError("S2's misaligned view starts on 16 bytes")
+        check_gather_blocks_at(entry, "_misaligned", view,
+                               ids(S2_ROWS // r, (n - r) // r), r)
     return [k2, k2b, k2m, k2mb, k1, k1b, k3, k3b, k3u, k3ub, k4, s1, s1b, s1u,
             s1ub, s2, s2b]
 
@@ -1210,20 +1242,23 @@ def shifted(ids, n: int, i: int, sets: int):
 
 
 def timed_rotated(entry: dict, key: str, inputs, call, ref, lib,
-                  nbytes: float, nops: float) -> None:
+                  nbytes: float, nops: float, extra: dict | None = None) -> None:
     """:func:`timed` with every launch turning over sets of its inputs,
     ROTATE_BYTES of traffic in all (``inputs(i, sets)``: the arguments of
     set i, set 0 the checked ones), so that a launch reads and writes HBM
     and not what the launch before left in the 50 MB L2, as a step's
     launch finds it. ``graph_ms_same_buffers`` keeps the replay of one set
-    (the time the row gave before)."""
+    (the time the row gave before). ``extra`` as in :func:`timed`, each
+    called with a set's arguments."""
     sets = max(2, -(-ROTATE_BYTES // int(nbytes)))
     args = [inputs(i, sets) for i in range(sets)]
     same = graph_ms(lambda: call(*args[0]))
     timed(entry, key, rotating(lambda i: call(*args[i]), sets),
           rotating(lambda i: ref(*args[i]), sets),
           None if lib is None else rotating(lambda i: lib(*args[i]), sets),
-          nbytes=nbytes, nops=nops)
+          nbytes=nbytes, nops=nops,
+          extra={name: rotating(lambda i, f=f: f(*args[i]), sets)
+                 for name, f in (extra or {}).items()})
     entry["graph_ms_same_buffers" + key] = same
     entry["rotated_sets" + key] = sets
     entry["rotated_bytes" + key] = sets * nbytes
@@ -4335,7 +4370,7 @@ def check_step_kernels(what, port, sub_epochs, shape) -> dict:
     steps = port["K2_multi"]
     want = {"K2_multi": steps, "K3": 2 * steps, "S1": steps,
             "K2": steps * ((shape[0] > 1) + (shape[1] > 1)),
-            "K1": sub_epochs, "K4": 0}
+            "K1": sub_epochs, "K4": 0, "S2": 0}
     if steps < 1 or any(port[f] != n for f, n in want.items()):
         raise AssertionError(f"{what}: rank 0's traced epoch ran {port} of the "
                              f"port's kernels, expected {want}")
@@ -4625,15 +4660,17 @@ MESH_SLICE_ENGINE = {
     # Adam's K3 twice on each side; the pools' refresh reads 26,322 users
     # in 6 chunks (K2 multi into f32, summed over "model").
     "full": (GATED_RUNS["full_mesh41"], lambda n: {
-        "K2_multi": 2 * n + 6, "K3": 4 * n, "S1": n, "K2": 0, "K1": 0, "K4": 0}),
+        "K2_multi": 2 * n + 6, "K3": 4 * n, "S1": n, "K2": 0, "K1": 0, "K4": 0,
+        "S2": 0}),
     # The partial means (K1), the stale term's accum rows (K2), K3 twice
     # on each side (the touched counts), the write-back (S1).
     "config0_accum": (["sgd_mode=accum"], lambda n: {
-        "K2_multi": 2 * n, "K3": 4 * n, "S1": n, "K2": n, "K1": n, "K4": 0}),
+        "K2_multi": 2 * n, "K3": 4 * n, "S1": n, "K2": n, "K1": n, "K4": 0,
+        "S2": 0}),
     "adagrad_self_grouped": (["optimizer=adagrad", "aggregator=self_attention",
                               "shuffle_mode=none", "visit_order=user"],
                              lambda n: {"K2_multi": 2 * n, "K3": 4 * n, "S1": n,
-                                        "K2": 0, "K1": 0, "K4": 0}),
+                                        "K2": 0, "K1": 0, "K4": 0, "S2": 0}),
 }
 
 
@@ -4645,7 +4682,8 @@ MESH_SLICE_ENGINE = {
 # rows), K1 (the means); no model group, so no user broadcast.
 MESH_SLICE_ENGINE_41 = {
     "config0_accum_41": (["sgd_mode=accum"], lambda n: {
-        "K2_multi": n, "K3": 4 * n, "S1": n, "K2": n, "K1": n, "K4": 0}),
+        "K2_multi": n, "K3": 4 * n, "S1": n, "K2": n, "K1": n, "K4": 0,
+        "S2": 0}),
 }
 
 
@@ -5323,6 +5361,11 @@ def check_mesh_nccl_captured(res) -> dict:
     return out
 
 
+# Every job started beside the main phases: (its function's name, the
+# dict that holds its value or error), for the failure line.
+BESIDE: list = []
+
+
 def start_beside(fn, *args) -> tuple:
     """``fn(*args)`` in a thread of its own, beside the caller's work (a
     mesh phase whose ranks step eagerly through gloo: the card idles most
@@ -5331,7 +5374,8 @@ def start_beside(fn, *args) -> tuple:
     (:func:`finish_beside`)."""
     import threading
 
-    box = {}
+    box = {"job": fn.__name__}
+    BESIDE.append(box)
 
     def run():
         try:
@@ -5371,12 +5415,49 @@ def finish_beside(job: tuple):
     return box["value"]
 
 
+ERROR_CHARS = 500  # of an error's message on the failure line
+
+
+def failure_line(walls: dict, err: BaseException) -> str:
+    """The line :func:`main` prints before it exits 1: the phase that was
+    running (the last one :func:`run` marked; ``setup`` before the first),
+    the error as ``type: message`` cut at ERROR_CHARS characters, each
+    phase's start, and every job started beside the main phases that had
+    failed by then (``beside``: its function's name and its error)."""
+    def said(e):
+        return f"{type(e).__name__}: {e}"[:ERROR_CHARS]
+
+    failed = {"phase": next(reversed(walls), "setup"), "error": said(err),
+              "phase_start_s": walls}
+    beside = {box["job"]: said(box["error"]) for box in BESIDE if "error" in box}
+    if beside:
+        failed["beside"] = beside
+    return json.dumps({"failed": failed})
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    walls = {}
+    try:
+        return run(walls)
+    except Exception as err:
+        import traceback
+
+        traceback.print_exc()
+        sys.stderr.flush()
+        print(failure_line(walls, err), flush=True)
+        return 1
+
+
+def run(walls: dict) -> int:
+    """Every phase, each one's start into ``walls`` as it starts; 0, or
+    an exception from the phase that failed."""
+    import torch
+
     # Outside a checkout this import fails, and the script with it.
     from heat_tpu_torch import main as cli
     from heat_tpu_torch import profile_exact_ceiling
@@ -5386,7 +5467,6 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     start = time.perf_counter()
-    walls = {}
 
     def mark(phase: str) -> None:
         """The script's seconds when ``phase`` starts."""
@@ -5397,6 +5477,7 @@ def main() -> int:
     print(card)
     set_f32_matmul_precision()
 
+    mark("build")
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()

@@ -139,12 +139,13 @@ def _parser() -> argparse.ArgumentParser:
 # kernels, and the wrappers (launch counters) that launch them.
 KERNEL_FAMILIES = {
     "K1": (("history_mean_kernel",), ("history_mean_gather",)),
-    "K2": (("gather_rows_kernel",), ("gather_rows", "gather_blocks")),
+    "K2": (("gather_rows_kernel",), ("gather_rows",)),
     "K2_multi": (("gather_rows_multi_kernel",), ("gather_rows_multi",)),
     "K3": (("scatter_add_kernel",), ("scatter_add_rows", "scatter_add_update")),
     "S1": (("scatter_set_kernel", "scatter_copy_kernel"),
            ("scatter_set_rows", "scatter_set_update")),
     "K4": (("window_extract_kernel",), ("window_extract",)),
+    "S2": (("blocks_bulk_kernel", "blocks_warp_kernel"), ("gather_blocks",)),
 }
 _FAMILY_OF_KERNEL = {k: fam for fam, (kernels, _) in KERNEL_FAMILIES.items()
                      for k in kernels}

@@ -1,14 +1,12 @@
-// Row gather (K2, with its multi-table entry), fused history-mean gather
-// (K1) and block gather (S2) for Hopper (sm_90a), each for f32 and bf16
-// tables.
+// Row gather (K2, with its multi-table entry) and fused history-mean gather
+// (K1) for Hopper (sm_90a), each for f32 and bf16 tables. The block gather
+// (S2) is a kernel of its own, in blocks.cu.
 //
 // Replaces the Pallas kernels
 //   * heat_gather_rows_{f32,bf16},   <- heat_tpu/ops/pallas/gather.py:80
 //     heat_gather_rows_multi            gather_rows
 //   * heat_history_mean_{f32,bf16}   <- heat_tpu/ops/pallas/gather.py:141
 //                                       history_mean_gather
-//   * heat_gather_blocks_{f32,bf16}  <- scripts/profile_exact_ceiling.py:125
-//                                       gather_blocks (_multi_row_kernel)
 // The Pallas kernels take f32 only (XLA ran the bf16 tables); here the
 // kernels are the path, so each has a bf16 instance.
 //
@@ -72,11 +70,6 @@
 //     blocks: no warp diverges on a segment's types. The cast to the output
 //     type happens in the copy (bf16 to f32 exact; f32 to bf16 round to
 //     nearest even), so a step's row reads and their casts are one launch.
-//   * S2's block of r rows is r * d contiguous elements: it is copied by
-//     as many threads as it has 16-byte vectors (a warp covers 512 B), with
-//     the copy loop of K2. The TPU kernel's 1,024 ids staged in SMEM and
-//     its 256-deep window of r-row DMAs are not carried over: the many
-//     blocks in flight keep the loads outstanding.
 //   * Ids are loaded by the threads that use them; there is no scalar
 //     prefetch (that was the TPU's constraint).
 //   * Any width d: the 16-byte path when a row is a whole number of
@@ -85,7 +78,7 @@
 //
 // Contract (checked by the Python wrappers in heat_tpu_torch/ops/cuda):
 // f32 or bf16 tables, int32 ids, contiguous row-major arrays, ids in
-// [0, n_rows). An id outside that range is not read: K2 and S2 write zeros
+// [0, n_rows). An id outside that range is not read: K2 writes zeros
 // for it and K1 leaves it out of the sum; a `rows` entry outside the
 // history table pools to zero. Each entry point makes `device` current
 // (launch.cuh), launches on the given stream, does not synchronise,
@@ -152,7 +145,6 @@ bool aligned_to(const void* p, size_t bytes) {
 // out[j, c] = table[ids[j], c], in units of V (a 16-byte vector or one
 // element). Unit e of the flat (m, dv) output is handled by one thread; the
 // dv threads of a row are neighbours, so each row is one coalesced access.
-// With a "row" of r * d elements this is S2's block copy.
 template <typename V>
 __global__ void gather_rows_kernel(const V* __restrict__ table,
                                    const int32_t* __restrict__ ids,
@@ -480,30 +472,6 @@ extern "C" int heat_gather_rows_bf16(const void* table, int64_t n_rows, int d,
   // A copy of bits: bf16 elements move as 16-bit integers.
   return launch_gather<uint16_t>(static_cast<const uint16_t*>(table), n_rows,
                                  d, ids, m, static_cast<uint16_t*>(out),
-                                 static_cast<cudaStream_t>(stream));
-}
-
-// out[k * r : (k + 1) * r] = table[ids[k] * r : (ids[k] + 1) * r]: the table
-// as n_blocks blocks of block_elems = r * d contiguous elements.
-extern "C" int heat_gather_blocks_f32(const float* table, int64_t n_blocks,
-                                      int64_t block_elems, const int32_t* ids,
-                                      int64_t m, float* out, int device,
-                                      void* stream) {
-  heat::DeviceGuard guard(device);
-  if (guard.error()) return guard.error();
-  return launch_gather<float>(table, n_blocks, block_elems, ids, m, out,
-                              static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int heat_gather_blocks_bf16(const void* table, int64_t n_blocks,
-                                       int64_t block_elems, const int32_t* ids,
-                                       int64_t m, void* out, int device,
-                                       void* stream) {
-  heat::DeviceGuard guard(device);
-  if (guard.error()) return guard.error();
-  return launch_gather<uint16_t>(static_cast<const uint16_t*>(table), n_blocks,
-                                 block_elems, ids, m,
-                                 static_cast<uint16_t*>(out),
                                  static_cast<cudaStream_t>(stream));
 }
 

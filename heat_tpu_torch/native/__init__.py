@@ -4,8 +4,12 @@ A copy of ``heat_tpu/native/__init__.py`` with its two sources
 (``click_parser.cc``, ``metrics_kernels.cc``, verbatim), apart from where
 the library goes: it is built with ``g++`` at first use into
 ``build/heat_tpu_torch/`` at the repository root (not next to the
-sources), written under a temporary name and moved into place, and built
-again when a source is newer. These are host code: the click-file parser
+sources), written under a temporary name and moved into place. Its file
+name carries a key, a hash of the sources, the compiler flags and the
+host's CPU (``-march=native`` compiles for the CPU that builds), so a
+library built from other sources, with other flags or on another machine
+is never loaded: a copy of the tree that brings one along builds its own.
+These are host code: the click-file parser
 behind ``ClickDataset.from_file`` and the (U, k) hit matrix behind the
 host metrics. Each caller falls back to its numpy path when the toolchain
 or the build is missing, and records the path it took in ``PATHS``
@@ -17,7 +21,9 @@ must not hide a broken build.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import tempfile
 import threading
@@ -28,8 +34,9 @@ import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parents[1] / "build" / "heat_tpu_torch"
-_SO = BUILD_DIR / "_heat_native.so"
 _SRCS = [_DIR / "click_parser.cc", _DIR / "metrics_kernels.cc"]
+_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC", "-std=c++17")
+_CPUINFO = Path("/proc/cpuinfo")
 _LOCK = threading.Lock()
 _LIB = None
 # The path each caller took last ("native" or "numpy"), and why the build
@@ -38,40 +45,66 @@ PATHS: dict[str, str] = {}
 BUILD_ERROR: Optional[str] = None
 
 
-def _build() -> Path:
+def host_cpu() -> str:
+    """The CPU that ``-march=native`` compiles for: the model name and flags
+    of the first processor in ``/proc/cpuinfo``, or ``platform.machine()``
+    and ``platform.processor()`` where that file says neither."""
+    fields = {}
+    try:
+        text = _CPUINFO.read_text()
+    except OSError:
+        text = ""
+    for line in text.splitlines():
+        if not line.strip():
+            if fields:
+                break  # the first processor's block ends at a blank line
+            continue
+        key, _, value = line.partition(":")
+        if key.strip() in ("model name", "flags"):
+            fields[key.strip()] = " ".join(value.split())
+    if fields:
+        return f"{fields.get('model name', '')}; {fields.get('flags', '')}"
+    return f"{platform.machine()}; {platform.processor()}"
+
+
+def library_path() -> Path:
+    """The library's file under ``BUILD_DIR``, named by a hash of the
+    sources, the flags and :func:`host_cpu`."""
+    h = hashlib.sha256()
+    for src in _SRCS:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(host_cpu().encode())
+    return BUILD_DIR / f"_heat_native_{h.hexdigest()[:16]}.so"
+
+
+# The library this process loads (``_lib`` names it again at the build).
+_SO = library_path()
+
+
+def _build(so: Path) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [
-        "g++",
-        "-O3",
-        "-march=native",
-        "-fopenmp",
-        "-shared",
-        "-fPIC",
-        "-std=c++17",
-        *map(str, _SRCS),
-        "-o",
-        tmp,
-    ]
+    cmd = ["g++", *_FLAGS, *map(str, _SRCS), "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(tmp, _SO)
+        os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return _SO
+    return so
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB, BUILD_ERROR
+    global _LIB, _SO, BUILD_ERROR
     with _LOCK:
         if _LIB is None:
+            _SO = library_path()
             try:
-                if not _SO.exists() or _SO.stat().st_mtime < max(
-                    s.stat().st_mtime for s in _SRCS
-                ):
-                    _build()
+                if not _SO.exists():
+                    _build(_SO)
             except Exception as err:
                 stderr = getattr(err, "stderr", b"") or b""
                 BUILD_ERROR = f"{err!r} {stderr.decode(errors='replace')}"

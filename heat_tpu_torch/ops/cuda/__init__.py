@@ -19,7 +19,9 @@ the exact top-k, the counterpart of the Pallas kernels in
   path's fused write-back and SGD step (``csrc/scatter.cu``);
 * K4 ``topk.window_extract`` — phase 2 of the two-phase exact top-k of
   evaluation and serving, the selected 128-wide score windows of each row
-  (``csrc/topk.cu``).
+  (``csrc/topk.cu``);
+* S2 ``gather.gather_blocks`` — r contiguous rows an id, the measuring
+  script's block gather (``csrc/blocks.cu``).
 
 Each wrapper runs its plain PyTorch version (``*_ref``) for CPU tensors
 and launches its kernel for CUDA tensors, never falling back from one to

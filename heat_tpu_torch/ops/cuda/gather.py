@@ -7,8 +7,9 @@ bf16 tables (one kernel instance per type). Each public
 function checks the kernel's contract (dtypes, shapes, contiguity, one
 device) and then dispatches on where its tensors lie: on the CPU it runs
 the plain PyTorch version beside it (``*_ref``); on a CUDA device it
-launches the hand-written kernel of ``heat_tpu_torch/csrc/gather.cu`` or
-raises. There is no fallback from a CUDA tensor to the plain version.
+launches the hand-written kernel of ``heat_tpu_torch/csrc/gather.cu`` (K1,
+K2) or ``csrc/blocks.cu`` (S2) or raises. There is no fallback from a CUDA
+tensor to the plain version.
 
 ``LAUNCHES`` counts kernel launches per function, so a run can show that
 its main path went through the kernels: ``LAUNCHES[name]`` counts every

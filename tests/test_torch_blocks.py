@@ -65,7 +65,7 @@ def _pallas_gather_blocks(table, ids, r):
     )(jnp.asarray(ids), jnp.asarray(table)))
 
 
-@pytest.mark.parametrize("r", [1, 2, 4, 16])
+@pytest.mark.parametrize("r", [1, 2, 4, 8, 16])
 def test_gather_blocks_ref_matches_the_pallas_kernel(r):
     rng = np.random.default_rng(r)
     n = 48 * r
@@ -98,6 +98,27 @@ def test_gather_blocks_on_the_cpu_is_the_numpy_definition(dtype, r, d):
     assert gather.gather_blocks(table, torch.zeros(0, dtype=torch.int32), r).shape == (0, d)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_gather_blocks_on_a_table_view_on_the_cpu(dtype, offset):
+    """A table that starts 1, 2 or 4 elements into its buffer (what the
+    card's kernel sends down its warp path), with ids outside the table:
+    the numpy definition, zeros for those ids, and no launch."""
+    rng = np.random.default_rng(offset)
+    r, d, n = 4, 24, 80
+    buf = torch.from_numpy(rng.normal(size=n * d + offset).astype(np.float32))
+    table = buf.to(dtype)[offset:].view(n, d)
+    assert table.is_contiguous() and table.storage_offset() == offset
+    ids = rng.integers(-2, n // r + 2, 60).astype(np.int32)
+    before = dict(gather.LAUNCHES)
+    got = gather.gather_blocks(table, torch.from_numpy(ids), r)
+    assert gather.LAUNCHES == before
+    inside = (ids >= 0) & (ids < n // r)
+    want = _numpy_blocks(table.float().numpy(), np.where(inside, ids, 0), r)
+    want = want.reshape(-1, r, d) * inside[:, None, None]
+    np.testing.assert_array_equal(got.float().numpy(), want.reshape(-1, d))
+
+
 def test_gather_blocks_rejects_what_the_kernel_does_not_take():
     table = torch.zeros(12, 8)
     ids = torch.zeros(4, dtype=torch.int32)
@@ -116,7 +137,7 @@ def test_gather_blocks_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="1-D"):
         gather.gather_blocks(table, ids.reshape(2, 2), 4)
     # A block id outside [0, N / r) reads zeros, on the CPU as the kernel
-    # writes them (gather.cu's contract).
+    # writes them (blocks.cu's contract).
     table = torch.arange(96, dtype=torch.float32).reshape(12, 8)
     got = gather.gather_blocks(table, torch.tensor([3, 1, -1], dtype=torch.int32), 4)
     assert not got[:4].any() and not got[8:].any()

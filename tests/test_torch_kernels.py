@@ -464,10 +464,12 @@ def test_scatter_set_bf16_kernel_matches_plain(cuda, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("r,d", [(1, 128), (4, 128), (16, 128), (3, 30), (5, 33)])
+@pytest.mark.parametrize("r,d", [(1, 128), (4, 128), (8, 128), (16, 128), (3, 30),
+                                 (5, 33)])
 def test_gather_blocks_kernel_matches_plain(cuda, dtype, r, d):
     """S2 copies bits: bit-equal to index_select on the (N / r, r * d)
-    view, on the 16-byte path and on the element path."""
+    view, on the bulk-copy path (blocks of a multiple of 16 bytes) and on
+    the warp path (3 x 30 and 5 x 33 elements)."""
     rng = np.random.default_rng(25)
     n = 240 * r
     table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
@@ -479,6 +481,177 @@ def test_gather_blocks_kernel_matches_plain(cuda, dtype, r, d):
     assert gather.LAUNCHES["gather_blocks"] == before + 1
     assert got.shape == (1000 * r, d) and got.dtype == dtype
     assert torch.equal(got, gather.gather_blocks_ref(table, ids, r))
+
+
+def _blocks_case(cuda, dtype, n, d, m, seed=26):
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    return table.to(cuda).to(dtype), rng
+
+
+# (path, r, d): the bulk path for blocks of a multiple of 16 bytes that
+# two stages a warp of its ring hold (r = 1 at d = 8 is a block of 32 or 16
+# bytes: 32 or 16 blocks a stage); the warp path for blocks too large for
+# that ring (32 KB in f32, 16 KB in bf16), with 16-byte vectors.
+BLOCKS_PATH_SHAPES = [("bulk", 1, 128), ("bulk", 4, 128), ("bulk", 16, 128),
+                      ("bulk", 1, 8), ("warp", 32, 256), ("warp", 64, 128)]
+
+
+def _blocks_kernels(fn):
+    """fn()'s result and the names of S2's kernels it ran on the card, by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = fn()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if "blocks_" in e.key}
+    return got, {p for p in ("bulk", "warp") if any(f"blocks_{p}_kernel" in n
+                                                    for n in names)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path,r,d", BLOCKS_PATH_SHAPES)
+def test_gather_blocks_paths_are_bit_equal(cuda, dtype, path, r, d):
+    """Each path of the kernel at shapes its rule sends there, bit-equal,
+    and the trace shows that path's kernel alone."""
+    table, rng = _blocks_case(cuda, dtype, 300 * r, d, 0)
+    ids = torch.from_numpy(rng.integers(0, 300, 5000).astype(np.int32)).to(cuda)
+    got, ran = _blocks_kernels(lambda: gather.gather_blocks(table, ids, r))
+    assert ran == {path}
+    assert torch.equal(got, gather.gather_blocks_ref(table, ids, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path,r", [("bulk", 4), ("warp", 64)])
+def test_gather_blocks_ids_outside_the_table_give_zeros(cuda, dtype, path, r):
+    """Ids below 0 and at or past N / r: zero blocks, written over an output
+    the kernel never reads, and never a table read (the table's last block
+    and the rows past it are not touched: a view of a longer buffer)."""
+    d = 128
+    table, rng = _blocks_case(cuda, dtype, 400 * r, d, 0)
+    view = table[: 300 * r]
+    ids = rng.integers(0, 300, 3000).astype(np.int32)
+    ids[::7] = -1
+    ids[3::11] = 300
+    ids[5::13] = 2**31 - 1
+    ids[:40] = 300  # a whole stage of them
+    i = torch.from_numpy(ids).to(cuda)
+    got, ran = _blocks_kernels(lambda: gather.gather_blocks(view, i, r))
+    assert ran == {path}
+    want = gather.gather_blocks_ref(view, i, r)
+    assert torch.equal(got, want)
+    outside = torch.from_numpy((ids < 0) | (ids >= 300)).to(cuda)
+    assert not got.view(-1, r * d)[outside].any()
+    assert got.view(-1, r * d)[~outside].abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_gather_blocks_with_no_ids_launches_nothing(cuda):
+    """m == 0: the wrapper returns an empty block and counts no launch, and
+    the C entry points return 0 without reading a pointer."""
+    from heat_tpu_torch.ops.cuda import _build
+
+    table = torch.ones(64, 128, device=cuda)
+    before = dict(gather.LAUNCHES)
+    got = gather.gather_blocks(table, torch.zeros(0, dtype=torch.int32, device=cuda), 4)
+    assert got.shape == (0, 128) and gather.LAUNCHES == before
+    for symbol in ("heat_gather_blocks_f32", "heat_gather_blocks_bf16"):
+        _build.launch(symbol, "gather_blocks", 0, None, 16, 512, None, 0, None)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_gather_blocks_on_a_misaligned_table_view(cuda, dtype, offset):
+    """A table that starts 1, 2 or 4 elements into its buffer (off 16
+    bytes, and for bf16 at 1 off 4 bytes): the warp path, bit-equal; at 4
+    in f32 the view starts on 16 bytes again, and takes the bulk path."""
+    r, d = 4, 128
+    table, rng = _blocks_case(cuda, dtype, 200 * r, d, 0)
+    view = _offset_view(table, offset)
+    assert view.data_ptr() % 16 == offset * view.element_size() % 16
+    ids = torch.from_numpy(rng.integers(0, 200, 2000).astype(np.int32)).to(cuda)
+    got, ran = _blocks_kernels(lambda: gather.gather_blocks(view, ids, r))
+    assert ran == {"bulk" if view.data_ptr() % 16 == 0 else "warp"}
+    assert torch.equal(got, gather.gather_blocks_ref(view, ids, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 4])
+def test_gather_blocks_over_a_million_rows(cuda, dtype, r):
+    """2^20 rows: every warp of the persistent grid walks many stages and
+    more than one chunk of staged ids."""
+    d, rows = 32, 1 << 20
+    table, rng = _blocks_case(cuda, dtype, 50_000 * r, d, 0)
+    ids = torch.from_numpy(
+        rng.integers(0, 50_000, rows // r).astype(np.int32)).to(cuda)
+    got = gather.gather_blocks(table, ids, r)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, d)
+    assert torch.equal(got, gather.gather_blocks_ref(table, ids, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_gather_blocks_captured_in_a_graph_replays_bit_equal(cuda, dtype, offset):
+    """Both paths captured into a CUDA graph (offset 1: the warp path) and
+    replayed three times over ids changed in place between replays."""
+    r, d = 4, 128
+    table, rng = _blocks_case(cuda, dtype, 500 * r, d, 0)
+    view = _offset_view(table, offset) if offset else table
+    ids = torch.from_numpy(rng.integers(0, 500, 4096).astype(np.int32)).to(cuda)
+    gather.gather_blocks(view, ids, r)  # eager first, as every caller does
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gather.gather_blocks(view, ids, r)
+    for seed in range(3):
+        ids.copy_(torch.from_numpy(np.random.default_rng(seed).integers(
+            -5, 505, 4096).astype(np.int32)))
+        out.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, gather.gather_blocks_ref(view, ids, r)), seed
+
+
+@pytest.mark.cuda
+def test_gather_blocks_captured_before_any_eager_launch(cuda):
+    """A process whose first launch of S2 is inside a capture (the kernel
+    then sets no attribute and takes the 48 KB ring): replayed, bit-equal;
+    then eager launches, which set it, in both types and at r = 16."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    program = """
+import torch
+from heat_tpu_torch.ops.cuda import gather
+g = torch.Generator(device="cuda").manual_seed(3)
+for dtype in (torch.float32, torch.bfloat16):
+    for r in (4, 16):
+        table = torch.randn(1000 * r, 128, generator=g, device="cuda").to(dtype)
+        ids = torch.randint(-3, 1003, (5000,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = gather.gather_blocks(table, ids, r)
+        graph.replay()
+        eager = gather.gather_blocks(table, ids, r)
+        torch.cuda.synchronize()
+        want = gather.gather_blocks_ref(table, ids, r)
+        assert torch.equal(out, want) and torch.equal(eager, want), (dtype, r)
+print("ok")
+"""
+    root = Path(__file__).resolve().parents[1]
+    done = subprocess.run([sys.executable, "-c", program], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0 and done.stdout.strip() == "ok", done.stderr
 
 
 # --- bf16 on the CPU: the plain versions and the contract ---------------

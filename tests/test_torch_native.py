@@ -100,39 +100,123 @@ def test_from_file_records_the_path_and_falls_back(tmp_path, monkeypatch):
     assert native.PATHS["hits_matrix"] == "numpy"
 
 
-def test_the_library_builds_into_build_and_again_when_a_source_is_newer(
-        tmp_path, monkeypatch):
-    """The build goes into the build directory, not beside the sources; a
-    failed build leaves its error in BUILD_ERROR."""
-    assert native._SO.parent == native.BUILD_DIR
-    assert native.BUILD_DIR.parts[-2:] == ("build", "heat_tpu_torch")
+def _sources_in(tmp_path, monkeypatch):
+    """The two sources copied under ``tmp_path``, and the build directory
+    pointed at ``tmp_path / "out"``; returns (sources, build directory)."""
     srcs = []
     for src in native._SRCS:
         shutil.copy(src, tmp_path / src.name)
         srcs.append(tmp_path / src.name)
     out = tmp_path / "out"
     monkeypatch.setattr(native, "BUILD_DIR", out)
-    monkeypatch.setattr(native, "_SO", out / "_heat_native.so")
     monkeypatch.setattr(native, "_SRCS", srcs)
     monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_SO", native._SO)
+    return srcs, out
+
+
+def test_the_library_builds_into_build_and_again_when_a_source_is_newer(
+        tmp_path, monkeypatch):
+    """The build goes into the build directory, not beside the sources,
+    under the name of its key; an edited source is another key and builds
+    again (its age plays no part); a failed build leaves its error in
+    BUILD_ERROR."""
+    assert native._SO.parent == native.BUILD_DIR
+    assert native.BUILD_DIR.parts[-2:] == ("build", "heat_tpu_torch")
+    assert native._SO == native.library_path()
+    srcs, out = _sources_in(tmp_path, monkeypatch)
     native._lib()
-    built = os.stat(out / "_heat_native.so").st_mtime_ns
-    assert os.listdir(out) == ["_heat_native.so"]
+    first = native.library_path()
+    built = os.stat(first).st_mtime_ns
+    assert os.listdir(out) == [first.name] and native._SO == first
     monkeypatch.setattr(native, "_LIB", None)
     native._lib()  # up to date: not built again
-    assert os.stat(out / "_heat_native.so").st_mtime_ns == built
-    future = os.stat(out / "_heat_native.so").st_mtime + 10
-    os.utime(srcs[0], (future, future))
+    assert os.stat(first).st_mtime_ns == built
+    past = os.stat(first).st_mtime - 10
+    os.utime(srcs[0], (past, past))
+    srcs[0].write_text(srcs[0].read_text() + "\n// edited\n")
+    os.utime(srcs[0], (past, past))  # older than the library, and edited
     monkeypatch.setattr(native, "_LIB", None)
     native._lib()
-    assert os.stat(out / "_heat_native.so").st_mtime_ns != built
+    second = native.library_path()
+    assert second != first and native._SO == second
+    assert sorted(os.listdir(out)) == sorted([first.name, second.name])
+    assert os.stat(first).st_mtime_ns == built
     srcs[1].write_text("this is not C++\n")
-    os.utime(srcs[1], (future + 10, future + 10))
     monkeypatch.setattr(native, "_LIB", None)
     monkeypatch.setattr(native, "BUILD_ERROR", None)
     with pytest.raises(Exception):
         native._lib()
     assert "CalledProcessError" in native.BUILD_ERROR
+
+
+@pytest.mark.parametrize("part", ["sources", "flags", "cpu"])
+def test_the_library_name_changes_with_each_part_of_its_key(
+        tmp_path, monkeypatch, part):
+    srcs, out = _sources_in(tmp_path, monkeypatch)
+    monkeypatch.setattr(native, "host_cpu", lambda: "cpu A; sse2 avx2")
+    before = native.library_path()
+    assert before.parent == out
+    assert before.name.startswith("_heat_native_") and before.suffix == ".so"
+    assert native.library_path() == before  # a function of its key alone
+    if part == "sources":
+        srcs[1].write_text(srcs[1].read_text() + " ")
+    elif part == "flags":
+        monkeypatch.setattr(native, "_FLAGS", (*native._FLAGS, "-DNDEBUG"))
+    else:
+        monkeypatch.setattr(native, "host_cpu", lambda: "cpu A; sse2 avx2 avx512f")
+    assert native.library_path() != before
+
+
+def test_the_host_cpu_is_read_from_cpuinfo_or_the_platform(tmp_path, monkeypatch):
+    """The first processor's model name and flags; without them (no such
+    file, or a file that names neither) ``platform`` tells the machine."""
+    import platform
+
+    info = tmp_path / "cpuinfo"
+    info.write_text("processor\t: 0\nmodel name\t: Some  CPU\nflags\t\t: fpu  avx2\n"
+                    "\nprocessor\t: 1\nmodel name\t: Other CPU\nflags\t\t: fpu\n")
+    monkeypatch.setattr(native, "_CPUINFO", info)
+    assert native.host_cpu() == "Some CPU; fpu avx2"
+    other = tmp_path / "cpuinfo2"
+    other.write_text(info.read_text().replace("avx2", "avx512f"))
+    first = native.library_path()
+    monkeypatch.setattr(native, "_CPUINFO", other)
+    assert native.library_path() != first
+    fallback = f"{platform.machine()}; {platform.processor()}"
+    monkeypatch.setattr(native, "_CPUINFO", tmp_path / "missing")
+    assert native.host_cpu() == fallback
+    info.write_text("processor\t: 0\nBogoMIPS\t: 50.00\n")
+    monkeypatch.setattr(native, "_CPUINFO", info)
+    assert native.host_cpu() == fallback
+
+
+def test_a_library_under_another_key_is_not_loaded(tmp_path, monkeypatch):
+    """What another machine, other flags or other sources left in the build
+    directory (here files that are no library at all, newer than the
+    sources) is neither loaded nor removed: this host builds and loads its
+    own."""
+    srcs, out = _sources_in(tmp_path, monkeypatch)
+    out.mkdir()
+    monkeypatch.setattr(native, "host_cpu", lambda: "cpu B")
+    foreign = native.library_path()
+    monkeypatch.setattr(native, "host_cpu", lambda: "cpu A")
+    unkeyed = out / "_heat_native.so"  # the name before the key
+    for path in (foreign, unkeyed):
+        path.write_bytes(b"not a shared library")
+    mine = native.library_path()
+    assert mine not in (foreign, unkeyed) and not mine.exists()
+    native._lib()
+    assert native._SO == mine and mine.exists()
+    assert foreign.read_bytes() == unkeyed.read_bytes() == b"not a shared library"
+    top = np.asarray([[1, 2, 3]], np.int32)
+    np.testing.assert_array_equal(native.hits_matrix(top, [[3, 9]]), [[0.0, 0.0, 1.0]])
+    # Under that other key the file it names is loaded, and it is no library.
+    monkeypatch.setattr(native, "host_cpu", lambda: "cpu B")
+    monkeypatch.setattr(native, "_LIB", None)
+    with pytest.raises(OSError):
+        native._lib()
+    assert native._SO == foreign
 
 
 def _dataset_config(tmp_path):
