@@ -81,11 +81,15 @@ Phases, each of which raises (exit code 1) on failure:
    within RECALL_BAND of the default run's); then, from one seed, three
    engines each of config0 and the headline (two epochs: an epoch boundary
    with its eager shuffle) and of bench_large's 16M x 6M bf16 dedup
-   geometry (one epoch): eager, eager again and replayed. The replayed
+   geometry (one epoch): eager, eager again and replayed, and where the
+   two eager runs differ eager runs up to ORACLE_RUNS (the two-epoch
+   runs each epoch cut to its first half). The replayed
    draws (every negative, tile and tile index; fingerprints at 16M x 6M)
    equal the eager ones, ``step`` and ``iterations`` are equal, and the
-   per-step losses, ``w0`` and tables lie within twice the eager-vs-eager
-   spread by root mean square (K3's atomics add in no fixed order); and,
+   per-step losses, ``w0`` and tables are held to the eager runs by
+   the spread rule (``held_to_spread``: K3's atomics add in no fixed
+   order), which fails config0's replay with the item table's update
+   planted out of the captured step; and,
    in config0's and the headline's configurations on 48 clicks in which no
    user and no item repeats (batch 16, 4,000,000 items: no row takes two
    adds in a step, so the step is deterministic), two epochs of three
@@ -171,9 +175,9 @@ phases, resume bit for bit on the distinct clicks, in config0's and the
 default shape's configurations, into a fresh engine and into the engine
 that captured (``check_resume_distinct``); config0 and the default shape
 through the CLI, 3 epochs then resumed to 5 with ``--checkpoint-dir``,
-against three uninterrupted runs (``check_resume_cli``: draws, ``step``,
+against ORACLE_RUNS uninterrupted runs (``check_resume_cli``: draws, ``step``,
 ``iterations`` and the generators exact, tables, ``w0`` and step losses
-within twice the spread pooled over the runs' pairs, each epoch loss its
+held to the uninterrupted runs by the spread rule, each epoch loss its
 steps' sum); ``--profile-dir`` (the trace of a replayed epoch names
 the port's kernels, ``check_profile_dir``); ``--breakdown`` (the phases'
 sum against the run's wall, and the cost of the phase timer's syncs,
@@ -214,7 +218,7 @@ package's (4, 1) run and of the port's single-rank run of the same data,
 its export served, rank 0's launches a step and an evaluation and its
 collectives a step (``check_mesh_cli``); (b) the Engine API on (2, 2):
 step losses, tables and ``w0`` against ORACLE_RUNS single-rank runs on the same
-global batches and draws within twice their pooled spread, replicas
+global batches and draws by the spread rule, replicas
 bit-equal, the sharded top-k against ``TiledEvaluator.topk`` tie aware,
 the checkpoint resumed on one rank and on (4, 1) (``check_mesh_engine``);
 (c) ``make_mesh(1, 1)`` through NCCL against ORACLE_RUNS mesh-less engines
@@ -242,6 +246,16 @@ process run one after the other.
 Each phase's start is printed as it starts, and all of them on a
 ``{"phase_start_s": ...}`` line before the kernels' line.
 
+Every check that holds a run to runs of its own oracle (K3's atomics
+make no two runs on the card agree) holds each quantity on its own, to
+``spread_limit(n)`` times the oracles' spread: a limit at which, were
+the noise Gaussian, one quantity fails by chance with chance SPREAD_ALPHA
+(``held_to_spread``), so a whole run of at most SPREAD_FALSE_ALARM /
+SPREAD_ALPHA = 100 such quantities at most once in 100; the run fails
+where it held more. Planted faults show that the rule still sees a
+wrong run: a replay that lost a table's update, an oracle of (i) with
+``l_r`` off (``caught_by_spread``).
+
 On any exception the last line of standard output is
 ``{"failed": {"phase": ..., "error": ..., "phase_start_s": {...}}}`` (the
 phase the script was in, the error cut at ERROR_CHARS characters, and
@@ -259,6 +273,7 @@ Fails without a CUDA device, and outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -2258,30 +2273,67 @@ def check_trace(what, profile, every_step) -> dict:
     return got
 
 
-def check_replayed_against_eager(what, make_engine, epochs, full, dev) -> dict:
-    """The replay phase: ``epochs`` epochs of three engines from
-    one seed: eager, eager again, and replayed (each step one replay of the
-    captured step). Every run's draws (``full``: every negative, tile and
-    tile index; otherwise a fingerprint a step) are ``torch.equal`` to the
-    first eager run's, across the epochs' boundaries with their eager
-    shuffles; ``step`` and the sampler's ``iterations`` are equal in all
-    three. The per-step losses, ``w0``, ``attn_q`` (self-attention) and
-    both tables of the replayed run
-    differ from the first eager run's by at most twice what the second
-    eager run differs by (K3's atomics add in no fixed order), and not at
-    all where that spread is 0. The difference is the root mean square over
-    the elements (over the steps for the losses): the max over millions of
-    elements, and one epoch loss, are single extremes of a chaotic
-    divergence and moved 3x between calls. Returns the spreads and
-    differences (root mean square and max), each run's seconds, the
-    replayed engine's host time per replay call and its graph pool."""
+class SkipItemUpdates:
+    """Within a ``with`` block, the training step leaves the item table
+    of ``table`` (its storage) as it is: a planted fault, the step a
+    capture would record had it lost that update's launch."""
+
+    NAMES = ("apply_row_updates", "apply_row_updates_direct",
+             "apply_row_updates_opt")
+
+    def __init__(self, table):
+        from heat_tpu_torch.train import train_step
+
+        self.module, self.ptr = train_step, table.data_ptr()
+        self.orig = {n: getattr(train_step, n) for n in self.NAMES}
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            def skip(table, *args, fn=fn, **kw):
+                if table.data_ptr() != self.ptr:
+                    return fn(table, *args, **kw)
+            setattr(self.module, name, skip)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.module, name, fn)
+
+
+# The replay checks' epochs of several steps: each cut to its first half
+# (``PartEpochs``), so that ORACLE_RUNS eager runs cost what two whole ones
+# did.
+REPLAY_EPOCH_FRACTION = 0.5
+
+
+def check_replayed_against_eager(what, make_engine, epochs, full, dev,
+                                 planted: bool = False,
+                                 fraction: float = REPLAY_EPOCH_FRACTION) -> dict:
+    """The replay phase: ``epochs`` epochs of engines from one seed, each
+    epoch cut to its first ``fraction`` of steps (``PartEpochs``):
+    eager, eager again, replayed (each step one replay of the captured
+    step) and, where the two eager runs differ, eager runs up to
+    ORACLE_RUNS in all. Every run's draws (``full``: every negative, tile
+    and tile index; otherwise a fingerprint a step) are ``torch.equal``
+    to the first eager run's, across the epochs' boundaries with their
+    eager shuffles; ``step`` and the sampler's ``iterations`` are equal in
+    all. The per-step losses, ``w0``, ``attn_q`` (self-attention) and both
+    tables of the replayed run are held to the eager runs by
+    :func:`held_to_spread` (K3's atomics add in no fixed order; equal
+    where two eager runs are). The difference is the root mean square
+    over the elements (over the steps for the losses): the max over
+    millions of elements, and one epoch loss, are single extremes of a
+    chaotic divergence and moved 3x between calls. ``planted``: a
+    replayed run whose captured step lost the item table's update
+    (:class:`SkipItemUpdates`) must fail that rule
+    (:func:`caught_by_spread`). Returns the spreads and differences
+    (``held``), each run's seconds, the replayed engine's host time per
+    replay call and its graph pool."""
     import torch
 
     from heat_tpu_torch.testing import StepRecorder
 
-    runs = {}
-    for name, capture in (("eager", False), ("eager_again", False),
-                          ("replayed", True)):
+    def one(capture, skip_items=False):
         torch.cuda.empty_cache()
         engine = make_engine()
         engine._capture = capture
@@ -2291,9 +2343,13 @@ def check_replayed_against_eager(what, make_engine, epochs, full, dev) -> dict:
                           + cfg.num_subepochs - 1)
         tile = cfg.tile_size if cfg.neg_sampler == 1 else 0
         rec = StepRecorder(steps, cfg.batch_size, cfg.num_negs, tile, dev, full)
+        skip = (SkipItemUpdates(engine.state.item_emb) if skip_items
+                else contextlib.nullcontext())
+        part = (mesh_support().PartEpochs(engine, fraction) if fraction < 1
+                else contextlib.nullcontext())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with rec:
+        with rec, skip, part:
             losses = engine.train_epochs(epochs)
         seconds = time.perf_counter() - t0
         st = engine.state
@@ -2304,7 +2360,7 @@ def check_replayed_against_eager(what, make_engine, epochs, full, dev) -> dict:
                "item_emb": st.item_emb.clone(), "step": int(st.step),
                "iterations": int(engine.sampler_state.iterations),
                "draws": draws, "count": int(rec.count), "seconds": seconds}
-        if capture:
+        if capture and not skip_items:
             # The host's cost of one replay call, 20 calls from the stream's
             # first batch, not waited for (the recorder, in the graph,
             # writes from slot 0 again: its records are cloned above).
@@ -2318,9 +2374,17 @@ def check_replayed_against_eager(what, make_engine, epochs, full, dev) -> dict:
             run["host_us_per_replay"] = (time.perf_counter() - t0) * 1e6 / 20
             torch.cuda.synchronize()
             run["graph_pool_bytes"] = fn.graph_pool_bytes
-        runs[name] = run
         del engine, st, rec
+        return run
+
+    runs = {name: one(capture) for name, capture in (
+        ("eager", False), ("eager_again", False), ("replayed", True))}
     eager, again, replayed = runs["eager"], runs["eager_again"], runs["replayed"]
+    keys = [k for k in ("step_losses", "w0", "user_emb", "item_emb", "attn_q")
+            if eager[k] is not None]
+    if not all(torch.equal(eager[k], again[k]) for k in keys):
+        for i in range(3, ORACLE_RUNS + 1):
+            runs[f"eager_{i}"] = one(False)
     steps = eager["count"]
     for run in runs.values():
         if run["count"] != steps or run["step"] != steps:
@@ -2331,26 +2395,25 @@ def check_replayed_against_eager(what, make_engine, epochs, full, dev) -> dict:
             if not torch.equal(want, got):
                 raise AssertionError(f"{what}: a step drew other values")
     for key in ("step", "iterations"):
-        if not eager[key] == again[key] == replayed[key]:
+        if len({r[key] for r in runs.values()}) != 1:
             raise AssertionError(
-                f"{what}: {key} {eager[key]} / {again[key]} / {replayed[key]}")
-    out = {"epochs": epochs, "steps": steps,
+                f"{what}: {key} {[r[key] for r in runs.values()]}")
+    oracles = [{k: r[k] for k in keys} for name, r in runs.items()
+               if name != "replayed"]
+    out = {"epochs": epochs, "fraction": fraction, "steps": steps,
+           "eager_runs": len(oracles),
            "seconds": {k: r["seconds"] for k, r in runs.items()},
            "epoch_losses": {k: r["epoch_losses"] for k, r in runs.items()},
            "host_us_per_replay": replayed["host_us_per_replay"],
            "graph_pool_bytes": replayed["graph_pool_bytes"]}
-    for key in ("step_losses", "w0", "user_emb", "item_emb", "attn_q"):
-        if eager[key] is None:
-            continue
-        spread, spread_max = rms_diff(again[key], eager[key])
-        diff, diff_max = rms_diff(replayed[key], eager[key])
-        out[key] = {"eager_spread_rms": spread, "replayed_vs_eager_rms": diff,
-                    "eager_spread_max": spread_max,
-                    "replayed_vs_eager_max": diff_max}
-        if diff > 2 * spread:
-            raise AssertionError(
-                f"{what}: replayed {key} off the eager run's by {diff} (rms), "
-                f"more than twice the eager-vs-eager spread {spread}")
+    out["held"] = held_to_spread(f"{what}: replayed",
+                                 {k: replayed[k] for k in keys}, oracles)
+    if planted:
+        faulty = one(True, skip_items=True)
+        out["planted_no_item_update"] = caught_by_spread(
+            f"{what}: replayed without the item table's update",
+            {k: faulty[k] for k in keys}, oracles)
+        out["seconds"]["planted"] = faulty["seconds"]
     print(f"replayed vs eager, {what}: draws equal over {steps} steps, step "
           f"{eager['step']}, iterations {eager['iterations']}; "
           f"{json.dumps(out)}")
@@ -2382,7 +2445,8 @@ def check_replay(dev) -> dict:
         def make(overrides=overrides):
             return Engine(load_config(CONFIG0, **overrides)[0], train, device=dev)
 
-        out[what] = check_replayed_against_eager(what, make, 2, True, dev)
+        out[what] = check_replayed_against_eager(what, make, 2, True, dev,
+                                                 planted=what == "config0")
         small = {**overrides, **DISTINCT_SETS}
         if overrides.get("neg_sampler") == 1:
             small.update(DISTINCT_TILE_SETS)
@@ -2418,7 +2482,7 @@ def check_replay(dev) -> dict:
         return Engine(bench_large.make_config(args), dataset, device=dev)
 
     out["dedup_16m_6m"] = check_replayed_against_eager(
-        "16M x 6M bf16 dedup", make_big, 1, False, dev)
+        "16M x 6M bf16 dedup", make_big, 1, False, dev, fraction=1.0)
     # The host's cost of a checkpoint of this state (item 14).
     engine = make_big()
     out["dedup_16m_6m"]["checkpoint"] = time_checkpoint(engine, "ckpt_16m_6m")
@@ -3504,18 +3568,15 @@ def check_resume_distinct(dev) -> dict:
 
 def check_resume_cli(dev, cli, args) -> dict:
     """Checkpoint and resume through the CLI at full width, config0 and the
-    default shape: three uninterrupted 5-epoch runs with
+    default shape: ORACLE_RUNS uninterrupted 5-epoch runs with
     ``--checkpoint-dir`` (the spread) and a run of RESUME_AT epochs resumed
     to 5 with the same directory, each step's draws fingerprinted and its
     loss recorded (``StepRecorder``). The draws, ``step``, ``iterations``,
     the tile and both generators' final states equal the first
     uninterrupted run's exactly. The tables, ``w0`` (the final checkpoints)
-    and the step losses lie within twice the spread by root mean square
-    (``check_replayed_against_eager``'s measure: K3's atomics add in no
-    fixed order), equal where that spread is 0: the spread pools the three
-    pairs of uninterrupted runs, the resumed run's difference its three
-    pairs with them (how far two runs drift apart is itself a random
-    amount, and one pair on each side reads it badly). Each run's epoch
+    and the step losses are held to the uninterrupted runs by
+    :func:`held_to_spread` (K3's atomics add in no fixed order; equal
+    where those are). Each run's epoch
     losses are its own steps' loss sums over the training pairs, to within
     f32 summation (the resumed epochs count each step once); they are
     reported beside their spread, not bounded by it: five numbers, each the
@@ -3526,7 +3587,8 @@ def check_resume_cli(dev, cli, args) -> dict:
     from heat_tpu_torch.testing import StepRecorder
     from heat_tpu_torch.train.engine import Engine
 
-    uninterrupted = ("whole", "again", "again2")
+    uninterrupted = ("whole", "again") + tuple(
+        f"again{i}" for i in range(2, ORACLE_RUNS))
     out = {}
     for what, sets in (("config0", []), ("default shape", DEFAULT_SHAPE)):
         flags = [x for kv in sets for x in ("--set", kv)]
@@ -3582,7 +3644,7 @@ def check_resume_cli(dev, cli, args) -> dict:
                           "ckpt": ckpt, "recall": record["final_metrics"]["Recall(k=20)"],
                           "epoch_s": seconds}
         whole = runs["whole"]
-        for name in ("again", "again2", "resumed"):
+        for name in (*uninterrupted[1:], "resumed"):
             run = runs[name]
             if not torch.equal(run["prints"], whole["prints"]):
                 raise AssertionError(f"{what} {name}: the draws differ "
@@ -3605,23 +3667,22 @@ def check_resume_cli(dev, cli, args) -> dict:
                "epoch_losses_by_run": {k: r["epoch_losses"].tolist()
                                        for k, r in runs.items()},
                "epoch_s": {k: r["epoch_s"] for k, r in runs.items()}}
-        for key in ("user_emb", "item_emb", "w0", "step_losses", "epoch_losses"):
-            def value(name, key=key):
-                run = runs[name]
-                return run[key] if key.endswith("losses") else run["ckpt"]["state"][key]
+        def held(name):
+            run = runs[name]
+            return {"step_losses": run["step_losses"],
+                    **{k: run["ckpt"]["state"][k]
+                       for k in ("user_emb", "item_emb", "w0")}}
 
-            spread, spread_max = pooled_rms_diff(
-                [(value(x), value(y)) for x, y in
-                 itertools.combinations(uninterrupted, 2)])
-            diff, diff_max = pooled_rms_diff(
-                [(value("resumed"), value(x)) for x in uninterrupted])
-            res[key] = {"spread_rms": spread, "resumed_rms": diff,
-                        "spread_max": spread_max, "resumed_max": diff_max}
-            if key != "epoch_losses" and diff > 2 * spread:
-                raise AssertionError(
-                    f"{what}: the resumed {key} is off the uninterrupted runs' "
-                    f"by {diff} (rms over three pairs), more than twice their "
-                    f"spread {spread}")
+        res["held"] = held_to_spread(f"{what}: the resumed run", held("resumed"),
+                                     [held(x) for x in uninterrupted])
+        spread, spread_max = pooled_rms_diff(
+            [(runs[x]["epoch_losses"], runs[y]["epoch_losses"])
+             for x, y in itertools.combinations(uninterrupted, 2)])
+        diff, diff_max = pooled_rms_diff(
+            [(runs["resumed"]["epoch_losses"], runs[x]["epoch_losses"])
+             for x in uninterrupted])
+        res["epoch_losses"] = {"spread_rms": spread, "resumed_rms": diff,
+                               "spread_max": spread_max, "resumed_max": diff_max}
         print(f"resume through the CLI, {what}: {RESUME_AT} epochs then 5 "
               f"against 5: draws equal over {res['steps']} steps, step, "
               f"iterations and generators equal; {json.dumps(res)}")
@@ -3636,6 +3697,136 @@ def pooled_rms_diff(pairs) -> tuple[float, float]:
     diffs = [rms_diff(a, b) for a, b in pairs]
     return (math.sqrt(sum(r * r for r, _ in diffs) / len(diffs)),
             max(m for _, m in diffs))
+
+
+# The spread rule of every check that holds a run to runs of its oracle
+# (K3's atomics add in no fixed order, so no two runs on the card need
+# agree): each quantity fails by chance with chance at most SPREAD_ALPHA,
+# and a whole run holds at most SPREAD_FALSE_ALARM / SPREAD_ALPHA of
+# them. The dedup comparison of the attention phase is a band
+# (DEDUP_BAND) between two computations that differ by design, not a run
+# held to its own oracle's runs.
+SPREAD_ALPHA = 1e-4
+SPREAD_FALSE_ALARM = 0.01
+SPREAD_HELD: list = []  # the quantities held so far in this process
+
+
+def t_tail(t: float, df: int) -> float:
+    """P(|T| > t) for Student's t with ``df`` >= 1 (an integer) degrees of
+    freedom, by the closed forms of Abramowitz and Stegun 26.7.3-4."""
+    theta = math.atan(t / math.sqrt(df))
+    c2, total = math.cos(theta) ** 2, 0.0
+    if df % 2:
+        term = math.cos(theta)
+        for k in range(1, (df - 1) // 2 + 1):
+            total += term
+            term *= c2 * 2 * k / (2 * k + 1)
+        return 1.0 - 2.0 / math.pi * (theta + math.sin(theta) * total)
+    term = 1.0
+    for k in range(1, df // 2 + 1):
+        total += term
+        term *= c2 * (2 * k - 1) / (2 * k)
+    return 1.0 - math.sin(theta) * total
+
+
+def spread_limit(n: int, alpha: float = SPREAD_ALPHA) -> float:
+    """The most a quantity's ratio (:func:`held_to_spread`) may read
+    against ``n`` >= 2 oracle runs. For one Gaussian scalar y against
+    oracles x_1..x_n, r^2 = ((n+1) t^2 + (n-1)) / (2n) with t = (y - mean
+    x) / (sd x sqrt(1 + 1/n)), Student's t with n-1 degrees of freedom:
+    the limit puts t at its two-sided ``alpha`` quantile. For k independent elements (2n r^2 - (n-1)) / (n+1) is F(k,
+    k(n-1)), whose tail is lighter. The runs on the card are noisier in
+    the tails than this law says (PERF.md §6, F7: (l)'s first epoch
+    loss, (i)'s tables), so what a check fails by chance is measured
+    there, not read off the law."""
+    df = n - 1
+    lo, hi = 0.0, 1.0
+    while t_tail(hi, df) > alpha:
+        lo, hi = hi, 2.0 * hi
+    for _ in range(200):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if t_tail(mid, df) > alpha else (lo, mid)
+    return math.sqrt(((n + 1) * hi * hi + (n - 1)) / (2 * n))
+
+
+def check_spread_count() -> None:
+    """Print how many quantities the run held by :func:`held_to_spread`,
+    and fail where they are more than SPREAD_FALSE_ALARM / SPREAD_ALPHA:
+    the whole run's chance of a false alarm would pass its target."""
+    most = round(SPREAD_FALSE_ALARM / SPREAD_ALPHA)
+    print(json.dumps({"spread_held": len(SPREAD_HELD), "spread_most": most}))
+    if len(SPREAD_HELD) > most:
+        raise AssertionError(
+            f"{len(SPREAD_HELD)} quantities held to a spread, more than the "
+            f"{most} at which a whole run fails by chance SPREAD_FALSE_ALARM "
+            f"= {SPREAD_FALSE_ALARM} of the time")
+
+
+def spread_ratios(got, oracles, floor: float = 0.0) -> dict:
+    """``got`` against ``oracles`` (runs on the same batches and draws),
+    each quantity on its own: a tensor is one quantity (step losses, a
+    table), a dict {name: tensor} one quantity a key (each epoch loss,
+    each metric). A quantity's distance d is the rms of ``got`` - oracle
+    pooled over its n pairs with them, its spread s the rms pooled over
+    the oracles' own pairs. Returns {spread_rms, rms, spread_max, max,
+    ratio, limit, over}: ``over`` where d exceeds ``spread_limit(n)`` x s
+    and ``floor`` (where the mesh sums something in another order by
+    design: a step's loss over the ranks); a spread of 0 demands
+    equality. A dict of them a key for a dict."""
+    import torch
+
+    if isinstance(got, dict):
+        return {key: spread_ratios(got[key], [o[key] for o in oracles], floor)
+                for key in got}
+
+    def tensor(x):  # a Python number in f64, as numpy would hold it
+        return torch.atleast_1d(torch.as_tensor(
+            x, dtype=torch.float64 if isinstance(x, (int, float)) else None))
+
+    got, oracles = tensor(got), [tensor(o) for o in oracles]
+    limit = spread_limit(len(oracles))
+    spread, spread_max = pooled_rms_diff(list(itertools.combinations(oracles, 2)))
+    diff, diff_max = pooled_rms_diff([(got, o) for o in oracles])
+    out = {"spread_rms": spread, "rms": diff, "spread_max": spread_max,
+           "max": diff_max, "ratio": diff / spread if spread else None,
+           "limit": limit, "over": not diff <= max(limit * spread, floor)}
+    if floor:
+        out["floor"] = floor
+    return out
+
+
+def _quantities(what, held) -> dict:
+    """{name: one quantity's record} of :func:`spread_ratios`' result."""
+    if "over" in held:
+        return {what: held}
+    return {f"{what} {k}": v for k, v in held.items()}
+
+
+def held_to_spread(what, got, oracles, floor: float = 0.0) -> dict:
+    """Hold ``got`` to ``oracles`` (:func:`spread_ratios`): each quantity
+    counts towards the run's SPREAD_HELD, and any quantity ``over`` fails
+    the run. Returns :func:`spread_ratios`' record."""
+    held = spread_ratios(got, oracles, floor)
+    quantities = _quantities(what, held)
+    SPREAD_HELD.extend(quantities)
+    bad = [f"{name}: {q['rms']} (rms over its pairs) from the oracle runs, "
+           f"more than {q['limit']:.4g} x their spread {q['spread_rms']}"
+           for name, q in quantities.items() if q["over"]]
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return held
+
+
+def caught_by_spread(what, got, oracles) -> dict:
+    """A planted fault: ``got`` is a run known wrong, and the rule of
+    :func:`held_to_spread` must fail it in at least one quantity. Not a
+    chance comparison, so it does not count towards SPREAD_HELD. Returns
+    :func:`spread_ratios`' record."""
+    held = spread_ratios(got, oracles)
+    if not any(q["over"] for q in _quantities(what, held).values()):
+        raise AssertionError(f"{what}: a planted fault passed the spread "
+                             f"rule: {json.dumps(held)}")
+    return held
 
 
 def check_epoch_sums(what, losses, epochs, sizes) -> None:
@@ -3689,22 +3880,45 @@ def check_profile_dir(cli, args) -> dict:
     return res
 
 
-def check_breakdown(dev, cli, args, train, test) -> dict:
-    """``--breakdown`` on config0's run: the phases ``data``, ``f_b`` and
-    ``eval``, their sum within PHASE_SUM_BAND of the run's wall (its
-    epochs' and evaluations' seconds, as the CLI times them). Then, one
-    engine each of config0 and the default shape, after the capture,
-    SYNC_PAIRS pairs of replayed epochs with the phases' syncs and without
-    (``Engine.sync_phases``), alternated: the syncs' cost is the fastest
-    epoch with them over the fastest without, less 1 (the host's noise only
-    adds time, and the fastest of SYNC_PAIRS epochs is the least noisy
-    reading; the median of the pairs' differences is reported beside it),
-    at most SYNC_COST."""
+def sync_cost(dev, sets, train, test) -> dict:
+    """One engine of config0 with ``sets``, after its capture: SYNC_PAIRS
+    pairs of replayed epochs with the phases' syncs and without
+    (``Engine.sync_phases``), alternated. The syncs' ``cost`` is the
+    fastest epoch with them over the fastest without, less 1 (the host's
+    noise only adds time, and the fastest of SYNC_PAIRS epochs is the
+    least noisy reading; the median of the pairs' differences is reported
+    beside it)."""
     import torch
 
     from heat_tpu_torch.config import load_config
     from heat_tpu_torch.train.engine import Engine
 
+    engine = Engine(load_config(CONFIG0, **overrides_of(sets))[0], train,
+                    test, device=dev)
+    engine.train_one_epoch()  # the capture
+    pairs = []
+    for i in range(SYNC_PAIRS):
+        times = {}
+        for sync in ((True, False) if i % 2 == 0 else (False, True)):
+            engine.sync_phases = sync
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            engine.train_one_epoch()
+            times[sync] = time.perf_counter() - t0
+        pairs.append(times)
+    with_s, without_s = ([p[k] for p in pairs] for k in (True, False))
+    return {"with_syncs_s": with_s, "without_s": without_s,
+            "cost": min(with_s) / min(without_s) - 1.0,
+            "median_paired_cost": statistics.median(
+                (p[True] - p[False]) / p[False] for p in pairs)}
+
+
+def check_breakdown(dev, cli, args, train, test) -> dict:
+    """``--breakdown`` on config0's run: the phases ``data``, ``f_b`` and
+    ``eval``, their sum within PHASE_SUM_BAND of the run's wall (its
+    epochs' and evaluations' seconds, as the CLI times them). Then the
+    phase timer's syncs' cost (:func:`sync_cost`) on config0 and the
+    default shape, at most SYNC_COST."""
     record, text = run_cli(cli, args + ["--breakdown"])
     lines = text.splitlines()
     at = next(i for i, ln in enumerate(lines) if ln.startswith("total: "))
@@ -3723,30 +3937,13 @@ def check_breakdown(dev, cli, args, train, test) -> dict:
                              f"against the run's {wall} s")
     out = {"phases_s": phases, "phases_sum_s": total, "run_wall_s": wall}
     for what, sets in (("config0", []), ("default shape", DEFAULT_SHAPE)):
-        engine = Engine(load_config(CONFIG0, **overrides_of(sets))[0], train,
-                        test, device=dev)
-        engine.train_one_epoch()  # the capture
-        pairs = []
-        for i in range(SYNC_PAIRS):
-            times = {}
-            for sync in ((True, False) if i % 2 == 0 else (False, True)):
-                engine.sync_phases = sync
-                torch.cuda.synchronize(dev)
-                t0 = time.perf_counter()
-                engine.train_one_epoch()
-                times[sync] = time.perf_counter() - t0
-            pairs.append(times)
-        with_s, without_s = ([p[k] for p in pairs] for k in (True, False))
-        cost = min(with_s) / min(without_s) - 1.0
-        out[what] = {"with_syncs_s": with_s, "without_s": without_s,
-                     "cost": cost, "median_paired_cost": statistics.median(
-                         (p[True] - p[False]) / p[False] for p in pairs)}
+        out[what] = sync_cost(dev, sets, train, test)
+        cost = out[what]["cost"]
         if not cost <= SYNC_COST:
             raise AssertionError(
                 f"{what}: the phase timer's syncs cost {cost:.4f} of an epoch "
                 f"(fastest of {SYNC_PAIRS} against fastest of {SYNC_PAIRS}), "
                 f"more than {SYNC_COST}")
-        del engine
     print(f"--breakdown: {json.dumps(out)}")
     return out
 
@@ -3861,10 +4058,9 @@ MESH_RUN = "config0_mesh41"  # PARITY_TORCH.json: the JAX package on (4, 1)
 EXPORT_MESH = EXPORT.with_name("config0_mesh41.npz")
 MESH_TRACE = EXPORT.parent / "mesh_trace"
 MESH_TIMEOUT = 480  # s, a launcher's or a spawned job's ranks
-SPREAD_RULE = 2.0  # check_resume_cli's: at most twice the pooled rms spread
-# Single-rank runs a mesh phase pools its spread over: with three, the
-# (2, 2) run's ratio read 0.91 to 1.71 from call to call (a spread of three
-# pairs is a noisy yardstick), so five (ten pairs).
+# The oracle runs of a spread check: a mesh phase's single-rank runs,
+# replay's eager runs, resume's uninterrupted runs (held_to_spread's limit
+# at five is 12.06).
 ORACLE_RUNS = 5
 MESH_STEPS = 2 * (-(-1895184 // BATCH) + 1)  # a bound on two epochs' steps
 # (b), (f) and (i): each epoch cut to the first half of its steps, on the
@@ -3902,30 +4098,6 @@ def trace_busy(trace_dir: Path) -> dict:
     ranks' work on the shared card is not in rank 0's trace."""
     path = max(trace_dir.glob("*.pt.trace.json"), key=lambda p: p.stat().st_mtime)
     return mesh_support().trace_summary(path)
-
-
-def held_to_spread(what, got, oracles, floor: float = 0.0) -> dict:
-    """``check_resume_cli``'s rule against K3's atomics: ``got`` (a tensor
-    of step losses or a table) lies within SPREAD_RULE times the rms spread
-    pooled over the pairs of ``oracles`` (ORACLE_RUNS single-rank runs on
-    the same batches and draws), its own distance pooled over its pairs
-    with them; or within ``floor`` of them, where the mesh sums something
-    in another order by design (a step's loss over the ranks)."""
-    import torch
-
-    got = torch.as_tensor(got)
-    oracles = [torch.as_tensor(o) for o in oracles]
-    spread, spread_max = pooled_rms_diff(list(itertools.combinations(oracles, 2)))
-    diff, diff_max = pooled_rms_diff([(got, o) for o in oracles])
-    out = {"spread_rms": spread, "rms": diff, "spread_max": spread_max,
-           "max": diff_max, "ratio": diff / spread if spread else None}
-    if floor:
-        out["floor"] = floor
-    if not diff <= max(SPREAD_RULE * spread, floor):
-        raise AssertionError(
-            f"{what}: {diff} (rms over its pairs) from the single-rank runs, "
-            f"more than {SPREAD_RULE} x their spread {spread}")
-    return out
 
 
 def check_mesh_launches(launches: dict, steps: int, evals: int) -> None:
@@ -4547,31 +4719,58 @@ def mesh_engine_job(dev, phase, runs, shape=(2, 2)):
     return out, wall, data_kw, data
 
 
+# (i) "full": oracles with ``l_r`` off by these relative amounts (planted
+# faults) beside the run's own; the largest must fail the spread rule, the
+# others give the rule's reach on the tables and w0.
+PLANTED_LR = (1e-4, 1e-3, 1e-2, 1e-1)
+
+
 def held_to_oracles(dev, phase, name, cfg_kw, head, data_kw, data,
-                    shape=(2, 2)) -> dict:
+                    shape=(2, 2), planted=()) -> dict:
     """Rank 0's step losses, tables, ``w0`` (and ``attn_q``) of a
     :func:`mesh_engine_job` run on a ``shape`` mesh against ORACLE_RUNS
     single-rank runs on the same global batches and draws
     (``Engine._shard_stream(shape[0])``, summing as the data shards and
     the model shards do: ``DataChunks``, ``PartialMeans``) by
-    :func:`held_to_spread`."""
+    :func:`held_to_spread`. ``planted``: for each relative offset D, a
+    single-rank run with ``l_r`` times 1 + D held to the same oracles
+    (each quantity's ratio); the largest must fail the rule
+    (:func:`caught_by_spread`)."""
+    from heat_tpu_torch.config import CFConfig
+
     mc = mesh_support()
     t0 = time.perf_counter()
-    oracles = [mc.train_oracle(shape[0], data_kw, cfg_kw, 1, dev.type,
-                               data=data, step_losses=MESH_STEPS,
-                               n_model=shape[1], evaluate=False,
-                               epoch_fraction=MESH_EPOCH_FRACTION)
-               for _ in range(ORACLE_RUNS)]
+
+    def oracle(kw):
+        run = mc.train_oracle(shape[0], data_kw, kw, 1, dev.type, data=data,
+                              step_losses=MESH_STEPS, n_model=shape[1],
+                              evaluate=False, epoch_fraction=MESH_EPOCH_FRACTION)
+        return run, {"step_losses": run["step_losses"],
+                     **{k: run["state"][k] for k in keys}}
+
+    keys = [k for k in ("user_emb", "item_emb", "w0", "attn_q")
+            if k in head["state"]]
+    runs = [oracle(cfg_kw) for _ in range(ORACLE_RUNS)]
+    oracles = [q for _, q in runs]
     held = {"step_losses": held_to_spread(
         f"({phase}) {shape} {name} step losses", head["step_losses"],
         [o["step_losses"] for o in oracles])}
-    for key in ("user_emb", "item_emb", "w0", "attn_q"):
-        if key in head["state"]:
-            held[key] = held_to_spread(f"({phase}) {shape} {name} {key}",
-                                       head["state"][key],
-                                       [o["state"][key] for o in oracles])
-    return {"held": held, "oracle_losses": [o["losses"] for o in oracles],
-            "oracles_s": time.perf_counter() - t0}
+    for key in keys:
+        held[key] = held_to_spread(f"({phase}) {shape} {name} {key}",
+                                   head["state"][key], [o[key] for o in oracles])
+    out = {"held": held, "oracle_losses": [r["losses"] for r, _ in runs],
+           "oracles_s": time.perf_counter() - t0}
+    if planted:
+        lr = CFConfig(**cfg_kw).l_r
+        out["planted_lr_ratios"] = {}
+        for d in planted:
+            _, got = oracle(dict(cfg_kw, l_r=lr * (1 + d)))
+            what = f"({phase}) {shape} {name} with l_r x (1 + {d:g})"
+            res = (caught_by_spread(what, got, oracles) if d == max(planted)
+                   else spread_ratios(got, oracles))
+            out["planted_lr_ratios"][f"{d:g}"] = {k: q["ratio"]
+                                                  for k, q in res.items()}
+    return out
 
 
 def check_mesh_engine_fast(dev, job=None) -> dict:
@@ -4769,8 +4968,9 @@ def check_mesh_engine_slice(dev, job=None, job41=None) -> dict:
                          "launches_rank0": head["launches"],
                          "port_kernels_per_step_rank0": {
                              f: n / steps for f, n in last["port_kernels"].items()},
-                         **held_to_oracles(dev, "i", name, cfg_kw, head,
-                                           data_kw, data, shape)}
+                         **held_to_oracles(
+                             dev, "i", name, cfg_kw, head, data_kw, data, shape,
+                             PLANTED_LR if name == "full" else ())}
             if shape == (2, 2):
                 out[name]["sum_bytes"] = model_sum_bytes(name, data[0])
             print(f"mesh (i), the Engine API on {shape} through gloo, {name}: "
@@ -5231,7 +5431,22 @@ def check_mesh_sorted_huge(dev, job) -> dict:
 MESH_SORTED_RUN = "config0_sorted_mesh41"  # PARITY_TORCH.json, JAX on (4, 1)
 MESH_SORTED_ROWS = 8192  # DENSE_ROWS_THRESHOLD inside the ranks of (k)
 FUSED_CLI_SYNTHETIC = "4000,6000"  # (l)'s CLI runs: 3 epochs at a small size
-FUSED_CLI_PLAIN = 5  # plain CLI runs whose spread the fused ones are held to
+# Plain CLI runs whose spread the fused ones are held to. Not more: the
+# first epoch's loss has a heavy tail (about 1 run in 50 lands near 4 sd
+# of the rest) and the limit falls with n (3.6 at 20), so on the card a
+# plain run failed against 20 others 0.0088 of the time in the parent's
+# pool of runs, against 5 others 0.0003 (PERF.md §6, F7).
+FUSED_CLI_PLAIN = 5
+
+
+def fused_cli_numbers(c) -> dict:
+    """(l)'s quantities of a CLI run (``rank_clis``' record): each epoch's
+    loss and each gated final metric."""
+    from heat_tpu_torch import parity
+
+    rec = c["record"]
+    return {**{f"epoch {e} loss": x for e, x in enumerate(rec["losses"])},
+            **{m: rec["final_metrics"][m] for m in parity.GATED_METRICS}}
 
 
 def check_mesh_sorted_gate(dev, cli_argv) -> dict:
@@ -5245,12 +5460,10 @@ def check_mesh_sorted_gate(dev, cli_argv) -> dict:
     (``parity.gate``); rank 0's launches show both sorted updates every
     step. Then the CLI on (4, 1) (``cli_argv``: FUSED_CLI_PLAIN plain runs,
     ``--fused-epochs 2`` and ``--fused-run``): each fused run's losses and
-    final metrics within SPREAD_RULE times the plain runs' pooled spread
-    (K3's atomics), its printed lines the plain run's in number and
-    kind."""
+    final metrics, each on its own, held to the plain runs
+    (:func:`held_to_spread`: K3's atomics), its printed lines the plain
+    run's in number and kind."""
     import dataclasses
-
-    import numpy as np
 
     from heat_tpu_torch import parity
 
@@ -5283,11 +5496,6 @@ def check_mesh_sorted_gate(dev, cli_argv) -> dict:
         raise AssertionError(f"(k): rank 0 launched {launches} over {steps} "
                              f"steps, expected at least {want}")
     # (l), gloo: the fused CLI runs against the plain ones.
-    def numbers(c):
-        rec = c["record"]
-        return np.asarray(rec["losses"] + [rec["final_metrics"][m] for m in
-                                           parity.GATED_METRICS])
-
     def kinds(c):
         return [ln.split(":")[0] for ln in c["printed"]]
 
@@ -5299,8 +5507,9 @@ def check_mesh_sorted_gate(dev, cli_argv) -> dict:
         if kinds(c) != kinds(plain[0]):
             raise AssertionError(f"(l) CLI {name} printed {c['printed']}, the "
                                  f"plain run {plain[0]['printed']}")
-        held[name] = held_to_spread(f"(l) (4, 1) CLI {name}", numbers(c),
-                                    [numbers(p) for p in plain])
+        held[name] = held_to_spread(f"(l) (4, 1) CLI {name}",
+                                    fused_cli_numbers(c),
+                                    [fused_cli_numbers(p) for p in plain])
     print(f"mesh (l), the CLI's fused flags on (4, 1) through gloo: "
           f"{json.dumps(held)}; (k) in {wall:.1f} s: {gate_run['metrics']}")
     gate = parity.gate(record, MESH_SORTED_RUN, gate_run["metrics"],
@@ -5330,8 +5539,8 @@ def check_mesh_nccl_captured(res) -> dict:
     CUDA graph and replayed, the results right; ``train_epochs(3)`` and
     ``run_epochs_with_eval(3, 2)`` of the (1, 1) mesh engine replayed
     (captured once each), their step losses and item tables within
-    SPREAD_RULE times the pooled spread of the eager mesh runs and the
-    mesh-less replayed runs (K3's atomics), their evaluation at epoch 2.
+    the spread of the eager mesh runs and the mesh-less replayed runs
+    (:func:`held_to_spread`: K3's atomics), their evaluation at epoch 2.
     A mesh axis of size 1 calls no collective, so the step's graph holds
     none here: a multi-rank NCCL capture needs a card a rank."""
     probe = res["probe"]
@@ -5934,7 +6143,8 @@ def run(walls: dict) -> int:
             mesh["k"]["job_wall_s"], mesh["k"]["gate"]["train_s"],
             mesh["k"]["gate"]["gate_jax"]["gap"]],
         "(l) fused CLI ratios to the spread; NCCL captured ratios": [
-            {k: h["ratio"] for k, h in mesh["k"]["fused_cli"]["held"].items()},
+            {k: {q: x["ratio"] for q, x in h.items()}
+             for k, h in mesh["k"]["fused_cli"]["held"].items()},
             {k: h["ratio"] for k, h in mesh["c"]["captured"]["held"].items()}],
         **{f"(i) {name} {tuple(r['shape'])} wall_s, train_s, collective ms a "
            f"step, rank 0's idle share, bytes summed, ratios to the spread": [
@@ -5942,6 +6152,11 @@ def run(walls: dict) -> int:
                r["last_epoch_rank0"]["idle_share"], r.get("sum_bytes"),
                {k: h["ratio"] for k, h in r["held"].items()}]
            for name, r in mesh["i"].items()}}}))
+    print(json.dumps({"planted faults, ratios to the spread": {
+        "replay config0 without the item update": {
+            k: q["ratio"] for k, q in
+            replay["config0"]["planted_no_item_update"].items()},
+        "(i) full l_r x (1 + D)": mesh["i"]["full"]["planted_lr_ratios"]}}))
     print(f"card for the line above (ranks sharing one card; no multi-card "
           f"speed): {card}")
 
@@ -6005,6 +6220,7 @@ def run(walls: dict) -> int:
         del k["shape"]
     mark("end")
     print(json.dumps({"phase_start_s": walls}))
+    check_spread_count()
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

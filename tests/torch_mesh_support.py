@@ -737,6 +737,50 @@ class PartialMeans:
         self.aggregator.history_mean_gather = self.orig
 
 
+class ShardPools:
+    """Within a ``with`` block, the single-rank engine refreshes the
+    attention kinds' pools as a mesh of ``n_data`` data shards does: each
+    shard's users on their own (``user_pools_impl`` over its rows of the
+    histories and of the user table), so in the chunks a data rank takes
+    them (POOL_CHUNK_BYTES of rows from the shard's first user), not in
+    the chunks of the whole table. On the card a chunk's batched products
+    round by the chunk's size. It patches ``train.engine.compute_user_pools``,
+    which ``Engine._pooled_history`` reads at call time; ``calls`` holds the
+    users of each call it made."""
+
+    def __init__(self, n_data: int):
+        from heat_tpu_torch.train import engine
+
+        self.engine, self.n, self.calls = engine, n_data, []
+        self.orig = engine.compute_user_pools
+
+    def pools(self, item_emb, his_items, his_masks, user_emb=None,
+              attn_q=None, aggregator="mean", out=None, **kw):
+        import torch
+
+        if aggregator == "mean":
+            return self.orig(item_emb, his_items, his_masks, user_emb=user_emb,
+                             attn_q=attn_q, aggregator=aggregator, out=out, **kw)
+        if out is None:
+            out = torch.empty((his_items.shape[0], item_emb.shape[1]),
+                              dtype=item_emb.dtype, device=item_emb.device)
+        rows = his_items.shape[0] // self.n  # table_shards' user rows
+        for lo in range(0, his_items.shape[0], rows):
+            hi = lo + rows
+            self.calls.append((lo, hi))
+            self.orig(item_emb, his_items[lo:hi], his_masks[lo:hi],
+                      user_emb=None if user_emb is None else user_emb[lo:hi],
+                      attn_q=attn_q, aggregator=aggregator, out=out[lo:hi], **kw)
+        return out
+
+    def __enter__(self):
+        self.engine.compute_user_pools = self.pools
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.compute_user_pools = self.orig
+
+
 _KEEP_GRAD = []
 
 
@@ -1073,7 +1117,8 @@ def train_oracle(n_data, data_kw, cfg_kw, epochs, device, *,
     pools the history means in the mesh's partial sums
     (:class:`PartialMeans`); ``n_data`` > 1 takes the gradients the data
     group sums as the sum of the data shards' partials
-    (:class:`DataChunks`). ``pools``, ``aggregated_eval``, ``dedup``,
+    (:class:`DataChunks`) and refreshes the attention kinds' pools a data
+    shard at a time (:class:`ShardPools`). ``pools``, ``aggregated_eval``, ``dedup``,
     ``dense_rows``, ``init_block_rows``, ``sample_rows`` and
     ``epoch_fraction`` as :func:`rank_train` takes them."""
     with Lowered(dense_rows, init_block_rows):
@@ -1106,11 +1151,11 @@ def _oracle_run(n_data, data_kw, cfg_kw, epochs, device, restore_dir,
     recorder = (StepLosses(step_losses, engine.device) if step_losses
                 else contextlib.nullcontext())
     means = PartialMeans(n_model) if n_model > 1 else contextlib.nullcontext()
-    chunks = (DataChunks(n_data, engine) if n_data > 1
-              else contextlib.nullcontext())
+    chunks, shard_pools = ((DataChunks(n_data, engine), ShardPools(n_data))
+                           if n_data > 1 else (contextlib.nullcontext(),) * 2)
     part = (PartEpochs(engine, epoch_fraction) if epoch_fraction < 1
             else contextlib.nullcontext())
-    with recorder, means, chunks, part:
+    with recorder, means, chunks, shard_pools, part:
         out["losses"] = [engine.train_one_epoch() for _ in range(epochs)]
     if step_losses:
         out["step_losses"] = recorder.read()
