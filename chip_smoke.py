@@ -180,8 +180,11 @@ against ORACLE_RUNS uninterrupted runs (``check_resume_cli``: draws, ``step``,
 held to the uninterrupted runs by the spread rule, each epoch loss its
 steps' sum); ``--profile-dir`` (the trace of a replayed epoch names
 the port's kernels, ``check_profile_dir``); ``--breakdown`` (the phases'
-sum against the run's wall, and the cost of the phase timer's syncs,
-``check_breakdown``); the native parser and hit matrix on the full data,
+sum against the run's wall, and the cost of the phase timer's device
+accounting at most SYNC_COST by a sign test over SYNC_PAIRS paired
+epochs, a planted delay in the data phase caught, ``check_breakdown``,
+after the mesh); the native
+parser and hit matrix on the full data,
 against numpy and timed, the native path required (``check_native``); and
 a ``{"lifecycle": ...}`` line before the kernels' line.
 
@@ -366,6 +369,15 @@ GATED_RUNS = {
     # check_mesh_sorted_gate
     "config0_sorted_mesh41": [],
 }
+# A gated run's share of the chance that a whole run fails by chance (at
+# most 1 in 100): its two metrics together, for each of the gate's 15
+# readings a run (the 14 runs and config0's --eval-approx run).
+GATE_SHARE = 2e-5
+# The gated runs whose mean of this many runs the gate holds to its band
+# (the same band): where one run's own noise would leave it more often
+# than GATE_SHARE (PERF.md §6: complement's NDCG@50 sd 0.000201 against
+# its 0.0005 band).
+GATE_MEAN_OF = {"complement": 4}
 APPROX_RECALL = 0.95  # --eval-approx, and exact=False against exact
 # K4's timed launches rotate over buffers (scores, window ids, outputs) of
 # this many bytes in all, so that no launch finds its windows in the
@@ -2262,6 +2274,8 @@ def check_trace(what, profile, every_step) -> dict:
     # One stream: the device's time a step cannot much exceed the wall's
     # over the same steps.
     traced_wall = replayed["profiled_wall_ms_per_step"]
+    print(f"{what}: replayed device time over the traced steps' wall "
+          f"{replayed['device_ms_per_step'] / traced_wall:.4f} (at most 1.25)")
     if replayed["device_ms_per_step"] > 1.25 * traced_wall:
         raise AssertionError(
             f"{what}: {replayed['device_ms_per_step']} ms of device time a "
@@ -3166,8 +3180,18 @@ def check_huge_attention(dev, reset, read) -> dict:
 # checkpoint resume, the trace, the phase breakdown and the native helpers.
 LIFECYCLE = EXPORT.parent / "lifecycle"  # checkpoints, traces, the click file
 PHASE_SUM_BAND = 0.05  # the breakdown's phases against the run's wall
-SYNC_COST = 0.01  # the phase timer's syncs: at most this share of an epoch
-SYNC_PAIRS = 12  # epochs with and without the syncs, alternated
+# The phase timer's device accounting (``Engine.sync_phases``) costs at
+# most SYNC_COST of an epoch: held by a sign test on SYNC_PAIRS paired
+# epochs with it and without, which fails by chance at most SYNC_ALPHA of
+# the time a shape wherever the paired cost's median is SYNC_COST or less,
+# whatever the host's noise (``sign_test_count``). A planted fault, the
+# data phase held back on the host by SYNC_FAULT of an epoch, must fail it
+# on config0 (the default shape's epochs are too noisy to catch it every
+# time: PERF.md §6).
+SYNC_COST = 0.01
+SYNC_PAIRS = 40
+SYNC_ALPHA = 1e-4
+SYNC_FAULT = 0.02
 RESUME_AT = 3  # the resumed runs stop after this many epochs, then go to 5
 
 
@@ -3277,17 +3301,27 @@ def check_gated_runs(cli, reset, read, check_run) -> dict:
     out = {}
     for name, sets, refreshes in (("headline_ccl", HEADLINE_CCL, 5),
                                   ("complement", COMPLEMENT, 10)):
-        torch.cuda.empty_cache()
-        reset()
-        record = cli.main(args + [x for kv in sets for x in ("--set", kv)])
-        launches = read()
-        check_run(name, record, launches,
-                  {**bf16, "history_mean_gather_bf16": refreshes},
-                  learns=name != "complement")
-        if launches["history_mean_gather_bf16"] != refreshes:
-            raise AssertionError(
-                f"{name}: K1 launched {launches['history_mean_gather_bf16']} "
-                f"times, not {refreshes}")
+        runs = []
+        for _ in range(GATE_MEAN_OF.get(name, 1)):
+            torch.cuda.empty_cache()
+            reset()
+            record = cli.main(args + [x for kv in sets for x in ("--set", kv)])
+            launches = read()
+            check_run(name, record, launches,
+                      {**bf16, "history_mean_gather_bf16": refreshes},
+                      learns=name != "complement")
+            if launches["history_mean_gather_bf16"] != refreshes:
+                raise AssertionError(
+                    f"{name}: K1 launched {launches['history_mean_gather_bf16']} "
+                    f"times, not {refreshes}")
+            runs.append(record["final_metrics"])
+        if len(runs) > 1:
+            # The gate reads the mean of the runs' final metrics.
+            record["final_metrics_runs"] = runs
+            record["final_metrics"] = {m: statistics.fmean(r[m] for r in runs)
+                                       for m in runs[0]}
+            print(f"{name}: the gate holds the mean of {len(runs)} runs: "
+                  f"{json.dumps(record['final_metrics'])}")
         out[name] = record
     return out
 
@@ -3880,14 +3914,74 @@ def check_profile_dir(cli, args) -> dict:
     return res
 
 
-def sync_cost(dev, sets, train, test) -> dict:
-    """One engine of config0 with ``sets``, after its capture: SYNC_PAIRS
-    pairs of replayed epochs with the phases' syncs and without
-    (``Engine.sync_phases``), alternated. The syncs' ``cost`` is the
-    fastest epoch with them over the fastest without, less 1 (the host's
-    noise only adds time, and the fastest of SYNC_PAIRS epochs is the
-    least noisy reading; the median of the pairs' differences is reported
-    beside it)."""
+def sign_test_count(n: int, alpha: float = SYNC_ALPHA) -> int:
+    """The least k with P(Binomial(n, 1/2) >= k) <= ``alpha``: of n
+    independent paired costs whose median is at most the bound, k or more
+    lie above it with chance at most ``alpha``."""
+    tail = 0
+    for k in range(n, -1, -1):
+        tail += math.comb(n, k)
+        if tail > alpha * 2 ** n:
+            return k + 1
+    return 0
+
+
+def median_interval(xs, level: float = 0.99) -> tuple:
+    """A distribution-free ``level`` confidence interval of the median of
+    the law ``xs`` were drawn from: the order statistics j and n + 1 - j,
+    j the largest with P(Binomial(n, 1/2) < j) <= (1 - level) / 2."""
+    xs, n = sorted(xs), len(xs)
+    below, j = 0, 0
+    while j < n // 2:
+        below += math.comb(n, j)
+        if below > (1 - level) / 2 * 2 ** n:
+            break
+        j += 1
+    j = max(j, 1)
+    return xs[j - 1], xs[n - j]
+
+
+class DelayedData:
+    """Within a ``with`` block, ``engine``'s ``data`` phase waits
+    ``seconds`` on the host before it ends: a planted fault, a phase timer
+    that held every epoch back that long."""
+
+    def __init__(self, engine, seconds: float):
+        self.engine, self.seconds = engine, seconds
+
+    def __enter__(self):
+        phase, seconds = self.engine._phase, self.seconds
+
+        @contextlib.contextmanager
+        def delayed(name):
+            with phase(name):
+                yield
+                if name == "data":
+                    time.sleep(seconds)
+
+        self.engine._phase = delayed
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine._phase
+
+
+SYNC_ARMS = ("with", "without", "fault")
+
+
+def sync_cost(dev, sets, train, test, pairs: int = SYNC_PAIRS,
+              fault: bool = True) -> dict:
+    """One engine of config0 with ``sets``, after its capture: ``pairs``
+    rounds of replayed epochs, with the phase timer's device accounting
+    (``Engine.sync_phases``), without it, and (``fault``) with it and the
+    planted fault (:class:`DelayedData`, SYNC_FAULT of the median of three
+    epochs without it), in an order that turns round by round. Each round
+    gives the accounting's paired cost (with / without - 1) and the
+    fault's; each arm fails where at least ``sign_test_count(pairs)`` of
+    its paired costs exceed SYNC_COST. Beside them: the medians with their
+    99% intervals, and the statistic this rule replaced, the fastest epoch
+    with the accounting over the fastest without, less 1
+    (``min_ratio``)."""
     import torch
 
     from heat_tpu_torch.config import load_config
@@ -3896,30 +3990,42 @@ def sync_cost(dev, sets, train, test) -> dict:
     engine = Engine(load_config(CONFIG0, **overrides_of(sets))[0], train,
                     test, device=dev)
     engine.train_one_epoch()  # the capture
-    pairs = []
-    for i in range(SYNC_PAIRS):
-        times = {}
-        for sync in ((True, False) if i % 2 == 0 else (False, True)):
-            engine.sync_phases = sync
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            engine.train_one_epoch()
-            times[sync] = time.perf_counter() - t0
-        pairs.append(times)
-    with_s, without_s = ([p[k] for p in pairs] for k in (True, False))
-    return {"with_syncs_s": with_s, "without_s": without_s,
-            "cost": min(with_s) / min(without_s) - 1.0,
-            "median_paired_cost": statistics.median(
-                (p[True] - p[False]) / p[False] for p in pairs)}
+
+    def epoch() -> float:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        engine.train_one_epoch()
+        return time.perf_counter() - t0
+
+    engine.sync_phases = False
+    delay = SYNC_FAULT * statistics.median(epoch() for _ in range(3))
+    arms = SYNC_ARMS if fault else SYNC_ARMS[:2]
+    times = {arm: [] for arm in arms}
+    for i in range(pairs):
+        turn = arms[i % len(arms):] + arms[:i % len(arms)]
+        for arm in turn[::-1] if i % 2 else turn:
+            engine.sync_phases = arm != "without"
+            with (DelayedData(engine, delay) if arm == "fault"
+                  else contextlib.nullcontext()):
+                times[arm].append(epoch())
+    engine.sync_phases = True
+    fail_at = sign_test_count(pairs)
+    out = {"times_s": times, "delay_s": delay, "fail_at": fail_at}
+    for arm in arms[::2]:
+        costs = [w / wo - 1.0 for w, wo in zip(times[arm], times["without"])]
+        over = sum(c > SYNC_COST for c in costs)
+        out[arm] = {"costs": costs, "over": over, "fails": over >= fail_at,
+                    "median": statistics.median(costs),
+                    "median_99": median_interval(costs)}
+    out["min_ratio"] = min(times["with"]) / min(times["without"]) - 1.0
+    return out
 
 
-def check_breakdown(dev, cli, args, train, test) -> dict:
-    """``--breakdown`` on config0's run: the phases ``data``, ``f_b`` and
-    ``eval``, their sum within PHASE_SUM_BAND of the run's wall (its
-    epochs' and evaluations' seconds, as the CLI times them). Then the
-    phase timer's syncs' cost (:func:`sync_cost`) on config0 and the
-    default shape, at most SYNC_COST."""
-    record, text = run_cli(cli, args + ["--breakdown"])
+def breakdown_of(record: dict, text: str) -> dict:
+    """What a CLI run with ``--breakdown`` printed (``text``; ``record``
+    its record): the phases ``data``, ``f_b`` and ``eval`` and their sum
+    against the run's wall (its epochs' and evaluations' seconds, as the
+    CLI times them)."""
     lines = text.splitlines()
     at = next(i for i, ln in enumerate(lines) if ln.startswith("total: "))
     phases = {}
@@ -3931,19 +4037,49 @@ def check_breakdown(dev, cli, args, train, test) -> dict:
     wall = (sum(record["epoch_times"]) + sum(e["seconds"] for e in record["evals"])
             + record["final_eval_s"])
     total = sum(phases.values())
-    if set(phases) != {"data", "f_b", "eval"} or not (
-            abs(total - wall) <= PHASE_SUM_BAND * wall):
-        raise AssertionError(f"--breakdown: phases {phases} (sum {total} s) "
-                             f"against the run's {wall} s")
-    out = {"phases_s": phases, "phases_sum_s": total, "run_wall_s": wall}
+    return {"phases_s": phases, "phases_sum_s": total, "run_wall_s": wall,
+            "off": total / wall - 1.0}
+
+
+def check_breakdown(dev, cli, args, train, test) -> dict:
+    """``--breakdown`` on config0's run (:func:`breakdown_of`): the three
+    phases, their sum within PHASE_SUM_BAND of the run's wall. Then the
+    phase timer's device accounting (:func:`sync_cost`) on config0 and the
+    default shape: its cost at most SYNC_COST by the sign test; on config0
+    the planted delay caught (on the default shape the host's noise would
+    let it through about 1 run in 5 to 10: PERF.md §6)."""
+    out = breakdown_of(*run_cli(cli, args + ["--breakdown"]))
+    phases = out["phases_s"]
+    if (set(phases) != {"data", "f_b", "eval"}
+            or not abs(out["off"]) <= PHASE_SUM_BAND):
+        raise AssertionError(f"--breakdown: phases {phases} (sum "
+                             f"{out['phases_sum_s']} s) against the run's "
+                             f"{out['run_wall_s']} s")
     for what, sets in (("config0", []), ("default shape", DEFAULT_SHAPE)):
-        out[what] = sync_cost(dev, sets, train, test)
-        cost = out[what]["cost"]
-        if not cost <= SYNC_COST:
+        got = sync_cost(dev, sets, train, test, fault=what == "config0")
+        out[what] = {k: v for k, v in got.items() if k != "times_s"}
+        for arm in ("with", "fault"):
+            out[what].get(arm, {}).pop("costs", None)
+        cost, fault = got["with"], got.get("fault")
+        print(f"{what}: the phase timer's device accounting costs "
+              f"{cost['median']:.5f} of an epoch (median of {SYNC_PAIRS} "
+              f"pairs, 99% {cost['median_99'][0]:.5f}.."
+              f"{cost['median_99'][1]:.5f}), {cost['over']} over {SYNC_COST} "
+              f"(fails at {got['fail_at']})"
+              + (f"; the planted delay {fault['median']:.5f}, "
+                 f"{fault['over']} over" if fault else ""))
+        if cost["fails"]:
             raise AssertionError(
-                f"{what}: the phase timer's syncs cost {cost:.4f} of an epoch "
-                f"(fastest of {SYNC_PAIRS} against fastest of {SYNC_PAIRS}), "
-                f"more than {SYNC_COST}")
+                f"{what}: the phase timer's device accounting costs more than "
+                f"{SYNC_COST} of an epoch: {cost['over']} of {SYNC_PAIRS} "
+                f"paired epochs over it, {got['fail_at']} fail (a sign test "
+                f"at {SYNC_ALPHA}); median {cost['median']:.5f}")
+        if fault is not None and not fault["fails"]:
+            raise AssertionError(
+                f"{what}: the planted delay of {got['delay_s'] * 1e3:.2f} ms "
+                f"({SYNC_FAULT} of an epoch) in the data phase passed the "
+                f"sign test: {fault['over']} of {SYNC_PAIRS} over {SYNC_COST}, "
+                f"median {fault['median']:.5f}")
     print(f"--breakdown: {json.dumps(out)}")
     return out
 
@@ -6101,7 +6237,7 @@ def run(walls: dict) -> int:
           f"captures a run {mesh['c']['captured']['captures']}; gloo (4, 1) "
           f"captured: {mesh['k']['gate']['capture']}")
     mark("end of the mesh")
-    # The phase timer's syncs cost a share of a replayed epoch measured on
+    # The phase timer's cost is a share of a replayed epoch measured on
     # the host's clock: after the mesh, when no rank job shares the host.
     mark("breakdown")
     lifecycle["breakdown"] = check_breakdown(dev, cli, args, gate_train,

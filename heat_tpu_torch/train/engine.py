@@ -71,7 +71,9 @@ JAX engine's): ``data`` (the shuffle and packing, the dedup maps; under
 sub-epochs the partition and the grouping), ``f_b`` (the pool refresh and
 the steps; under sub-epochs every sub-epoch's shuffle, pool refresh and
 steps, as in the JAX engine's one program an epoch) and ``eval``. On the
-card each ends with one device sync, so it holds its device work; nothing
+card each holds its device work: it ends with a device sync when the next
+phase starts, and the last one before a read of the device (the epoch's
+loss, the metrics) ends at that read, with no sync of its own; nothing
 syncs between the replays inside one. A checkpoint
 (``heat_tpu_torch.checkpoint``) restores into the engine's own tensors and
 drops its captures (``drop_captures``); under ``shuffle_mode: once`` the
@@ -92,6 +94,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import time
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -315,12 +318,16 @@ class Engine:
         # Host-visible phase accumulation (the reference's time_map /
         # performance_breakdown, engine.cpp:22-65, at engine granularity):
         # "data" (shuffle, packing, partition), "f_b" (the steps), "eval".
-        # On the card each phase ends with one device sync, so that it
-        # holds its device work; sync_phases = False leaves the syncs out
-        # (the phases then time only the host's launches), which is how
-        # their cost is measured.
+        # On the card each phase holds its device work: it stays open after
+        # the host leaves it until the next phase starts (a device sync
+        # then) or the host reads the device anyway (the epoch's loss, the
+        # metrics: _close_phase), so that the last phase before such a read
+        # adds no wait of its own; sync_phases = False leaves the syncs
+        # and the reads out (the phases then time only the host's
+        # launches), which is how their cost is measured.
         self.timer = PhaseTimer()
         self.sync_phases = True
+        self._open_phase = None  # (name, the host's end of it)
 
     def _check_shard_data(self, train_data: ClickDataset, pairs) -> None:
         """A mesh rank's data must be its user range with global ids
@@ -360,14 +367,32 @@ class Engine:
 
     @contextlib.contextmanager
     def _phase(self, name: str) -> Iterator[None]:
-        """A phase of :attr:`timer`, ended by a device sync on the card."""
+        """A phase of :attr:`timer`. On the card it stays open after the
+        host leaves it, until :meth:`_close_phase`: the next phase closes
+        it first."""
+        self._close_phase()
         with self.timer.phase(name):
             yield
-            if self.sync_phases and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+        if self.sync_phases and self.device.type == "cuda":
+            self._open_phase = (name, time.perf_counter())
+
+    def _close_phase(self, waited: Optional[float] = None) -> None:
+        """Give the open phase its device work: the host's time from its end
+        of the phase to ``waited``, the host's time just after a read that
+        waited for the device's work (the epoch's loss, the metrics), or,
+        without one, after a device sync here."""
+        if self._open_phase is None:
+            return
+        name, host_end = self._open_phase
+        self._open_phase = None
+        if waited is None:
+            torch.cuda.synchronize(self.device)
+            waited = time.perf_counter()
+        self.timer.time_map[name] += waited - host_end
 
     def performance_breakdown(self) -> str:
         """Percentage tree over host-visible phases (engine.cpp:22-65)."""
+        self._close_phase()
         return performance_breakdown(self.timer)
 
     def drop_captures(self) -> None:
@@ -1042,12 +1067,15 @@ class Engine:
     def train_one_epoch(self) -> float:
         """Run one epoch; returns the mean per-sample loss (on a mesh, of
         the whole mesh's samples)."""
-        return float(self._epoch(self._capture)) / max(1, self.cfg.train_size)
+        loss = float(self._epoch(self._capture))
+        self._close_phase(time.perf_counter())
+        return loss / max(1, self.cfg.train_size)
 
     def _train_epochs(self, n: int, capture: bool) -> list[float]:
         if n <= 0:
             return []
         sums = torch.stack([self._epoch(capture) for _ in range(n)]).cpu()
+        self._close_phase(time.perf_counter())
         return [float(s) / max(1, self.cfg.train_size) for s in sums]
 
     def train_epochs(self, n: int) -> list[float]:
@@ -1140,9 +1168,11 @@ class Engine:
         max_k = max(parse_metric(m)[1] for m in metrics)
         if self.mesh is not None:
             with self._phase("eval"):
-                return self._evaluate_multiprocess(
+                out = self._evaluate_multiprocess(
                     metrics, max_k, user_tile, aggregate_users, exact=exact,
                     recall_target=recall_target)
+            self._close_phase(time.perf_counter())
+            return out
         user_emb = self.state.user_emb
         if aggregate_users:
             user_emb = aggregate_history(
@@ -1153,7 +1183,9 @@ class Engine:
             _, top_ids = self._evaluator.topk(
                 user_emb, self.state.item_emb, max_k, exact=exact,
                 recall_target=recall_target)
-            return evaluate_metrics_device(metrics, top_ids, *self._truth_dev)
+            out = evaluate_metrics_device(metrics, top_ids, *self._truth_dev)
+        self._close_phase(time.perf_counter())
+        return out
 
     def _mp_eval_tensors(self):
         """The mesh's evaluation tensors, built once: the packed train mask

@@ -114,19 +114,42 @@ def test_fused_cli_spread_summarizes_with_the_checks_own_ratio(smoke, tmp_path):
 
 def test_the_runner_summarizes_the_sync_cost(tmp_path):
     """``spread_runner.py --summarize`` of ``--check breakdown`` jobs: each
-    shape's readings of the syncs' cost, their quantiles and the share
-    over the job's bound."""
-    costs = {"config0": [{"cost": c} for c in (0.001, 0.004, 0.012)],
-             "default shape": [{"cost": c} for c in (-0.002, 0.0101)]}
+    shape's paired costs pooled over the jobs' rounds, their median, the
+    share over the job's bound and the sign test's chance of failing; the
+    planted delay's; the phase sums and ``check_trace``'s ratios against
+    their bounds."""
+    def reading(withs, withouts, faults):
+        times = {"with": withs, "without": withouts, "fault": faults}
+        return {"times_s": times, **{arm: {"costs": [
+            w / wo - 1 for w, wo in zip(times[arm], withouts)]}
+            for arm in ("with", "fault")}}
+
+    base = [0.17 + 0.001 * k for k in range(20)]
+    costs = {
+        "config0": [reading([b * 1.002 for b in base], base,
+                            [b * 1.02 for b in base])],
+        "default shape": [reading([b * (1.012 if k % 4 == 0 else 1.0)
+                                   for k, b in enumerate(base)], base,
+                                  [b * 1.03 for b in base])]}
     path = tmp_path / "jobs.jsonl"
-    path.write_text(json.dumps({"name": "a", "check": "breakdown",
-                                "sync_cost": 0.01, "costs": costs}) + "\n")
+    path.write_text(json.dumps({
+        "name": "a", "check": "breakdown", "sync_cost": 0.01, "costs": costs,
+        "phase_sums": [{"off": -0.01}, {"off": 0.02}],
+        "trace_ratios": [{"ratio": 0.97}, {"ratio": 1.01}]}) + "\n")
     got = _runner().summarize(path)["breakdown a"]
     assert got["bound"] == 0.01 and got["jobs"] == 1
-    assert got["config0"]["n"] == 3 and got["config0"]["max"] == 0.012
-    assert got["config0"]["p_over"] == pytest.approx(1 / 3)
-    assert got["default shape"]["min"] == -0.002
-    assert got["default shape"]["p_over"] == 0.5
+    c0 = got["config0"]
+    assert c0["rounds"] == 20
+    assert c0["with"]["median"] == pytest.approx(0.002)
+    assert c0["with"]["share_over"] == 0 and c0["with"]["p_fail_resampled"] == 0
+    assert c0["fault"]["share_over"] == 1
+    assert c0["fault"]["p_fail_binomial"] == pytest.approx(1.0)
+    ds = got["default shape"]["with"]
+    assert ds["share_over"] == pytest.approx(0.25)
+    assert ds["p_fail_binomial"] < 1e-6
+    assert got["phase_sum_off"] == {"n": 2, "min": -0.01, "max": 0.02,
+                                    "band": 0.05}
+    assert got["trace_ratio"]["max"] == 1.01
 
 
 # The rule of every spread check (``held_to_spread``), on seeded Gaussian
@@ -347,3 +370,191 @@ def test_a_replay_that_lost_the_item_update_fails_the_rule(smoke, monkeypatch):
     assert 100 < caught["item_emb"]["ratio"] < smoke.spread_limit(2)
     two = smoke.spread_ratios(faulty, oracles[:2])
     assert not any(q["over"] for q in two.values())
+
+
+# The phase timer's cost (``check_breakdown``): seeded epoch times shaped
+# like the card's replayed epochs on an H100 (PERF.md §6), in units of the
+# fastest epoch: a right-skewed host noise above the floor, exponential, of
+# which a part is shared by the epochs of one round (they run back to
+# back) and a part is each epoch's own, plus a little Gaussian jitter.
+# (shared, own) scales: config0's noise is about ten times quieter than
+# the default shape's, whose paired costs lie over 0.01 a quarter of the
+# time with the marks and 0.83-0.86 of the time with the planted delay.
+EPOCH_NOISE = {"config0": (0.001, 0.002), "default shape": (0.025, 0.01)}
+MARK_COST = 0.0025  # the marks' paired cost the card read on config0
+
+
+def _rounds(rng, noise, sets, rounds, costs):
+    """One (sets, rounds) array of epoch times for each of ``costs`` (an
+    arm's cost), the arms of a round sharing that round's part of the
+    noise: 1 + cost + the noise."""
+    shared, own = noise
+    common = rng.exponential(shared, (sets, rounds))
+    return [1.0 + cost + common + rng.exponential(own, (sets, rounds))
+            + rng.normal(0.0, 2e-4, (sets, rounds)) for cost in costs]
+
+
+def _sign_fails(smoke, with_s, without_s):
+    """The sign test of ``check_breakdown`` on each set (row) of rounds."""
+    over = (with_s / without_s - 1.0 > smoke.SYNC_COST).sum(axis=1)
+    return over >= smoke.sign_test_count(with_s.shape[1])
+
+
+def test_the_sign_test_fails_by_chance_within_its_share(smoke):
+    """The count at which the sign test fails holds P(Binomial(n, 1/2) >= k)
+    at SYNC_ALPHA or under, so a shape whose median paired cost is at the
+    bound fails at most that often, whatever its noise; on draws shaped
+    like both shapes' with the marks' measured cost, none of 20,000
+    checks fails. The median's interval is the order statistics the
+    binomial gives."""
+    import math
+
+    import numpy as np
+
+    n, k = smoke.SYNC_PAIRS, smoke.sign_test_count(smoke.SYNC_PAIRS)
+    tail = lambda j: sum(math.comb(n, i) for i in range(j, n + 1)) / 2 ** n  # noqa: E731
+    assert (n, k) == (40, 32)
+    assert tail(k) <= smoke.SYNC_ALPHA < tail(k - 1)
+    assert smoke.sign_test_count(12) == 13  # twelve rounds can never fail
+    assert smoke.median_interval(list(range(40))) == (11, 28)
+    rng = np.random.default_rng(20)
+    for noise in EPOCH_NOISE.values():
+        without, marks = _rounds(rng, noise, 20_000, n, (0.0, MARK_COST))
+        assert not _sign_fails(smoke, marks, without).any()
+
+
+def test_the_sign_test_catches_the_planted_delay(smoke):
+    """SYNC_FAULT of an epoch held back in the data phase, on config0's
+    draws: every one of 2,000 checks fails. On the default shape's the
+    same delay is caught only some of the time (the card read 0.79-0.90),
+    which is why the script plants it on config0 alone; a cost of three
+    times the bound is caught there too."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    n = smoke.SYNC_PAIRS
+    for shape, least in (("config0", 1.0), ("default shape", 0.5)):
+        without, fault, big = _rounds(
+            rng, EPOCH_NOISE[shape], 2_000, n,
+            (0.0, MARK_COST + smoke.SYNC_FAULT, MARK_COST + 3 * smoke.SYNC_COST))
+        caught = _sign_fails(smoke, fault, without).mean()
+        assert caught >= least
+        assert _sign_fails(smoke, big, without).mean() >= 0.95
+        if shape == "default shape":
+            assert caught < 1.0
+
+
+def test_the_min_ratio_rule_failed_the_default_shape_by_chance(smoke):
+    """The rule the sign test replaced, the fastest of 12 epochs with the
+    marks over the fastest of 12 without, less 1, at most SYNC_COST: on
+    the default shape's draws with the marks' measured cost it fails a few
+    checks in a hundred (the card: 1 of 8 readings, and 0.005-0.07 of
+    resampled sets of its rounds), on config0's none; the sign test on the
+    same rounds, none."""
+    import numpy as np
+
+    rng = np.random.default_rng(22)
+    for shape, lo, hi in (("config0", 0.0, 0.0), ("default shape", 0.02, 0.25)):
+        without, marks = _rounds(rng, EPOCH_NOISE[shape], 20_000, 12,
+                                 (0.0, MARK_COST))
+        old = (marks.min(axis=1) / without.min(axis=1) - 1.0 > smoke.SYNC_COST).mean()
+        assert lo <= old <= hi
+        assert not _sign_fails(smoke, marks, without).any()
+
+
+def test_the_runner_summarizes_the_gates(tmp_path):
+    """``spread_runner.py --summarize`` of ``--check gates`` jobs: a run's
+    mean gap and run-to-run sd a metric, the readings out of band, the
+    normal fit's chance of leaving the band, and the least number of runs
+    whose mean stays within GATE_SHARE: 1 far from the edge, more where
+    one run's noise reaches it."""
+    def run(name, k, recall, ndcg, band):
+        return {"run": name, "rep": k, "band": band, "wall_s": 8.0,
+                "gap": {"Recall(k=20)": recall, "NDCG(k=50)": ndcg}}
+
+    quiet = [run("quiet", k, 4e-5 + 1e-6 * k, -6e-5, 3e-4) for k in range(8)]
+    noisy = [run("noisy", k, 0.0, 2e-4 * (-1) ** k, 5e-4) for k in range(8)]
+    path = tmp_path / "jobs.jsonl"
+    path.write_text(json.dumps({"name": "a", "check": "gates",
+                                "runs": quiet + noisy}) + "\n")
+    got = _runner().summarize(path)["gates a"]
+    q, n = got["quiet"], got["noisy"]
+    assert q["n"] == 8 and q["m_needed"] == 1 and q["p_fail_fit"] < 1e-12
+    assert q["metrics"]["Recall(k=20)"]["mean"] == pytest.approx(4.35e-5)
+    assert n["metrics"]["NDCG(k=50)"]["out_of_band"] == 0
+    assert n["p_fail_fit"] > got["share"] and n["m_needed"] > 1
+
+
+def test_the_runner_reads_the_phase_hand_over_from_a_trace():
+    """The device's idle gap where ``data`` hands over to ``f_b``, the
+    host's time from its last wait in ``data`` to its first launch in
+    ``f_b``, the launch's latency and the epoch's idle time, from a Chrome
+    trace's events (a runtime call and its kernel share a correlation
+    id)."""
+    def x(name, cat, ts, dur, corr=None):
+        e = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    events = [
+        x("epoch:True", "user_annotation", 0, 1000),
+        x("phase:data", "user_annotation", 10, 300),
+        x("cudaLaunchKernel", "cuda_runtime", 20, 5, 1),
+        x("k1", "kernel", 30, 100, 1),
+        x("cudaDeviceSynchronize", "cuda_runtime", 200, 100),
+        x("phase:f_b", "user_annotation", 320, 600),
+        x("aten::fill_", "cpu_op", 330, 20),
+        x("cudaGraphLaunch", "cuda_runtime", 400, 10, 2),
+        x("k2", "kernel", 420, 400, 2)]
+    (got,) = _runner()._phase_gaps(events)
+    assert got["marks"] and got["gap_us"] == 290
+    assert got["wait_to_launch_us"] == 100 and got["launch_to_start_us"] == 20
+    assert got["idle_ms"] == pytest.approx(0.5)
+    assert got["host_ops_in_gap_us"] == {"aten::fill_": 20.0}
+    assert got["waits_in_data"] == ["cudaDeviceSynchronize"]
+
+
+def test_a_gate_holds_the_mean_of_its_runs(smoke, monkeypatch):
+    """``check_gated_runs`` trains each run of GATE_MEAN_OF that many times,
+    each held to the run checks, and hands the gate the mean of their final
+    metrics; a run not in it trains once."""
+    import itertools
+
+    counter = itertools.count()
+
+    class Cli:
+        def main(self, argv):
+            k = next(counter)
+            return {"final_metrics": {"Recall(k=20)": 1e-3 + 1e-5 * k,
+                                      "NDCG(k=50)": 2e-3}}
+
+    reads = itertools.count()
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    checked = []
+    out = smoke.check_gated_runs(
+        Cli(), lambda: None,
+        lambda: {"history_mean_gather_bf16": 5 if next(reads) == 0 else 10},
+        lambda name, *a, **kw: checked.append(name))
+    m = smoke.GATE_MEAN_OF["complement"]
+    assert checked == ["headline_ccl"] + ["complement"] * m
+    got = out["complement"]
+    assert len(got["final_metrics_runs"]) == m
+    assert got["final_metrics"]["Recall(k=20)"] == pytest.approx(
+        1e-3 + 1e-5 * (1 + m) / 2)
+    assert "final_metrics_runs" not in out["headline_ccl"]
+
+
+def test_the_breakdown_is_read_off_a_cli_run(smoke):
+    """``breakdown_of`` on what a CLI run with ``--breakdown`` printed (here
+    on the CPU, at a tiny size): the three phases, their sum within
+    PHASE_SUM_BAND of the run's epochs and evaluations."""
+    from heat_tpu_torch import main as cli
+
+    record, text = smoke.run_cli(cli, [
+        "--config", smoke.CONFIG0, "--synthetic", "200,400", "--epochs", "3",
+        "--device", "cpu", "--breakdown"])
+    got = smoke.breakdown_of(record, text)
+    assert set(got["phases_s"]) == {"data", "f_b", "eval"}
+    assert abs(got["off"]) <= smoke.PHASE_SUM_BAND
+    assert got["run_wall_s"] > 0

@@ -138,6 +138,61 @@ def test_engine_phases_add_up_to_the_epochs_and_evaluations():
     assert engine.performance_breakdown().startswith("total: ")
 
 
+def test_cpu_phases_cover_the_run_and_never_wait_for_a_device(monkeypatch):
+    """On the CPU a phase neither syncs nor stays open: the phases are the
+    host's own time, inside the epochs' and the evaluation's wall."""
+    import time
+
+    from heat_tpu_torch.train.engine import Engine
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CPU phase reached the CUDA runtime")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    train, test = tsynthetic(120, 200, max_his=6, seed=3)
+    engine = Engine(CFConfig(emb_dim=8, max_his=6, batch_size=64), train,
+                    test, device="cpu")
+    t0 = time.perf_counter()
+    engine.train_one_epoch()
+    engine.train_epochs(2)
+    engine.evaluate()
+    wall = time.perf_counter() - t0
+    tm = engine.timer.time_map
+    assert set(tm) == {"data", "f_b", "eval"} and engine._open_phase is None
+    assert 0 < sum(tm.values()) <= wall
+
+
+@pytest.mark.parametrize("waited", [None, 7.5])
+def test_an_open_phase_takes_the_device_work_until_it_is_closed(
+        monkeypatch, waited):
+    """On the card a phase stays open after the host leaves it: closing it
+    adds the host's time from its end to a read that waited for the device
+    (``waited``), or to the end of a device sync (None); the next phase
+    closes it first, with a sync."""
+    from heat_tpu_torch.train import engine as tengine
+    from heat_tpu_torch.train.engine import Engine
+
+    train, test = tsynthetic(120, 200, max_his=6, seed=3)
+    engine = Engine(CFConfig(emb_dim=8, max_his=6, batch_size=64), train,
+                    test, device="cpu")
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "synchronize", syncs.append)
+    clock = iter([8.0, 9.0, 10.0, 12.0])
+    monkeypatch.setattr(tengine.time, "perf_counter", lambda: next(clock))
+    engine._open_phase = ("f_b", 5.0)
+    engine._close_phase(waited)
+    tm = engine.timer.time_map
+    assert tm["f_b"] == pytest.approx(2.5 if waited else 3.0)
+    assert engine._open_phase is None and len(syncs) == (waited is None)
+    engine._open_phase = ("data", 6.0)
+    monkeypatch.setattr(tengine.time, "perf_counter", lambda: 10.0)
+    with engine._phase("eval"):  # closes "data" with a sync at 10
+        pass
+    assert tm["data"] == pytest.approx(4.0) and len(syncs) == 1 + (waited is None)
+    assert engine._open_phase is None  # a CPU phase does not stay open
+
+
 def _step_names(cfg) -> set:
     gen = torch.Generator().manual_seed(0)
     state = init_train_state(cfg, gen, "cpu")
